@@ -1,0 +1,145 @@
+// Fused PCG iteration kernels K1 and K2-pcg.
+//
+// K1 replaces iterative_solvers_tpu/kernels/cg_fused.py:_make_k1 (A2);
+// K2-pcg replaces cg_fused.py:_make_k2_pcg (A4).
+//
+// What bounds them on an H100: both are memory-bound stencil sweeps with no
+// tensor-core work. K1 reads two f32 streams (d, z_prev; 8 B/node) and writes
+// only per-block partial sums plus two halo rows per band. K2-pcg reads four
+// streams (x, r, z_prev, w) and writes three (x', r', z_k): 28 B/node. The
+// direction z_k = d + beta * z_prev and the product A z_k are formed in
+// registers in both kernels and never stored, so Az costs no device-memory
+// traffic at all; the stencil is simply evaluated twice per iteration.
+//
+// Halos: a band's rows row0-1 and row0+by of z_k are written by K1 into a
+// side buffer (2, wp) per band and read back by K2, which therefore reads no
+// row of another band's direction. K1 and K2 tile rows identically (band
+// height `by`, full padded width per band). Within a band, column
+// neighbours are recomputed from the read-only inputs.
+//
+// In-place race: the TPU kernel wrote x, r and z in place, legal there
+// because a whole block sat in VMEM before any write. Here threads of other
+// blocks may still read z_prev and w at c +- 1 while one writes, so K2 writes
+// x', r' and z_k to fresh buffers (the caller swaps them in). On CUDA a
+// fresh buffer costs the same write traffic as an in-place one.
+#include "common.cuh"
+
+using ist::Geom;
+using ist::TW;
+
+namespace {
+
+__global__ void k1_kernel(const float* __restrict__ d, const float* __restrict__ zp,
+                          const float* __restrict__ beta_p, float* __restrict__ side,
+                          float* __restrict__ rz_p, float* __restrict__ azz_p,
+                          float* __restrict__ zmax_p, Geom g, int by) {
+  const int c = blockIdx.x * TW + threadIdx.x;
+  const int band = blockIdx.y;
+  const int row0 = band * by;
+  const int wp = g.wp;
+  const float beta = *beta_p;
+  auto zk = [&](int r, int cc) -> float {
+    if (cc < 0 || cc >= wp) return 0.f;
+    const size_t i = (size_t)r * wp + cc;
+    return d[i] + beta * zp[i];
+  };
+  // halo rows, re-masked with the virtual row's mask (0 off the canvas)
+  const float up = (row0 > 0 && ist::interior(g, row0 - 1, c)) ? zk(row0 - 1, c) : 0.f;
+  const float dn = (row0 + by < g.hp && ist::interior(g, row0 + by, c)) ? zk(row0 + by, c) : 0.f;
+  side[((size_t)band * 2 + 0) * wp + c] = up;
+  side[((size_t)band * 2 + 1) * wp + c] = dn;
+
+  float s_rz = 0.f, s_azz = 0.f, s_max = 0.f;
+  float prev = up, cur = zk(row0, c);
+  for (int k = 0; k < by; ++k) {
+    const int r = row0 + k;
+    const float next = (k + 1 < by) ? zk(r + 1, c) : dn;
+    float az = 0.f;
+    if (ist::interior(g, r, c))
+      az = g.cd * cur + g.cx * (zk(r, c - 1) + zk(r, c + 1)) + g.cy * (prev + next);
+    s_rz += d[(size_t)r * wp + c] * cur;
+    s_azz += az * cur;
+    s_max = fmaxf(s_max, fabsf(cur));
+    prev = cur;
+    cur = next;
+  }
+  s_rz = ist::block_reduce<false>(s_rz);
+  s_azz = ist::block_reduce<false>(s_azz);
+  s_max = ist::block_reduce<true>(s_max);
+  if (threadIdx.x == 0) {
+    const int p = band * gridDim.x + blockIdx.x;
+    rz_p[p] = s_rz;
+    azz_p[p] = s_azz;
+    zmax_p[p] = s_max;
+  }
+}
+
+__global__ void k2_pcg_kernel(const float* __restrict__ x, const float* __restrict__ r,
+                              const float* __restrict__ zp, const float* __restrict__ w,
+                              const float* __restrict__ side, const float* __restrict__ scal,
+                              float* __restrict__ xo, float* __restrict__ ro,
+                              float* __restrict__ zo, float* __restrict__ r2_p,
+                              float* __restrict__ rmax_p, Geom g, int by) {
+  const int c = blockIdx.x * TW + threadIdx.x;
+  const int band = blockIdx.y;
+  const int row0 = band * by;
+  const int wp = g.wp;
+  const float alpha = scal[0];
+  const float beta = scal[1];
+  auto zk = [&](int rr, int cc) -> float {
+    if (cc < 0 || cc >= wp) return 0.f;
+    const size_t i = (size_t)rr * wp + cc;
+    return w[i] + beta * zp[i];
+  };
+  float s_r2 = 0.f, s_max = 0.f;
+  float prev = side[((size_t)band * 2 + 0) * wp + c];
+  const float dn = side[((size_t)band * 2 + 1) * wp + c];
+  float cur = zk(row0, c);
+  for (int k = 0; k < by; ++k) {
+    const int rr = row0 + k;
+    const size_t i = (size_t)rr * wp + c;
+    const float next = (k + 1 < by) ? zk(rr + 1, c) : dn;
+    float az = 0.f;
+    if (ist::interior(g, rr, c))
+      az = g.cd * cur + g.cx * (zk(rr, c - 1) + zk(rr, c + 1)) + g.cy * (prev + next);
+    const float xn = x[i] + alpha * cur;
+    const float rn = r[i] - alpha * az;
+    xo[i] = xn;
+    ro[i] = rn;
+    zo[i] = cur;
+    s_r2 += rn * rn;
+    s_max = fmaxf(s_max, fabsf(rn));
+    prev = cur;
+    cur = next;
+  }
+  s_r2 = ist::block_reduce<false>(s_r2);
+  s_max = ist::block_reduce<true>(s_max);
+  if (threadIdx.x == 0) {
+    const int p = band * gridDim.x + blockIdx.x;
+    r2_p[p] = s_r2;
+    rmax_p[p] = s_max;
+  }
+}
+
+}  // namespace
+
+extern "C" int ist_k1(const float* d, const float* zp, const float* beta, float* side,
+                      float* rz_p, float* azz_p, float* zmax_p, int nx, int ny, int gamma,
+                      int hp, int wp, int by, float cd, float cx, float cy,
+                      cudaStream_t stream) {
+  const Geom g{nx, ny, gamma, hp, wp, cd, cx, cy};
+  k1_kernel<<<dim3(wp / TW, hp / by), TW, 0, stream>>>(d, zp, beta, side, rz_p, azz_p,
+                                                       zmax_p, g, by);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ist_k2_pcg(const float* x, const float* r, const float* zp, const float* w,
+                          const float* side, const float* scal, float* xo, float* ro,
+                          float* zo, float* r2_p, float* rmax_p, int nx, int ny, int gamma,
+                          int hp, int wp, int by, float cd, float cx, float cy,
+                          cudaStream_t stream) {
+  const Geom g{nx, ny, gamma, hp, wp, cd, cx, cy};
+  k2_pcg_kernel<<<dim3(wp / TW, hp / by), TW, 0, stream>>>(x, r, zp, w, side, scal, xo, ro,
+                                                           zo, r2_p, rmax_p, g, by);
+  return (int)cudaGetLastError();
+}

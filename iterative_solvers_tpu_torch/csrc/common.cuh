@@ -1,0 +1,50 @@
+// Shared pieces of the fused CG and multigrid kernels.
+//
+// Layout: every field is a row-major f32 canvas (hp, wp) with wp % 128 == 0
+// and hp a multiple of the band height `by`. A block owns TW consecutive
+// columns of one band of rows; each thread owns one column and walks the
+// band's rows, so the grid is (wp / TW, hp / by). The interior mask is the
+// algebraic gamma/rect predicate on global indices (no mask is read), and
+// column neighbours c-1 / c+1 are bound-checked: the TPU kernels used a
+// wrapping lane roll there, which gives the same result because the wrapped
+// column is never interior and holds 0.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace ist {
+
+constexpr int TW = 128;  // columns per block == threads per block
+
+struct Geom {
+  int nx, ny, gamma, hp, wp;
+  float cd, cx, cy;  // stencil diagonal, x- and y-neighbour coefficients
+};
+
+__device__ __forceinline__ bool interior(const Geom& g, int r, int c) {
+  bool in = r > 0 && r < g.ny && c > 0 && c < g.nx;
+  if (g.gamma) in = in && !(c <= g.nx / 2 && r <= g.ny / 2);
+  return in;
+}
+
+// Sum (or max) over the TW threads of a block; the result is valid in
+// thread 0. Fixed shuffle order, no atomics: the same inputs give the same
+// bits on every run.
+template <bool kMax>
+__device__ float block_reduce(float v) {
+  __shared__ float part[TW / 32];
+  for (int o = 16; o > 0; o >>= 1) {
+    const float t = __shfl_down_sync(0xffffffffu, v, o);
+    v = kMax ? fmaxf(v, t) : v + t;
+  }
+  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = v;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    v = part[0];
+    for (int k = 1; k < TW / 32; ++k) v = kMax ? fmaxf(v, part[k]) : v + part[k];
+  }
+  __syncthreads();  // part[] may be reused by the next call
+  return v;
+}
+
+}  // namespace ist

@@ -1,0 +1,108 @@
+// Fused V-cycle leg kernels K_down and K_up for the multigrid fine levels.
+//
+// K_down replaces iterative_solvers_tpu/kernels/mg_fused.py:_make_k_down (A5);
+// K_up replaces mg_fused.py:_make_k_up (A6), with and without its dot epilogue.
+//
+// What bounds them on an H100: both are memory-bound stencil sweeps with no
+// tensor-core work. K_down reads the level RHS b once (4 B/node) and writes
+// the row-restricted residual (hp/2, wp): 6 B/node. K_up reads b and the
+// lane-prolonged coarse correction (hp/2, wp) and writes the post-smoothed
+// iterate: 10 B/node. The pre-smoothed iterate x = (omega/d) b, the
+// residual before restriction, the row-prolonged correction and the
+// corrected iterate are all formed in registers from b and ec and never
+// stored; neighbours are recomputed from the read-only inputs (served from
+// L1/L2), which trades cheap arithmetic for device-memory traffic.
+//
+// Stride-2 rows: Mosaic needed reshape-split and stack+reshape tricks. Here
+// coarse row J is computed from fine rows 2J-1, 2J, 2J+1 directly, and fine
+// row i takes ec row i/2 (even) or the mean of rows (i-1)/2, (i+1)/2 (odd).
+#include "common.cuh"
+
+using ist::Geom;
+using ist::TW;
+
+namespace {
+
+__global__ void k_down_kernel(const float* __restrict__ b, float* __restrict__ rr, Geom g,
+                              float cs, int by) {
+  const int c = blockIdx.x * TW + threadIdx.x;
+  const int row0 = blockIdx.y * by;
+  const int wp = g.wp;
+  // masked level RHS; the interior test also keeps every read on the canvas
+  auto B = [&](int i, int cc) -> float {
+    return ist::interior(g, i, cc) ? b[(size_t)i * wp + cc] : 0.f;
+  };
+  // residual of the pre-smoothed iterate x = cs * B at fine row i, column c
+  auto R = [&](int i) -> float {
+    if (!ist::interior(g, i, c)) return 0.f;
+    const float bc = B(i, c);
+    const float ax = g.cd * (cs * bc) + g.cx * (cs * B(i, c - 1) + cs * B(i, c + 1)) +
+                     g.cy * (cs * B(i - 1, c) + cs * B(i + 1, c));
+    return bc - ax;
+  };
+  float below = R(row0 - 1);
+  for (int j = 0; j < by / 2; ++j) {
+    const int J = row0 / 2 + j;
+    const float center = R(2 * J);
+    const float upper = R(2 * J + 1);
+    rr[(size_t)J * wp + c] = 0.25f * below + 0.5f * center + 0.25f * upper;
+    below = upper;
+  }
+}
+
+__global__ void k_up_kernel(const float* __restrict__ b, const float* __restrict__ ec,
+                            float* __restrict__ out, float* __restrict__ dot_p, Geom g,
+                            float cs, int by, int ch) {
+  const int c = blockIdx.x * TW + threadIdx.x;
+  const int row0 = blockIdx.y * by;
+  const int wp = g.wp;
+  // coarse correction row J; rows outside [0, ch) are zero
+  auto EC = [&](int J, int cc) -> float {
+    return (J >= 0 && J < ch) ? ec[(size_t)J * wp + cc] : 0.f;
+  };
+  // corrected iterate cs * b + P ec at fine row i (zero off the interior)
+  auto XC = [&](int i, int cc) -> float {
+    if (!ist::interior(g, i, cc)) return 0.f;
+    const float p = (i & 1) ? 0.5f * (EC((i - 1) / 2, cc) + EC((i + 1) / 2, cc)) : EC(i / 2, cc);
+    return cs * b[(size_t)i * wp + cc] + p;
+  };
+  float s_dot = 0.f;
+  float prev = XC(row0 - 1, c);
+  float cur = XC(row0, c);
+  for (int k = 0; k < by; ++k) {
+    const int i = row0 + k;
+    const float next = XC(i + 1, c);
+    float o = 0.f;
+    if (ist::interior(g, i, c)) {
+      const float bm = b[(size_t)i * wp + c];
+      const float ax = g.cd * cur + g.cx * (XC(i, c - 1) + XC(i, c + 1)) + g.cy * (prev + next);
+      o = cur + cs * (bm - ax);
+      s_dot += bm * o;
+    }
+    out[(size_t)i * wp + c] = o;
+    prev = cur;
+    cur = next;
+  }
+  if (dot_p != nullptr) {
+    s_dot = ist::block_reduce<false>(s_dot);
+    if (threadIdx.x == 0) dot_p[blockIdx.y * gridDim.x + blockIdx.x] = s_dot;
+  }
+}
+
+}  // namespace
+
+extern "C" int ist_k_down(const float* b, float* rr, int nx, int ny, int gamma, int hp,
+                          int wp, int by, float cd, float cx, float cy, float cs,
+                          cudaStream_t stream) {
+  const Geom g{nx, ny, gamma, hp, wp, cd, cx, cy};
+  k_down_kernel<<<dim3(wp / TW, hp / by), TW, 0, stream>>>(b, rr, g, cs, by);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ist_k_up(const float* b, const float* ec, float* out, float* dot_p, int nx,
+                        int ny, int gamma, int hp, int wp, int by, int ch, float cd,
+                        float cx, float cy, float cs, cudaStream_t stream) {
+  const Geom g{nx, ny, gamma, hp, wp, cd, cx, cy};
+  k_up_kernel<<<dim3(wp / TW, hp / by), TW, 0, stream>>>(b, ec, out, dot_p, g, cs, by, ch);
+  return (int)cudaGetLastError();
+}

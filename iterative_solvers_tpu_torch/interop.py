@@ -1,0 +1,91 @@
+"""Carry the JAX package's solver state into the port's objects.
+
+The JAX side is handed over as plain values and numpy arrays (``np.asarray``
+of each JAX array), so this module needs numpy and torch only:
+
+- :func:`multigrid_from_state` rebuilds a :class:`MultigridPreconditioner`
+  hierarchy from per-level descriptions plus the dense coarse solve's index
+  set and inverse;
+- :func:`cg_state_from_arrays` rebuilds a :class:`CGState`.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping, Sequence
+
+import numpy as np
+import torch
+
+from iterative_solvers_tpu_torch.core.domain import MaskSpec
+from iterative_solvers_tpu_torch.kernels.mg_fused import FusedLevelKernels
+from iterative_solvers_tpu_torch.solvers.cg import CGState
+from iterative_solvers_tpu_torch.solvers.multigrid import (
+    MultigridPreconditioner,
+    _CoarseSolveDense,
+    _FusedLevel,
+    _Level,
+)
+
+
+def multigrid_from_state(
+    levels: Sequence[Mapping],
+    coarse_idx: np.ndarray,
+    coarse_a_inv: np.ndarray,
+    nu: int = 1,
+) -> MultigridPreconditioner:
+    """Hierarchy from one mapping per level, finest first. Keys of every
+    level: ``shape`` ('gamma'|'rect'), ``nx``, ``ny``, ``coeffs`` (cd, c_y,
+    c_x), ``omega_over_diag``. A fused level also has ``padded_shape`` and
+    ``block_rows``. The coarsest level's solve is ``coarse_a_inv`` applied on
+    the flat interior indices ``coarse_idx``."""
+    plain = [
+        _Level(
+            MaskSpec(lv["shape"], int(lv["nx"]), int(lv["ny"]),
+                     (int(lv["ny"]) + 1, int(lv["nx"]) + 1)),
+            tuple(float(c) for c in lv["coeffs"]),
+            float(lv["omega_over_diag"]),
+        )
+        for lv in levels
+    ]
+    out = []
+    for i, lv in enumerate(levels):
+        if "padded_shape" not in lv:
+            out.append(plain[i])
+            continue
+        cd, cy, cx = plain[i].coeffs
+        nx, ny = int(lv["nx"]), int(lv["ny"])
+        kernels = FusedLevelKernels(
+            nx=nx, ny=ny, coeffs=(cd, cx, cy), cs=plain[i].omega_over_diag,
+            mask_mode=lv["shape"], padded_shape=tuple(int(s) for s in lv["padded_shape"]),
+            block_rows=int(lv["block_rows"]),
+        )
+        child = plain[i + 1].mask_spec
+        out.append(_FusedLevel(kernels, ny + 1, nx + 1, child.shape[0], child.shape[1],
+                               nx, child, plain[i]))
+    return MultigridPreconditioner(
+        levels=tuple(out), coarse_solve=_CoarseSolveDense(coarse_idx, coarse_a_inv),
+        nu_pre=nu, nu_post=nu,
+    )
+
+
+_FIELDS = ("x", "r", "z", "w")
+_SCALARS = ("rz", "r_norm2", "prec_max", "r_max", "err_max", "r0_norm", "rz_prev")
+
+
+def cg_state_from_arrays(arrays: Mapping[str, object], device="cpu") -> CGState:
+    """CGState from numpy arrays/scalars keyed by field name (``x``, ``r``,
+    ``z``, ``k``, ``done``, ``reason``, ``rz``, ``r_norm2``, ``prec_max``,
+    ``r_max``, ``err_max``, ``r0_norm``, and the fused-PCG ``w``,
+    ``rz_prev``). Missing ``w``/``rz_prev`` stay None."""
+    def t(name):
+        v = arrays.get(name)
+        return None if v is None else torch.tensor(np.array(v), device=device)
+
+    vals = {n: t(n) for n in _FIELDS + _SCALARS}
+    return CGState(
+        k=int(np.asarray(arrays["k"])),
+        done=torch.as_tensor(bool(np.asarray(arrays["done"])), device=device),
+        reason=torch.as_tensor(int(np.asarray(arrays["reason"])), dtype=torch.int32,
+                               device=device),
+        **vals,
+    )

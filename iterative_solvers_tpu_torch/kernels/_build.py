@@ -1,0 +1,127 @@
+"""Build and load the hand-written CUDA kernels.
+
+The sources under ``iterative_solvers_tpu_torch/csrc/`` have a plain C
+interface (one ``extern "C"`` launcher per kernel returning
+``cudaGetLastError()``), so they compile with ``nvcc`` alone in seconds and
+load with ``ctypes``; nothing includes PyTorch's headers. The library is
+built at first use into ``build/torch_kernels/`` at the repository root,
+named by a hash of the sources and flags so an edited source never loads a
+stale build. A failed build raises with nvcc's stderr.
+
+Launch counts live here too: each wrapper adds one to ``launches[name]``
+where it launches its kernel, and plain versions add one to
+``plain_on_cuda[name]`` when they are handed a CUDA tensor, so a run can
+show that its main path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from collections import Counter
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+]
+
+launches: Counter = Counter()
+plain_on_cuda: Counter = Counter()
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# argument types of every launcher; the trailing pointer is the CUDA stream
+_SIGNATURES = {
+    "ist_k1": [_P] * 7 + [_I] * 6 + [_F] * 3 + [_P],
+    "ist_k2_pcg": [_P] * 11 + [_I] * 6 + [_F] * 3 + [_P],
+    "ist_k_down": [_P] * 2 + [_I] * 6 + [_F] * 4 + [_P],
+    "ist_k_up": [_P] * 4 + [_I] * 7 + [_F] * 4 + [_P],
+}
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+def reset_counts() -> None:
+    launches.clear()
+    plain_on_cuda.clear()
+
+
+def note_plain(name: str, t: torch.Tensor) -> None:
+    if t.is_cuda:
+        plain_on_cuda[name] += 1
+
+
+def _nvcc() -> str:
+    for cand in (
+        shutil.which("nvcc"),
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    cu, cuh = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in cu + cuh:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"libist_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels (if this source set was not built yet)."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu, _ = _sources()
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)],
+        capture_output=True,
+        text=True,
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first use, with every launcher typed."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def launch(name: str, *args) -> None:
+    """Call launcher ``name`` on the current stream and raise on a refused launch."""
+    fn = getattr(load(), name)
+    code = fn(*args, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    if code != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {code}")
+    launches[name.removeprefix("ist_")] += 1
+
+
+def ptr(t: Optional[torch.Tensor]):
+    return ctypes.c_void_p(0 if t is None else t.data_ptr())

@@ -1,0 +1,54 @@
+"""Masked 5-point stencil in plain torch (counterpart of iterative_solvers_tpu/ops/stencil.py).
+
+This is the high-precision operator ``A_hi`` of the mixed-precision outer
+loop: it runs in f64 (or f32) outside any kernel, exactly as the JAX package
+computes it in XLA outside any Pallas kernel. The interior mask is rebuilt
+from :class:`MaskSpec` on the field's device and cached there.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from iterative_solvers_tpu_torch.core.domain import MaskSpec
+
+
+def stencil_apply(x: torch.Tensor, interior: torch.Tensor, cd: float, cx: float,
+                  cy: float) -> torch.Tensor:
+    """y = A @ x on a full 2D grid; ``interior`` is the bool mask of unknowns."""
+    xm = torch.where(interior, x, 0.0)
+    p = F.pad(xm, (1, 1, 1, 1))
+    y = (
+        cd * xm
+        + cx * (p[1:-1, :-2] + p[1:-1, 2:])
+        + cy * (p[:-2, 1:-1] + p[2:, 1:-1])
+    )
+    return torch.where(interior, y, 0.0)
+
+
+class StencilOperator:
+    """Callable ``y = A @ x`` over full-grid (or padded-canvas) fields."""
+
+    def __init__(self, mask_spec: MaskSpec, coeffs: Tuple[float, float, float]):
+        self.mask_spec = mask_spec
+        self.coeffs = tuple(float(c) for c in coeffs)
+        self._masks: Dict[torch.device, torch.Tensor] = {}
+
+    @staticmethod
+    def from_domain(domain) -> "StencilOperator":
+        return StencilOperator(
+            domain.mask_spec, (domain.coeff_diag, domain.coeff_x, domain.coeff_y)
+        )
+
+    def interior(self, device) -> torch.Tensor:
+        device = torch.device(device)
+        m = self._masks.get(device)
+        if m is None:
+            m = self._masks[device] = self.mask_spec.build(device).contiguous()
+        return m
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        return stencil_apply(x, self.interior(x.device), *self.coeffs)

@@ -1,0 +1,187 @@
+"""Conjugate gradients with the reference stop criteria (counterpart of iterative_solvers_tpu/solvers/cg.py).
+
+PyTorch runs eagerly, so the JAX package's compiled chunk becomes a host
+loop over device tensors. Every scalar of the recurrence stays a 0-dim tensor
+on the fields' device; the host reads the progress scalars with ONE packed
+transfer per iteration (`_sync_stats`), which is also where the stop test is
+decided. The iteration count ``k`` is a host integer.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from dataclasses import dataclass, field as dataclass_field
+from typing import Callable, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from iterative_solvers_tpu_torch.solvers.stopping import StopConfig, StopReason
+
+Operator = Callable[[torch.Tensor], torch.Tensor]
+
+
+class CGState(NamedTuple):
+    x: torch.Tensor
+    r: torch.Tensor
+    z: torch.Tensor  # descent direction (z_{k-1} in the fused engine)
+    k: int  # iterations done
+    done: torch.Tensor  # bool: a stop criterion fired
+    reason: torch.Tensor  # int32 StopReason value
+    rz: torch.Tensor  # (r, z) of the current pair (PCG carry)
+    r_norm2: torch.Tensor  # ‖r‖²
+    prec_max: torch.Tensor  # ‖x_k − x_{k−1}‖∞
+    r_max: torch.Tensor  # ‖r‖∞
+    err_max: torch.Tensor  # ‖x − u_true‖∞ (inf without a true solution)
+    r0_norm: torch.Tensor  # ‖r₀‖₂
+    # fused-PCG carries: w = M r and the previous (r, w)
+    w: Optional[torch.Tensor] = None
+    rz_prev: Optional[torch.Tensor] = None
+
+
+@dataclass
+class CGOptions:
+    stop: StopConfig = dataclass_field(default_factory=StopConfig)
+    preconditioner: Optional[Operator] = None
+
+
+@dataclass
+class CGResult:
+    x: torch.Tensor
+    iterations: int
+    converged: bool
+    reason: StopReason
+    precision_max: float
+    residual_max: float
+    error_max: float
+    residual_norm: float  # ‖r‖₂
+    initial_residual_norm: float
+    elapsed_s: float
+    history: Optional[np.ndarray] = None  # rows: (iter, prec∞, r∞, err∞, ‖r‖₂)
+
+
+def _dot(a, b):
+    return torch.sum(a * b)
+
+
+def _maxabs(a):
+    return torch.max(torch.abs(a))
+
+
+def stop_reason(stop: StopConfig, prec, r_max, err, r2, r0_norm, has_u: bool):
+    """(done, reason) as device tensors, reference priority order:
+    diverged, precision, residual, exact error, relative residual."""
+    false = torch.zeros((), dtype=torch.bool, device=r2.device)
+    done_p = (prec < stop.eps_precision) if stop.eps_precision > 0 else false
+    done_r = (r_max < stop.eps_residual) if stop.eps_residual > 0 else false
+    done_e = (err < stop.eps_exact_error) if (stop.eps_exact_error > 0 and has_u) else false
+    done_rel = (
+        (torch.sqrt(r2) < stop.eps_relative * r0_norm) if stop.eps_relative > 0 else false
+    )
+    done_div = ~torch.isfinite(r2)
+    reason = torch.full((), int(StopReason.ITERATIONS), dtype=torch.int32, device=r2.device)
+    for flag, code in (
+        (done_rel, StopReason.RELATIVE_RESIDUAL),
+        (done_e, StopReason.EXACT_ERROR),
+        (done_r, StopReason.RESIDUAL),
+        (done_p, StopReason.PRECISION),
+        (done_div, StopReason.DIVERGED),
+    ):  # lowest priority first, so the highest-priority flag wins
+        reason = torch.where(flag, int(code), reason).to(torch.int32)
+    return done_p | done_r | done_e | done_rel | done_div, reason
+
+
+def _cg_init(A, M, b, x0, u_true) -> CGState:
+    if x0 is None:
+        x = torch.zeros_like(b)
+        r = b.clone()
+    else:
+        x = x0.clone()
+        r = b - A(x0)
+    z = M(r) if M is not None else r.clone()
+    r2_0 = _dot(r, r)
+    inf = torch.full((), math.inf, dtype=b.dtype, device=b.device)
+    return CGState(
+        x=x, r=r, z=z, k=0,
+        done=torch.zeros((), dtype=torch.bool, device=b.device),
+        reason=torch.full((), int(StopReason.ITERATIONS), dtype=torch.int32, device=b.device),
+        rz=_dot(r, z), r_norm2=r2_0, prec_max=inf, r_max=_maxabs(r),
+        err_max=_maxabs(x - u_true) if u_true is not None else inf,
+        r0_norm=torch.sqrt(r2_0),
+    )
+
+
+def cg_iteration(A, M, stop: StopConfig, s: CGState, u_true) -> CGState:
+    """One (P)CG step (MSG β without a preconditioner) with the stop flags
+    evaluated on device."""
+    Az = A(s.z)
+    rz = s.rz if M is not None else _dot(s.r, s.z)
+    alpha = rz / _dot(Az, s.z)
+    x = s.x + alpha * s.z
+    r = s.r - alpha * Az
+    r2 = _dot(r, r)
+    r_max = _maxabs(r)
+    prec_max = torch.abs(alpha) * _maxabs(s.z)
+    err_max = _maxabs(x - u_true) if u_true is not None else s.err_max
+    done, reason = stop_reason(stop, prec_max, r_max, err_max, r2, s.r0_norm,
+                               u_true is not None)
+    if M is None:
+        z = r + (r2 / rz) * s.z
+        rz_new = r2
+    else:
+        w = M(r)
+        rz_new = _dot(r, w)
+        z = w + (rz_new / rz) * s.z
+    return s._replace(
+        x=x, r=r, z=z, k=s.k + 1, done=done, reason=reason, rz=rz_new,
+        r_norm2=r2, prec_max=prec_max, r_max=r_max, err_max=err_max,
+    )
+
+
+def _sync_stats(s: CGState) -> Tuple[bool, int, float, float, float, float, float]:
+    """ONE host transfer of the progress scalars."""
+    f = s.r_max.dtype
+    v = torch.stack([
+        s.done.to(f), s.reason.to(f), s.prec_max.to(f), s.r_max.to(f),
+        s.err_max.to(f), s.r_norm2.to(f), s.r0_norm.to(f),
+    ]).tolist()
+    return bool(v[0]), int(v[1]), v[2], v[3], v[4], v[5], v[6]
+
+
+def cg_solve(
+    A: Operator,
+    b: torch.Tensor,
+    *,
+    x0: Optional[torch.Tensor] = None,
+    u_true: Optional[torch.Tensor] = None,
+    options: Optional[CGOptions] = None,
+) -> CGResult:
+    """Solve ``A x = b`` by (preconditioned) conjugate gradients."""
+    opts = options or CGOptions()
+    stop = opts.stop
+    t0 = time.perf_counter()
+    state = _cg_init(A, opts.preconditioner, b, x0, u_true)
+    _, _, _, rmax, emax, r2, r0n = _sync_stats(state)
+    prec = math.inf
+    # r == 0: x0 is already exact (and the recurrence would divide 0/0)
+    reason = StopReason.RESIDUAL if r2 == 0.0 else StopReason.ITERATIONS
+    while reason == StopReason.ITERATIONS and state.k < stop.max_iterations:
+        state = cg_iteration(A, opts.preconditioner, stop, state, u_true)
+        done, code, prec, rmax, emax, r2, r0n = _sync_stats(state)
+        if done:
+            reason = StopReason(code)
+        elif r2 == 0.0:
+            reason = StopReason.RESIDUAL
+    return CGResult(
+        x=state.x,
+        iterations=state.k,
+        converged=reason.converged,
+        reason=reason,
+        precision_max=prec,
+        residual_max=rmax,
+        error_max=emax,
+        residual_norm=math.sqrt(max(r2, 0.0)),
+        initial_residual_norm=r0n,
+        elapsed_s=time.perf_counter() - t0,
+    )

@@ -1,0 +1,355 @@
+"""Geometric multigrid V-cycle preconditioner (counterpart of iterative_solvers_tpu/solvers/multigrid.py).
+
+One V(ν,ν) cycle of rediscretised multigrid on full-grid masked fields:
+weighted-Jacobi smoothing (ω = 0.8), full-weighting restriction and linear
+prolongation with R = Pᵀ/4, and an exact dense-inverse coarse solve — a
+symmetric linear operator, hence PCG-safe. Fine levels of V(1,1) cycles
+run the fused down/up kernels (kernels/mg_fused.py) on their padded
+layouts; the other levels, and any f64 field, take the plain torch leg.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from iterative_solvers_tpu_torch.core.domain import Domain2D, MaskSpec
+from iterative_solvers_tpu_torch.kernels.mg_fused import (
+    FusedLevelKernels,
+    lane_prolong,
+    lane_restrict,
+)
+from iterative_solvers_tpu_torch.kernels.stencil_layout import round_up
+
+
+class _MaskCache:
+    """Per-device interior masks of one MaskSpec, built on first use."""
+
+    def __init__(self, spec: MaskSpec):
+        self.spec = spec
+        self._by_device: Dict[torch.device, torch.Tensor] = {}
+
+    def on(self, device) -> torch.Tensor:
+        device = torch.device(device)
+        m = self._by_device.get(device)
+        if m is None:
+            m = self._by_device[device] = self.spec.build(device).contiguous()
+        return m
+
+
+def _restrict1d(a: torch.Tensor, axis: int) -> torch.Tensor:
+    """Full weighting along one axis: fine extent 2nc+1 -> nc+1, [1,2,1]/4."""
+    nc1 = (a.shape[axis] - 1) // 2 + 1
+    pad = [0, 0, 0, 0]
+    pad[2 * (a.ndim - 1 - axis)] = pad[2 * (a.ndim - 1 - axis) + 1] = 1
+    p = F.pad(a, pad)
+    lo = p.narrow(axis, 0, 2 * nc1 - 1)[(slice(None),) * axis + (slice(None, None, 2),)]
+    mid = p.narrow(axis, 1, 2 * nc1 - 1)[(slice(None),) * axis + (slice(None, None, 2),)]
+    hi = p.narrow(axis, 2, 2 * nc1 - 1)[(slice(None),) * axis + (slice(None, None, 2),)]
+    return 0.25 * (lo + hi) + 0.5 * mid
+
+
+def _prolong1d(a: torch.Tensor, axis: int) -> torch.Tensor:
+    """Linear interpolation along one axis: even fine nodes copy, odd ones
+    average their two coarse neighbours (R = Pᵀ/2 per axis)."""
+    nc1 = a.shape[axis]
+    left = a.narrow(axis, 0, nc1 - 1)
+    right = a.narrow(axis, 1, nc1 - 1)
+    shape = list(a.shape)
+    shape[axis] = 2 * (nc1 - 1)
+    inter = torch.stack([left, 0.5 * (left + right)], dim=axis + 1).reshape(shape)
+    return torch.cat([inter, a.narrow(axis, nc1 - 1, 1)], dim=axis)
+
+
+def restrict_full_weighting(r: torch.Tensor) -> torch.Tensor:
+    for ax in range(r.ndim):
+        r = _restrict1d(r, ax)
+    return r
+
+
+def prolong_linear(e: torch.Tensor) -> torch.Tensor:
+    for ax in range(e.ndim):
+        e = _prolong1d(e, ax)
+    return e
+
+
+def _coarsen_domain(d: Domain2D) -> Optional[Domain2D]:
+    """The next-coarser domain, or None if it cannot be rediscretised."""
+    if d.nx % 2 or d.ny % 2 or min(d.nx, d.ny) < 4:
+        return None
+    cnx, cny = d.nx // 2, d.ny // 2
+    if d.shape == "gamma" and (cnx % 2 or cny % 2):
+        return None
+    c = d.with_resolution(cnx, cny)
+    return c if c.num_unknowns > 0 else None
+
+
+def _assemble_dense(d: Domain2D) -> Tuple[np.ndarray, np.ndarray]:
+    """(interior flat indices, dense f64 matrix) of the coarsest operator."""
+    interior = np.asarray(d.interior)
+    flat = np.arange(interior.size).reshape(interior.shape)
+    idx = np.flatnonzero(interior.ravel())
+    n = idx.size
+    pos = np.full(interior.size, -1, dtype=np.int64)
+    pos[idx] = np.arange(n)
+    A = np.zeros((n, n), dtype=np.float64)
+    A[np.arange(n), np.arange(n)] = d.coeff_diag
+    for axis, c in ((0, d.coeff_y), (1, d.coeff_x)):
+        lo = [slice(None)] * 2
+        hi = [slice(None)] * 2
+        lo[axis] = slice(None, -1)
+        hi[axis] = slice(1, None)
+        both = interior[tuple(lo)] & interior[tuple(hi)]
+        f_lo = flat[tuple(lo)][both]
+        f_hi = flat[tuple(hi)][both]
+        A[pos[f_lo], pos[f_hi]] = c
+        A[pos[f_hi], pos[f_lo]] = c
+    return idx, A
+
+
+class _Level:
+    """Plain torch level: masked stencil and weighted-Jacobi scaling."""
+
+    def __init__(self, mask_spec: MaskSpec, coeffs, omega_over_diag: float):
+        self.mask_spec = mask_spec
+        self.coeffs = tuple(float(c) for c in coeffs)  # (cd, c_axis0, c_axis1)
+        self.omega_over_diag = float(omega_over_diag)
+        self._mask = _MaskCache(mask_spec)
+
+    @property
+    def grid_shape(self):
+        return tuple(self.mask_spec.shape)
+
+    def interior(self, device) -> torch.Tensor:
+        return self._mask.on(device)
+
+    def apply(self, x: torch.Tensor) -> torch.Tensor:
+        m = self.interior(x.device)
+        xm = torch.where(m, x, 0.0)
+        p = F.pad(xm, (1, 1, 1, 1))
+        y = self.coeffs[0] * xm
+        y = y + self.coeffs[1] * (p[:-2, 1:-1] + p[2:, 1:-1])
+        y = y + self.coeffs[2] * (p[1:-1, :-2] + p[1:-1, 2:])
+        return torch.where(m, y, 0.0)
+
+    def mask(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.where(self.interior(x.device), x, 0.0)
+
+
+class _CoarseSolveDense:
+    """e = A⁻¹ b on the coarsest level: gather, f64 product, scatter. The
+    product is a plain ``torch.matmul`` outside any kernel, kept in f64 as
+    the JAX package keeps it."""
+
+    def __init__(self, idx: np.ndarray, a_inv: np.ndarray):
+        self.idx = np.asarray(idx, np.int64)
+        self.a_inv = np.asarray(a_inv, np.float64)
+        self._on: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def _tensors(self, device):
+        device = torch.device(device)
+        t = self._on.get(device)
+        if t is None:
+            t = self._on[device] = (
+                torch.as_tensor(self.idx, device=device),
+                torch.as_tensor(self.a_inv, device=device),
+            )
+        return t
+
+    def __call__(self, b: torch.Tensor) -> torch.Tensor:
+        idx, a_inv = self._tensors(b.device)
+        ep = torch.matmul(a_inv, b.reshape(-1)[idx].to(a_inv.dtype)).to(b.dtype)
+        out = torch.zeros(b.numel(), dtype=b.dtype, device=b.device)
+        out[idx] = ep
+        return out.view(b.shape)
+
+
+class _FusedLevel:
+    """Fine level running the fused down/up kernels on its padded layout."""
+
+    def __init__(self, kernels: FusedLevelKernels, h, w, ch, cw, nx,
+                 child_mask_spec: MaskSpec, jnp_level: _Level):
+        self.kernels = kernels
+        self.h, self.w, self.ch, self.cw, self.nx = h, w, ch, cw, nx
+        self.child_mask_spec = child_mask_spec
+        self._child_mask = _MaskCache(child_mask_spec)
+        self.jnp_level = jnp_level  # plain leg for non-f32 fields
+
+    @property
+    def grid_shape(self):
+        return (self.h, self.w)
+
+    def child_interior(self, device) -> torch.Tensor:
+        return self._child_mask.on(device)
+
+    def pad_in(self, f: torch.Tensor) -> torch.Tensor:
+        hp, wp = self.kernels.padded_shape
+        return F.pad(f, (0, wp - self.w, 0, hp - self.h))
+
+    def mask(self, x: torch.Tensor) -> torch.Tensor:
+        return self.jnp_level.mask(x)
+
+
+def fused_block_rows(h: int, w: int) -> Tuple[int, int, int]:
+    """(block_rows, hp, wp) of a fused level — the JAX package's rule."""
+    by = 64 if h >= 1024 else (32 if h >= 256 else 16)
+    wp = round_up(w, 128)
+    while by > 16 and 32 * by * wp > 24 * 2**20:
+        by //= 2
+    return by, round_up(h, by), wp
+
+
+@dataclass(frozen=True, eq=False)
+class MultigridPreconditioner:
+    """Callable ``z = M r`` ≈ ``A⁻¹ r``: one V(nu_pre, nu_post) cycle."""
+
+    levels: Tuple[object, ...]
+    coarse_solve: Callable
+    nu_pre: int = 1
+    nu_post: int = 1
+
+    @staticmethod
+    def from_domain(
+        domain: Domain2D,
+        *,
+        omega: float = 0.8,
+        nu_pre: int = 1,
+        nu_post: int = 1,
+        dense_coarse_limit: int = 2048,
+        fuse: Optional[bool] = None,
+        fuse_min_extent: int = 512,
+        device="cpu",
+    ) -> "MultigridPreconditioner":
+        """Build the hierarchy. ``fuse=None`` fuses on a CUDA device (as the
+        JAX package fuses on an accelerator); ``fuse=True`` on the CPU runs the
+        fused levels through the kernels' plain versions."""
+        if nu_pre != nu_post:
+            raise ValueError(
+                "nu_pre must equal nu_post: an asymmetric V-cycle is not a "
+                "symmetric operator and silently breaks PCG"
+            )
+        domains = [domain]
+        while True:
+            c = _coarsen_domain(domains[-1])
+            if c is None:
+                break
+            domains.append(c)
+            if c.num_unknowns <= dense_coarse_limit:
+                break
+        coarsest = domains[-1]
+        if coarsest.num_unknowns > dense_coarse_limit:
+            raise NotImplementedError(
+                "the Chebyshev coarse solve is not ported yet (ROADMAP Queue 1 item 5)"
+            )
+        if fuse is None:
+            fuse = torch.device(device).type == "cuda"
+
+        def make_level(d):
+            return _Level(d.mask_spec, (d.coeff_diag, d.coeff_y, d.coeff_x),
+                          omega / d.coeff_diag)
+
+        levels = []
+        for i, d in enumerate(domains):
+            fusible = fuse and nu_pre == 1 and i < len(domains) - 1
+            if not (fusible and d.ny + 1 >= fuse_min_extent):
+                levels.append(make_level(d))
+                continue
+            c = domains[i + 1]
+            h, w = d.grid_shape
+            by, hp, wp = fused_block_rows(h, w)
+            k = FusedLevelKernels(
+                nx=d.nx, ny=d.ny, coeffs=(d.coeff_diag, d.coeff_x, d.coeff_y),
+                cs=omega / d.coeff_diag, mask_mode=d.shape, padded_shape=(hp, wp),
+                block_rows=by,
+            )
+            levels.append(_FusedLevel(k, h, w, c.grid_shape[0], c.grid_shape[1], d.nx,
+                                      c.mask_spec, make_level(d)))
+        idx, A = _assemble_dense(coarsest)
+        coarse = _CoarseSolveDense(idx, np.linalg.inv(A))
+        return MultigridPreconditioner(
+            levels=tuple(levels), coarse_solve=coarse, nu_pre=nu_pre, nu_post=nu_post
+        )
+
+    def _fused_leg(self, li: int, lev: _FusedLevel, bp: torch.Tensor, with_dot: bool):
+        """K_down, lane restriction, the coarser cycle, lane prolongation, K_up."""
+        hp, wp = lev.kernels.padded_shape
+        rr = lev.kernels.down(bp)
+        rc = lane_restrict(rr[: lev.ch], lev.nx, lev.cw)
+        rc = torch.where(lev.child_interior(rc.device), rc, 0.0)
+        ec = self._vcycle(li + 1, rc)
+        ecl = F.pad(lane_prolong(ec, lev.nx // 2, wp), (0, 0, 0, hp // 2 - lev.ch))
+        return lev.kernels.up(bp, ecl, with_dot=with_dot)
+
+    def _vcycle(self, li: int, b: torch.Tensor) -> torch.Tensor:
+        if li == len(self.levels) - 1:
+            return self.coarse_solve(b)
+        lev = self.levels[li]
+        if isinstance(lev, _FusedLevel):
+            if b.dtype == torch.float32:
+                # a field already on this level's padded layout skips pad/crop
+                padded_in = tuple(b.shape) == tuple(lev.kernels.padded_shape)
+                bp = b if padded_in else lev.pad_in(b)
+                out = self._fused_leg(li, lev, bp, with_dot=False)
+                return out if padded_in else out[: lev.h, : lev.w]
+            lev = lev.jnp_level  # the kernels are f32-only
+        # pre-smooth from x = 0: the first sweep is a pure scaling of b
+        x = lev.omega_over_diag * b
+        for _ in range(self.nu_pre - 1):
+            x = x + lev.omega_over_diag * (b - lev.apply(x))
+        r = b - lev.apply(x)
+        rc = self.levels[li + 1].mask(restrict_full_weighting(r))
+        ec = self._vcycle(li + 1, rc)
+        x = x + lev.mask(prolong_linear(ec))
+        for _ in range(self.nu_post):
+            x = x + lev.omega_over_diag * (b - lev.apply(x))
+        return x
+
+    def accepts_padded(self, shape) -> bool:
+        """True when ``shape`` is the fine level's own padded layout."""
+        lev0 = self.levels[0]
+        return isinstance(lev0, _FusedLevel) and tuple(shape) == tuple(
+            lev0.kernels.padded_shape
+        )
+
+    def __call__(self, r: torch.Tensor) -> torch.Tensor:
+        shape0 = self.levels[0].grid_shape
+        if tuple(r.shape) != tuple(shape0) and not (
+            r.dtype == torch.float32 and self.accepts_padded(r.shape)
+        ):
+            raise ValueError(f"field shape {tuple(r.shape)} != fine-level grid {shape0}")
+        return self._vcycle(0, r)
+
+    def call_with_dot(self, r: torch.Tensor):
+        """(z, (r, z)); on a fused padded fine level the dot rides K_up."""
+        lev = self.levels[0]
+        if r.dtype == torch.float32 and self.accepts_padded(r.shape):
+            return self._fused_leg(0, lev, r, with_dot=True)
+        z = self(r)
+        return z, torch.sum(r * z)
+
+
+@dataclass(frozen=True, eq=False)
+class PaddedPreconditioner:
+    """Runs an unpadded-field preconditioner under a padded layout; fields
+    already on the V-cycle's own padded layout pass straight through."""
+
+    inner: MultigridPreconditioner
+    padded_op: object  # needs .pad(x) and .crop(x)
+
+    def _passes(self, r: torch.Tensor) -> bool:
+        return r.dtype == torch.float32 and self.inner.accepts_padded(r.shape)
+
+    def __call__(self, r: torch.Tensor) -> torch.Tensor:
+        if self._passes(r):
+            return self.inner(r)
+        return self.padded_op.pad(self.inner(self.padded_op.crop(r)))
+
+    def call_with_dot(self, r: torch.Tensor):
+        if self._passes(r):
+            return self.inner.call_with_dot(r)
+        z = self(r)
+        return z, torch.sum(r * z)

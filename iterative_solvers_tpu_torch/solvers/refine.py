@@ -1,0 +1,363 @@
+"""Mixed-precision iterative refinement, f64 outer / f32 inner MG-PCG
+(counterpart of iterative_solvers_tpu/solvers/refine.py).
+
+The JAX package runs the whole refinement ladder as one compiled program
+(``_device_ir``). Eager PyTorch runs it as a host loop over device tensors
+with the same semantics: the same stop criteria and stall test, the same
+history rows ``(max_outer + 1, 5)`` and the same packed stats vector. The
+host reads one packed tensor per PCG iteration (the inner stop test, decided
+on the device in f32) and one per outer step (f64 norms, compared on the
+host in f64 — bit-identical to comparing them on the device).
+
+On an H100, f64 is native IEEE, so the f64 outer is the outer here; the
+double-f32 outer the JAX package uses on a TPU is not ported.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from dataclasses import dataclass
+from typing import Callable, List, Optional
+
+import numpy as np
+import torch
+
+from iterative_solvers_tpu_torch.kernels.cg_fused import _engine_for
+from iterative_solvers_tpu_torch.ops.stencil import StencilOperator
+from iterative_solvers_tpu_torch.solvers.cg import CGOptions, CGResult, CGState, cg_solve
+from iterative_solvers_tpu_torch.solvers.stopping import StopConfig, StopReason
+
+F32 = torch.float32
+
+
+@dataclass
+class RefinedResult(CGResult):
+    """CGResult plus refinement structure: ``iterations`` counts total inner
+    PCG iterations; ``outer_iterations`` the f64 refinement steps."""
+
+    outer_iterations: int = 0
+    inner_iterations: Optional[List[int]] = None
+    escalated: bool = False
+
+
+def _norms(r, d, x, u_true):
+    """(‖r‖∞, ‖d‖∞, ‖x−u‖∞, ‖r‖₂²) as host floats — one transfer."""
+    e = (
+        torch.max(torch.abs(x - u_true))
+        if u_true is not None
+        else torch.full((), math.inf, dtype=r.dtype, device=r.device)
+    )
+    v = torch.stack(
+        [torch.max(torch.abs(r)), torch.max(torch.abs(d)), e, torch.sum(r * r)]
+    ).tolist()
+    return v[0], v[1], v[2], v[3]
+
+
+def refined_solve(
+    A_hi: Callable,
+    A_lo: Callable,
+    b: torch.Tensor,
+    *,
+    u_true: Optional[torch.Tensor] = None,
+    stop: Optional[StopConfig] = None,
+    preconditioner: Optional[Callable] = None,
+    inner_rel_tol: float = 1e-4,
+    inner_max_iter: int = 200,
+    max_outer: int = 40,
+    x0: Optional[torch.Tensor] = None,
+) -> RefinedResult:
+    """Host-driven refinement with the precision ladder: inner solves run in
+    f32 until an outer step shrinks ‖r‖∞ by less than 20x, then in
+    ``b.dtype`` (f64). This is the escalated polish of
+    :func:`fused_refined_solve`, continuing from ``x0``."""
+    stop = stop or StopConfig()
+    lo_dtype = F32
+    if b.dtype == lo_dtype:
+        raise ValueError("b must be f64 for the high-precision outer loop")
+    t0 = time.perf_counter()
+
+    def adaptive_inner_tol(r_max_now: float, r_norm_now: float) -> float:
+        need = math.inf
+        if stop.eps_relative > 0 and r_norm_now > 0:
+            need = min(need, stop.eps_relative * r0_norm / r_norm_now)
+        if stop.eps_residual > 0 and r_max_now > 0:
+            need = min(need, stop.eps_residual / r_max_now)
+        if not math.isfinite(need):
+            return inner_rel_tol
+        tol = min(max(inner_rel_tol, 0.3 * need), 0.1)
+        return 10.0 ** math.floor(math.log10(tol))
+
+    if x0 is None:
+        x = torch.zeros_like(b)
+        r = b
+    else:
+        x = x0.to(b.dtype).clone()
+        r = b - A_hi(x)
+    r_max, _, err_max, r2 = _norms(r, r, x, u_true)
+    r_norm = math.sqrt(max(r2, 0.0))
+    r0_norm = r_norm if x0 is None else math.sqrt(max(float(torch.sum(b * b)), 0.0))
+    prec_max = math.inf
+    reason = StopReason.ITERATIONS
+    total_inner = 0
+    inner_counts: List[int] = []
+    cur_dtype = lo_dtype
+    escalated = False
+    stalls = 0
+    hist_rows = [(0, math.inf, r_max, err_max, r_norm)]
+
+    for outer in range(max_outer):
+        if r_max == 0.0:
+            reason = StopReason.RESIDUAL
+            break
+        if stop.eps_residual > 0 and r_max < stop.eps_residual:
+            reason = StopReason.RESIDUAL
+            break
+        if stop.eps_exact_error > 0 and err_max < stop.eps_exact_error:
+            reason = StopReason.EXACT_ERROR
+            break
+        if stop.eps_precision > 0 and outer > 0 and prec_max < stop.eps_precision:
+            reason = StopReason.PRECISION
+            break
+        if stop.eps_relative > 0 and r_norm < stop.eps_relative * r0_norm:
+            reason = StopReason.RELATIVE_RESIDUAL
+            break
+        if total_inner >= stop.max_iterations:
+            reason = StopReason.ITERATIONS
+            break
+        opts = CGOptions(
+            stop=StopConfig(
+                eps_precision=-1.0, eps_residual=-1.0, eps_exact_error=-1.0,
+                eps_relative=adaptive_inner_tol(r_max, r_norm),
+                max_iterations=inner_max_iter,
+            ),
+            preconditioner=preconditioner,
+        )
+        # escalated (b.dtype) inners use A_hi: A_lo may be f32-only
+        A_in = A_lo if cur_dtype == lo_dtype else A_hi
+        inner = cg_solve(A_in, r.to(cur_dtype), options=opts)
+        d = inner.x.to(b.dtype)
+        x = x + d
+        r = b - A_hi(x)
+        total_inner += inner.iterations
+        inner_counts.append(inner.iterations)
+        r_max_new, prec_max, err, r2 = _norms(r, d, x, u_true)
+        r_norm = math.sqrt(max(r2, 0.0))
+        if u_true is not None:
+            err_max = err
+        hist_rows.append((total_inner, prec_max, r_max_new, err_max, r_norm))
+        if not math.isfinite(r_max_new):
+            r_max = r_max_new
+            reason = StopReason.DIVERGED
+            break
+        if not escalated and r_max_new > 0.05 * r_max and r_max_new > 0:
+            cur_dtype = b.dtype  # f32 floor reached: polish with f64 inners
+            escalated = True
+        elif cur_dtype == b.dtype:
+            stalls = stalls + 1 if r_max_new > 0.5 * r_max else 0
+            if stalls >= 2:
+                r_max = r_max_new
+                reason = StopReason.ITERATIONS
+                break
+        r_max = r_max_new
+
+    return RefinedResult(
+        x=x,
+        iterations=total_inner,
+        converged=bool(reason.converged),
+        reason=reason,
+        precision_max=prec_max,
+        residual_max=r_max,
+        error_max=err_max,
+        residual_norm=r_norm,
+        initial_residual_norm=r0_norm,
+        elapsed_s=time.perf_counter() - t0,
+        history=np.asarray(hist_rows, dtype=np.float64),
+        outer_iterations=len(inner_counts),
+        inner_iterations=inner_counts,
+        escalated=escalated,
+    )
+
+
+def _traced_inner_eta(stop: StopConfig, inner_rel_tol: float, r_hi, r0_norm):
+    """Loosest inner tolerance meeting the outer target this step, as a
+    device f32 scalar (safety factor 0.45, clipped to [inner_rel_tol, 0.1];
+    a non-finite need falls back to inner_rel_tol)."""
+    r_norm_hi = torch.sqrt(torch.sum(r_hi * r_hi))
+    r_max_hi = torch.max(torch.abs(r_hi))
+    need = torch.full((), math.inf, dtype=r_hi.dtype, device=r_hi.device)
+    if stop.eps_relative > 0:
+        need = torch.minimum(
+            need, stop.eps_relative * r0_norm / torch.clamp(r_norm_hi, min=1e-300)
+        )
+    if stop.eps_residual > 0:
+        need = torch.minimum(need, stop.eps_residual / torch.clamp(r_max_hi, min=1e-300))
+    eta = torch.clamp(torch.clamp(0.45 * need, min=inner_rel_tol), inner_rel_tol, 0.1)
+    return torch.where(torch.isfinite(need), eta, inner_rel_tol).to(F32)
+
+
+def _fused_inner_solve(engine, eta, r_hi, inner_max_iter: int):
+    """Fused PCG on ``A d = r`` (f32, from zero) to relative tolerance
+    ``eta``; returns (d, iterations). One host read per iteration."""
+    r32 = r_hi.to(F32)
+    w0, rz0 = engine.M.call_with_dot(r32)
+    r2_0 = torch.sum(r32 * r32)
+    dev = r32.device
+    s = CGState(
+        x=torch.zeros_like(r32), r=r32, z=torch.zeros_like(r32), k=0,
+        done=torch.zeros((), dtype=torch.bool, device=dev),
+        reason=torch.full((), int(StopReason.ITERATIONS), dtype=torch.int32, device=dev),
+        rz=rz0, r_norm2=r2_0,
+        prec_max=torch.full((), math.inf, dtype=F32, device=dev),
+        r_max=torch.max(torch.abs(r32)),
+        err_max=torch.full((), math.inf, dtype=F32, device=dev),
+        r0_norm=torch.sqrt(r2_0),
+        w=w0, rz_prev=torch.ones((), dtype=F32, device=dev),
+    )
+    going = bool(r2_0 > 0)
+    while going and s.k < inner_max_iter:
+        s = engine.iteration(s)
+        done = (torch.sqrt(s.r_norm2) < eta * s.r0_norm) | ~torch.isfinite(s.r_norm2)
+        going = bool(~done & (s.r_norm2 > 0))  # the one host read
+    return s.x, s.k
+
+
+def _outer_refine_loop(A_hi, stop: StopConfig, max_outer: int, b, u_true, inner_solve):
+    """Outer refinement loop on true f64 quantities. ``inner_solve: r ->
+    (d_f32, k_inner)``. Exits on a stop criterion, on the outer or iteration
+    budget, or on an f32-floor stall (an outer shrinking ‖r‖∞ by < 20x) so
+    the escalated polish can take over. Returns (x, packed stats): the nine
+    summary scalars, then the history block of ``max_outer + 1`` rows of
+    (total_inner, ‖d‖∞, ‖r‖∞, err∞, ‖r‖₂), row 0 the initial state."""
+    r0_norm = float(torch.sqrt(torch.sum(b * b)))
+    x = torch.zeros_like(b)
+    r = b
+    r_max, _, err, r2 = _norms(r, r, x, u_true)
+    hist = np.zeros((max_outer + 1, 5))
+    hist[0] = (0.0, math.inf, r_max, err, math.sqrt(r2))
+    k_out = total_inner = 0
+    done, reason, stalled = False, StopReason.ITERATIONS, False
+    prec, rm_prev = math.inf, math.inf
+    while not done and not stalled and k_out < max_outer and total_inner < stop.max_iterations:
+        d32, k_in = inner_solve(r)
+        d = d32.to(b.dtype)
+        x = x + d
+        r = b - A_hi(x)
+        r_max, prec, e, r2 = _norms(r, d, x, u_true)
+        if u_true is not None:
+            err = e
+        total_inner += k_in
+        hist[k_out + 1] = (total_inner, prec, r_max, err, math.sqrt(r2))
+        stalled = r_max > 0.05 * rm_prev
+        checks = (
+            (not math.isfinite(r2), StopReason.DIVERGED),
+            (stop.eps_residual > 0 and r_max < stop.eps_residual, StopReason.RESIDUAL),
+            (stop.eps_exact_error > 0 and u_true is not None and err < stop.eps_exact_error,
+             StopReason.EXACT_ERROR),
+            (stop.eps_precision > 0 and prec < stop.eps_precision, StopReason.PRECISION),
+            (stop.eps_relative > 0 and math.sqrt(r2) < stop.eps_relative * r0_norm,
+             StopReason.RELATIVE_RESIDUAL),
+        )
+        fired = [code for flag, code in checks if flag]
+        done = bool(fired)
+        reason = fired[0] if fired else StopReason.ITERATIONS
+        rm_prev = r_max
+        k_out += 1
+    stats = np.concatenate([
+        [k_out, total_inner, float(done), float(int(reason)), r_max, prec, err, r2, r0_norm],
+        hist.ravel(),
+    ])
+    return x, stats
+
+
+def _device_ir(engine, A_hi, stop: StopConfig, inner_rel_tol: float, inner_max_iter: int,
+               max_outer: int, b, u_true):
+    """The f32 ladder of mixed-precision refinement with the f64 outer: outer
+    loop plus fused PCG inner solves. Returns (x, packed stats)."""
+    r0_norm = torch.sqrt(torch.sum(b * b))
+
+    def inner_solve(r_hi):
+        eta = _traced_inner_eta(stop, inner_rel_tol, r_hi, r0_norm)
+        return _fused_inner_solve(engine, eta, r_hi, inner_max_iter)
+
+    return _outer_refine_loop(A_hi, stop, max_outer, b, u_true, inner_solve)
+
+
+def _padded_hi_operator(pop) -> StencilOperator:
+    """High-precision plain stencil on the padded layout of ``pop``."""
+    return StencilOperator(pop.mask_spec, pop.coeffs)
+
+
+def _join_history(dev_hist, cont_hist, inner_offset: int):
+    cont = np.asarray(cont_hist, dtype=np.float64).copy()
+    cont[:, 0] += inner_offset
+    return np.concatenate([dev_hist, cont[1:]], axis=0)
+
+
+def _finish_refined(stats, x, *, stop: StopConfig, t0: float, max_outer: int, A_hi, b,
+                    u_true, preconditioner, inner_rel_tol: float, inner_max_iter: int,
+                    crop=None) -> RefinedResult:
+    """Unpack the stats vector; if the f32 ladder left the criteria unmet,
+    continue with the escalated polish (:func:`refined_solve` from x)."""
+    k_out, total_inner = int(stats[0]), int(stats[1])
+    done, reason = bool(stats[2]), StopReason(int(stats[3]))
+    r_max, prec, err = float(stats[4]), float(stats[5]), float(stats[6])
+    r_norm = math.sqrt(max(float(stats[7]), 0.0))
+    r0_norm = float(stats[8])
+    hist = stats[9:].reshape(max_outer + 1, 5)[: k_out + 1].copy()
+    if not done and reason == StopReason.ITERATIONS and total_inner < stop.max_iterations:
+        res = refined_solve(
+            A_hi, A_hi, b, u_true=u_true, stop=stop, preconditioner=preconditioner,
+            inner_rel_tol=inner_rel_tol, inner_max_iter=inner_max_iter, x0=x,
+        )
+        if crop is not None:
+            res.x = crop(res.x)
+        res.iterations += total_inner
+        res.outer_iterations += k_out
+        res.escalated = True
+        res.elapsed_s = time.perf_counter() - t0
+        res.history = _join_history(hist, res.history, total_inner)
+        return res
+    return RefinedResult(
+        x=crop(x) if crop is not None else x,
+        iterations=total_inner,
+        converged=bool(done and reason.converged),
+        reason=reason,
+        precision_max=prec,
+        residual_max=r_max,
+        error_max=err,
+        residual_norm=r_norm,
+        initial_residual_norm=r0_norm,
+        elapsed_s=time.perf_counter() - t0,
+        history=hist,
+        outer_iterations=k_out,
+    )
+
+
+def fused_refined_solve(
+    pop,  # kernels.stencil_layout.PaddedStencilOperator
+    M_padded,  # preconditioner on the padded layout
+    b: torch.Tensor,  # UNPADDED f64 RHS
+    *,
+    u_true: Optional[torch.Tensor] = None,
+    stop: Optional[StopConfig] = None,
+    inner_rel_tol: float = 1e-4,
+    inner_max_iter: int = 200,
+    max_outer: int = 8,
+) -> RefinedResult:
+    """Mixed-precision refinement around the fused PCG engine, on the padded
+    layout of ``pop``, cold-started with the f64 outer; the escalated f64
+    polish continues host-side if the f32 ladder leaves the criteria unmet."""
+    stop = stop or StopConfig()
+    t0 = time.perf_counter()
+    engine = _engine_for(pop, M_padded)
+    A_hi = _padded_hi_operator(pop)
+    bp = pop.pad(b)
+    up = pop.pad(u_true) if u_true is not None else None
+    x, stats = _device_ir(engine, A_hi, stop, inner_rel_tol, inner_max_iter, max_outer,
+                          bp, up)
+    return _finish_refined(
+        stats, x, stop=stop, t0=t0, max_outer=max_outer, A_hi=A_hi, b=bp, u_true=up,
+        preconditioner=M_padded, inner_rel_tol=inner_rel_tol,
+        inner_max_iter=inner_max_iter, crop=pop.crop,
+    )

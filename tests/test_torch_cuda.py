@@ -1,0 +1,87 @@
+"""The port's CUDA kernels against their plain torch versions on the card.
+
+Marked ``cuda``: they need an NVIDIA GPU and nvcc, and skip elsewhere (the
+card is looked for inside the fixture, never at import). Run them on a GPU
+machine with ``python -m pytest tests/test_torch_cuda.py -q``.
+
+Tolerance: 64 eps32 of each field's max (the kernel contracts products into
+FMAs and sums in another order than torch); sums to 64 eps32 of the sum of
+their terms' magnitudes."""
+
+import pytest
+import torch
+
+from iterative_solvers_tpu_torch import Domain2D
+from iterative_solvers_tpu_torch.kernels import _build, cg_fused
+from iterative_solvers_tpu_torch.kernels.stencil_layout import PaddedStencilOperator
+from iterative_solvers_tpu_torch.solvers.multigrid import MultigridPreconditioner
+
+pytestmark = pytest.mark.cuda
+EPS32 = torch.finfo(torch.float32).eps
+SHAPES = [("gamma", 64, 64), ("rect", 40, 50), ("gamma", 512, 512)]
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    _build.load()
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _close(got, ref):
+    tol = 64 * EPS32 * float(ref.abs().max())
+    assert float((got - ref).abs().max()) <= tol
+
+
+def _sum_close(got, ref, scale):
+    assert abs(float(got.double().sum()) - float(ref.double().sum())) <= 64 * EPS32 * scale
+
+
+@pytest.mark.parametrize("shape,nx,ny", SHAPES)
+def test_k1_k2_pcg_match_plain(gen, shape, nx, ny):
+    lay = PaddedStencilOperator.from_domain(Domain2D(nx=nx, ny=ny, shape=shape), block_rows=16)
+    m = lay.mask_spec.build("cuda")
+    x, r, z, w = (torch.where(m, torch.randn(lay.padded_shape, device="cuda", generator=gen), 0.0)
+                  for _ in range(4))
+    beta = torch.tensor(0.37, device="cuda")
+    got, ref = cg_fused.k1(w, z, beta, lay), cg_fused.k1_plain(w, z, beta, lay)
+    _close(got[0], ref[0])
+    _sum_close(got[1], ref[1], float((w * (w + beta * z)).abs().sum()))
+    _sum_close(got[2], ref[2], abs(float(ref[2].sum())))
+    assert abs(float(got[3].max()) - float(ref[3].max())) <= 64 * EPS32 * float(ref[3].max())
+    scal = torch.tensor([-2.0e-4, 0.37], device="cuda")
+    got = cg_fused.k2_pcg(x, r, z, w, ref[0], scal, lay)
+    ref = cg_fused.k2_pcg_plain(x, r, z, w, ref[0], scal, lay)
+    for g, e in zip(got[:3], ref[:3]):
+        _close(g, e)
+    _sum_close(got[3], ref[3], float(ref[3].sum()))
+
+
+@pytest.mark.parametrize("shape,nx,ny", SHAPES)
+def test_k_down_k_up_match_plain(gen, shape, nx, ny):
+    M = MultigridPreconditioner.from_domain(
+        Domain2D(nx=nx, ny=ny, shape=shape), fuse=True, fuse_min_extent=16, device="cuda"
+    )
+    k = M.levels[0].kernels
+    hp, wp = k.padded_shape
+    b = torch.randn((hp, wp), device="cuda", generator=gen)
+    ec = torch.randn((hp // 2, wp), device="cuda", generator=gen)
+    _close(k.down(b), k.down_plain(b))
+    _close(k.up(b, ec), k.up_plain(b, ec))
+    (o, dot), (o_ref, dot_ref) = k.up(b, ec, with_dot=True), k.up_plain(b, ec, with_dot=True)
+    _close(o, o_ref)
+    bm = torch.where(k.mask_spec.build("cuda"), b, 0.0)
+    assert abs(float(dot) - float(dot_ref)) <= 64 * EPS32 * float((bm * o_ref).abs().sum())
+
+
+def test_wrappers_reject_bad_input(gen):
+    lay = PaddedStencilOperator.from_domain(Domain2D(nx=64, ny=64))
+    f = torch.zeros(lay.padded_shape, device="cuda")
+    beta = torch.zeros((), device="cuda")
+    with pytest.raises(TypeError):
+        cg_fused.k1(f.double(), f, beta, lay)
+    with pytest.raises(ValueError):
+        cg_fused.k1(f[:, :-128], f, beta, lay)
+    with pytest.raises(ValueError):
+        cg_fused.k1(f.t().contiguous().t(), f, beta, lay)  # non-contiguous

@@ -1,0 +1,238 @@
+"""CPU parity of the port's kernel modules (plain versions of K1, K2-pcg,
+K_down, K_up, the lane transfers and the V-cycle) against the JAX package's
+Pallas kernels in interpret mode, with state carried across by
+``iterative_solvers_tpu_torch.interop``.
+
+Tolerances: both sides compute the same f32 formulas, but the in-kernel sums
+run in different orders, so element fields are held to a few f32 ulps of
+the field's max (1e-6 · max|ref|) and reductions to 1e-5 relative; V-cycle
+outputs chain ~10 f32 sweeps and a coarse solve, so 1e-5 · max|ref|."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from iterative_solvers_tpu.core.domain import Domain2D as JDomain2D
+from iterative_solvers_tpu.kernels import mg_fused as jmg
+from iterative_solvers_tpu.kernels.cg_fused import FusedCGEngine as JEngine
+from iterative_solvers_tpu.kernels.stencil_pallas import PallasStencilOperator
+from iterative_solvers_tpu.solvers.cg import CGState as JCGState
+from iterative_solvers_tpu.solvers.multigrid import (
+    MultigridPreconditioner as JMG,
+    PaddedPreconditioner as JPadded,
+)
+
+from iterative_solvers_tpu_torch import Domain2D
+from iterative_solvers_tpu_torch.interop import cg_state_from_arrays, multigrid_from_state
+from iterative_solvers_tpu_torch.kernels import cg_fused, mg_fused
+from iterative_solvers_tpu_torch.kernels.stencil_layout import PaddedStencilOperator
+from iterative_solvers_tpu_torch.solvers.multigrid import (
+    MultigridPreconditioner,
+    PaddedPreconditioner,
+    _FusedLevel,
+)
+
+# small ragged shapes: a gamma grid, and a rect grid whose height is not a
+# multiple of the block rows; block_rows=16 gives several bands (halo paths)
+SHAPES = [("gamma", 64, 64), ("rect", 40, 50)]
+
+
+def _close(got, ref, frac=1e-6):
+    ref = np.asarray(ref, np.float64)
+    got = np.asarray(got, np.float64)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=frac * max(np.abs(ref).max(), 1e-30))
+
+
+def _masked_field(rng, pop):
+    f = rng.standard_normal(pop.padded_shape).astype(np.float32)
+    return f * pop.interior_padded()
+
+
+def _layouts(shape, nx, ny, by=16):
+    jd = JDomain2D(nx=nx, ny=ny, shape=shape)
+    pop = PallasStencilOperator.from_domain(jd, block_rows=by, interpret=True)
+    lay = PaddedStencilOperator.from_domain(Domain2D(nx=nx, ny=ny, shape=shape), block_rows=by)
+    return jd, pop, lay
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+@pytest.mark.parametrize("shape,nx,ny", SHAPES)
+def test_k1_plain_matches_pallas(shape, nx, ny):
+    jd, pop, lay = _layouts(shape, nx, ny)
+    rng = np.random.default_rng(11)
+    d, z = _masked_field(rng, pop), _masked_field(rng, pop)
+    beta = np.float32(0.37)
+    side, rz_p, azz_p, zmax_p = JEngine(pop)._call_k1(jnp.asarray(d), jnp.asarray(z), beta)
+    p_side, p_rz, p_azz, p_zmax = cg_fused.k1(_t(d), _t(z), torch.tensor(beta), lay)
+    _close(p_side, np.asarray(side)[:, :2])
+    for got, ref in ((p_rz, rz_p), (p_azz, azz_p)):
+        ref = np.asarray(ref)[:, 0, 0]
+        np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-5 * np.abs(ref).max())
+    np.testing.assert_array_equal(p_zmax.numpy(), np.asarray(zmax_p)[:, 0, 0])
+
+
+@pytest.mark.parametrize("shape,nx,ny", SHAPES)
+def test_k2_pcg_plain_matches_pallas(shape, nx, ny):
+    jd, pop, lay = _layouts(shape, nx, ny)
+    rng = np.random.default_rng(12)
+    x, r, z, w = (_masked_field(rng, pop) for _ in range(4))
+    beta, alpha = np.float32(0.21), np.float32(-3.1e-5)
+    eng = JEngine(pop)
+    side = eng._call_k1(jnp.asarray(w), jnp.asarray(z), beta)[0]
+    outs = eng._call_k2_pcg(*(jnp.asarray(a) for a in (x, r, z, w)), side, None, alpha, beta)
+    x_in = _t(x)
+    got = cg_fused.k2_pcg(
+        x_in, _t(r), _t(z), _t(w), _t(np.asarray(side)[:, :2]), torch.tensor([alpha, beta]), lay
+    )
+    for g, ref in zip(got[:3], outs[:3]):
+        _close(g, ref)
+    np.testing.assert_allclose(
+        got[3].sum().item(), float(np.asarray(outs[3])[:, 0, 0].sum()), rtol=1e-5
+    )
+    np.testing.assert_allclose(got[4].numpy(), np.asarray(outs[4])[:, 0, 0], rtol=1e-6)
+    np.testing.assert_array_equal(x_in.numpy(), x)  # inputs untouched
+
+
+def _jax_mg(shape, nx, ny):
+    jd = JDomain2D(nx=nx, ny=ny, shape=shape)
+    return jd, JMG.from_domain(jd, fuse=True, fuse_min_extent=16, interpret=True)
+
+
+def _carry_mg(M):
+    """The JAX hierarchy as plain values, through interop."""
+    levels = []
+    for lev in M.levels:
+        base = getattr(lev, "jnp_level", lev)
+        spec = base.mask_spec
+        d = dict(shape=spec.kind, nx=spec.nx, ny=spec.ny, coeffs=base.coeffs,
+                 omega_over_diag=base.omega_over_diag)
+        if hasattr(lev, "kernels"):
+            d.update(padded_shape=lev.kernels.padded_shape, block_rows=lev.kernels.block_rows)
+        levels.append(d)
+    return multigrid_from_state(
+        levels, np.asarray(M.coarse_solve.idx), np.asarray(M.coarse_solve.a_inv), nu=M.nu_pre
+    )
+
+
+@pytest.mark.parametrize("shape,nx,ny", SHAPES)
+def test_hierarchy_from_domain_matches_jax(shape, nx, ny):
+    # structure and the coarse inverse are built the same way: exact
+    _, M = _jax_mg(shape, nx, ny)
+    P = MultigridPreconditioner.from_domain(
+        Domain2D(nx=nx, ny=ny, shape=shape), fuse=True, fuse_min_extent=16
+    )
+    assert len(P.levels) == len(M.levels)
+    for a, b in zip(P.levels, M.levels):
+        assert isinstance(a, _FusedLevel) == hasattr(b, "kernels")
+        if hasattr(b, "kernels"):
+            ka, kb = a.kernels, b.kernels
+            assert (ka.padded_shape, ka.block_rows, ka.coeffs, ka.cs) == (
+                kb.padded_shape, kb.block_rows, kb.coeffs, kb.cs)
+            assert (a.h, a.w, a.ch, a.cw) == (b.h, b.w, b.ch, b.cw)
+    np.testing.assert_array_equal(P.coarse_solve.idx, np.asarray(M.coarse_solve.idx))
+    np.testing.assert_allclose(P.coarse_solve.a_inv, np.asarray(M.coarse_solve.a_inv),
+                               rtol=1e-12)
+
+
+@pytest.mark.parametrize("shape,nx,ny", SHAPES)
+@pytest.mark.parametrize("with_dot", [False, True])
+def test_k_down_k_up_plain_match_pallas(shape, nx, ny, with_dot):
+    _, M = _jax_mg(shape, nx, ny)
+    jk = M.levels[0].kernels
+    pk = _carry_mg(M).levels[0].kernels
+    hp, wp = jk.padded_shape
+    rng = np.random.default_rng(13)
+    b = rng.standard_normal((hp, wp)).astype(np.float32)  # unmasked: the kernels mask b
+    ec = rng.standard_normal((hp // 2, wp)).astype(np.float32)
+    _close(pk.down(_t(b)), jk.down(jnp.asarray(b)))
+    ref = jk.up(jnp.asarray(b), jnp.asarray(ec), with_dot=with_dot)
+    got = pk.up(_t(b), _t(ec), with_dot=with_dot)
+    if with_dot:
+        (ref, ref_dot), (got, got_dot) = ref, got
+        np.testing.assert_allclose(got_dot.item(), float(ref_dot), rtol=1e-5)
+    _close(got, ref)
+
+
+@pytest.mark.parametrize("nx", [64, 40, 254])
+def test_lane_transfers(nx):
+    rng = np.random.default_rng(14)
+    w, wc = nx + 1, nx // 2 + 1
+    wp = -(-w // 128) * 128
+    rr = np.zeros((9, wp), np.float32)
+    rr[:, :w] = rng.standard_normal((9, w))
+    # strided forms are the same ops in both libraries
+    _close(mg_fused.lane_restrict(_t(rr), nx, wc), jmg.lane_restrict(jnp.asarray(rr), nx, wc))
+    # the TPU's banded-matmul form sums in another order
+    _close(mg_fused.lane_restrict(_t(rr), nx, wc),
+           jmg.lane_restrict_mm(jnp.asarray(rr), nx, wc), frac=1e-6)
+    ec = np.zeros((9, wc), np.float32)
+    ec[:, : nx // 2 + 1] = rng.standard_normal((9, nx // 2 + 1))
+    # (the matmul form leaves values past the active width nx+1, where the
+    # kernels' interior mask discards them)
+    _close(mg_fused.lane_prolong(_t(ec), nx // 2, wp)[:, :w],
+           np.asarray(jmg.lane_prolong_mm(jnp.asarray(ec), nx // 2, wp))[:, :w], frac=1e-6)
+    _close(mg_fused.lane_prolong(_t(ec), nx // 2, wp),
+           jmg.lane_prolong(jnp.asarray(ec), nx // 2, wp))
+    # P = 2 R^T exactly (weights are powers of two)
+    Rt = mg_fused.lane_restrict(torch.eye(w, dtype=torch.float64), nx, wc)  # (w, wc)
+    Pt = mg_fused.lane_prolong(torch.eye(wc, dtype=torch.float64), nx // 2, w)  # (wc, w)
+    assert torch.equal(Pt, 2.0 * Rt.T)
+
+
+@pytest.mark.parametrize("shape,nx,ny", SHAPES)
+def test_vcycle_and_call_with_dot_match_jax(shape, nx, ny):
+    jd, M = _jax_mg(shape, nx, ny)
+    P = _carry_mg(M)
+    rng = np.random.default_rng(15)
+    r = (rng.standard_normal(jd.grid_shape) * np.asarray(jd.interior)).astype(np.float32)
+    _close(P(_t(r)), M(jnp.asarray(r)), frac=1e-5)
+    # padded pass-through: the fused fine level's own layout, dot fused in K_up
+    hp, wp = M.levels[0].kernels.padded_shape
+    rp = np.zeros((hp, wp), np.float32)
+    rp[: r.shape[0], : r.shape[1]] = r
+    z_ref, dot_ref = M.call_with_dot(jnp.asarray(rp))
+    z, dot = P.call_with_dot(_t(rp))
+    _close(z, z_ref, frac=1e-5)
+    np.testing.assert_allclose(dot.item(), float(dot_ref), rtol=1e-5)
+    # symmetric operator: (u, M v) == (v, M u) to f32 round-off
+    u, v = (_t((rng.standard_normal(jd.grid_shape) * jd.interior).astype(np.float32))
+            for _ in range(2))
+    s1, s2 = float(torch.sum(u * P(v))), float(torch.sum(v * P(u)))
+    assert abs(s1 - s2) <= 2e-5 * abs(s1)
+    # f64 fields take the plain leg of every level
+    r64 = _t(r.astype(np.float64))
+    _close(P(r64), M(jnp.asarray(r64)), frac=1e-12)
+
+
+@pytest.mark.parametrize("shape,nx,ny", SHAPES)
+def test_pcg_iteration_from_carried_state(shape, nx, ny):
+    jd, M = _jax_mg(shape, nx, ny)
+    pop = PallasStencilOperator.from_domain(jd, interpret=True)
+    Mj = JPadded(inner=M, padded_op=pop)
+    lay = PaddedStencilOperator.from_domain(Domain2D(nx=nx, ny=ny, shape=shape))
+    Mt = PaddedPreconditioner(inner=_carry_mg(M), padded_op=lay)
+    eng_j, eng_t = JEngine(pop, Mj), cg_fused.FusedCGEngine(lay, Mt)
+    rng = np.random.default_rng(16)
+    r = jnp.asarray(_masked_field(rng, pop))
+    w0, rz0 = Mj.call_with_dot(r)
+    f32 = jnp.float32
+    s = JCGState(
+        x=jnp.zeros_like(r), r=r, z=jnp.zeros_like(r), k=jnp.asarray(0, jnp.int32),
+        done=jnp.asarray(False), reason=jnp.asarray(0, jnp.int32), rz=rz0,
+        r_norm2=jnp.sum(r * r), prec_max=jnp.asarray(jnp.inf, f32),
+        r_max=jnp.max(jnp.abs(r)), err_max=jnp.asarray(jnp.inf, f32),
+        r0_norm=jnp.sqrt(jnp.sum(r * r)), w=w0, rz_prev=jnp.asarray(1.0, f32),
+    )
+    s = eng_j.iteration(s, None)  # k = 1: the next step has beta != 0
+    st = cg_state_from_arrays({k: np.asarray(v) for k, v in s._asdict().items()})
+    s2, st2 = eng_j.iteration(s, None), eng_t.iteration(st)
+    assert st2.k == int(s2.k) == 2
+    for name in ("x", "r", "z", "w"):
+        _close(getattr(st2, name), getattr(s2, name), frac=1e-5)
+    for name in ("rz", "rz_prev", "r_norm2", "prec_max", "r_max"):
+        np.testing.assert_allclose(getattr(st2, name).item(), float(getattr(s2, name)),
+                                   rtol=1e-5)
