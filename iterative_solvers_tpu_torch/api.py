@@ -1,34 +1,54 @@
-"""High-level facade for the mixed-precision multigrid path (counterpart of
-iterative_solvers_tpu/api.py).
+"""High-level facade (counterpart of iterative_solvers_tpu/api.py).
 
-``DirichletSolver(..., preconditioner="mg", precision="mixed")`` assembles
-the manufactured problem on ``device`` in f64 and runs
-:func:`~iterative_solvers_tpu_torch.solvers.refine.fused_refined_solve`:
-the f64 refinement outer around the fused f32 PCG engine and its fused
-V-cycle. ``device="cuda"`` (the default) launches the hand-written kernels
-and raises if there is no card; ``device="cpu"`` runs their plain torch
-versions. Nothing falls back from one to the other.
+Two paths are ported:
+
+- ``DirichletSolver(..., preconditioner="mg", precision="mixed")``, the JAX
+  package's default solve: the manufactured problem assembled on ``device``
+  in f64, then :func:`~iterative_solvers_tpu_torch.solvers.refine.fused_refined_solve`
+  — the FMG warm start (``fmg_cycles``, default 1), the refinement outer
+  (``outer``: f64 or double-f32) around the fused f32 PCG engine and its
+  fused V-cycle. ``operator`` stays ``"stencil"`` here, as in the JAX facade,
+  whose mixed path runs the fused engine whatever the operator.
+- ``DirichletSolver(..., operator="fused")``: f32 MSG CG (or, with
+  ``preconditioner="mg"``, PCG) on the fused engine through
+  :func:`~iterative_solvers_tpu_torch.kernels.cg_fused.fused_cg_solve`, the
+  reference algorithm; the final residual goes through the padded
+  operator's stencil kernel, as in the JAX facade.
+
+``device="cuda"`` (the default) launches the hand-written kernels and raises
+if there is no card; ``device="cpu"`` runs their plain torch versions.
+Nothing falls back from one to the other. Every other option combination of
+the JAX facade raises NotImplementedError naming its ROADMAP item.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
 import torch
 
-from iterative_solvers_tpu_torch.core.domain import Domain2D
+from iterative_solvers_tpu_torch.core.domain import Domain2D, resolve_device
 from iterative_solvers_tpu_torch.core.problem import PoissonProblem
+from iterative_solvers_tpu_torch.kernels.cg_fused import fused_cg_solve
 from iterative_solvers_tpu_torch.kernels.stencil_layout import PaddedStencilOperator
 from iterative_solvers_tpu_torch.ops.stencil import StencilOperator
-from iterative_solvers_tpu_torch.solvers.multigrid import PaddedPreconditioner
+from iterative_solvers_tpu_torch.solvers.cg import CGOptions
+from iterative_solvers_tpu_torch.solvers.multigrid import (
+    MultigridPreconditioner,
+    PaddedPreconditioner,
+)
 from iterative_solvers_tpu_torch.solvers.precond import (
     make_preconditioner,
     parse_preconditioner,
 )
 from iterative_solvers_tpu_torch.solvers.refine import fused_refined_solve
 from iterative_solvers_tpu_torch.solvers.stopping import StopConfig, StopReason
+
+# What outer='auto' means on the card (see PERF.md for the A/B behind it).
+AUTO_OUTER = "f64"
 
 
 @dataclass
@@ -64,14 +84,25 @@ class SolverResults:
         return out
 
 
-class DirichletSolver:
-    """Gamma-domain Dirichlet–Poisson solved by mixed-precision MG-PCG.
+def _attach_fmg(M, problem):
+    """Attach the FMG payload (:meth:`MultigridPreconditioner.with_fmg`) to
+    the multigrid inside adapter ``M``; anything else passes through."""
+    if isinstance(M, PaddedPreconditioner):
+        return dataclasses.replace(M, inner=_attach_fmg(M.inner, problem))
+    if isinstance(M, MultigridPreconditioner) and M.domains:
+        return M.with_fmg(problem)
+    return M
 
-    Ported options: ``preconditioner='mg[:nu]'``, ``precision='mixed'``,
-    ``fmg_cycles=0``, ``outer='f64'`` or ``'auto'`` — which means f64 here,
-    because f64 is native on the card (the JAX package's 'auto' picks the
-    double-f32 outer on a TPU). ``fmg_cycles`` keeps the JAX default of 1, so
-    leaving it out raises rather than silently starting cold.
+
+class DirichletSolver:
+    """Gamma/rect-domain Dirichlet–Poisson solver.
+
+    Ported options: ``precision='mixed'`` with ``preconditioner='mg[:nu]'``,
+    any ``fmg_cycles >= 0`` and ``outer`` in ``'f64'``, ``'ff'`` (double-f32)
+    or ``'auto'`` — which means :data:`AUTO_OUTER` on the card, chosen by
+    measurement there (the JAX package's 'auto' picks ff on a TPU); and
+    ``operator='fused'`` with ``precision=None``, with or without
+    ``preconditioner='mg[:nu]'``.
     """
 
     def __init__(
@@ -85,6 +116,7 @@ class DirichletSolver:
         *,
         domain: Optional[Domain2D] = None,
         problem: Optional[PoissonProblem] = None,
+        operator: str = "stencil",
         stop: Optional[StopConfig] = None,
         preconditioner: Optional[str] = None,
         precision: Optional[str] = None,
@@ -97,57 +129,79 @@ class DirichletSolver:
         else:
             dom = domain or Domain2D(nx=nx, ny=ny, x0=x0, x1=x1, y0=y0, y1=y1)
             self.problem = PoissonProblem.manufactured(dom)
+        self.operator_kind = operator
         self.stop = stop or StopConfig()
         self.preconditioner = preconditioner
         self.precision = precision
         self.fmg_cycles = fmg_cycles
         self.outer = outer
-        self.device = torch.device(device)
         self._validate_config()
-        self._parts = None  # (layout, padded M), built on first solve
+        self.device = resolve_device(device)
+        self._parts = None  # (layout, padded M or None), built on first solve
 
     @property
     def domain(self) -> Domain2D:
         return self.problem.domain
 
     def _validate_config(self) -> None:
+        operator = self.operator_kind
+        if operator not in ("stencil", "sparse", "pallas", "fused"):
+            raise ValueError(
+                f"unknown operator {operator!r} (use 'stencil', 'sparse', 'pallas' or 'fused')"
+            )
         kind = None
         if self.preconditioner is not None:
             kind, _ = parse_preconditioner(self.preconditioner)
+            if kind == "mg" and operator == "sparse":
+                raise ValueError("preconditioner='mg' needs grid-shaped fields, "
+                                 "which operator='sparse' does not have")
+            if operator == "fused" and kind != "mg":
+                raise ValueError("operator='fused' supports preconditioner='mg[:nu]' only")
         if self.precision not in (None, "mixed"):
             raise ValueError(f"unknown precision {self.precision!r} (use None or 'mixed')")
         if self.outer not in ("auto", "f64", "ff"):
             raise ValueError(f"unknown outer {self.outer!r} (use 'auto', 'f64' or 'ff')")
         if self.outer == "ff" and self.precision != "mixed":
             raise ValueError("outer='ff' needs precision='mixed'")
+        if self.precision == "mixed" and operator != "stencil":
+            # the JAX facade's rule without a mesh (no mesh is ported)
+            raise ValueError("precision='mixed' requires operator='stencil'")
         if not (isinstance(self.fmg_cycles, int) and self.fmg_cycles >= 0):
             raise ValueError(f"fmg_cycles must be an int >= 0, got {self.fmg_cycles!r}")
         # --- what the port does not run yet ---
-        if self.precision != "mixed" or kind != "mg":
+        if self.precision == "mixed" and kind != "mg":
             raise NotImplementedError(
-                "only precision='mixed' with preconditioner='mg[:nu]' is ported "
-                "(ROADMAP Queue 1 items 4, 12 and 13)"
+                "precision='mixed' runs with preconditioner='mg[:nu]' only; the generic "
+                "ladder and the other preconditioners are not ported yet "
+                "(ROADMAP Queue 1 item 12)"
             )
-        if self.outer == "ff":
+        if self.precision is None and operator != "fused":
             raise NotImplementedError(
-                "outer='ff' (double-f32 outer) is not ported yet (ROADMAP Queue 1 item 7)"
+                f"operator={operator!r} with precision=None is not ported yet "
+                "(ROADMAP Queue 1 items 12 and 13); use operator='fused'"
             )
-        if self.fmg_cycles > 0:
-            raise NotImplementedError(
-                "the FMG warm start (fmg_cycles > 0) is not ported yet "
-                "(ROADMAP Queue 1 item 5, FMG); pass fmg_cycles=0"
-            )
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("device='cuda' but no CUDA device is available")
-        if self.device.type not in ("cuda", "cpu"):
-            raise ValueError(f"unsupported device {self.device}")
+
+    @property
+    def outer_kind(self) -> str:
+        """The outer this solver runs: 'f64' or 'ff'."""
+        return AUTO_OUTER if self.outer == "auto" else self.outer
+
+    def _build_parts(self):
+        dom = self.domain
+        pop = PaddedStencilOperator.from_domain(dom)
+        Mp = None
+        if self.preconditioner is not None:
+            M = make_preconditioner(self.preconditioner, dom, device=self.device)
+            Mp = PaddedPreconditioner(inner=M, padded_op=pop)
+            if self.precision == "mixed":
+                # FMG payload: the problem rediscretised on each coarse level
+                Mp = _attach_fmg(Mp, self.problem)
+        return pop, Mp
 
     def solve(self) -> SolverResults:
         dom = self.domain
         if self._parts is None:
-            M = make_preconditioner(self.preconditioner, dom, device=self.device)
-            pop = PaddedStencilOperator.from_domain(dom)
-            self._parts = (pop, PaddedPreconditioner(inner=M, padded_op=pop))
+            self._parts = self._build_parts()
         pop, Mp = self._parts
         b = self.problem.rhs_field(torch.float64, self.device)
         u = (
@@ -155,9 +209,17 @@ class DirichletSolver:
             if self.problem.u_exact is not None
             else None
         )
-        res = fused_refined_solve(pop, Mp, b, u_true=u, stop=self.stop)
-        x = res.x
-        r = b - StencilOperator.from_domain(dom)(x)
+        if self.precision == "mixed":
+            res = fused_refined_solve(pop, Mp, b, u_true=u, stop=self.stop,
+                                      fmg=self.fmg_cycles, ff=self.outer_kind == "ff")
+            x = res.x
+            r = b - StencilOperator.from_domain(dom)(x)
+        else:
+            opts = CGOptions(stop=self.stop, preconditioner=Mp, record_history=True)
+            res = fused_cg_solve(pop, b, u_true=u, options=opts)
+            x = res.x.to(torch.float64)
+            # final residual through the stencil kernel, as the JAX facade does
+            r = b - pop.crop(pop(pop.pad(res.x))).to(torch.float64)
         interior = dom.interior_on(self.device)
         sol = x[interior].cpu().numpy()
         resid = r[interior].cpu().numpy()
@@ -196,5 +258,5 @@ class DirichletSolver:
             max_iterations=self.stop.max_iterations,
             history=res.history,
             shape=dom.shape,
-            outer_iterations=res.outer_iterations,
+            outer_iterations=getattr(res, "outer_iterations", 0),
         )

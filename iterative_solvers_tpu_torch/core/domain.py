@@ -18,6 +18,18 @@ import numpy as np
 import torch
 
 
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device the port runs on. The entry points
+    default to ``"cuda"``: that raises without a card, and ``"cpu"`` must be
+    asked for. Nothing falls back from one to the other."""
+    device = torch.device(device)
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device}")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device='cuda' but no CUDA device is available")
+    return device
+
+
 def interior_pred(kind: str, nx: int, ny: int, ri, ci):
     """Gamma/rect interior predicate on global (row, col) index arrays.
 

@@ -4,7 +4,13 @@ The system is the discrete Laplacian itself, ``A u = f``, with Dirichlet
 values eliminated into the RHS: for an interior node next to a boundary node,
 ``rhs -= coeff * g(neighbor)``. Fields are assembled with torch on the
 requested device, in f64, then cast — at 8192² that is a few element-wise
-sweeps on the card instead of a host sweep plus a 0.5 GB copy.
+sweeps on the card instead of a host sweep plus a 0.5 GB copy. ``device``
+defaults to ``"cuda"`` (raising without a card); pass ``"cpu"`` for the CPU.
+
+The RHS subtracts the Dirichlet terms axis by axis, y then x, as the JAX
+package's in-trace assembly (``rhs_field_traced``) does: that is what it
+runs on an accelerator and for its FMG payload's coarse levels, so the
+rounded f32 level fields match it bit for bit.
 """
 
 from __future__ import annotations
@@ -14,7 +20,7 @@ from typing import Callable, Optional
 
 import torch
 
-from iterative_solvers_tpu_torch.core.domain import Domain2D
+from iterative_solvers_tpu_torch.core.domain import Domain2D, resolve_device
 
 
 def _reference_f(x, y):
@@ -59,32 +65,32 @@ class PoissonProblem:
             raise ValueError("no Dirichlet data: provide g or u_exact")
         return self.u_exact
 
-    def boundary_field(self, dtype=torch.float64, device="cpu") -> torch.Tensor:
+    def boundary_field(self, dtype=torch.float64, device="cuda") -> torch.Tensor:
         """Dirichlet data on boundary nodes, zero elsewhere."""
+        device = resolve_device(device)
         X, Y = _coords(self.domain, device)
         G = torch.where(self.domain.boundary_on(device), self.dirichlet(X, Y), 0.0)
         return G.to(dtype)
 
-    def rhs_field(self, dtype=torch.float64, device="cpu") -> torch.Tensor:
+    def rhs_field(self, dtype=torch.float64, device="cuda") -> torch.Tensor:
         """Full-grid RHS with the boundary eliminated, zero off the interior."""
+        device = resolve_device(device)
         dom = self.domain
         X, Y = _coords(dom, device)
-        F = self.f(X, Y)
         G = self.boundary_field(torch.float64, device)
         p = torch.nn.functional.pad(G, (1, 1, 1, 1))
-        rhs = (
-            F
-            - dom.coeff_x * (p[1:-1, :-2] + p[1:-1, 2:])
-            - dom.coeff_y * (p[:-2, 1:-1] + p[2:, 1:-1])
-        )
+        rhs = self.f(X, Y)
+        rhs = rhs - dom.coeff_y * (p[:-2, 1:-1] + p[2:, 1:-1])
+        rhs = rhs - dom.coeff_x * (p[1:-1, :-2] + p[1:-1, 2:])
         return torch.where(dom.interior_on(device), rhs, 0.0).to(dtype)
 
     def true_solution_field(
-        self, dtype=torch.float64, device="cpu", masked: bool = True
+        self, dtype=torch.float64, device="cuda", masked: bool = True
     ) -> torch.Tensor:
         """u_exact on the grid, interior-masked by default."""
         if self.u_exact is None:
             raise ValueError("problem has no exact solution")
+        device = resolve_device(device)
         X, Y = _coords(self.domain, device)
         U = self.u_exact(X, Y)
         if masked:

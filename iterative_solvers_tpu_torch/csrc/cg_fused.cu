@@ -1,12 +1,16 @@
-// Fused PCG iteration kernels K1 and K2-pcg.
+// Fused CG / PCG iteration kernels K1, K2 and K2-pcg.
 //
 // K1 replaces iterative_solvers_tpu/kernels/cg_fused.py:_make_k1 (A2);
+// K2 replaces cg_fused.py:_make_k2 (A3, plain CG);
 // K2-pcg replaces cg_fused.py:_make_k2_pcg (A4).
 //
-// What bounds them on an H100: both are memory-bound stencil sweeps with no
+// What bounds them on an H100: all are memory-bound stencil sweeps with no
 // tensor-core work. K1 reads two f32 streams (d, z_prev; 8 B/node) and writes
 // only per-block partial sums plus two halo rows per band. K2-pcg reads four
-// streams (x, r, z_prev, w) and writes three (x', r', z_k): 28 B/node. The
+// streams (x, r, z_prev, w) and writes three (x', r', z_k): 28 B/node. K2 is
+// the same kernel with the direction built from r itself (z_k = r + beta *
+// z_prev): three reads, three writes, 24 B/node. With a true solution u
+// (one more read, +4 B/node) both also emit per-block max |x' - u|. The
 // direction z_k = d + beta * z_prev and the product A z_k are formed in
 // registers in both kernels and never stored, so Az costs no device-memory
 // traffic at all; the stencil is simply evaluated twice per iteration.
@@ -74,24 +78,29 @@ __global__ void k1_kernel(const float* __restrict__ d, const float* __restrict__
   }
 }
 
-__global__ void k2_pcg_kernel(const float* __restrict__ x, const float* __restrict__ r,
-                              const float* __restrict__ zp, const float* __restrict__ w,
-                              const float* __restrict__ side, const float* __restrict__ scal,
-                              float* __restrict__ xo, float* __restrict__ ro,
-                              float* __restrict__ zo, float* __restrict__ r2_p,
-                              float* __restrict__ rmax_p, Geom g, int by) {
+// kPcg: z_k = w + beta * z_prev (A4); else z_k = r + beta * z_prev (A3), and
+// w is not read. u (may be null) adds the max |x' - u| partial.
+template <bool kPcg>
+__global__ void k2_kernel(const float* __restrict__ x, const float* __restrict__ r,
+                          const float* __restrict__ zp, const float* __restrict__ w,
+                          const float* __restrict__ side, const float* __restrict__ scal,
+                          const float* __restrict__ u, float* __restrict__ xo,
+                          float* __restrict__ ro, float* __restrict__ zo,
+                          float* __restrict__ r2_p, float* __restrict__ rmax_p,
+                          float* __restrict__ err_p, Geom g, int by) {
   const int c = blockIdx.x * TW + threadIdx.x;
   const int band = blockIdx.y;
   const int row0 = band * by;
   const int wp = g.wp;
   const float alpha = scal[0];
   const float beta = scal[1];
+  const float* __restrict__ dir = kPcg ? w : r;
   auto zk = [&](int rr, int cc) -> float {
     if (cc < 0 || cc >= wp) return 0.f;
     const size_t i = (size_t)rr * wp + cc;
-    return w[i] + beta * zp[i];
+    return dir[i] + beta * zp[i];
   };
-  float s_r2 = 0.f, s_max = 0.f;
+  float s_r2 = 0.f, s_max = 0.f, s_err = 0.f;
   float prev = side[((size_t)band * 2 + 0) * wp + c];
   const float dn = side[((size_t)band * 2 + 1) * wp + c];
   float cur = zk(row0, c);
@@ -109,15 +118,18 @@ __global__ void k2_pcg_kernel(const float* __restrict__ x, const float* __restri
     zo[i] = cur;
     s_r2 += rn * rn;
     s_max = fmaxf(s_max, fabsf(rn));
+    if (u != nullptr) s_err = fmaxf(s_err, fabsf(xn - u[i]));
     prev = cur;
     cur = next;
   }
   s_r2 = ist::block_reduce<false>(s_r2);
   s_max = ist::block_reduce<true>(s_max);
+  if (u != nullptr) s_err = ist::block_reduce<true>(s_err);
   if (threadIdx.x == 0) {
     const int p = band * gridDim.x + blockIdx.x;
     r2_p[p] = s_r2;
     rmax_p[p] = s_max;
+    if (u != nullptr) err_p[p] = s_err;
   }
 }
 
@@ -133,13 +145,24 @@ extern "C" int ist_k1(const float* d, const float* zp, const float* beta, float*
   return (int)cudaGetLastError();
 }
 
-extern "C" int ist_k2_pcg(const float* x, const float* r, const float* zp, const float* w,
-                          const float* side, const float* scal, float* xo, float* ro,
-                          float* zo, float* r2_p, float* rmax_p, int nx, int ny, int gamma,
-                          int hp, int wp, int by, float cd, float cx, float cy,
-                          cudaStream_t stream) {
+extern "C" int ist_k2(const float* x, const float* r, const float* zp, const float* side,
+                      const float* scal, const float* u, float* xo, float* ro, float* zo,
+                      float* r2_p, float* rmax_p, float* err_p, int nx, int ny, int gamma,
+                      int hp, int wp, int by, float cd, float cx, float cy,
+                      cudaStream_t stream) {
   const Geom g{nx, ny, gamma, hp, wp, cd, cx, cy};
-  k2_pcg_kernel<<<dim3(wp / TW, hp / by), TW, 0, stream>>>(x, r, zp, w, side, scal, xo, ro,
-                                                           zo, r2_p, rmax_p, g, by);
+  k2_kernel<false><<<dim3(wp / TW, hp / by), TW, 0, stream>>>(
+      x, r, zp, nullptr, side, scal, u, xo, ro, zo, r2_p, rmax_p, err_p, g, by);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ist_k2_pcg(const float* x, const float* r, const float* zp, const float* w,
+                          const float* side, const float* scal, const float* u, float* xo,
+                          float* ro, float* zo, float* r2_p, float* rmax_p, float* err_p,
+                          int nx, int ny, int gamma, int hp, int wp, int by, float cd,
+                          float cx, float cy, cudaStream_t stream) {
+  const Geom g{nx, ny, gamma, hp, wp, cd, cx, cy};
+  k2_kernel<true><<<dim3(wp / TW, hp / by), TW, 0, stream>>>(
+      x, r, zp, w, side, scal, u, xo, ro, zo, r2_p, rmax_p, err_p, g, by);
   return (int)cudaGetLastError();
 }

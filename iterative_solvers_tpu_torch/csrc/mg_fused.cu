@@ -1,7 +1,9 @@
-// Fused V-cycle leg kernels K_down and K_up for the multigrid fine levels.
+// Fused V-cycle leg kernels K_down and K_up for the multigrid fine levels,
+// and the weighted-Jacobi sweep K_jacobi of the FMG warm start.
 //
 // K_down replaces iterative_solvers_tpu/kernels/mg_fused.py:_make_k_down (A5);
-// K_up replaces mg_fused.py:_make_k_up (A6), with and without its dot epilogue.
+// K_up replaces mg_fused.py:_make_k_up (A6), with and without its dot epilogue;
+// K_jacobi replaces mg_fused.py:_make_k_jacobi (A7).
 //
 // What bounds them on an H100: both are memory-bound stencil sweeps with no
 // tensor-core work. K_down reads the level RHS b once (4 B/node) and writes
@@ -12,6 +14,10 @@
 // corrected iterate are all formed in registers from b and ec and never
 // stored; neighbours are recomputed from the read-only inputs (served from
 // L1/L2), which trades cheap arithmetic for device-memory traffic.
+//
+// K_jacobi reads x and b once and writes the swept iterate: 12 B/node. Like
+// the TPU kernel it masks every read of x and b, so values the FMG
+// prolongation left on boundary nodes are discarded, and masks its output.
 //
 // Stride-2 rows: Mosaic needed reshape-split and stack+reshape tricks. Here
 // coarse row J is computed from fine rows 2J-1, 2J, 2J+1 directly, and fine
@@ -89,6 +95,31 @@ __global__ void k_up_kernel(const float* __restrict__ b, const float* __restrict
   }
 }
 
+__global__ void k_jacobi_kernel(const float* __restrict__ x, const float* __restrict__ b,
+                                float* __restrict__ out, Geom g, float cs, int by) {
+  const int c = blockIdx.x * TW + threadIdx.x;
+  const int row0 = blockIdx.y * by;
+  const int wp = g.wp;
+  // masked read; the interior test also keeps every read on the canvas
+  auto X = [&](int i, int cc) -> float {
+    return ist::interior(g, i, cc) ? x[(size_t)i * wp + cc] : 0.f;
+  };
+  float prev = X(row0 - 1, c);
+  float cur = X(row0, c);
+  for (int k = 0; k < by; ++k) {
+    const int i = row0 + k;
+    const float next = X(i + 1, c);
+    float o = 0.f;
+    if (ist::interior(g, i, c)) {
+      const float ax = g.cd * cur + g.cx * (X(i, c - 1) + X(i, c + 1)) + g.cy * (prev + next);
+      o = cur + cs * (b[(size_t)i * wp + c] - ax);
+    }
+    out[(size_t)i * wp + c] = o;
+    prev = cur;
+    cur = next;
+  }
+}
+
 }  // namespace
 
 extern "C" int ist_k_down(const float* b, float* rr, int nx, int ny, int gamma, int hp,
@@ -104,5 +135,13 @@ extern "C" int ist_k_up(const float* b, const float* ec, float* out, float* dot_
                         float cx, float cy, float cs, cudaStream_t stream) {
   const Geom g{nx, ny, gamma, hp, wp, cd, cx, cy};
   k_up_kernel<<<dim3(wp / TW, hp / by), TW, 0, stream>>>(b, ec, out, dot_p, g, cs, by, ch);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ist_k_jacobi(const float* x, const float* b, float* out, int nx, int ny,
+                            int gamma, int hp, int wp, int by, float cd, float cx, float cy,
+                            float cs, cudaStream_t stream) {
+  const Geom g{nx, ny, gamma, hp, wp, cd, cx, cy};
+  k_jacobi_kernel<<<dim3(wp / TW, hp / by), TW, 0, stream>>>(x, b, out, g, cs, by);
   return (int)cudaGetLastError();
 }

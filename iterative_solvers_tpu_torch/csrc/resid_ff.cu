@@ -1,0 +1,127 @@
+// Compensated double-f32 true residual (rh, rl) = (bh + bl) - A (xh + xl).
+//
+// Replaces iterative_solvers_tpu/kernels/resid_ff.py:_make_k_resid_ff_2d (A8),
+// the only high-precision work of the double-f32 refinement outer.
+//
+// What bounds it on an H100: a memory-bound sweep. It reads xh, xl, bh, bl
+// and writes rh, rl: 24 B/node. The ~60 f32 operations per node are far
+// below the card's f32 rate for those bytes. Each thread owns one column of a
+// band and walks its rows, keeping the rows above and below of xh and xl in
+// registers; column neighbours are re-read through L1. Every read of xh and
+// xl is masked by the algebraic interior predicate, and so is the output.
+//
+// Rounding: the arithmetic is ops/ddf32.residual_ff operation for operation,
+// in its order: TwoSum first differences per axis, the coefficient applied
+// exactly (a power of two) or by Dekker's TwoProd with f32 constants split on
+// the host, Σ axis errors, then A xl, then delta * xh, then the renormalising
+// TwoSums. nvcc contracts a * b + c into one FMA by default, which breaks
+// TwoSum and Dekker's split, so every operation here is a __fadd_rn /
+// __fsub_rn / __fmul_rn intrinsic, which is never contracted: rh matches the
+// plain torch version bit for bit. The library's other kernels keep nvcc's
+// default contraction.
+#include "common.cuh"
+
+using ist::Geom;
+using ist::TW;
+
+namespace {
+
+struct AxisC {
+  int pow2;
+  float cf, cf_hi, cf_lo, c_lo;
+};
+
+struct FF {
+  float s, e;
+};
+
+__device__ __forceinline__ FF two_sum(float a, float b) {
+  const float s = __fadd_rn(a, b);
+  const float bb = __fsub_rn(s, a);
+  return {s, __fadd_rn(__fsub_rn(a, __fsub_rn(s, bb)), __fsub_rn(b, bb))};
+}
+
+// (main, err) of c * (t + e_sum) for the exact pair t + e_sum
+__device__ __forceinline__ FF scaled_term(float t, float e_sum, const AxisC& c) {
+  if (c.pow2) return {__fmul_rn(c.cf, t), __fmul_rn(c.cf, e_sum)};
+  const float p = __fmul_rn(c.cf, t);
+  const float k = __fmul_rn(4097.f, t);
+  const float t_hi = __fsub_rn(k, __fsub_rn(k, t));
+  const float t_lo = __fsub_rn(t, t_hi);
+  const float pe = __fadd_rn(
+      __fadd_rn(__fadd_rn(__fsub_rn(__fmul_rn(c.cf_hi, t_hi), p), __fmul_rn(c.cf_hi, t_lo)),
+                __fmul_rn(c.cf_lo, t_hi)),
+      __fmul_rn(c.cf_lo, t_lo));
+  return {p, __fadd_rn(__fadd_rn(pe, __fmul_rn(c.c_lo, t)), __fmul_rn(c.cf, e_sum))};
+}
+
+// (main, err) of c * (lo - 2 x + hi) through exact first differences
+__device__ __forceinline__ FF axis_diff2(float x, float lo, float hi, const AxisC& c) {
+  const FF d1 = two_sum(lo, -x);
+  const FF d2 = two_sum(hi, -x);
+  const FF t = two_sum(d1.s, d2.s);
+  return scaled_term(t.s, __fadd_rn(__fadd_rn(d1.e, d2.e), t.e), c);
+}
+
+__global__ void k_resid_ff_kernel(const float* __restrict__ xh, const float* __restrict__ xl,
+                                  const float* __restrict__ bh, const float* __restrict__ bl,
+                                  float* __restrict__ rh, float* __restrict__ rl, Geom g,
+                                  int by, AxisC ax, AxisC ay, int has_delta, float delta) {
+  const int c = blockIdx.x * TW + threadIdx.x;
+  const int row0 = blockIdx.y * by;
+  const int wp = g.wp;
+  // masked reads; the interior test also keeps every read on the canvas
+  auto H = [&](int i, int cc) -> float {
+    return ist::interior(g, i, cc) ? xh[(size_t)i * wp + cc] : 0.f;
+  };
+  auto L = [&](int i, int cc) -> float {
+    return ist::interior(g, i, cc) ? xl[(size_t)i * wp + cc] : 0.f;
+  };
+  float h_up = H(row0 - 1, c), h = H(row0, c);
+  float l_up = L(row0 - 1, c), l = L(row0, c);
+  for (int k = 0; k < by; ++k) {
+    const int i = row0 + k;
+    const size_t idx = (size_t)i * wp + c;
+    const float h_dn = H(i + 1, c);
+    const float l_dn = L(i + 1, c);
+    float o_h = 0.f, o_l = 0.f;
+    if (ist::interior(g, i, c)) {
+      const FF mx = axis_diff2(h, H(i, c - 1), H(i, c + 1), ax);
+      const FF my = axis_diff2(h, h_up, h_dn, ay);
+      // plain f32 A xl, in the stencil's order: cd x + cx (W + E) + cy (N + S)
+      const float axl = __fadd_rn(
+          __fadd_rn(__fmul_rn(g.cd, l), __fmul_rn(g.cx, __fadd_rn(L(i, c - 1), L(i, c + 1)))),
+          __fmul_rn(g.cy, __fadd_rn(l_up, l_dn)));
+      float corr = __fadd_rn(__fadd_rn(mx.e, my.e), axl);
+      if (has_delta) corr = __fadd_rn(corr, __fmul_rn(delta, h));
+      const FF S = two_sum(mx.s, my.s);
+      const FF t1 = two_sum(bh[idx], -S.s);
+      const float r_lo = __fadd_rn(__fsub_rn(__fsub_rn(bl[idx], S.e), corr), t1.e);
+      const FF r = two_sum(t1.s, r_lo);
+      o_h = r.s;
+      o_l = r.e;
+    }
+    rh[idx] = o_h;
+    rl[idx] = o_l;
+    h_up = h;
+    h = h_dn;
+    l_up = l;
+    l = l_dn;
+  }
+}
+
+}  // namespace
+
+extern "C" int ist_k_resid_ff(const float* xh, const float* xl, const float* bh,
+                              const float* bl, float* rh, float* rl, int nx, int ny,
+                              int gamma, int hp, int wp, int by, int pow2_x, int pow2_y,
+                              int has_delta, float cd, float cx, float cy, float cx_hi,
+                              float cx_lo, float cx_res, float cy_hi, float cy_lo,
+                              float cy_res, float delta, cudaStream_t stream) {
+  const Geom g{nx, ny, gamma, hp, wp, cd, cx, cy};
+  const AxisC ax{pow2_x, cx, cx_hi, cx_lo, cx_res};
+  const AxisC ay{pow2_y, cy, cy_hi, cy_lo, cy_res};
+  k_resid_ff_kernel<<<dim3(wp / TW, hp / by), TW, 0, stream>>>(xh, xl, bh, bl, rh, rl, g, by,
+                                                               ax, ay, has_delta, delta);
+  return (int)cudaGetLastError();
+}

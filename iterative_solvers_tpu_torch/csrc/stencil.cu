@@ -1,0 +1,51 @@
+// Masked 5-point stencil y = A x on the padded layout.
+//
+// Replaces iterative_solvers_tpu/kernels/stencil_pallas.py:_make_kernel (A1),
+// the apply of the padded operator (the facade's final residual of the
+// fused plain-CG solve).
+//
+// What bounds it on an H100: a memory-bound sweep, one f32 read of x and one
+// f32 write of y: 8 B/node. Each thread owns one column of a band and walks
+// its rows, keeping the rows above and below in registers; the column
+// neighbours c +- 1 are re-read through L1. The interior mask is the
+// algebraic gamma/rect predicate (no mask is read), applied to every read
+// and to the output, as the TPU kernel did.
+#include "common.cuh"
+
+using ist::Geom;
+using ist::TW;
+
+namespace {
+
+__global__ void stencil_kernel(const float* __restrict__ x, float* __restrict__ y, Geom g,
+                               int by) {
+  const int c = blockIdx.x * TW + threadIdx.x;
+  const int row0 = blockIdx.y * by;
+  const int wp = g.wp;
+  // masked read; the interior test also keeps every read on the canvas
+  auto X = [&](int i, int cc) -> float {
+    return ist::interior(g, i, cc) ? x[(size_t)i * wp + cc] : 0.f;
+  };
+  float prev = X(row0 - 1, c);
+  float cur = X(row0, c);
+  for (int k = 0; k < by; ++k) {
+    const int i = row0 + k;
+    const float next = X(i + 1, c);
+    float o = 0.f;
+    if (ist::interior(g, i, c))
+      o = g.cd * cur + g.cx * (X(i, c - 1) + X(i, c + 1)) + g.cy * (prev + next);
+    y[(size_t)i * wp + c] = o;
+    prev = cur;
+    cur = next;
+  }
+}
+
+}  // namespace
+
+extern "C" int ist_stencil(const float* x, float* y, int nx, int ny, int gamma, int hp,
+                           int wp, int by, float cd, float cx, float cy,
+                           cudaStream_t stream) {
+  const Geom g{nx, ny, gamma, hp, wp, cd, cx, cy};
+  stencil_kernel<<<dim3(wp / TW, hp / by), TW, 0, stream>>>(x, y, g, by);
+  return (int)cudaGetLastError();
+}

@@ -6,7 +6,8 @@ of each JAX array), so this module needs numpy and torch only:
 - :func:`multigrid_from_state` rebuilds a :class:`MultigridPreconditioner`
   hierarchy from per-level descriptions plus the dense coarse solve's index
   set and inverse;
-- :func:`cg_state_from_arrays` rebuilds a :class:`CGState`.
+- :func:`cg_state_from_arrays` rebuilds a :class:`CGState` — a fused PCG
+  state, or a plain-CG one whose ``w`` and ``rz_prev`` are None.
 """
 
 from __future__ import annotations
@@ -76,10 +77,13 @@ def cg_state_from_arrays(arrays: Mapping[str, object], device="cpu") -> CGState:
     """CGState from numpy arrays/scalars keyed by field name (``x``, ``r``,
     ``z``, ``k``, ``done``, ``reason``, ``rz``, ``r_norm2``, ``prec_max``,
     ``r_max``, ``err_max``, ``r0_norm``, and the fused-PCG ``w``,
-    ``rz_prev``). Missing ``w``/``rz_prev`` stay None."""
+    ``rz_prev``). Missing or None entries (``np.asarray(None)`` included)
+    stay None, as ``w``/``rz_prev`` do in a plain-CG state."""
     def t(name):
-        v = arrays.get(name)
-        return None if v is None else torch.tensor(np.array(v), device=device)
+        v = np.array(arrays.get(name), dtype=None)
+        if v.dtype == object:
+            return None
+        return torch.tensor(v, device=device)
 
     vals = {n: t(n) for n in _FIELDS + _SCALARS}
     return CGState(

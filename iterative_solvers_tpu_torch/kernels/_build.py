@@ -6,7 +6,8 @@ interface (one ``extern "C"`` launcher per kernel returning
 load with ``ctypes``; nothing includes PyTorch's headers. The library is
 built at first use into ``build/torch_kernels/`` at the repository root,
 named by a hash of the sources and flags so an edited source never loads a
-stale build. A failed build raises with nvcc's stderr.
+stale build: one ``nvcc -c`` per source, all started together, then one
+link. A failed build raises with nvcc's stderr.
 
 Launch counts live here too: each wrapper adds one to ``launches[name]``
 where it launches its kernel, and plain versions add one to
@@ -31,7 +32,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
 launches: Counter = Counter()
@@ -41,9 +42,13 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argument types of every launcher; the trailing pointer is the CUDA stream
 _SIGNATURES = {
     "ist_k1": [_P] * 7 + [_I] * 6 + [_F] * 3 + [_P],
-    "ist_k2_pcg": [_P] * 11 + [_I] * 6 + [_F] * 3 + [_P],
+    "ist_k2": [_P] * 12 + [_I] * 6 + [_F] * 3 + [_P],
+    "ist_k2_pcg": [_P] * 13 + [_I] * 6 + [_F] * 3 + [_P],
     "ist_k_down": [_P] * 2 + [_I] * 6 + [_F] * 4 + [_P],
     "ist_k_up": [_P] * 4 + [_I] * 7 + [_F] * 4 + [_P],
+    "ist_k_jacobi": [_P] * 3 + [_I] * 6 + [_F] * 4 + [_P],
+    "ist_stencil": [_P] * 2 + [_I] * 6 + [_F] * 3 + [_P],
+    "ist_k_resid_ff": [_P] * 6 + [_I] * 9 + [_F] * 10 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -87,17 +92,30 @@ def build() -> Path:
     out = library_path()
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    objdir = out.with_suffix(f".{os.getpid()}.obj")
+    objdir.mkdir(parents=True, exist_ok=True)
     cu, _ = _sources()
+    nvcc = _nvcc()
+    objs = [objdir / f"{c.stem}.o" for c in cu]
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(c)],
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for c, o in zip(cu, objs)
+    ]
+    errors = []
+    for c, proc in zip(cu, procs):
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"{c.name} ({proc.returncode}):\n{err}")
+    if errors:
+        raise RuntimeError("nvcc failed: " + "\n".join(errors))
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)],
-        capture_output=True,
-        text=True,
-    )
+    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                          capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, out)
+    shutil.rmtree(objdir, ignore_errors=True)
     return out
 
 

@@ -1,12 +1,18 @@
-"""Fused two-kernel PCG iteration (counterpart of iterative_solvers_tpu/kernels/cg_fused.py).
+"""Fused two-kernel CG/PCG iteration (counterpart of iterative_solvers_tpu/kernels/cg_fused.py).
 
 - **K1** (:func:`k1`, CUDA ``csrc/cg_fused.cu``): forms ``z_k = d + β·z_prev``
   and ``A z_k`` in registers and emits per-block partials of (d, z_k),
   (A z_k, z_k), ‖z_k‖∞, plus each band's two z_k halo rows into a side buffer
   ``(g, 2, wp)``. Read-only on the fields; Az is never stored.
-- **K2-pcg** (:func:`k2_pcg`): recomputes z_k = w + β·z_prev and A z_k, using
-  K1's side rows at the band edges, and writes ``x + α z_k``, ``r − α A z_k``
-  and z_k to fresh buffers, with partials of ‖r‖² and ‖r‖∞.
+- **K2** (:func:`k2`, plain MSG CG) and **K2-pcg** (:func:`k2_pcg`): recompute
+  z_k = r + β·z_prev (K2) or w + β·z_prev (K2-pcg) and A z_k, using K1's
+  side rows at the band edges, and write ``x + α z_k``, ``r − α A z_k`` and
+  z_k to fresh buffers, with partials of ‖r‖², ‖r‖∞ and, given a true
+  solution ``u``, ‖x − u‖∞.
+
+:func:`fused_cg_solve` runs the engine inside the CG loop
+(:func:`~iterative_solvers_tpu_torch.solvers.cg.cg_solve`) with the JAX
+package's fused-chunk stop rules.
 
 Each wrapper launches its kernel on a CUDA tensor and runs its plain torch
 version (``*_plain``, the same arithmetic on the whole canvas at once) on a
@@ -17,6 +23,7 @@ trajectory repeats bit for bit.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional
 
@@ -24,22 +31,11 @@ import torch
 import torch.nn.functional as F
 
 from iterative_solvers_tpu_torch.kernels import _build
-from iterative_solvers_tpu_torch.kernels.stencil_layout import PaddedStencilOperator
-from iterative_solvers_tpu_torch.solvers.cg import CGState
+from iterative_solvers_tpu_torch.kernels.stencil_layout import PaddedStencilOperator, check_field
+from iterative_solvers_tpu_torch.solvers.cg import CGOptions, CGResult, CGState, cg_solve, stop_reason
+from iterative_solvers_tpu_torch.solvers.stopping import StopConfig, StopReason
 
 TW = 128  # columns per CUDA block (csrc/common.cuh)
-
-
-def check_field(name: str, t: torch.Tensor, shape) -> None:
-    """The kernels take contiguous f32 fields of the layout's padded shape."""
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: expected float32, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous tensor")
-    if t.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: unsupported device {t.device}")
 
 
 def _scalar(name: str, t: torch.Tensor, device) -> None:
@@ -104,25 +100,41 @@ def k1(d, zp, beta, op: PaddedStencilOperator):
     return side, parts[0], parts[1], parts[2]
 
 
-def k2_pcg_plain(x, r, zp, w, side, scal, op: PaddedStencilOperator):
-    _build.note_plain("k2_pcg", x)
+def _k2_plain(name, x, r, zp, d, side, scal, u, op: PaddedStencilOperator):
+    """Plain form of K2 (``d`` = r) and K2-pcg (``d`` = w): z_k = d + β z_prev."""
+    _build.note_plain(name, x)
     hp, _ = op.padded_shape
     g = hp // op.block_rows
     alpha, beta = scal[0], scal[1]
     mask = op.mask_spec.build(x.device)
-    zk = w + beta * zp
+    zk = d + beta * zp
     az = stencil_banded(zk, side[:, 0], side[:, 1], mask, op.coeffs, op.block_rows)
     xn = x + alpha * zk
     rn = r - alpha * az
-    return xn, rn, zk, (rn * rn).view(g, -1).sum(1), rn.abs().view(g, -1).amax(1)
+    out = (xn, rn, zk, (rn * rn).view(g, -1).sum(1), rn.abs().view(g, -1).amax(1))
+    if u is not None:
+        out += ((xn - u).abs().view(g, -1).amax(1),)
+    return out
 
 
-def k2_pcg(x, r, zp, w, side, scal, op: PaddedStencilOperator):
-    """K2-pcg: ``(x', r', z_k, r2_p, rmax_p)``; ``scal`` = [α, β] (float32,
-    on the fields' device). Inputs are left untouched."""
+def k2_plain(x, r, zp, side, scal, op: PaddedStencilOperator, u=None):
+    return _k2_plain("k2", x, r, zp, r, side, scal, u, op)
+
+
+def k2_pcg_plain(x, r, zp, w, side, scal, op: PaddedStencilOperator, u=None):
+    return _k2_plain("k2_pcg", x, r, zp, w, side, scal, u, op)
+
+
+def _k2_launch(name, x, r, zp, w, side, scal, u, op: PaddedStencilOperator):
+    """Check the operands of K2 / K2-pcg (``w`` None for K2) and launch the
+    kernel on CUDA tensors or run the plain version on CPU tensors."""
     shape = op.padded_shape
-    for name, t in (("x", x), ("r", r), ("z_prev", zp), ("w", w)):
-        check_field(name, t, shape)
+    fields = (("x", x), ("r", r), ("z_prev", zp), ("w", w), ("u", u))
+    for fname, t in fields:
+        if t is not None:
+            check_field(fname, t, shape)
+            if t.device != x.device:
+                raise ValueError(f"{fname}: expected a tensor on {x.device}")
     hp, wp = shape
     by = op.block_rows
     g = hp // by
@@ -130,34 +142,53 @@ def k2_pcg(x, r, zp, w, side, scal, op: PaddedStencilOperator):
     if scal.dtype != torch.float32 or scal.shape != (2,) or scal.device != x.device:
         raise TypeError("scal: expected float32 [alpha, beta] on the fields' device")
     if x.device.type == "cpu":
-        return k2_pcg_plain(x, r, zp, w, side, scal, op)
+        if w is None:
+            return k2_plain(x, r, zp, side, scal, op, u)
+        return k2_pcg_plain(x, r, zp, w, side, scal, op, u)
     xo, ro, zo = (torch.empty_like(x) for _ in range(3))
-    parts = torch.empty((2, g, wp // TW), dtype=x.dtype, device=x.device)
-    scal = scal.contiguous()
+    parts = torch.empty((3, g, wp // TW), dtype=x.dtype, device=x.device)
     p = _build.ptr
+    dirs = (p(x), p(r), p(zp)) + (() if w is None else (p(w),))
     _build.launch(
-        "ist_k2_pcg", p(x), p(r), p(zp), p(w), p(side), p(scal), p(xo), p(ro), p(zo),
-        p(parts[0]), p(parts[1]),
+        name, *dirs, p(side), p(scal.contiguous()), p(u), p(xo), p(ro), p(zo),
+        p(parts[0]), p(parts[1]), p(parts[2]),
         op.nx, op.ny, int(op.mask_mode == "gamma"), hp, wp, by, *op.coeffs,
     )
-    return xo, ro, zo, parts[0], parts[1]
+    out = (xo, ro, zo, parts[0], parts[1])
+    return out + ((parts[2],) if u is not None else ())
+
+
+def k2(x, r, zp, side, scal, op: PaddedStencilOperator, u=None):
+    """K2 (plain CG): ``(x', r', z_k, r2_p, rmax_p[, err_p])`` with z_k =
+    r + β z_prev; ``scal`` = [α, β] (float32, on the fields' device); the
+    ‖x' − u‖∞ partials ``err_p`` only when ``u`` is given. Inputs are left
+    untouched."""
+    return _k2_launch("ist_k2", x, r, zp, None, side, scal, u, op)
+
+
+def k2_pcg(x, r, zp, w, side, scal, op: PaddedStencilOperator, u=None):
+    """K2-pcg: as :func:`k2` with z_k = w + β z_prev (w = M r)."""
+    return _k2_launch("ist_k2_pcg", x, r, zp, w, side, scal, u, op)
+
+
+def _err_max(outs, like):
+    """‖x − u‖∞ from K2's optional partials, else inf."""
+    if len(outs) == 6:
+        return torch.amax(outs[5])
+    return torch.full((), float("inf"), dtype=like.dtype, device=like.device)
 
 
 @dataclass(frozen=True, eq=False)
 class FusedCGEngine:
-    """Fused PCG iteration for one padded layout: K1, K2-pcg and one
-    preconditioner application (``M.call_with_dot``) per iteration. β is
-    deferred as in the JAX engine: β_k = (r_k, w_k)/(r_{k−1}, w_{k−1})."""
+    """Fused iteration for one padded layout. With ``M`` (PCG): K1, K2-pcg
+    and one preconditioner application (``M.call_with_dot``) per iteration,
+    β deferred as in the JAX engine: β_k = (r_k, w_k)/(r_{k−1}, w_{k−1}).
+    Without ``M`` (plain MSG CG): K1 and K2, β = ‖r‖²/(r, z)."""
 
     op: PaddedStencilOperator
     M: Optional[object] = None
 
-    def iteration(self, state: CGState, u_true=None) -> CGState:
-        if self.M is None or u_true is not None:
-            raise NotImplementedError(
-                "the plain-CG fused iteration and its error norm run on kernel A3, "
-                "not ported yet (ROADMAP Queue 1 item 4)"
-            )
+    def _pcg_iteration(self, state: CGState, u_true) -> CGState:
         if state.k == 0:
             beta = torch.zeros((), dtype=state.r.dtype, device=state.r.device)
         else:
@@ -167,9 +198,9 @@ class FusedCGEngine:
         azz = torch.sum(azz_p)
         zmax = torch.amax(zmax_p)
         alpha = state.rz / azz
-        xn, rn, zk, r2_p, rmax_p = k2_pcg(
-            state.x, state.r, state.z, state.w, side, torch.stack([alpha, beta]), self.op
-        )
+        outs = k2_pcg(state.x, state.r, state.z, state.w, side, torch.stack([alpha, beta]),
+                      self.op, u_true)
+        xn, rn, zk, r2_p, rmax_p = outs[:5]
         wn, rz_new = self.M.call_with_dot(rn)
         return state._replace(
             x=xn,
@@ -182,11 +213,85 @@ class FusedCGEngine:
             r_norm2=torch.sum(r2_p),
             prec_max=torch.abs(alpha) * zmax,
             r_max=torch.amax(rmax_p),
-            err_max=torch.full((), float("inf"), dtype=rn.dtype, device=rn.device),
+            err_max=_err_max(outs, rn),
         )
+
+    def iteration(self, state: CGState, u_true=None) -> CGState:
+        """One fused MSG iteration; ``state.z`` holds z_{k−1} (the direction
+        update is deferred into K1/K2, where β is known)."""
+        if self.M is not None:
+            return self._pcg_iteration(state, u_true)
+        if state.k == 0:
+            beta = torch.zeros((), dtype=state.r.dtype, device=state.r.device)
+        else:
+            beta = (state.r_norm2 / state.rz).to(state.r.dtype)
+        side, rz_p, azz_p, zmax_p = k1(state.r, state.z, beta, self.op)
+        rz = torch.sum(rz_p)
+        azz = torch.sum(azz_p)
+        zmax = torch.amax(zmax_p)
+        alpha = rz / azz
+        outs = k2(state.x, state.r, state.z, side, torch.stack([alpha, beta]), self.op, u_true)
+        xn, rn, zk, r2_p, rmax_p = outs[:5]
+        return state._replace(
+            x=xn,
+            r=rn,
+            z=zk,
+            k=state.k + 1,
+            rz=rz,
+            r_norm2=torch.sum(r2_p),
+            prec_max=torch.abs(alpha) * zmax,
+            r_max=torch.amax(rmax_p),
+            err_max=_err_max(outs, rn),
+        )
+
+    def step(self, stop: StopConfig, state: CGState, u_true=None) -> CGState:
+        """One iteration plus the stop flags of the JAX package's fused chunk
+        (DIVERGED, PRECISION, RESIDUAL, EXACT_ERROR, RELATIVE_RESIDUAL in
+        that priority), evaluated on the device."""
+        s = self.iteration(state, u_true)
+        done, reason = stop_reason(stop, s.prec_max, s.r_max, s.err_max, s.r_norm2,
+                                   s.r0_norm, u_true is not None)
+        return s._replace(done=done, reason=reason)
 
 
 def _engine_for(op: PaddedStencilOperator, M) -> FusedCGEngine:
     """The engine for an (operator, preconditioner) pair. The JAX package
     memoises this to hit its compile cache; eager PyTorch has none to hit."""
     return FusedCGEngine(op, M)
+
+
+def fused_cg_solve(
+    op: PaddedStencilOperator,
+    b: torch.Tensor,
+    *,
+    u_true: Optional[torch.Tensor] = None,
+    options: Optional[CGOptions] = None,
+) -> CGResult:
+    """Solve with the fused engine (f32). ``b``/``u_true`` are unpadded
+    full-grid fields; the returned ``x`` is cropped back to the grid shape.
+    With ``options.preconditioner`` the engine runs PCG (z_0 = w_0 = M r_0)."""
+    opts = options or CGOptions()
+    M = opts.preconditioner
+    engine = _engine_for(op, M)
+    f32 = torch.float32
+    bp = op.pad(b.to(f32))
+    up = op.pad(u_true.to(f32)) if u_true is not None else None
+    dev = bp.device
+    r2_0 = torch.sum(bp * bp)
+    w0, rz0 = M.call_with_dot(bp) if M is not None else (None, None)
+    inf = torch.full((), float("inf"), dtype=f32, device=dev)
+    one = torch.ones((), dtype=f32, device=dev)
+    state = CGState(
+        x=torch.zeros_like(bp), r=bp, z=torch.zeros_like(bp), k=0,
+        done=torch.zeros((), dtype=torch.bool, device=dev),
+        reason=torch.full((), int(StopReason.ITERATIONS), dtype=torch.int32, device=dev),
+        rz=rz0 if rz0 is not None else one, r_norm2=r2_0, prec_max=inf,
+        r_max=torch.max(torch.abs(bp)),
+        err_max=torch.max(torch.abs(up)) if up is not None else inf,
+        r0_norm=torch.sqrt(r2_0), w=w0, rz_prev=one if M is not None else None,
+    )
+    stop = opts.stop
+    fused = dataclasses.replace(opts, step_fn=lambda s, u: engine.step(stop, s, u))
+    res = cg_solve(None, bp, u_true=up, options=fused, init_state=state)
+    res.x = op.crop(res.x)
+    return res

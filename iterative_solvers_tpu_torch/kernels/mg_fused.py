@@ -6,6 +6,9 @@
 - **K_up** (:meth:`FusedLevelKernels.up`): row prolongation of the
   lane-prolonged coarse correction, the corrected iterate, one
   post-smoothing sweep; ``with_dot`` also returns (b, out), the PCG's rz.
+- **K_jacobi** (:meth:`FusedLevelKernels.jacobi`): one weighted-Jacobi sweep
+  ``x + (ω/d)(b − A x)`` with masked reads and output — the FMG warm
+  start's fine-level polish.
 
 The lane (column) half of each transfer runs in plain torch as strided
 slices (:func:`lane_restrict`, :func:`lane_prolong`), P = 2 Rᵀ exactly.
@@ -23,7 +26,8 @@ import torch.nn.functional as F
 
 from iterative_solvers_tpu_torch.core.domain import MaskSpec
 from iterative_solvers_tpu_torch.kernels import _build
-from iterative_solvers_tpu_torch.kernels.cg_fused import TW, check_field
+from iterative_solvers_tpu_torch.kernels.cg_fused import TW
+from iterative_solvers_tpu_torch.kernels.stencil_layout import check_field
 
 
 def _stencil(x, cd, cx, cy):
@@ -120,6 +124,32 @@ class FusedLevelKernels:
         )
         if with_dot:
             return out, torch.sum(dot_p)
+        return out
+
+
+    # --- K_jacobi -------------------------------------------------------------
+
+    def jacobi_plain(self, x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        _build.note_plain("k_jacobi", x)
+        cd, cx, cy = self.coeffs
+        m = self.mask_spec.build(x.device)
+        xm = torch.where(m, x, 0.0)
+        R = torch.where(m, torch.where(m, b, 0.0) - _stencil(xm, cd, cx, cy), 0.0)
+        return torch.where(m, xm + self.cs * R, 0.0)
+
+    def jacobi(self, x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """One weighted-Jacobi sweep on this level's padded layout."""
+        check_field("x", x, self.padded_shape)
+        check_field("b", b, self.padded_shape)
+        if x.device != b.device:
+            raise ValueError("x and b must be on one device")
+        if x.device.type == "cpu":
+            return self.jacobi_plain(x, b)
+        out = torch.empty_like(x)
+        _build.launch(
+            "ist_k_jacobi", _build.ptr(x), _build.ptr(b), _build.ptr(out), *self._geom(),
+            *self.coeffs, self.cs,
+        )
         return out
 
 

@@ -1,13 +1,15 @@
-"""Padded field layout of the fused engine (counterpart of the layout half of
-``PallasStencilOperator`` in iterative_solvers_tpu/kernels/stencil_pallas.py).
+"""Padded stencil operator (counterpart of ``PallasStencilOperator`` in
+iterative_solvers_tpu/kernels/stencil_pallas.py).
 
 Fields live on an ``(hp, wp)`` canvas with ``wp % 128 == 0`` and
 ``hp % block_rows == 0``; the rule that picks ``block_rows`` and the padding
 is the JAX package's own, so padded fields compare like for like. Padding is
 never interior, so zero padding is inert.
 
-The operator's own apply is the TPU kernel A1 (``pallas_stencil_apply``),
-which this slice does not run; it is ported with A1.
+Calling the operator applies the masked 5-point stencil ``y = A x`` to an
+f32 padded field: the CUDA kernel ``csrc/stencil.cu`` (which replaces the
+TPU kernel ``stencil_pallas._make_kernel``) on a CUDA tensor, its plain torch
+version :meth:`PaddedStencilOperator.apply_plain` on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -20,6 +22,19 @@ import torch
 import torch.nn.functional as F
 
 from iterative_solvers_tpu_torch.core.domain import MaskSpec
+from iterative_solvers_tpu_torch.kernels import _build
+
+
+def check_field(name: str, t: torch.Tensor, shape) -> None:
+    """The kernels take contiguous f32 fields of the layout's padded shape."""
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: expected float32, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {t.device}")
 
 
 def round_up(x: int, m: int) -> int:
@@ -82,3 +97,31 @@ class PaddedStencilOperator:
 
     def mask(self, x: torch.Tensor) -> torch.Tensor:
         return torch.where(self.mask_spec.build(x.device), x, 0.0)
+
+    def apply_plain(self, x: torch.Tensor) -> torch.Tensor:
+        """The kernel's plain torch version: masked reads, masked output."""
+        _build.note_plain("stencil", x)
+        cd, cx, cy = self.coeffs
+        m = self.mask_spec.build(x.device)
+        p = F.pad(torch.where(m, x, 0.0), (1, 1, 1, 1))
+        y = cd * p[1:-1, 1:-1] + cx * (p[1:-1, :-2] + p[1:-1, 2:]) + cy * (p[:-2, 1:-1] + p[2:, 1:-1])
+        return torch.where(m, y, 0.0)
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        """``y = A x`` on a contiguous f32 field of the padded shape."""
+        check_field("x", x, self.padded_shape)
+        if x.device.type == "cpu":
+            return self.apply_plain(x)
+        hp, wp = self.padded_shape
+        y = torch.empty_like(x)
+        _build.launch(
+            "ist_stencil", _build.ptr(x), _build.ptr(y), self.nx, self.ny,
+            int(self.mask_mode == "gamma"), hp, wp, self.block_rows, *self.coeffs,
+        )
+        return y
+
+    def nnz(self) -> int:
+        """Stored-matrix-equivalent nonzero count: the diagonal plus two
+        entries per interior-interior neighbour link."""
+        m = self.interior_padded()
+        return int(m.sum()) + 2 * int((m[:-1] & m[1:]).sum()) + 2 * int((m[:, :-1] & m[:, 1:]).sum())

@@ -5,6 +5,10 @@ loop over device tensors. Every scalar of the recurrence stays a 0-dim tensor
 on the fields' device; the host reads the progress scalars with ONE packed
 transfer per iteration (`_sync_stats`), which is also where the stop test is
 decided. The iteration count ``k`` is a host integer.
+
+History rows, when recorded, fall where the JAX ``cg_solve``'s would: at the
+initial state, at each chunk boundary of ``min(max_iterations, 500)``
+iterations, and at the end.
 """
 
 from __future__ import annotations
@@ -44,6 +48,11 @@ class CGState(NamedTuple):
 class CGOptions:
     stop: StopConfig = dataclass_field(default_factory=StopConfig)
     preconditioner: Optional[Operator] = None
+    record_history: bool = False
+    # alternative iteration ``(state, u_true) -> state`` that also sets
+    # done/reason, e.g. the fused engine's step (kernels/cg_fused.py); the
+    # loop's stop protocol and result assembly stay the same around it
+    step_fn: Optional[Callable] = None
 
 
 @dataclass
@@ -156,23 +165,45 @@ def cg_solve(
     x0: Optional[torch.Tensor] = None,
     u_true: Optional[torch.Tensor] = None,
     options: Optional[CGOptions] = None,
+    init_state: Optional[CGState] = None,
 ) -> CGResult:
-    """Solve ``A x = b`` by (preconditioned) conjugate gradients."""
+    """Solve ``A x = b`` by (preconditioned) conjugate gradients, from
+    ``init_state`` when given (then ``A``, ``b`` and ``x0`` are not read)."""
     opts = options or CGOptions()
     stop = opts.stop
     t0 = time.perf_counter()
-    state = _cg_init(A, opts.preconditioner, b, x0, u_true)
+    if init_state is None:
+        state = _cg_init(A, opts.preconditioner, b, x0, u_true)
+    else:
+        state = init_state
+    step = opts.step_fn or (
+        lambda s, u: cg_iteration(A, opts.preconditioner, stop, s, u)
+    )
     _, _, _, rmax, emax, r2, r0n = _sync_stats(state)
     prec = math.inf
+    history = []
+
+    def fire(rn: float) -> None:
+        if opts.record_history:
+            history.append((state.k, prec, rmax, emax, rn))
+
+    fire(r0n if state.k == 0 else math.sqrt(max(r2, 0.0)))
+    chunk = min(stop.max_iterations, 500)
     # r == 0: x0 is already exact (and the recurrence would divide 0/0)
-    reason = StopReason.RESIDUAL if r2 == 0.0 else StopReason.ITERATIONS
+    exact0 = r2 == 0.0
+    reason = StopReason.RESIDUAL if exact0 else StopReason.ITERATIONS
     while reason == StopReason.ITERATIONS and state.k < stop.max_iterations:
-        state = cg_iteration(A, opts.preconditioner, stop, state, u_true)
+        state = step(state, u_true)
         done, code, prec, rmax, emax, r2, r0n = _sync_stats(state)
         if done:
             reason = StopReason(code)
-        elif r2 == 0.0:
+            break
+        if state.k % chunk == 0 or state.k == stop.max_iterations or r2 == 0.0:
+            fire(math.sqrt(max(r2, 0.0)))  # a chunk boundary (or its early exit)
+        if r2 == 0.0:
             reason = StopReason.RESIDUAL
+    if not exact0:
+        fire(math.sqrt(max(r2, 0.0)))
     return CGResult(
         x=state.x,
         iterations=state.k,
@@ -184,4 +215,5 @@ def cg_solve(
         residual_norm=math.sqrt(max(r2, 0.0)),
         initial_residual_norm=r0n,
         elapsed_s=time.perf_counter() - t0,
+        history=np.asarray(history) if opts.record_history else None,
     )

@@ -6,10 +6,19 @@ prolongation with R = Pᵀ/4, and an exact dense-inverse coarse solve — a
 symmetric linear operator, hence PCG-safe. Fine levels of V(1,1) cycles
 run the fused down/up kernels (kernels/mg_fused.py) on their padded
 layouts; the other levels, and any f64 field, take the plain torch leg.
+
+The FMG warm start (:meth:`MultigridPreconditioner.fmg_stepwise`) walks the
+hierarchy from the exact coarsest solve upwards: BC-aware prolongation of
+each level's solution plus a polish — V-cycles up to ``polish_max_extent``,
+above it weighted-Jacobi sweeps, which on a fused level run the Jacobi
+kernel on the level's padded layout. The JAX package can compile the
+ladder per rung or as one program (its ``combine`` flag); eager PyTorch
+runs the same ops in order either way, so the port has the one form.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Tuple
 
@@ -17,13 +26,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from iterative_solvers_tpu_torch.core.domain import Domain2D, MaskSpec
+from iterative_solvers_tpu_torch.core.domain import Domain2D, MaskSpec, resolve_device
 from iterative_solvers_tpu_torch.kernels.mg_fused import (
     FusedLevelKernels,
     lane_prolong,
     lane_restrict,
 )
 from iterative_solvers_tpu_torch.kernels.stencil_layout import round_up
+
+F32 = torch.float32
 
 
 class _MaskCache:
@@ -211,6 +222,14 @@ class MultigridPreconditioner:
     coarse_solve: Callable
     nu_pre: int = 1
     nu_post: int = 1
+    domains: Tuple = ()  # per-level Domain2D (FMG rediscretisation)
+    # FMG payload (with_fmg): per level None (finest: the caller's b) or the
+    # problem rediscretised on that level, whose f32 RHS and Dirichlet field
+    # are assembled where the FMG needs them (as the JAX package evaluates
+    # its recipes inside the FMG program). Coarse RHS are rediscretised, not
+    # restricted, and the level's Dirichlet values are added before
+    # prolongation.
+    fmg_data: Optional[Tuple] = None
 
     @staticmethod
     def from_domain(
@@ -222,11 +241,13 @@ class MultigridPreconditioner:
         dense_coarse_limit: int = 2048,
         fuse: Optional[bool] = None,
         fuse_min_extent: int = 512,
-        device="cpu",
+        device="cuda",
     ) -> "MultigridPreconditioner":
-        """Build the hierarchy. ``fuse=None`` fuses on a CUDA device (as the
-        JAX package fuses on an accelerator); ``fuse=True`` on the CPU runs the
-        fused levels through the kernels' plain versions."""
+        """Build the hierarchy for ``device`` (``"cuda"`` raises without a
+        card). ``fuse=None`` fuses on a CUDA device (as the JAX package fuses
+        on an accelerator); ``fuse=True`` on the CPU runs the fused levels
+        through the kernels' plain versions."""
+        device = resolve_device(device)
         if nu_pre != nu_post:
             raise ValueError(
                 "nu_pre must equal nu_post: an asymmetric V-cycle is not a "
@@ -246,7 +267,7 @@ class MultigridPreconditioner:
                 "the Chebyshev coarse solve is not ported yet (ROADMAP Queue 1 item 5)"
             )
         if fuse is None:
-            fuse = torch.device(device).type == "cuda"
+            fuse = device.type == "cuda"
 
         def make_level(d):
             return _Level(d.mask_spec, (d.coeff_diag, d.coeff_y, d.coeff_x),
@@ -271,7 +292,8 @@ class MultigridPreconditioner:
         idx, A = _assemble_dense(coarsest)
         coarse = _CoarseSolveDense(idx, np.linalg.inv(A))
         return MultigridPreconditioner(
-            levels=tuple(levels), coarse_solve=coarse, nu_pre=nu_pre, nu_post=nu_post
+            levels=tuple(levels), coarse_solve=coarse, nu_pre=nu_pre, nu_post=nu_post,
+            domains=tuple(domains),
         )
 
     def _fused_leg(self, li: int, lev: _FusedLevel, bp: torch.Tensor, with_dot: bool):
@@ -306,6 +328,101 @@ class MultigridPreconditioner:
         x = x + lev.mask(prolong_linear(ec))
         for _ in range(self.nu_post):
             x = x + lev.omega_over_diag * (b - lev.apply(x))
+        return x
+
+    # --- FMG warm start ---------------------------------------------------------
+
+    def _apply_at(self, li: int, x: torch.Tensor) -> torch.Tensor:
+        """Level-li stencil apply (plain; the fused legs expose none)."""
+        lev = self.levels[li]
+        return getattr(lev, "jnp_level", lev).apply(x)
+
+    def with_fmg(self, problem) -> "MultigridPreconditioner":
+        """A copy carrying the FMG payload for ``problem``: per coarse level
+        the problem rediscretised there (its own BC elimination)."""
+        if not self.domains:
+            raise ValueError("preconditioner built without level domains")
+        data = tuple(
+            None if li == 0 else dataclasses.replace(problem, domain=d)
+            for li, d in enumerate(self.domains)
+        )
+        return dataclasses.replace(self, fmg_data=data)
+
+    def fmg(self, b: torch.Tensor, n_vcycles: int = 1) -> torch.Tensor:
+        """Full-multigrid (nested-iteration) solve: exact coarsest solve,
+        then per level BC-aware prolongation plus ``n_vcycles`` V-cycles.
+        Without the :meth:`with_fmg` payload, the algebraic variant
+        (restricted RHS, zero-BC prolongation)."""
+        L = len(self.levels)
+        if self.fmg_data is None:
+            bs = [b]
+            for li in range(L - 1):
+                bs.append(self.levels[li + 1].mask(restrict_full_weighting(bs[-1])))
+            gs = [None] * L
+        else:
+            bs = [b] + [p.rhs_field(F32, b.device).to(b.dtype) for p in self.fmg_data[1:]]
+            gs = [None] + [p.boundary_field(F32, b.device).to(b.dtype)
+                           for p in self.fmg_data[1:]]
+        x = self.coarse_solve(bs[-1])
+        for li in range(L - 2, -1, -1):
+            if gs[li + 1] is not None:
+                x = x + gs[li + 1]  # carry Dirichlet values into interpolation
+            x = self.levels[li].mask(prolong_linear(x))
+            for _ in range(n_vcycles):
+                x = x + self._vcycle(li, bs[li] - self._apply_at(li, x))
+        return x
+
+    def fmg_stepwise(self, b: torch.Tensor, n_vcycles: int = 1,
+                     polish_max_extent: Optional[int] = None,
+                     smooth_sweeps: int = 4) -> torch.Tensor:
+        """:meth:`fmg` rung by rung; levels whose grid extent exceeds
+        ``polish_max_extent`` polish with ``smooth_sweeps`` weighted-Jacobi
+        sweeps instead of V-cycles. Requires the :meth:`with_fmg` payload."""
+        if self.fmg_data is None:
+            raise ValueError("fmg_stepwise requires the with_fmg payload")
+        x = self._fmg_rung_coarsest(b)
+        for li in range(len(self.levels) - 2, -1, -1):
+            nv = int(n_vcycles)
+            if polish_max_extent is not None and max(self.domains[li].grid_shape) > polish_max_extent:
+                nv = 0
+            x = self._fmg_rung(li, nv, int(smooth_sweeps), x, b)
+        return x
+
+    def _fmg_rung_coarsest(self, b: torch.Tensor) -> torch.Tensor:
+        """Exact solve of the rediscretised coarsest problem (of ``b`` when
+        the hierarchy has a single level)."""
+        p = self.fmg_data[-1]
+        bc = b.to(F32) if p is None else p.rhs_field(F32, b.device)
+        return self.coarse_solve(bc)
+
+    def _fmg_rung(self, li: int, n_vcycles: int, n_smooth: int, x: torch.Tensor,
+                  b: torch.Tensor) -> torch.Tensor:
+        """BC-aware prolongation of the level-``li+1`` solution to level
+        ``li`` plus its polish. ``b`` (the finest RHS) is read at li == 0."""
+        p = self.fmg_data[li + 1]
+        if p is not None:
+            x = x + p.boundary_field(F32, x.device).to(x.dtype)
+        bl = b.to(F32) if li == 0 else self.fmg_data[li].rhs_field(F32, b.device)
+        lev = self.levels[li]
+        if n_vcycles == 0 and n_smooth >= 1 and isinstance(lev, _FusedLevel) and x.dtype == F32:
+            # padded flow: prolong straight into the level's padded layout;
+            # the Jacobi kernel masks its reads, so the boundary-interpolated
+            # values are discarded exactly as mask(prolong_linear(x)) would
+            hp, wp = lev.kernels.padded_shape
+            xp = lane_prolong(_prolong1d(x, 0), (lev.w - 1) // 2, wp)
+            xp = F.pad(xp, (0, 0, 0, hp - xp.shape[0]))
+            bp = lev.pad_in(bl)
+            for _ in range(n_smooth):
+                xp = lev.kernels.jacobi(xp, bp)
+            return xp[: lev.h, : lev.w]
+        x = lev.mask(prolong_linear(x))
+        if n_vcycles > 0:
+            for _ in range(n_vcycles):
+                x = x + self._vcycle(li, bl - self._apply_at(li, x))
+        else:
+            jl = getattr(lev, "jnp_level", lev)
+            for _ in range(n_smooth):
+                x = x + jl.omega_over_diag * (bl - self._apply_at(li, x))
         return x
 
     def accepts_padded(self, shape) -> bool:
@@ -353,3 +470,13 @@ class PaddedPreconditioner:
             return self.inner.call_with_dot(r)
         z = self(r)
         return z, torch.sum(r * z)
+
+    def fmg(self, r: torch.Tensor, n_vcycles: int = 1) -> torch.Tensor:
+        """FMG initial guess on the padded layout."""
+        return self.padded_op.pad(self.inner.fmg(self.padded_op.crop(r), n_vcycles))
+
+    def fmg_stepwise(self, r: torch.Tensor, n_vcycles: int = 1, **kw) -> torch.Tensor:
+        """Stepwise FMG initial guess on the padded layout."""
+        return self.padded_op.pad(
+            self.inner.fmg_stepwise(self.padded_op.crop(r), n_vcycles, **kw)
+        )

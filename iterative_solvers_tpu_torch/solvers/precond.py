@@ -30,8 +30,9 @@ def parse_preconditioner(name: str) -> Tuple[str, int]:
     )
 
 
-def make_preconditioner(name: str, domain, device="cpu"):
-    """The preconditioner a spec names, built for ``domain`` on ``device``."""
+def make_preconditioner(name: str, domain, device="cuda"):
+    """The preconditioner a spec names, built for ``domain`` on ``device``
+    (``"cuda"`` raises without a card)."""
     kind, param = parse_preconditioner(name)
     if kind != "mg":
         raise NotImplementedError(

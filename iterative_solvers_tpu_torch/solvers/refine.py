@@ -1,16 +1,19 @@
-"""Mixed-precision iterative refinement, f64 outer / f32 inner MG-PCG
-(counterpart of iterative_solvers_tpu/solvers/refine.py).
+"""Mixed-precision iterative refinement, high-precision outer / f32 inner
+MG-PCG (counterpart of iterative_solvers_tpu/solvers/refine.py).
 
 The JAX package runs the whole refinement ladder as one compiled program
 (``_device_ir``). Eager PyTorch runs it as a host loop over device tensors
 with the same semantics: the same stop criteria and stall test, the same
 history rows ``(max_outer + 1, 5)`` and the same packed stats vector. The
 host reads one packed tensor per PCG iteration (the inner stop test, decided
-on the device in f32) and one per outer step (f64 norms, compared on the
-host in f64 — bit-identical to comparing them on the device).
+on the device in f32) and one per outer step.
 
-On an H100, f64 is native IEEE, so the f64 outer is the outer here; the
-double-f32 outer the JAX package uses on a TPU is not ported.
+Two outers, as in the JAX package: f64 (:func:`_outer_refine_loop`; its
+norms are compared on the host in f64, bit-identical to comparing them on
+the device) and double-f32 pairs (:func:`_outer_refine_loop_ff`, ``ff=True``;
+the compensated residual kernel ``kernels/resid_ff.py``, f32 norms compared
+in f32 as the device would). ``fmg`` starts the ladder from the FMG warm
+start (:func:`_maybe_fmg_x0`) instead of zero.
 """
 
 from __future__ import annotations
@@ -24,6 +27,8 @@ import numpy as np
 import torch
 
 from iterative_solvers_tpu_torch.kernels.cg_fused import _engine_for
+from iterative_solvers_tpu_torch.kernels.resid_ff import resid_ff
+from iterative_solvers_tpu_torch.ops.ddf32 import pair_add_f32, pair_value, split_f64, two_sum
 from iterative_solvers_tpu_torch.ops.stencil import StencilOperator
 from iterative_solvers_tpu_torch.solvers.cg import CGOptions, CGResult, CGState, cg_solve
 from iterative_solvers_tpu_torch.solvers.stopping import StopConfig, StopReason
@@ -222,40 +227,42 @@ def _fused_inner_solve(engine, eta, r_hi, inner_max_iter: int):
     return s.x, s.k
 
 
-def _outer_refine_loop(A_hi, stop: StopConfig, max_outer: int, b, u_true, inner_solve):
-    """Outer refinement loop on true f64 quantities. ``inner_solve: r ->
-    (d_f32, k_inner)``. Exits on a stop criterion, on the outer or iteration
-    budget, or on an f32-floor stall (an outer shrinking ‖r‖∞ by < 20x) so
-    the escalated polish can take over. Returns (x, packed stats): the nine
-    summary scalars, then the history block of ``max_outer + 1`` rows of
-    (total_inner, ‖d‖∞, ‖r‖∞, err∞, ‖r‖₂), row 0 the initial state."""
-    r0_norm = float(torch.sqrt(torch.sum(b * b)))
-    x = torch.zeros_like(b)
-    r = b
-    r_max, _, err, r2 = _norms(r, r, x, u_true)
-    hist = np.zeros((max_outer + 1, 5))
-    hist[0] = (0.0, math.inf, r_max, err, math.sqrt(r2))
+def _outer_ladder(stop: StopConfig, max_outer: int, has_u: bool, num, r0_norm, x, r,
+                  inner_solve, step, norms):
+    """The outer refinement loop both outers share. ``inner_solve: r ->
+    (d_f32, k_inner)``; ``step(x, d_f32) -> (x, r)`` adds the correction and
+    takes the true residual; ``norms(r, d_f32 or None, x) -> (‖r‖∞, ‖r‖₂²,
+    ‖d‖∞, err∞)`` as host scalars of type ``num`` (float for the f64 outer,
+    np.float32 for the ff outer), in which every stop and stall test
+    compares. Exits on a stop criterion, on the outer or iteration budget,
+    or on an f32-floor stall (an outer shrinking ‖r‖∞ by < 20x) so the
+    escalated polish can take over. Returns (x, packed stats of dtype
+    ``num``): the nine summary scalars, then the history block of
+    ``max_outer + 1`` rows of (total_inner, ‖d‖∞, ‖r‖∞, err∞, ‖r‖₂), row 0
+    the initial (or warm-start) state."""
+    r_max, r2, _, err = norms(r, None, x)
+    hist = np.zeros((max_outer + 1, 5), np.dtype(num))
+    hist[0] = (0.0, math.inf, r_max, err, np.sqrt(r2))
     k_out = total_inner = 0
     done, reason, stalled = False, StopReason.ITERATIONS, False
-    prec, rm_prev = math.inf, math.inf
+    prec, rm_prev = num(math.inf), num(math.inf)
     while not done and not stalled and k_out < max_outer and total_inner < stop.max_iterations:
         d32, k_in = inner_solve(r)
-        d = d32.to(b.dtype)
-        x = x + d
-        r = b - A_hi(x)
-        r_max, prec, e, r2 = _norms(r, d, x, u_true)
-        if u_true is not None:
+        x, r = step(x, d32)
+        r_max, r2, prec, e = norms(r, d32, x)
+        if has_u:
             err = e
         total_inner += k_in
-        hist[k_out + 1] = (total_inner, prec, r_max, err, math.sqrt(r2))
-        stalled = r_max > 0.05 * rm_prev
+        r_norm = np.sqrt(r2)
+        hist[k_out + 1] = (total_inner, prec, r_max, err, r_norm)
+        stalled = bool(r_max > num(0.05) * rm_prev)
         checks = (
-            (not math.isfinite(r2), StopReason.DIVERGED),
-            (stop.eps_residual > 0 and r_max < stop.eps_residual, StopReason.RESIDUAL),
-            (stop.eps_exact_error > 0 and u_true is not None and err < stop.eps_exact_error,
+            (not np.isfinite(r2), StopReason.DIVERGED),
+            (stop.eps_residual > 0 and r_max < num(stop.eps_residual), StopReason.RESIDUAL),
+            (stop.eps_exact_error > 0 and has_u and err < num(stop.eps_exact_error),
              StopReason.EXACT_ERROR),
-            (stop.eps_precision > 0 and prec < stop.eps_precision, StopReason.PRECISION),
-            (stop.eps_relative > 0 and math.sqrt(r2) < stop.eps_relative * r0_norm,
+            (stop.eps_precision > 0 and prec < num(stop.eps_precision), StopReason.PRECISION),
+            (stop.eps_relative > 0 and r_norm < num(stop.eps_relative) * r0_norm,
              StopReason.RELATIVE_RESIDUAL),
         )
         fired = [code for flag, code in checks if flag]
@@ -264,23 +271,124 @@ def _outer_refine_loop(A_hi, stop: StopConfig, max_outer: int, b, u_true, inner_
         rm_prev = r_max
         k_out += 1
     stats = np.concatenate([
-        [k_out, total_inner, float(done), float(int(reason)), r_max, prec, err, r2, r0_norm],
+        np.asarray([k_out, total_inner, float(done), float(int(reason)), r_max, prec, err, r2,
+                    r0_norm], hist.dtype),
         hist.ravel(),
     ])
     return x, stats
 
 
+def _outer_refine_loop(A_hi, stop: StopConfig, max_outer: int, b, u_true, inner_solve,
+                       x0=None):
+    """:func:`_outer_ladder` on true f64 quantities, compared on the host in
+    f64. ``x0``: an f32 warm start; its residual is not counted in the inner
+    iterations."""
+
+    def step(x, d32):
+        x = x + d32.to(b.dtype)
+        return x, b - A_hi(x)
+
+    def norms(r, d32, x):
+        r_max, prec, err, r2 = _norms(r, r if d32 is None else d32.to(b.dtype), x, u_true)
+        return r_max, r2, prec, err
+
+    x = torch.zeros_like(b) if x0 is None else x0.to(b.dtype)
+    r = b if x0 is None else b - A_hi(x)
+    r0_norm = float(torch.sqrt(torch.sum(b * b)))
+    return _outer_ladder(stop, max_outer, u_true is not None, float, r0_norm, x, r,
+                         inner_solve, step, norms)
+
+
+def _outer_refine_loop_ff(op, stop: StopConfig, max_outer: int, b, u_true, inner_solve,
+                          x0=None):
+    """:func:`_outer_ladder` with the high-precision state as double-f32
+    pairs (ops/ddf32.py) on ``op``'s padded layout: no f64 op until the
+    final ``x = xh + xl``. The true residual is the compensated residual
+    kernel (:func:`resid_ff`). Norms are f32 reductions, and every stop and
+    stall test compares f32 values in f32, as the JAX package's device loop
+    does. ``inner_solve: (rh, rl) -> (d_f32, k_inner)``; the stats vector is
+    f32."""
+    f32 = np.float32
+    if b.dtype == F32:
+        bh, bl = b, torch.zeros_like(b)
+    else:
+        bh, bl = split_f64(b)
+    if u_true is not None:
+        uh, ul = (u_true, torch.zeros_like(u_true)) if u_true.dtype == F32 else split_f64(u_true)
+    s0 = bh + bl
+    r0 = f32(torch.sqrt(torch.sum(s0 * s0)).item())
+    inf = torch.full((), math.inf, dtype=F32, device=b.device)
+
+    def residual(x_pair):
+        return resid_ff(x_pair[0], x_pair[1], bh, bl, op)
+
+    def step(x_pair, d32):
+        x_pair = pair_add_f32(x_pair, d32)
+        return x_pair, residual(x_pair)
+
+    def norms(r_pair, d32, x_pair):
+        """(‖r‖∞, ‖r‖₂², ‖d‖∞, err∞) as f32 host values — one transfer."""
+        s = pair_value(r_pair)
+        if u_true is not None:
+            # close values: (xh − uh) is nearly exact; the low parts ride plain
+            d, e = two_sum(x_pair[0], -uh)
+            err = torch.max(torch.abs(d + ((x_pair[1] - ul) + e)))
+        else:
+            err = inf
+        prec = torch.max(torch.abs(d32)) if d32 is not None else inf
+        v = torch.stack([torch.max(torch.abs(s)), torch.sum(s * s), prec, err]).cpu().numpy()
+        return tuple(f32(a) for a in v)
+
+    if x0 is None:
+        x = (torch.zeros_like(bh), torch.zeros_like(bh))
+        r = (bh, bl)
+    else:
+        x = (x0.to(F32), torch.zeros_like(bh))
+        r = residual(x)
+    x, stats = _outer_ladder(stop, max_outer, u_true is not None, f32, r0, x, r,
+                             inner_solve, step, norms)
+    # the full-precision iterate, once: the one f64 op of the ff ladder
+    return x[0].to(b.dtype) + x[1].to(b.dtype), stats
+
+
 def _device_ir(engine, A_hi, stop: StopConfig, inner_rel_tol: float, inner_max_iter: int,
-               max_outer: int, b, u_true):
-    """The f32 ladder of mixed-precision refinement with the f64 outer: outer
-    loop plus fused PCG inner solves. Returns (x, packed stats)."""
-    r0_norm = torch.sqrt(torch.sum(b * b))
+               max_outer: int, b, u_true, x0=None, *, ff: bool = False):
+    """The f32 ladder of mixed-precision refinement: the f64 outer (or, with
+    ``ff``, the double-f32 outer) around fused PCG inner solves, from
+    ``x0`` when given. Returns (x, packed stats)."""
+    if ff:
+        b32 = b.to(F32)
+        r0_norm = torch.sqrt(torch.sum(b32 * b32))
+    else:
+        r0_norm = torch.sqrt(torch.sum(b * b))
 
     def inner_solve(r_hi):
-        eta = _traced_inner_eta(stop, inner_rel_tol, r_hi, r0_norm)
-        return _fused_inner_solve(engine, eta, r_hi, inner_max_iter)
+        r = pair_value(r_hi) if ff else r_hi
+        eta = _traced_inner_eta(stop, inner_rel_tol, r, r0_norm)
+        return _fused_inner_solve(engine, eta, r, inner_max_iter)
 
-    return _outer_refine_loop(A_hi, stop, max_outer, b, u_true, inner_solve)
+    if ff:
+        return _outer_refine_loop_ff(engine.op, stop, max_outer, b, u_true, inner_solve, x0=x0)
+    return _outer_refine_loop(A_hi, stop, max_outer, b, u_true, inner_solve, x0=x0)
+
+
+# Levels whose grid extent exceeds this bound polish with weighted-Jacobi
+# sweeps (the Jacobi kernel) instead of a V-cycle in the FMG warm start;
+# one sweep, as in the JAX package (whose measured reasons are in its
+# solvers/refine.py).
+_FMG_POLISH_MAX_EXTENT = 512
+_FMG_SMOOTH_SWEEPS = 1
+
+
+def _maybe_fmg_x0(M, fmg, b):
+    """FMG warm-start field (f32) on ``b``'s padded layout, or None for a
+    cold start. ``fmg``: False/0 cold, True/1 or n >= 1 polish V-cycles per
+    level. ``M``: the :class:`PaddedPreconditioner` whose multigrid carries
+    the :meth:`with_fmg` payload (``fmg_stepwise`` raises without it)."""
+    if not fmg:
+        return None
+    return M.fmg_stepwise(b, int(fmg), polish_max_extent=_FMG_POLISH_MAX_EXTENT,
+                          smooth_sweeps=_FMG_SMOOTH_SWEEPS)
 
 
 def _padded_hi_operator(pop) -> StencilOperator:
@@ -344,18 +452,23 @@ def fused_refined_solve(
     inner_rel_tol: float = 1e-4,
     inner_max_iter: int = 200,
     max_outer: int = 8,
+    fmg=False,  # False/0 cold | True/1 | int n = FMG polish V-cycles per level
+    ff: bool = False,  # double-f32 outer
 ) -> RefinedResult:
     """Mixed-precision refinement around the fused PCG engine, on the padded
-    layout of ``pop``, cold-started with the f64 outer; the escalated f64
-    polish continues host-side if the f32 ladder leaves the criteria unmet."""
+    layout of ``pop``: the FMG warm start when ``fmg`` (and ``M_padded``
+    carries the :meth:`with_fmg` payload), then the f64 or, with ``ff``, the
+    double-f32 outer; the escalated f64 polish continues host-side if the
+    f32 ladder leaves the criteria unmet."""
     stop = stop or StopConfig()
     t0 = time.perf_counter()
     engine = _engine_for(pop, M_padded)
     A_hi = _padded_hi_operator(pop)
     bp = pop.pad(b)
     up = pop.pad(u_true) if u_true is not None else None
+    x0 = _maybe_fmg_x0(engine.M, fmg, bp)
     x, stats = _device_ir(engine, A_hi, stop, inner_rel_tol, inner_max_iter, max_outer,
-                          bp, up)
+                          bp, up, x0, ff=ff)
     return _finish_refined(
         stats, x, stop=stop, t0=t0, max_outer=max_outer, A_hi=A_hi, b=bp, u_true=up,
         preconditioner=M_padded, inner_rel_tol=inner_rel_tol,

@@ -46,9 +46,12 @@ def test_fields_and_stencil_f64(shape, nx, ny):
     pd = port.Domain2D(nx=nx, ny=ny, shape=shape)
     jp, pp = JProblem.manufactured(jd), port.PoissonProblem.manufactured(pd)
     pairs = [
-        (jp.rhs_field(jnp.float64), pp.rhs_field()),
-        (jp.true_solution_field(jnp.float64), pp.true_solution_field()),
-        (jp.boundary_field(jnp.float64), pp.boundary_field()),
+        (jp.rhs_field(jnp.float64), pp.rhs_field(device="cpu")),
+        (jp.true_solution_field(jnp.float64), pp.true_solution_field(device="cpu")),
+        (jp.boundary_field(jnp.float64), pp.boundary_field(device="cpu")),
+        # the FMG payload's level fields (JAX in-trace assembly): f64, one cast
+        (jp.rhs_field_traced(jnp.float32), pp.rhs_field(torch.float32, "cpu")),
+        (jp.boundary_field_traced(jnp.float32), pp.boundary_field(torch.float32, "cpu")),
     ]
     for ref, got in pairs:
         ref = np.asarray(ref)
@@ -72,7 +75,7 @@ def test_golden_16x16(golden_16x16):
         e.view(-1)[idx[j]] = 1.0
         cols.append(op(e).view(-1)[idx].numpy())
     np.testing.assert_allclose(np.stack(cols, axis=1), A_ref, atol=1e-12)
-    b = port.PoissonProblem.manufactured(dom).rhs_field().view(-1)[idx].numpy()
+    b = port.PoissonProblem.manufactured(dom).rhs_field(device="cpu").view(-1)[idx].numpy()
     np.testing.assert_allclose(b, b_ref, atol=1e-7)
 
 
@@ -99,7 +102,7 @@ def test_padded_layout_matches_pallas_operator(shape, nx, ny):
 def test_port_imports_no_jax():
     code = (
         "import sys, iterative_solvers_tpu_torch, iterative_solvers_tpu_torch.interop; "
-        "import iterative_solvers_tpu_torch.kernels._build; "
+        "import iterative_solvers_tpu_torch.kernels._build, iterative_solvers_tpu_torch.profile_paths; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', "
         "'iterative_solvers_tpu.')) or m == 'iterative_solvers_tpu']; "
         "assert not bad, bad"
@@ -120,25 +123,50 @@ def test_cuda_without_card_raises(monkeypatch):
 @pytest.mark.parametrize(
     "kwargs",
     [
-        dict(_MIXED, outer="ff"),
-        dict(_MIXED, fmg_cycles=1),
-        dict(preconditioner="mg", precision="mixed", outer="f64"),  # FMG default
+        dict(operator="sparse"),
+        dict(operator="pallas", preconditioner="mg"),
+        dict(preconditioner="mg"),  # operator='stencil' with precision=None
         dict(_MIXED, preconditioner="jacobi"),
         dict(preconditioner=None),
     ],
 )
 def test_unported_options_raise(kwargs):
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         port.DirichletSolver(nx=16, ny=16, device="cpu", **kwargs)
 
 
 def test_invalid_options_raise_value_error():
     for kwargs in (dict(_MIXED, outer="bogus"), dict(_MIXED, fmg_cycles=-1),
-                   dict(_MIXED, preconditioner="mg:x"), dict(_MIXED, precision="half")):
+                   dict(_MIXED, preconditioner="mg:x"), dict(_MIXED, precision="half"),
+                   dict(_MIXED, operator="fused"), dict(operator="bogus"),
+                   dict(operator="fused", preconditioner="jacobi"), dict(outer="ff")):
         with pytest.raises(ValueError):
             port.DirichletSolver(nx=16, ny=16, device="cpu", **kwargs)
     with pytest.raises(NotImplementedError, match="item 11"):
         port.Domain2D(nx=8, ny=8, shape="custom")
+
+
+@pytest.mark.parametrize("entry", ["from_domain", "make_preconditioner", "rhs_field",
+                                   "boundary_field", "true_solution_field", "fused"])
+def test_entry_points_default_to_cuda(monkeypatch, entry):
+    """The entry points run on the card unless the caller asks for the CPU:
+    without one, their default raises."""
+    from iterative_solvers_tpu_torch.solvers.multigrid import MultigridPreconditioner
+    from iterative_solvers_tpu_torch.solvers.precond import make_preconditioner
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    dom = port.Domain2D(nx=16, ny=16)
+    prob = port.PoissonProblem.manufactured(dom)
+    call = {
+        "from_domain": lambda: MultigridPreconditioner.from_domain(dom),
+        "make_preconditioner": lambda: make_preconditioner("mg", dom),
+        "rhs_field": prob.rhs_field,
+        "boundary_field": prob.boundary_field,
+        "true_solution_field": prob.true_solution_field,
+        "fused": lambda: port.DirichletSolver(nx=16, ny=16, operator="fused"),
+    }[entry]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
 
 
 def test_compacted_ordering_matches_jax():

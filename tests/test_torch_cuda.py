@@ -6,14 +6,17 @@ machine with ``python -m pytest tests/test_torch_cuda.py -q``.
 
 Tolerance: 64 eps32 of each field's max (the kernel contracts products into
 FMAs and sums in another order than torch); sums to 64 eps32 of the sum of
-their terms' magnitudes."""
+their terms' magnitudes. The double-f32 residual kernel runs every operation
+uncontracted in its plain version's order: its high word must be
+bit-equal, its low word within 32 · max|bh| · 2⁻⁴⁸."""
 
 import pytest
 import torch
 
 from iterative_solvers_tpu_torch import Domain2D
-from iterative_solvers_tpu_torch.kernels import _build, cg_fused
+from iterative_solvers_tpu_torch.kernels import _build, cg_fused, resid_ff
 from iterative_solvers_tpu_torch.kernels.stencil_layout import PaddedStencilOperator
+from iterative_solvers_tpu_torch.ops.ddf32 import split_f64
 from iterative_solvers_tpu_torch.solvers.multigrid import MultigridPreconditioner
 
 pytestmark = pytest.mark.cuda
@@ -75,6 +78,51 @@ def test_k_down_k_up_match_plain(gen, shape, nx, ny):
     assert abs(float(dot) - float(dot_ref)) <= 64 * EPS32 * float((bm * o_ref).abs().sum())
 
 
+@pytest.mark.parametrize("shape,nx,ny", SHAPES)
+def test_k2_and_u_variants_match_plain(gen, shape, nx, ny):
+    lay = PaddedStencilOperator.from_domain(Domain2D(nx=nx, ny=ny, shape=shape), block_rows=16)
+    m = lay.mask_spec.build("cuda")
+    x, r, z, w, u = (torch.where(m, torch.randn(lay.padded_shape, device="cuda", generator=gen),
+                                 0.0) for _ in range(5))
+    beta = torch.tensor(0.37, device="cuda")
+    scal = torch.tensor([-2.0e-4, 0.37], device="cuda")
+    side_r = cg_fused.k1_plain(r, z, beta, lay)[0]
+    side_w = cg_fused.k1_plain(w, z, beta, lay)[0]
+    for uu in (None, u):
+        for got, ref in (
+            (cg_fused.k2(x, r, z, side_r, scal, lay, u=uu),
+             cg_fused.k2_plain(x, r, z, side_r, scal, lay, u=uu)),
+            (cg_fused.k2_pcg(x, r, z, w, side_w, scal, lay, u=uu),
+             cg_fused.k2_pcg_plain(x, r, z, w, side_w, scal, lay, u=uu)),
+        ):
+            assert len(got) == len(ref) == (5 if uu is None else 6)
+            for g, e in zip(got[:3], ref[:3]):
+                _close(g, e)
+            _sum_close(got[3], ref[3], float(ref[3].sum()))
+            for g, e in zip(got[4:], ref[4:]):
+                assert abs(float(g.max()) - float(e.max())) <= 64 * EPS32 * float(e.max())
+
+
+@pytest.mark.parametrize("shape,nx,ny", SHAPES)
+def test_stencil_jacobi_resid_ff_match_plain(gen, shape, nx, ny):
+    dom = Domain2D(nx=nx, ny=ny, shape=shape)
+    lay = PaddedStencilOperator.from_domain(dom, block_rows=16)
+    x = torch.randn(lay.padded_shape, device="cuda", generator=gen)  # unmasked: reads masked
+    _close(lay(x), lay.apply_plain(x))
+    k = MultigridPreconditioner.from_domain(dom, fuse=True, fuse_min_extent=16,
+                                            device="cuda").levels[0].kernels
+    xj, b = (torch.randn(k.padded_shape, device="cuda", generator=gen) for _ in range(2))
+    _close(k.jacobi(xj, b), k.jacobi_plain(xj, b))
+    m = lay.mask_spec.build("cuda")
+    f64 = dict(device="cuda", dtype=torch.float64, generator=gen)
+    bh, bl = split_f64(torch.where(m, torch.randn(lay.padded_shape, **f64), 0.0) * 1e4)
+    xh, xl = split_f64(torch.where(m, torch.randn(lay.padded_shape, **f64), 0.0))
+    gh, gl = resid_ff.resid_ff(xh, xl, bh, bl, lay)
+    rh, rl = resid_ff.resid_ff_plain(xh, xl, bh, bl, lay)
+    assert torch.equal(gh, rh)
+    assert float((gl - rl).abs().max()) <= 32 * float(bh.abs().max()) * 2.0**-48
+
+
 def test_wrappers_reject_bad_input(gen):
     lay = PaddedStencilOperator.from_domain(Domain2D(nx=64, ny=64))
     f = torch.zeros(lay.padded_shape, device="cuda")
@@ -85,3 +133,7 @@ def test_wrappers_reject_bad_input(gen):
         cg_fused.k1(f[:, :-128], f, beta, lay)
     with pytest.raises(ValueError):
         cg_fused.k1(f.t().contiguous().t(), f, beta, lay)  # non-contiguous
+    with pytest.raises(TypeError):
+        lay(f.double())
+    with pytest.raises(ValueError):
+        resid_ff.resid_ff(f, f, f, f.cpu(), lay)  # mixed devices

@@ -75,25 +75,32 @@ def test_k1_plain_matches_pallas(shape, nx, ny):
     np.testing.assert_array_equal(p_zmax.numpy(), np.asarray(zmax_p)[:, 0, 0])
 
 
-@pytest.mark.parametrize("shape,nx,ny", SHAPES)
-def test_k2_pcg_plain_matches_pallas(shape, nx, ny):
+# the ‖x − u‖∞ variant (a true solution u) adds the "-u" cases
+@pytest.mark.parametrize("shape,nx,ny,with_u", [
+    pytest.param(*s, False, id="-".join(map(str, s))) for s in SHAPES
+] + [pytest.param(*s, True, id="-".join(map(str, s)) + "-u") for s in SHAPES])
+def test_k2_pcg_plain_matches_pallas(shape, nx, ny, with_u):
     jd, pop, lay = _layouts(shape, nx, ny)
     rng = np.random.default_rng(12)
-    x, r, z, w = (_masked_field(rng, pop) for _ in range(4))
+    x, r, z, w, u = (_masked_field(rng, pop) for _ in range(5))
     beta, alpha = np.float32(0.21), np.float32(-3.1e-5)
     eng = JEngine(pop)
     side = eng._call_k1(jnp.asarray(w), jnp.asarray(z), beta)[0]
-    outs = eng._call_k2_pcg(*(jnp.asarray(a) for a in (x, r, z, w)), side, None, alpha, beta)
+    ju = jnp.asarray(u) if with_u else None
+    outs = eng._call_k2_pcg(*(jnp.asarray(a) for a in (x, r, z, w)), side, ju, alpha, beta)
     x_in = _t(x)
     got = cg_fused.k2_pcg(
-        x_in, _t(r), _t(z), _t(w), _t(np.asarray(side)[:, :2]), torch.tensor([alpha, beta]), lay
+        x_in, _t(r), _t(z), _t(w), _t(np.asarray(side)[:, :2]), torch.tensor([alpha, beta]), lay,
+        u=_t(u) if with_u else None,
     )
+    assert len(got) == len(outs) == (6 if with_u else 5)
     for g, ref in zip(got[:3], outs[:3]):
         _close(g, ref)
     np.testing.assert_allclose(
         got[3].sum().item(), float(np.asarray(outs[3])[:, 0, 0].sum()), rtol=1e-5
     )
-    np.testing.assert_allclose(got[4].numpy(), np.asarray(outs[4])[:, 0, 0], rtol=1e-6)
+    for g, ref in zip(got[4:], outs[4:]):  # ‖r‖∞ [and ‖x − u‖∞] partials
+        np.testing.assert_allclose(g.numpy(), np.asarray(ref)[:, 0, 0], rtol=1e-6)
     np.testing.assert_array_equal(x_in.numpy(), x)  # inputs untouched
 
 
@@ -123,7 +130,7 @@ def test_hierarchy_from_domain_matches_jax(shape, nx, ny):
     # structure and the coarse inverse are built the same way: exact
     _, M = _jax_mg(shape, nx, ny)
     P = MultigridPreconditioner.from_domain(
-        Domain2D(nx=nx, ny=ny, shape=shape), fuse=True, fuse_min_extent=16
+        Domain2D(nx=nx, ny=ny, shape=shape), fuse=True, fuse_min_extent=16, device="cpu"
     )
     assert len(P.levels) == len(M.levels)
     for a, b in zip(P.levels, M.levels):

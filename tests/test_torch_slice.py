@@ -81,7 +81,7 @@ def test_dirichlet_solver_matches_jax(stop):
     _compare(ref, res.stop_reason, res.converged, res.outer_iterations, res.iterations,
              res.history, res.solution_field(dom))
     # the true f64 residual, recomputed with the plain stencil
-    b = PoissonProblem.manufactured(dom).rhs_field()
+    b = PoissonProblem.manufactured(dom).rhs_field(device="cpu")
     x = torch.from_numpy(res.solution_field(dom))
     rel = float(torch.linalg.norm(b - StencilOperator.from_domain(dom)(x)) / torch.linalg.norm(b))
     if stop == "rel1e-6":
@@ -99,10 +99,11 @@ def test_fused_slice_matches_jax(shape, n, stop, max_outer):
     dom = Domain2D(nx=n, ny=n, shape=shape)
     prob = PoissonProblem.manufactured(dom)
     lay = PaddedStencilOperator.from_domain(dom)
-    M = MultigridPreconditioner.from_domain(dom, fuse=True, fuse_min_extent=16)
+    M = MultigridPreconditioner.from_domain(dom, fuse=True, fuse_min_extent=16, device="cpu")
     res = fused_refined_solve(
-        lay, PaddedPreconditioner(inner=M, padded_op=lay), prob.rhs_field(),
-        u_true=prob.true_solution_field(), stop=StopConfig(**STOPS[stop]), max_outer=max_outer,
+        lay, PaddedPreconditioner(inner=M, padded_op=lay), prob.rhs_field(device="cpu"),
+        u_true=prob.true_solution_field(device="cpu"), stop=StopConfig(**STOPS[stop]),
+        max_outer=max_outer,
     )
     assert res.escalated == ref.escalated == (max_outer == 1)
     _compare(ref, res.reason, res.converged, res.outer_iterations, res.iterations,
