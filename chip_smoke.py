@@ -11,9 +11,11 @@ final ``ok`` line:
    (one nvcc per source, all started together);
 3. kernels: each kernel against its plain torch version on the card, at a
    small gamma grid, a ragged rect grid, path B's 1024² layout and the
-   8192² level-0 layout, with
-   the max abs difference, the tolerance and CUDA-event timings of the
-   kernel, its plain version and, for the stencil, one ``F.conv2d``;
+   8192² level-0 layout (2D), and at 16³, the ragged 32³, the unequal box
+   16 × 24 × 8 and the 512³ level-0 layout (3D; D3 and U3 also on each
+   coarser fused level's layout), with the max abs
+   difference, the tolerance and CUDA-event timings of the kernel, its plain
+   version and, for the stencils, one ``F.conv2d`` / ``F.conv3d``;
 4. solves, each main path run with the launch counts set to 0 just before
    it and read just after:
    - 64²: the cold f64-outer solve, the default solve (FMG warm start,
@@ -24,9 +26,17 @@ final ``ok`` line:
      ``DirichletSolver`` (FMG, outer='ff'): converged, true f64 relative
      residual < 1e-6, its kernels launched;
    - the cold f64-outer 8192² solve of the first slice, as before;
-   - the ff-vs-f64 A/B of path A's refinement (10 interleaved pairs);
+   - the ff-vs-f64 A/B of path A's refinement (10 interleaved pairs, and
+     whether ff qualifies for ``outer='auto'``);
    - path B, plain f32 CG on the fused engine (``operator='fused'``), at
      1024² to the relative criterion, and its ms per iteration at 8192²;
+   - 3D: 64³ bench-route solves (f64 and ff outers) and the FMG warm start
+     with its Jacobi polish, the card against the CPU; the JAX bench's 512³
+     route (``device_refined_solve`` on the padded 7-point operator, FMG,
+     ff outer, then f64): converged, true f64 relative residual < 1e-6, its
+     kernels launched, and its ff-vs-f64 A/B (10 interleaved pairs); the
+     facade's 512³ solve (``outer='auto'``); plain f32 CG on the 7-point
+     kernel at 512³: ms per iteration and iterations to rel 1e-6;
 5. one JSON line with every kernel's numbers, the card line, then ``ok``.
 
 Imports nothing of JAX. Needs one card; fails without one.
@@ -48,8 +58,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM data sheet, f32 outside the tensor cores
 PKG = "iterative_solvers_tpu_torch/csrc/"
 TPU = "iterative_solvers_tpu/kernels/"
-# name -> (source, TPU kernel it replaces, f32 operations per node counted
-# from its formula, the main path whose run gives its launch count)
+# name -> (source, TPU kernel it replaces (the body on the main path), f32
+# operations per node (per interior node in 3D) counted from its formula,
+# the main path whose run gives its launch count)
 KERNELS = {
     "k1": (PKG + "cg_fused.cu", TPU + "cg_fused.py:89", 14, "A"),
     "k2": (PKG + "cg_fused.cu", TPU + "cg_fused.py:133", 16, "B"),
@@ -59,12 +70,22 @@ KERNELS = {
     "k_jacobi": (PKG + "mg_fused.cu", TPU + "mg_fused.py:238", 10, "A"),
     "stencil": (PKG + "stencil.cu", TPU + "stencil_pallas.py:124", 7, "B"),
     "k_resid_ff": (PKG + "resid_ff.cu", TPU + "resid_ff.py:111", 70, "A"),
+    "stencil3d": (PKG + "stencil3d.cu", TPU + "stencil3d_pallas.py:128", 10, "3D"),
+    "k_down3d": (PKG + "mg_fused3d.cu", TPU + "mg_fused3d.py:290", 20, "3D"),
+    "k_up3d": (PKG + "mg_fused3d.cu", TPU + "mg_fused3d.py:343", 17, "3D"),
+    "k_jacobi3d": (PKG + "mg_fused3d.cu", TPU + "mg_fused3d.py:149", 13, "3D"),
+    "k_resid_ff3d": (PKG + "resid_ff.cu", TPU + "resid_ff.py:312", 110, "3D"),
 }
 PATH_KERNELS = {
     "A": ("k1", "k2_pcg", "k_down", "k_up", "k_jacobi", "k_resid_ff"),
     "f64": ("k1", "k2_pcg", "k_down", "k_up"),
     "B": ("k1", "k2", "stencil"),
+    "3D": ("stencil3d", "k_down3d", "k_up3d", "k_jacobi3d", "k_resid_ff3d"),
+    "3D f64": ("stencil3d", "k_down3d", "k_up3d", "k_jacobi3d"),
+    "3D facade": ("stencil3d", "k_down3d", "k_up3d", "k_jacobi3d", "k_resid_ff3d"),
+    "3D CG": ("stencil3d",),
 }
+N3 = 512
 
 
 def log(*a):
@@ -219,6 +240,99 @@ def check_kernels(dom, gen, label, timed, block_rows=None):
     return out
 
 
+def check_kernels_3d(dims, gen, label, timed):
+    """The 3D kernels against their plain versions on the fused level-0
+    layout of the box ``dims`` (the 7-point operator's own layout too), then
+    D3 and U3 on every coarser fused level's layout (untimed); returns
+    {name: dict of max_abs_err, ms, plain_ms, library_ms, bytes, nodes} of
+    level 0. ``bytes`` counts what the function must move: the kernels read
+    interior nodes only (the box mask is algebraic and a masked read touches
+    no memory), so each full-depth input counts its interior nodes, ``ec``
+    its dc planes' interior columns, and each output its whole canvas;
+    ``nodes`` (for the operation count) is the interior."""
+    import torch
+    import torch.nn.functional as F
+
+    from iterative_solvers_tpu_torch import Domain3D
+    from iterative_solvers_tpu_torch.kernels import resid_ff
+    from iterative_solvers_tpu_torch.kernels.stencil3d_layout import Padded3DStencilOperator
+    from iterative_solvers_tpu_torch.ops.ddf32 import split_f64
+    from iterative_solvers_tpu_torch.solvers.multigrid import MultigridPreconditioner, _FusedLevel3D
+
+    dom = Domain3D(*dims)
+    lay = Padded3DStencilOperator.from_domain(dom)
+    M = MultigridPreconditioner.from_domain(dom, fuse=True, fuse_min_extent=16, device="cuda")
+    kl = M.levels[0].kernels
+    if kl.padded_shape != lay.padded_shape:
+        raise AssertionError(f"{label}: V-cycle layout {kl.padded_shape} != operator's")
+    shape = lay.padded_shape
+    mask = lay.mask_spec.build("cuda")
+    n_in = int(mask.sum())  # interior nodes of one full-depth input
+    n_ec = kl.dc * (dom.ny - 1) * (dom.nx - 1)  # ec's columns under interior nodes
+    # unmasked inputs: every kernel masks its reads
+    x, b, xj = (torch.randn(shape, device="cuda", generator=gen) for _ in range(3))
+    ec = torch.randn((kl.dc,) + shape[1:], device="cuda", generator=gen)
+    f64 = dict(device="cuda", dtype=torch.float64, generator=gen)
+    bh, bl = split_f64(torch.where(mask, torch.randn(shape, **f64), 0.0) * 1e4)
+    xh, xl = split_f64(torch.where(mask, torch.randn(shape, **f64), 0.0))
+    bh_max = float(bh.abs().max())
+    # name: (kernel, plain, output kinds, f32 elements it must read)
+    cases = {
+        "stencil3d": (lambda: (lay(x),), lambda: (lay.apply_plain(x),), ("field",), n_in),
+        "k_down3d": (lambda: (kl.down(b),), lambda: (kl.down_plain(b),), ("field",), n_in),
+        "k_up3d": (lambda: (kl.up(b, ec),), lambda: (kl.up_plain(b, ec),), ("field",),
+                   n_in + n_ec),
+        "k_jacobi3d": (lambda: (kl.jacobi(xj, b),), lambda: (kl.jacobi_plain(xj, b),),
+                       ("field",), 2 * n_in),
+        "k_resid_ff3d": (lambda: resid_ff.resid_ff(xh, xl, bh, bl, lay),
+                         lambda: resid_ff.resid_ff_plain(xh, xl, bh, bl, lay),
+                         ("exact", "pair"), 4 * n_in),
+    }
+    out = {}
+    for name, (kern, plain, kinds, reads) in cases.items():
+        got, ref = kern(), plain()
+        torch.cuda.synchronize()
+        err, tol = compare(f"{name} @ {label}", got, ref, kinds, {1: bh_max})
+        rec = {"max_abs_err": err, "bytes": 4 * reads + nbytes(got), "nodes": n_in,
+               "library_ms": None}
+        line = f"kernel {name:12s} @ {label}: max_abs_err {err:.3e} tol {tol:.3e}"
+        del got, ref
+        if timed:
+            rec["ms"], rec["plain_ms"] = cuda_ms(kern), cuda_ms(plain, reps=5)
+            line += f"  kernel {rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f} ms"
+            if name == "stencil3d":
+                # yardstick: one cuDNN convolution with the 7-point cross
+                cd, cx, cy, cz = lay.coeffs
+                wt = torch.zeros((1, 1, 3, 3, 3), device="cuda")
+                wt[0, 0, 1, 1] = torch.tensor([cx, cd, cx])
+                wt[0, 0, 1, 0, 1] = wt[0, 0, 1, 2, 1] = cy
+                wt[0, 0, 0, 1, 1] = wt[0, 0, 2, 1, 1] = cz
+                xin = x.view(1, 1, *shape)
+                rec["library_ms"] = cuda_ms(lambda: F.conv3d(xin, wt, padding=1))
+                line += f"  conv3d {rec['library_ms']:.4f} ms"
+            torch.cuda.empty_cache()
+        log(line)
+        out[name] = rec
+    del x, b, xj, ec, bh, bl, xh, xl
+    # the coarser fused levels' own layouts and z-chunk tails (at 512³ the
+    # route launches D3 and U3 at 257 and 129 planes too)
+    for i, lev in enumerate(M.levels[1:], start=1):
+        if not isinstance(lev, _FusedLevel3D):
+            continue
+        k = lev.kernels
+        bi = torch.randn(k.padded_shape, device="cuda", generator=gen)
+        eci = torch.randn((k.dc,) + k.padded_shape[1:], device="cuda", generator=gen)
+        for name, kern, plain in (("k_down3d", lambda: (k.down(bi),), lambda: (k.down_plain(bi),)),
+                                  ("k_up3d", lambda: (k.up(bi, eci),),
+                                   lambda: (k.up_plain(bi, eci),))):
+            got, ref = kern(), plain()
+            torch.cuda.synchronize()
+            where = f"{'x'.join(map(str, dims))} level {i} {k.padded_shape}"
+            err, tol = compare(f"{name} @ {where}", got, ref, ("field",))
+            log(f"kernel {name:12s} @ {where}: max_abs_err {err:.3e} tol {tol:.3e}")
+    return out
+
+
 def solve_64_agrees(label, run):
     """``run(device)`` -> (stop reason, outer count, inner count, converged,
     x on the CPU) at 64²: the card against the CPU — same stop reason and
@@ -285,6 +399,153 @@ def small_checks():
     torch.cuda.synchronize()
 
 
+def stop_rel6():
+    from iterative_solvers_tpu_torch import StopConfig
+
+    return StopConfig(eps_precision=-1, eps_residual=-1, eps_relative=1e-6, max_iterations=100000)
+
+
+def bench_route_3d(dom, device, **mg):
+    """The JAX bench's 3D route: (padded 7-point operator, its f64 plain
+    twin, PaddedPreconditioner around the multigrid with the FMG payload,
+    padded f64 RHS)."""
+    import torch
+
+    from iterative_solvers_tpu_torch import PoissonProblem
+    from iterative_solvers_tpu_torch.kernels.stencil3d_layout import Padded3DStencilOperator
+    from iterative_solvers_tpu_torch.solvers.multigrid import (
+        MultigridPreconditioner,
+        PaddedPreconditioner,
+    )
+    from iterative_solvers_tpu_torch.solvers.refine import _padded_hi_operator
+
+    prob = PoissonProblem.manufactured(dom)
+    pop = Padded3DStencilOperator.from_domain(dom)
+    M = MultigridPreconditioner.from_domain(dom, device=device, **mg)
+    Mp = PaddedPreconditioner(inner=M.with_fmg(prob), padded_op=pop)
+    return pop, _padded_hi_operator(pop), Mp, pop.pad(prob.rhs_field(torch.float64, device))
+
+
+def small_checks_3d():
+    """64³ checks of the 3D route, the card against the CPU: both outers,
+    and the FMG warm start with the Jacobi polish (cutoff 16) at its three
+    fused levels."""
+    import torch
+
+    from iterative_solvers_tpu_torch import Domain3D
+    from iterative_solvers_tpu_torch.solvers.refine import device_refined_solve
+
+    dom = Domain3D(64, 64, 64)
+
+    def run(dev, ff):
+        pop, A_hi, Mp, b = bench_route_3d(dom, dev, fuse=True, fuse_min_extent=16)
+        r = device_refined_solve(A_hi, pop, b, stop=stop_rel6(), preconditioner=Mp, fmg=True, ff=ff)
+        return r.reason, r.outer_iterations, r.iterations, r.converged, r.x.cpu()
+
+    solve_64_agrees("3D 64^3 bench route f64", lambda dev: run(dev, False))
+    solve_64_agrees("3D 64^3 bench route ff", lambda dev: run(dev, True))
+    x0 = {}
+    for dev in ("cpu", "cuda"):
+        _, _, Mp, b = bench_route_3d(dom, dev, fuse=True, fuse_min_extent=16)
+        x0[dev] = Mp.fmg_stepwise(b, 1, polish_max_extent=16, smooth_sweeps=1).cpu()
+    gap = float((x0["cuda"] - x0["cpu"]).abs().max() / x0["cpu"].abs().max())
+    log(f"3D fmg_stepwise 64^3 cutoff 16 cuda vs cpu: x0 rel gap {gap:.2e} (tol 1e-5)")
+    if not gap < 1e-5:
+        raise AssertionError("3D FMG warm start on the card disagrees with the CPU")
+    torch.cuda.synchronize()
+
+
+def solve_512_3d():
+    """The JAX bench's 3D route at 512³ (ff outer, then f64), each timed
+    after a warm-up with the launch counts set to 0 just before it. Returns
+    the launch counts per path."""
+    import torch
+
+    from iterative_solvers_tpu_torch import Domain3D
+    from iterative_solvers_tpu_torch.kernels import _build
+    from iterative_solvers_tpu_torch.solvers.refine import device_refined_solve
+
+    t0 = time.perf_counter()
+    pop, A_hi, Mp, b = bench_route_3d(Domain3D(N3, N3, N3), "cuda")
+    torch.cuda.synchronize()
+    log(f"3D {N3}^3 set-up (hierarchy, f64 RHS on the card): {time.perf_counter() - t0:.3f} s; "
+        f"layout {pop.padded_shape}, V-cycle levels "
+        f"{[type(lv).__name__ for lv in Mp.inner.levels]}")
+
+    def run(ff):
+        return device_refined_solve(A_hi, pop, b, stop=stop_rel6(), preconditioner=Mp, fmg=True, ff=ff)
+
+    run(True)  # warm: allocator pools, coarse inverse, masks
+    launches = {}
+    for path, ff in (("3D", True), ("3D f64", False)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_counts()
+        t0 = time.perf_counter()
+        res = run(ff)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[path], plain = dict(_build.launches), dict(_build.plain_on_cuda)
+        peak = torch.cuda.max_memory_allocated()
+        rel = float(torch.linalg.norm(b - A_hi(res.x)) / torch.linalg.norm(b))
+        log(f"path {path} {N3}^3 bench route: converged {res.converged} reason {res.reason.name} "
+            f"outer {res.outer_iterations} inner {res.iterations} true_rel {rel:.3e} "
+            f"refine {res.elapsed_s:.4f} s wall {wall:.4f} s peak_mem {peak / 2**30:.2f} GiB")
+        log(f"path {path} launches {launches[path]} plain_on_cuda {plain}")
+        missing = [k for k in PATH_KERNELS[path] if launches[path].get(k, 0) <= 0]
+        if not (res.converged and res.reason.name == "RELATIVE_RESIDUAL" and rel < 1e-6):
+            raise AssertionError(f"path {path} failed: reason {res.reason.name} rel {rel:.3e}")
+        if missing or plain:
+            raise AssertionError(f"path {path}: kernels not launched {missing}; plain {plain}")
+    refine_ab(run, f"{N3}^3 bench route")
+    return launches
+
+
+def plain_cg_3d():
+    """Plain f32 CG on the 7-point kernel at 512³, as the JAX bench's
+    baseline: ms per iteration as (t(110) − t(10)) / 100 (medians of two
+    runs each, every criterion off), then one live run to rel 1e-6 with the
+    launch counts set to 0 just before it. Returns its launch counts."""
+    import torch
+
+    from iterative_solvers_tpu_torch import Domain3D, PoissonProblem, StopConfig
+    from iterative_solvers_tpu_torch.kernels import _build
+    from iterative_solvers_tpu_torch.kernels.stencil3d_layout import Padded3DStencilOperator
+    from iterative_solvers_tpu_torch.ops.stencil import StencilOperator
+    from iterative_solvers_tpu_torch.solvers.cg import CGOptions, cg_solve
+
+    dom = Domain3D(N3, N3, N3)
+    pop = Padded3DStencilOperator.from_domain(dom)
+    b = pop.pad(PoissonProblem.manufactured(dom).rhs_field(torch.float32, "cuda"))
+    t = {}
+    for n_it in (10, 110, 10, 110):
+        opts = CGOptions(stop=StopConfig(eps_precision=-1, eps_residual=-1, max_iterations=n_it))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = cg_solve(pop, b, options=opts)
+        torch.cuda.synchronize()
+        t.setdefault(n_it, []).append(time.perf_counter() - t0)
+        assert res.iterations == n_it
+    ms = (statistics.median(t[110]) - statistics.median(t[10])) / 100 * 1e3
+    log(f"plain CG {N3}^3: {ms:.4f} ms/iteration (110-it {t[110]} s, 10-it {t[10]} s)")
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    res = cg_solve(pop, b, options=CGOptions(stop=stop_rel6()))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = dict(_build.launches), dict(_build.plain_on_cuda)
+    A64 = StencilOperator(pop.mask_spec, pop.coeffs)
+    b64 = b.double()
+    rel = float(torch.linalg.norm(b64 - A64(res.x.double())) / torch.linalg.norm(b64))
+    log(f"plain CG {N3}^3 live run: reason {res.reason.name} iterations {res.iterations} "
+        f"true_rel {rel:.3e} wall {wall:.3f} s launches {launches} plain_on_cuda {plain}")
+    if not (res.converged and res.reason.name == "RELATIVE_RESIDUAL"):
+        raise AssertionError(f"plain CG {N3}^3 failed: reason {res.reason.name}")
+    if launches.get("stencil3d", 0) <= 0 or plain:
+        raise AssertionError(f"plain CG {N3}^3: launches {launches}, plain {plain}")
+    return launches
+
+
 def true_rel(solver, res):
     import torch
 
@@ -321,36 +582,37 @@ def timed_solve(solver, path):
     return res, wall, launches
 
 
-def refine_ab(solver, pairs=10):
-    """ff vs f64 outer on path A's refinement (FMG warm start included):
-    ``pairs`` pairs, alternating which runs first. Returns the medians, the
-    pairs ff won, the quartiles of each side and the trajectories."""
+def refine_ab(run, label, pairs=10):
+    """ff vs f64 outer: ``run(ff)`` (a refinement, FMG warm start included)
+    timed ``pairs`` times each, alternating which runs first. The rule for
+    ``outer='auto'``: ff qualifies only if it wins at least 9 in 10 pairs by
+    more than the f64 runs' quartile distance, with the same trajectory.
+    Returns the medians, the trajectories and whether ff qualifies."""
     import torch
 
-    from iterative_solvers_tpu_torch.solvers.refine import fused_refined_solve
-
-    pop, Mp = solver._parts
-    b = solver.problem.rhs_field(device="cuda")
-    u = solver.problem.true_solution_field(device="cuda")
     times, traj = {"ff": [], "f64": []}, {}
     for i in range(pairs):
         for outer in (("ff", "f64") if i % 2 == 0 else ("f64", "ff")):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            res = fused_refined_solve(pop, Mp, b, u_true=u, stop=solver.stop, fmg=1,
-                                      ff=outer == "ff")
+            res = run(outer == "ff")
             torch.cuda.synchronize()
             times[outer].append(time.perf_counter() - t0)
             traj[outer] = (int(res.reason), res.outer_iterations, res.iterations)
     med = {k: statistics.median(v) for k, v in times.items()}
     quart = {k: statistics.quantiles(v, n=4) for k, v in times.items()}
     wins = sum(f < g for f, g in zip(times["ff"], times["f64"]))
-    log(f"A/B refine {N}^2 path A, {pairs} pairs: ff median {med['ff']:.4f} s quartiles "
+    spread = quart["f64"][2] - quart["f64"][0]
+    clear = sum(g - f > spread for f, g in zip(times["ff"], times["f64"]))
+    qualifies = clear >= 0.9 * pairs and traj["ff"] == traj["f64"]
+    log(f"A/B refine {label}, {pairs} pairs: ff median {med['ff']:.4f} s quartiles "
         f"{quart['ff'][0]:.4f}/{quart['ff'][2]:.4f} traj {traj['ff']}; f64 median "
         f"{med['f64']:.4f} s quartiles {quart['f64'][0]:.4f}/{quart['f64'][2]:.4f} traj "
-        f"{traj['f64']}; ff faster in {wins}/{pairs} pairs")
+        f"{traj['f64']}; ff faster in {wins}/{pairs} pairs, by more than the f64 quartile "
+        f"distance {spread:.4f} s in {clear}/{pairs}: ff "
+        f"{'qualifies' if qualifies else 'does not qualify'} for outer='auto'")
     log(f"A/B times ff {[round(t, 4) for t in times['ff']]} f64 {[round(t, 4) for t in times['f64']]}")
-    return med, traj
+    return med, traj, qualifies
 
 
 def plain_cg_ms_per_iter():
@@ -403,9 +665,10 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
     # 2. build
-    from iterative_solvers_tpu_torch import DirichletSolver, StopConfig
-    from iterative_solvers_tpu_torch.core.domain import Domain2D
+    from iterative_solvers_tpu_torch import DirichletSolver
+    from iterative_solvers_tpu_torch.core.domain import Domain2D, Domain3D
     from iterative_solvers_tpu_torch.kernels import _build
+    from iterative_solvers_tpu_torch.solvers.refine import fused_refined_solve
 
     t0 = time.perf_counter()
     lib = _build.build()
@@ -422,11 +685,14 @@ def main() -> int:
     check_kernels(Domain2D(nx=1024, ny=1024), gen, "1024^2 path B", timed=False)
     stats = check_kernels(Domain2D(nx=N, ny=N), gen, "8192^2 level 0", timed=True)
     torch.cuda.empty_cache()
+    for dims in ((16, 16, 16), (32, 32, 32), (16, 24, 8)):
+        check_kernels_3d(dims, gen, "x".join(map(str, dims)), timed=False)
+    stats.update(check_kernels_3d((N3, N3, N3), gen, f"{N3}^3 level 0", timed=True))
+    torch.cuda.empty_cache()
 
     # 4. solves
     small_checks()
-    rel6 = StopConfig(eps_precision=-1, eps_residual=-1, eps_relative=1e-6,
-                      max_iterations=100000)
+    rel6 = stop_rel6()
     launches = {}
     # path A: the JAX package's default solve (fmg_cycles=1 by default)
     solver = DirichletSolver(nx=N, ny=N, preconditioner="mg", precision="mixed", outer="ff",
@@ -438,9 +704,11 @@ def main() -> int:
         f"refine {res.elapsed_s:.4f} s wall {wall:.3f} s")
     if not res.converged or not rel < 1e-6:
         raise AssertionError(f"path A failed: converged={res.converged} rel={rel:.3e}")
-    ab_med, ab_traj = refine_ab(solver)
-    if ab_traj["ff"] != ab_traj["f64"]:
-        log("A/B: the ff and f64 trajectories differ")
+    pop, Mp = solver._parts
+    b, u = solver.problem.rhs_field(device="cuda"), solver.problem.true_solution_field(device="cuda")
+    refine_ab(lambda ff: fused_refined_solve(pop, Mp, b, u_true=u, stop=rel6, fmg=1, ff=ff),
+              f"{N}^2 path A")
+    del pop, Mp, b, u
     del solver, res
     torch.cuda.empty_cache()
     # the first slice's cold f64-outer solve, unchanged
@@ -468,6 +736,24 @@ def main() -> int:
     del solver, res
     torch.cuda.empty_cache()
     plain_cg_ms_per_iter()
+    torch.cuda.empty_cache()
+
+    # 3D: the 64^3 checks, the bench route at 512^3, the facade, plain CG
+    small_checks_3d()
+    launches.update(solve_512_3d())
+    torch.cuda.empty_cache()
+    solver = DirichletSolver(domain=Domain3D(N3, N3, N3), preconditioner="mg", precision="mixed",
+                             device="cuda", stop=rel6)
+    res, wall, launches["3D facade"] = timed_solve(solver, "3D facade")
+    rel = true_rel(solver, res)
+    log(f"3D facade {N3}^3 (outer {solver.outer_kind}): converged {res.converged} reason "
+        f"{res.stop_reason.name} outer {res.outer_iterations} inner {res.iterations} true_rel "
+        f"{rel:.3e} refine {res.elapsed_s:.4f} s wall {wall:.3f} s")
+    if not (res.converged and res.stop_reason.name == "RELATIVE_RESIDUAL" and rel < 1e-6):
+        raise AssertionError(f"3D facade failed: converged={res.converged} rel={rel:.3e}")
+    del solver, res
+    torch.cuda.empty_cache()
+    launches["3D CG"] = plain_cg_3d()
 
     # 5. summary
     kernels = []

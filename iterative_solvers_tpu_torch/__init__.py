@@ -6,13 +6,14 @@ reference the port is tested against.
 """
 
 from iterative_solvers_tpu_torch.api import DirichletSolver, SolverResults
-from iterative_solvers_tpu_torch.core.domain import Domain2D, MaskSpec
+from iterative_solvers_tpu_torch.core.domain import Domain2D, Domain3D, MaskSpec
 from iterative_solvers_tpu_torch.core.problem import PoissonProblem
 from iterative_solvers_tpu_torch.solvers.stopping import StopConfig, StopReason
 
 __all__ = [
     "DirichletSolver",
     "Domain2D",
+    "Domain3D",
     "MaskSpec",
     "PoissonProblem",
     "SolverResults",

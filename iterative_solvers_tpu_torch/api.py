@@ -14,6 +14,15 @@ Two paths are ported:
   :func:`~iterative_solvers_tpu_torch.kernels.cg_fused.fused_cg_solve`, the
   reference algorithm; the final residual goes through the padded
   operator's stencil kernel, as in the JAX facade.
+- ``DirichletSolver(domain=Domain3D(...), preconditioner="mg",
+  precision="mixed")``, the 3D box:
+  :func:`~iterative_solvers_tpu_torch.solvers.refine.device_refined_solve`
+  on the padded 7-point operator (kernel S7) with the fused 3D V-cycle
+  behind a ``PaddedPreconditioner``, the FMG warm start and the f64 or ff
+  outer (kernel R3) — the route the JAX package's bench takes. The JAX
+  facade runs its 3D mixed solve on the *unpadded* plain operator; the port
+  takes the padded one so the kernels carry it (ROADMAP Queue 3).
+  ``operator="fused"`` with a 3D domain raises ValueError, as in JAX.
 
 ``device="cuda"`` (the default) launches the hand-written kernels and raises
 if there is no card; ``device="cpu"`` runs their plain torch versions.
@@ -30,9 +39,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-from iterative_solvers_tpu_torch.core.domain import Domain2D, resolve_device
+from iterative_solvers_tpu_torch.core.domain import Domain2D, Domain3D, resolve_device
 from iterative_solvers_tpu_torch.core.problem import PoissonProblem
 from iterative_solvers_tpu_torch.kernels.cg_fused import fused_cg_solve
+from iterative_solvers_tpu_torch.kernels.stencil3d_layout import Padded3DStencilOperator
 from iterative_solvers_tpu_torch.kernels.stencil_layout import PaddedStencilOperator
 from iterative_solvers_tpu_torch.ops.stencil import StencilOperator
 from iterative_solvers_tpu_torch.solvers.cg import CGOptions
@@ -44,11 +54,16 @@ from iterative_solvers_tpu_torch.solvers.precond import (
     make_preconditioner,
     parse_preconditioner,
 )
-from iterative_solvers_tpu_torch.solvers.refine import fused_refined_solve
+from iterative_solvers_tpu_torch.solvers.refine import (
+    _padded_hi_operator,
+    device_refined_solve,
+    fused_refined_solve,
+)
 from iterative_solvers_tpu_torch.solvers.stopping import StopConfig, StopReason
 
-# What outer='auto' means on the card (see PERF.md for the A/B behind it).
-AUTO_OUTER = "f64"
+# What outer='auto' means on the card, by the domain's dimension (PERF.md
+# has the A/Bs behind it: 8192² in 2D, 512³ in 3D).
+AUTO_OUTER = {2: "f64", 3: "ff"}
 
 
 @dataclass
@@ -76,8 +91,11 @@ class SolverResults:
     history: Optional[np.ndarray] = None
     shape: str = ""
     outer_iterations: int = 0  # refinement steps (not in the JAX results)
+    # 3D (None/0 for 2D problems)
+    z_coords: Optional[np.ndarray] = None
+    nz: int = 0
 
-    def solution_field(self, domain: Domain2D) -> np.ndarray:
+    def solution_field(self, domain) -> np.ndarray:
         """Scatter the compacted solution back onto the full grid."""
         out = np.zeros(domain.grid_shape)
         out[domain.interior] = self.solution
@@ -95,13 +113,14 @@ def _attach_fmg(M, problem):
 
 
 class DirichletSolver:
-    """Gamma/rect-domain Dirichlet–Poisson solver.
+    """Dirichlet–Poisson solver on a gamma/rect domain or a 3D box.
 
     Ported options: ``precision='mixed'`` with ``preconditioner='mg[:nu]'``,
     any ``fmg_cycles >= 0`` and ``outer`` in ``'f64'``, ``'ff'`` (double-f32)
-    or ``'auto'`` — which means :data:`AUTO_OUTER` on the card, chosen by
-    measurement there (the JAX package's 'auto' picks ff on a TPU); and
-    ``operator='fused'`` with ``precision=None``, with or without
+    or ``'auto'`` — which means :data:`AUTO_OUTER` of the domain's
+    dimension, chosen by measurement on the card (the JAX package's 'auto'
+    picks ff on a TPU); and, 2D
+    only, ``operator='fused'`` with ``precision=None``, with or without
     ``preconditioner='mg[:nu]'``.
     """
 
@@ -114,7 +133,7 @@ class DirichletSolver:
         y0: float = 1.0,
         y1: float = 2.0,
         *,
-        domain: Optional[Domain2D] = None,
+        domain=None,
         problem: Optional[PoissonProblem] = None,
         operator: str = "stencil",
         stop: Optional[StopConfig] = None,
@@ -140,8 +159,12 @@ class DirichletSolver:
         self._parts = None  # (layout, padded M or None), built on first solve
 
     @property
-    def domain(self) -> Domain2D:
+    def domain(self):
         return self.problem.domain
+
+    @property
+    def is3d(self) -> bool:
+        return isinstance(self.domain, Domain3D)
 
     def _validate_config(self) -> None:
         operator = self.operator_kind
@@ -149,6 +172,9 @@ class DirichletSolver:
             raise ValueError(
                 f"unknown operator {operator!r} (use 'stencil', 'sparse', 'pallas' or 'fused')"
             )
+        if operator == "fused" and self.is3d:
+            raise ValueError("operator='fused' is 2D-only; a 3D domain runs with "
+                             "precision='mixed', preconditioner='mg'")
         kind = None
         if self.preconditioner is not None:
             kind, _ = parse_preconditioner(self.preconditioner)
@@ -179,16 +205,18 @@ class DirichletSolver:
             raise NotImplementedError(
                 f"operator={operator!r} with precision=None is not ported yet "
                 "(ROADMAP Queue 1 items 12 and 13); use operator='fused'"
+                + (" (2D) or precision='mixed' (3D)" if self.is3d else "")
             )
 
     @property
     def outer_kind(self) -> str:
         """The outer this solver runs: 'f64' or 'ff'."""
-        return AUTO_OUTER if self.outer == "auto" else self.outer
+        return AUTO_OUTER[3 if self.is3d else 2] if self.outer == "auto" else self.outer
 
     def _build_parts(self):
         dom = self.domain
-        pop = PaddedStencilOperator.from_domain(dom)
+        layout = Padded3DStencilOperator if self.is3d else PaddedStencilOperator
+        pop = layout.from_domain(dom)
         Mp = None
         if self.preconditioner is not None:
             M = make_preconditioner(self.preconditioner, dom, device=self.device)
@@ -209,7 +237,15 @@ class DirichletSolver:
             if self.problem.u_exact is not None
             else None
         )
-        if self.precision == "mixed":
+        if self.precision == "mixed" and self.is3d:
+            res = device_refined_solve(
+                _padded_hi_operator(pop), pop, pop.pad(b), preconditioner=Mp,
+                u_true=None if u is None else pop.pad(u), stop=self.stop, fmg=self.fmg_cycles,
+                ff=self.outer_kind == "ff",
+            )
+            x = pop.crop(res.x)
+            r = b - StencilOperator.from_domain(dom)(x)
+        elif self.precision == "mixed":
             res = fused_refined_solve(pop, Mp, b, u_true=u, stop=self.stop,
                                       fmg=self.fmg_cycles, ff=self.outer_kind == "ff")
             x = res.x
@@ -230,7 +266,9 @@ class DirichletSolver:
             tru = err = np.zeros(0)
         X = dom.x0 + np.arange(dom.nx + 1) * dom.hx
         Y = dom.y0 + np.arange(dom.ny + 1) * dom.hy
-        iy, ix = np.nonzero(dom.interior)
+        idx = np.nonzero(dom.interior)  # ([iz,] iy, ix), row-major as the solution
+        iy, ix = idx[-2], idx[-1]
+        zs = dom.z0 + idx[0] * dom.hz if self.is3d else None
         eps_active = [
             e
             for e in (self.stop.eps_precision, self.stop.eps_residual,
@@ -253,10 +291,13 @@ class DirichletSolver:
             elapsed_s=res.elapsed_s,
             nx=dom.nx,
             ny=dom.ny,
-            bounds=(dom.x0, dom.x1, dom.y0, dom.y1),
+            bounds=(dom.x0, dom.x1, dom.y0, dom.y1)
+            + ((dom.z0, dom.z1) if self.is3d else ()),
             eps=min(eps_active) if eps_active else -1.0,
             max_iterations=self.stop.max_iterations,
             history=res.history,
-            shape=dom.shape,
+            shape=getattr(dom, "shape", ""),
             outer_iterations=getattr(res, "outer_iterations", 0),
+            z_coords=zs,
+            nz=getattr(dom, "nz", 0),
         )

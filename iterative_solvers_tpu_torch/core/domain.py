@@ -1,10 +1,12 @@
 """Grid domains with node masks (counterpart of iterative_solvers_tpu/core/domain.py).
 
-A field is a dense tensor over the full rectangular node grid, shape
-``(ny + 1, nx + 1)`` indexed ``[iy, ix]``. The masks are numpy arrays built on
-the host (they describe geometry, not data); :class:`MaskSpec` rebuilds the
-gamma/rect interior mask from index predicates on any device and canvas, so
-full-size masks never have to cross from host to card.
+A 2D field is a dense tensor over the full rectangular node grid, shape
+``(ny + 1, nx + 1)`` indexed ``[iy, ix]``; a 3D field (:class:`Domain3D`, the
+box) has shape ``(nz + 1, ny + 1, nx + 1)`` indexed ``[iz, iy, ix]``. The
+masks are numpy arrays built on the host (they describe geometry, not data);
+:class:`MaskSpec` rebuilds the gamma/rect/box interior mask from index
+predicates on any device and canvas, so full-size masks never have to cross
+from host to card.
 """
 
 from __future__ import annotations
@@ -43,27 +45,35 @@ def interior_pred(kind: str, nx: int, ny: int, ri, ci):
 
 @dataclass(frozen=True)
 class MaskSpec:
-    """Closed-form gamma/rect interior mask evaluated on a canvas ``shape``
-    that may be larger than the node grid (padded layouts): padding rows and
-    columns fall outside the strict inequalities and are False."""
+    """Closed-form gamma/rect/box interior mask evaluated on a canvas
+    ``shape`` that may be larger than the node grid (padded layouts): padding
+    rows and columns fall outside the strict inequalities and are False.
+    ``box`` is the 3D kind: 0 < z < nz ∧ 0 < y < ny ∧ 0 < x < nx."""
 
-    kind: str  # 'gamma' | 'rect'
+    kind: str  # 'gamma' | 'rect' | 'box'
     nx: int
     ny: int
-    shape: Tuple[int, int]
+    shape: Tuple[int, ...]
+    nz: int = 0
+
+    def _pred(self, grids):
+        if self.kind == "box":
+            zi, ri, ci = grids
+            return (zi > 0) & (zi < self.nz) & interior_pred("rect", self.nx, self.ny, ri, ci)
+        return interior_pred(self.kind, self.nx, self.ny, *grids)
 
     def build(self, device="cpu") -> torch.Tensor:
         """The interior mask as a bool tensor on ``device``."""
-        h, w = self.shape
-        ri = torch.arange(h, device=device)[:, None]
-        ci = torch.arange(w, device=device)[None, :]
-        return interior_pred(self.kind, self.nx, self.ny, ri, ci).expand(h, w)
+        n = len(self.shape)
+        grids = [
+            torch.arange(s, device=device).view([-1 if a == i else 1 for a in range(n)])
+            for i, s in enumerate(self.shape)
+        ]
+        return self._pred(grids).expand(self.shape)
 
     def build_host(self) -> np.ndarray:
-        ri, ci = np.ogrid[0 : self.shape[0], 0 : self.shape[1]]
-        return np.broadcast_to(
-            interior_pred(self.kind, self.nx, self.ny, ri, ci), self.shape
-        ).copy()
+        grids = np.ogrid[tuple(slice(0, s) for s in self.shape)]
+        return np.broadcast_to(self._pred(grids), self.shape).copy()
 
 
 @dataclass(frozen=True)
@@ -161,3 +171,78 @@ class Domain2D:
 
     def with_resolution(self, nx: int, ny: int) -> "Domain2D":
         return dataclasses.replace(self, nx=nx, ny=ny)
+
+
+@dataclass(frozen=True)
+class Domain3D:
+    """A 3D box node grid over ``[x0,x1]x[y0,y1]x[z0,z1]`` (7-point stencil).
+    Fields have shape ``(nz+1, ny+1, nx+1)`` indexed ``[iz, iy, ix]``; every
+    node off the box's faces is an unknown, every face node is Dirichlet."""
+
+    nx: int
+    ny: int
+    nz: int
+    x0: float = 0.0
+    x1: float = 1.0
+    y0: float = 0.0
+    y1: float = 1.0
+    z0: float = 0.0
+    z1: float = 1.0
+
+    def __post_init__(self) -> None:
+        if min(self.nx, self.ny, self.nz) < 2:
+            raise ValueError("grid too small")
+
+    @property
+    def hx(self) -> float:
+        return (self.x1 - self.x0) / self.nx
+
+    @property
+    def hy(self) -> float:
+        return (self.y1 - self.y0) / self.ny
+
+    @property
+    def hz(self) -> float:
+        return (self.z1 - self.z0) / self.nz
+
+    @property
+    def coeff_diag(self) -> float:
+        return -2.0 * (1.0 / self.hx**2 + 1.0 / self.hy**2 + 1.0 / self.hz**2)
+
+    @property
+    def coeff_x(self) -> float:
+        return 1.0 / self.hx**2
+
+    @property
+    def coeff_y(self) -> float:
+        return 1.0 / self.hy**2
+
+    @property
+    def coeff_z(self) -> float:
+        return 1.0 / self.hz**2
+
+    @property
+    def grid_shape(self) -> Tuple[int, int, int]:
+        return (self.nz + 1, self.ny + 1, self.nx + 1)
+
+    @property
+    def mask_spec(self) -> MaskSpec:
+        return MaskSpec("box", self.nx, self.ny, self.grid_shape, nz=self.nz)
+
+    @cached_property
+    def interior(self) -> np.ndarray:
+        return self.mask_spec.build_host()
+
+    @cached_property
+    def boundary(self) -> np.ndarray:
+        return ~self.interior
+
+    @property
+    def num_unknowns(self) -> int:
+        return (self.nx - 1) * (self.ny - 1) * (self.nz - 1)
+
+    def interior_on(self, device) -> torch.Tensor:
+        return self.mask_spec.build(device)
+
+    def boundary_on(self, device) -> torch.Tensor:
+        return ~self.interior_on(device)

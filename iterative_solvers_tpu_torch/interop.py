@@ -19,13 +19,23 @@ import torch
 
 from iterative_solvers_tpu_torch.core.domain import MaskSpec
 from iterative_solvers_tpu_torch.kernels.mg_fused import FusedLevelKernels
+from iterative_solvers_tpu_torch.kernels.mg_fused3d import FusedLevelKernels3D
 from iterative_solvers_tpu_torch.solvers.cg import CGState
 from iterative_solvers_tpu_torch.solvers.multigrid import (
     MultigridPreconditioner,
     _CoarseSolveDense,
     _FusedLevel,
+    _FusedLevel3D,
     _Level,
 )
+
+
+def _mask_spec(lv: Mapping) -> MaskSpec:
+    nx, ny = int(lv["nx"]), int(lv["ny"])
+    if lv["shape"] == "box":
+        nz = int(lv["nz"])
+        return MaskSpec("box", nx, ny, (nz + 1, ny + 1, nx + 1), nz=nz)
+    return MaskSpec(lv["shape"], nx, ny, (ny + 1, nx + 1))
 
 
 def multigrid_from_state(
@@ -35,17 +45,16 @@ def multigrid_from_state(
     nu: int = 1,
 ) -> MultigridPreconditioner:
     """Hierarchy from one mapping per level, finest first. Keys of every
-    level: ``shape`` ('gamma'|'rect'), ``nx``, ``ny``, ``coeffs`` (cd, c_y,
-    c_x), ``omega_over_diag``. A fused level also has ``padded_shape`` and
-    ``block_rows``. The coarsest level's solve is ``coarse_a_inv`` applied on
-    the flat interior indices ``coarse_idx``."""
+    level: ``shape`` ('gamma'|'rect', or 'box' for a 3D level, which also
+    has ``nz``), ``nx``, ``ny``, ``coeffs`` (the JAX level's (cd, c_y, c_x),
+    in 3D (cd, c_z, c_y, c_x)), ``omega_over_diag``. A fused level also has
+    ``padded_shape``, and ``block_rows`` in 2D (a 3D level's kernels take
+    any depth, so its ``block_z`` is not needed). The
+    coarsest level's solve is ``coarse_a_inv`` applied on the flat interior
+    indices ``coarse_idx``."""
     plain = [
-        _Level(
-            MaskSpec(lv["shape"], int(lv["nx"]), int(lv["ny"]),
-                     (int(lv["ny"]) + 1, int(lv["nx"]) + 1)),
-            tuple(float(c) for c in lv["coeffs"]),
-            float(lv["omega_over_diag"]),
-        )
+        _Level(_mask_spec(lv), tuple(float(c) for c in lv["coeffs"]),
+               float(lv["omega_over_diag"]))
         for lv in levels
     ]
     out = []
@@ -53,8 +62,18 @@ def multigrid_from_state(
         if "padded_shape" not in lv:
             out.append(plain[i])
             continue
-        cd, cy, cx = plain[i].coeffs
         nx, ny = int(lv["nx"]), int(lv["ny"])
+        if lv["shape"] == "box":
+            cd, cz, cy, cx = plain[i].coeffs
+            kernels3 = FusedLevelKernels3D(
+                nx=nx, ny=ny, nz=int(lv["nz"]), coeffs=(cd, cx, cy, cz),
+                cs=plain[i].omega_over_diag,
+                padded_shape=tuple(int(s) for s in lv["padded_shape"]),
+            )
+            out.append(_FusedLevel3D(kernels3, ny + 1, nx + 1, plain[i + 1].mask_spec,
+                                     plain[i]))
+            continue
+        cd, cy, cx = plain[i].coeffs
         kernels = FusedLevelKernels(
             nx=nx, ny=ny, coeffs=(cd, cx, cy), cs=plain[i].omega_over_diag,
             mask_mode=lv["shape"], padded_shape=tuple(int(s) for s in lv["padded_shape"]),

@@ -49,6 +49,12 @@ _SIGNATURES = {
     "ist_k_jacobi": [_P] * 3 + [_I] * 6 + [_F] * 4 + [_P],
     "ist_stencil": [_P] * 2 + [_I] * 6 + [_F] * 3 + [_P],
     "ist_k_resid_ff": [_P] * 6 + [_I] * 9 + [_F] * 10 + [_P],
+    # 3D (csrc/zmarch3d.cuh geometry: nx, ny, nz, d, hp, wp, bz)
+    "ist_stencil3d": [_P] * 2 + [_I] * 7 + [_F] * 4 + [_P],
+    "ist_k_down3d": [_P] * 2 + [_I] * 8 + [_F] * 5 + [_P],
+    "ist_k_up3d": [_P] * 3 + [_I] * 8 + [_F] * 5 + [_P],
+    "ist_k_jacobi3d": [_P] * 3 + [_I] * 7 + [_F] * 5 + [_P],
+    "ist_k_resid_ff3d": [_P] * 6 + [_I] * 11 + [_F] * 14 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

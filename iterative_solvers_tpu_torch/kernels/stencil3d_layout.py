@@ -1,0 +1,134 @@
+"""Padded 3D box operator (counterpart of ``Pallas3DStencilOperator`` in
+iterative_solvers_tpu/kernels/stencil3d_pallas.py).
+
+Volumes live on a ``(D, Hp, Wp)`` canvas, ``D = nz + 1`` exact, ``Wp % 128
+== 0`` and ``Hp`` a multiple of the JAX package's panel height
+(``_auto_block_rows_3d``), so padded fields compare like for like with the
+JAX layout. Padding is never interior, so zero padding is inert. At 512³ the
+layout is (513, 520, 640), the same canvas the fused multigrid level 0 uses,
+so the V-cycle takes the operator's fields with no pad/crop copies.
+
+Calling the operator applies the masked 7-point stencil ``y = A x`` to an
+f32 padded volume: the CUDA kernel ``csrc/stencil3d.cu`` (S7, which
+replaces both TPU kernels ``stencil3d_pallas._make_kernel_3d`` and
+``_make_kernel_3d_chunked``) on a CUDA tensor, its plain torch version
+:meth:`Padded3DStencilOperator.apply_plain` on a CPU tensor.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from iterative_solvers_tpu_torch.core.domain import MaskSpec, resolve_device
+from iterative_solvers_tpu_torch.kernels import _build
+from iterative_solvers_tpu_torch.kernels.stencil_layout import check_field, round_up
+from iterative_solvers_tpu_torch.ops.stencil import stencil_apply_3d
+
+ZMARCH_TY = 8  # rows per block of the z-march kernels (csrc/zmarch3d.cuh)
+ZMARCH_TX = 32  # columns per block
+
+
+def auto_block_rows_3d(h: int) -> int:
+    """The JAX package's panel height: the largest multiple of 8 that
+    divides round_up(h, 8) and is <= 128."""
+    hp = round_up(h, 8)
+    return max(by for by in range(8, 129, 8) if hp % by == 0)
+
+
+def zmarch_depth(d: int, hp: int, wp: int) -> int:
+    """Planes per block of the z-march kernels: enough z-chunks that the
+    grid holds ~2048 blocks of ``ZMARCH_TY x ZMARCH_TX`` threads (several
+    waves on 132 SMs), each chunk at least 4 planes deep so the two warm-up
+    planes stay a small share, at most 64."""
+    blocks_yx = -(-hp // ZMARCH_TY) * -(-wp // ZMARCH_TX)
+    return max(4, min(64, -(-d * blocks_yx // 2048)))
+
+
+def box_geometry(nx: int, ny: int, nz: int, padded_shape) -> Tuple[int, ...]:
+    """The integer launch arguments every 3D launcher takes first."""
+    d, hp, wp = padded_shape
+    return (nx, ny, nz, d, hp, wp, zmarch_depth(d, hp, wp))
+
+
+@dataclass(frozen=True, eq=False)
+class Padded3DStencilOperator:
+    nx: int
+    ny: int
+    nz: int
+    coeffs: Tuple[float, float, float, float]  # (cd, cx, cy, cz)
+    grid_shape: Tuple[int, int, int]  # unpadded (D, H, W)
+    padded_shape: Tuple[int, int, int]
+    block_rows: int  # the JAX package's panel height: it sets hp
+
+    @staticmethod
+    def from_domain(domain) -> "Padded3DStencilOperator":
+        d, h, w = domain.grid_shape
+        by = auto_block_rows_3d(h)
+        return Padded3DStencilOperator(
+            nx=domain.nx,
+            ny=domain.ny,
+            nz=domain.nz,
+            coeffs=(domain.coeff_diag, domain.coeff_x, domain.coeff_y, domain.coeff_z),
+            grid_shape=(d, h, w),
+            padded_shape=(d, round_up(h, by), round_up(w, 128)),
+            block_rows=by,
+        )
+
+    @property
+    def shape(self):
+        return self.padded_shape
+
+    def pad(self, field: torch.Tensor) -> torch.Tensor:
+        _, h, w = self.grid_shape
+        _, hp, wp = self.padded_shape
+        return F.pad(field, (0, wp - w, 0, hp - h))
+
+    def crop(self, field: torch.Tensor) -> torch.Tensor:
+        _, h, w = self.grid_shape
+        return field[:, :h, :w]
+
+    @property
+    def mask_spec(self) -> MaskSpec:
+        return MaskSpec("box", self.nx, self.ny, tuple(self.padded_shape), nz=self.nz)
+
+    def interior_padded(self) -> np.ndarray:
+        return self.mask_spec.build_host()
+
+    def mask(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.where(self.mask_spec.build(x.device), x, 0.0)
+
+    def diagonal(self, device="cuda") -> torch.Tensor:
+        return torch.where(self.mask_spec.build(resolve_device(device)), self.coeffs[0], 0.0)
+
+    def apply_plain(self, x: torch.Tensor) -> torch.Tensor:
+        """S7's plain torch version: masked reads, masked output."""
+        _build.note_plain("stencil3d", x)
+        return stencil_apply_3d(x, self.mask_spec.build(x.device), *self.coeffs)
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        """``y = A x`` on a contiguous f32 volume of the padded shape."""
+        check_field("x", x, self.padded_shape)
+        if x.device.type == "cpu":
+            return self.apply_plain(x)
+        y = torch.empty_like(x)
+        _build.launch(
+            "ist_stencil3d", _build.ptr(x), _build.ptr(y),
+            *box_geometry(self.nx, self.ny, self.nz, self.padded_shape), *self.coeffs,
+        )
+        return y
+
+    def nnz(self) -> int:
+        """Stored-matrix-equivalent nonzero count: the diagonal plus two
+        entries per interior-interior neighbour link."""
+        m = self.interior_padded()
+        total = int(m.sum())
+        for ax in range(3):
+            lo = tuple(slice(None, -1) if a == ax else slice(None) for a in range(3))
+            hi = tuple(slice(1, None) if a == ax else slice(None) for a in range(3))
+            total += 2 * int((m[lo] & m[hi]).sum())
+        return total

@@ -8,8 +8,8 @@ high-precision quantity, the true residual ``r = b − A x``.
 differences ``x_lo − x`` and ``x_hi − x`` with their TwoSum errors, the axis
 coefficient applied exactly (a power of two) or by Dekker's TwoProd, a plain
 f32 ``A·xl``, and the gap between the stored diagonal and the exact
-``−2Σc`` folded back in. On the padded layout it is the plain version of the
-kernel in ``kernels/resid_ff.py``.
+``−2Σc`` folded back in (2D and 3D). On the padded layouts it is the plain
+version of the kernels in ``kernels/resid_ff.py``.
 
 Every step is one torch op on f32 tensors, so each product and sum is
 rounded once, in the order written; scalars are f32 values (the coefficient
@@ -25,7 +25,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from iterative_solvers_tpu_torch.ops.stencil import stencil_apply
+from iterative_solvers_tpu_torch.ops.stencil import stencil_apply, stencil_apply_3d
 
 Pair = Tuple[torch.Tensor, torch.Tensor]
 F32 = torch.float32
@@ -116,23 +116,40 @@ def _axis_diff2(xm: torch.Tensor, lo, hi, c: float) -> Pair:
     return _scaled_term(t, (e1 + e2) + e3, c)
 
 
+def _masked_shifts(xm: torch.Tensor):
+    """(lo, hi) neighbour views of a masked field per axis, x first, zero
+    outside the canvas."""
+    if xm.ndim == 3:
+        p = F.pad(xm, (1, 1, 1, 1, 1, 1))
+        return (
+            (p[1:-1, 1:-1, :-2], p[1:-1, 1:-1, 2:]),  # x
+            (p[1:-1, :-2, 1:-1], p[1:-1, 2:, 1:-1]),  # y
+            (p[:-2, 1:-1, 1:-1], p[2:, 1:-1, 1:-1]),  # z
+        )
+    p = F.pad(xm, (1, 1, 1, 1))
+    return ((p[1:-1, :-2], p[1:-1, 2:]), (p[:-2, 1:-1], p[2:, 1:-1]))  # x, y
+
+
 def residual_ff(interior: torch.Tensor, coeffs, b_pair: Pair, x_pair: Pair) -> Pair:
-    """(rh, rl) ≈ (bh + bl) − A·(xh + xl) to f32-pair precision, all ops f32
-    (2D). ``interior``: bool mask; ``coeffs``: (cd, cx, cy)."""
+    """(rh, rl) ≈ (bh + bl) − A·(xh + xl) to f32-pair precision, all ops f32.
+    ``interior``: bool mask (2D or 3D); ``coeffs``: (cd, cx, cy[, cz])."""
     bh, bl = b_pair
     xh, xl = x_pair
     axis_cs = coeffs[1:]
     xm = torch.where(interior, xh, 0.0)
-    p = F.pad(xm, (1, 1, 1, 1))
-    shifts = ((p[1:-1, :-2], p[1:-1, 2:]), (p[:-2, 1:-1], p[2:, 1:-1]))  # x-axis, y-axis
     mains, errs = [], []
-    for (lo, hi), c in zip(shifts, axis_cs):
+    for (lo, hi), c in zip(_masked_shifts(xm), axis_cs):
         m, e = _axis_diff2(xm, lo, hi, c)
         mains.append(m)
         errs.append(e)
+    # exact sum of the axis mains, its errors summed in order
     S, es = two_sum(mains[0], mains[1])
+    for m in mains[2:]:
+        S, e = two_sum(S, m)
+        es = es + e
     # plain-f32 corrections: axis errors, then A·xl, then the diagonal gap
-    corr = sum(errs) + stencil_apply(xl, interior, *coeffs)
+    apply = stencil_apply_3d if xh.ndim == 3 else stencil_apply
+    corr = sum(errs) + apply(xl, interior, *coeffs)
     delta = coeff_delta(coeffs)
     if delta != 0.0:
         corr = corr + float(np.float32(delta)) * xm

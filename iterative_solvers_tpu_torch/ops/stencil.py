@@ -1,4 +1,5 @@
-"""Masked 5-point stencil in plain torch (counterpart of iterative_solvers_tpu/ops/stencil.py).
+"""Masked 5-point (2D) and 7-point (3D) stencils in plain torch (counterpart
+of iterative_solvers_tpu/ops/stencil.py).
 
 This is the high-precision operator ``A_hi`` of the mixed-precision outer
 loop: it runs in f64 (or f32) outside any kernel, exactly as the JAX package
@@ -29,19 +30,35 @@ def stencil_apply(x: torch.Tensor, interior: torch.Tensor, cd: float, cx: float,
     return torch.where(interior, y, 0.0)
 
 
-class StencilOperator:
-    """Callable ``y = A @ x`` over full-grid (or padded-canvas) fields."""
+def stencil_apply_3d(x: torch.Tensor, interior: torch.Tensor, cd: float, cx: float,
+                     cy: float, cz: float) -> torch.Tensor:
+    """y = A @ x for the masked 7-point stencil on a full 3D grid."""
+    xm = torch.where(interior, x, 0.0)
+    p = F.pad(xm, (1, 1, 1, 1, 1, 1))
+    y = (
+        cd * xm
+        + cx * (p[1:-1, 1:-1, :-2] + p[1:-1, 1:-1, 2:])
+        + cy * (p[1:-1, :-2, 1:-1] + p[1:-1, 2:, 1:-1])
+        + cz * (p[:-2, 1:-1, 1:-1] + p[2:, 1:-1, 1:-1])
+    )
+    return torch.where(interior, y, 0.0)
 
-    def __init__(self, mask_spec: MaskSpec, coeffs: Tuple[float, float, float]):
+
+class StencilOperator:
+    """Callable ``y = A @ x`` over full-grid (or padded-canvas) fields;
+    ``coeffs`` is (cd, cx, cy) in 2D and (cd, cx, cy, cz) in 3D."""
+
+    def __init__(self, mask_spec: MaskSpec, coeffs: Tuple[float, ...]):
         self.mask_spec = mask_spec
         self.coeffs = tuple(float(c) for c in coeffs)
         self._masks: Dict[torch.device, torch.Tensor] = {}
 
     @staticmethod
     def from_domain(domain) -> "StencilOperator":
-        return StencilOperator(
-            domain.mask_spec, (domain.coeff_diag, domain.coeff_x, domain.coeff_y)
-        )
+        coeffs = (domain.coeff_diag, domain.coeff_x, domain.coeff_y)
+        if hasattr(domain, "nz"):
+            coeffs += (domain.coeff_z,)
+        return StencilOperator(domain.mask_spec, coeffs)
 
     def interior(self, device) -> torch.Tensor:
         device = torch.device(device)
@@ -51,4 +68,5 @@ class StencilOperator:
         return m
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        return stencil_apply(x, self.interior(x.device), *self.coeffs)
+        apply = stencil_apply_3d if len(self.coeffs) == 4 else stencil_apply
+        return apply(x, self.interior(x.device), *self.coeffs)

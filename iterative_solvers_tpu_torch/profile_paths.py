@@ -1,23 +1,31 @@
 """Where the time of a solve goes on the card: ``torch.profiler`` over one
 solve of each main path, after a warm-up solve.
 
-    python -m iterative_solvers_tpu_torch.profile_paths [--n 8192] [--nb 1024] [--out DIR]
+    python -m iterative_solvers_tpu_torch.profile_paths [--n 8192] [--nb 1024] [--n3 512]
+        [--paths A,f64,B,3D] [--out DIR]
 
 Paths: A, the default solve (FMG warm start, double-f32 outer) at ``n``²;
 the cold f64-outer solve at ``n``²; B, plain f32 CG on the fused engine
-(``operator='fused'``) at ``nb``². For each it prints the facade's
+(``operator='fused'``) at ``nb``²; 3D, the box at ``n3``³ (FMG warm start,
+double-f32 outer, ``device_refined_solve`` on the padded 7-point operator,
+as the JAX package's bench runs it). For each it prints the facade's
 ``solve()`` wall time, then profiles the solver core alone (the refinement,
 or the CG solve, on fields assembled beforehand): its time without and with
 the profiler, the device-busy time (the union of the device events'
-intervals), the idle share of the profiled window and the device ops with
-the most self time; with ``--out``, also a Chrome trace per path. Needs a
-CUDA device.
+intervals), the idle share of the profiled window, the device time of the
+port's own kernels against all other device ops (torch glue), and the
+device ops with the most self time; with ``--out``, also a Chrome trace per
+path. For the 3D path it then times the refinement's parts with CUDA
+events: one inner PCG iteration, the V-cycle in it, level 0's kernels and
+its y/x transfers, the 7-point apply, the FMG warm start. Needs a CUDA
+device.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import re
 import subprocess
 import time
 
@@ -25,10 +33,22 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from iterative_solvers_tpu_torch.api import DirichletSolver
+from iterative_solvers_tpu_torch.core.domain import Domain3D
 from iterative_solvers_tpu_torch.kernels.cg_fused import fused_cg_solve
 from iterative_solvers_tpu_torch.solvers.cg import CGOptions
-from iterative_solvers_tpu_torch.solvers.refine import fused_refined_solve
+from iterative_solvers_tpu_torch.solvers.refine import (
+    _maybe_fmg_x0,
+    _padded_hi_operator,
+    _pcg_inner_solve,
+    device_refined_solve,
+    fused_refined_solve,
+)
 from iterative_solvers_tpu_torch.solvers.stopping import StopConfig
+
+# the port's hand-written kernels (csrc/*.cu), as the profiler names them
+_OWN_KERNEL = re.compile(
+    r"(?<![A-Za-z_])(k1|k2|k_down3?d?|k_up3?d?|k_jacobi3?d?|stencil3?d?|k_resid_ff3?d?)_kernel"
+)
 
 
 def _busy_us(prof):
@@ -59,13 +79,77 @@ def _timed(fn):
     return res, time.perf_counter() - t0
 
 
+def _own_kernel_us(prof):
+    """(µs of the port's kernels, µs of every other kernel) summed over the
+    device events (the ops' own rows would count each kernel twice)."""
+    own = other = 0.0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t = e.time_range.end - e.time_range.start
+        if _OWN_KERNEL.search(e.name):
+            own += t
+        else:
+            other += t
+    return own, other
+
+
+def _event_ms(fn, reps=5):
+    """Median CUDA-event time of ``fn`` (ms) after one warm-up call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return sorted(times)[len(times) // 2]
+
+
+def breakdown_3d(solver: DirichletSolver) -> None:
+    """Times of the 3D refinement's parts on the solver's own layout."""
+    pop, Mp = solver._parts
+    lev = Mp.inner.levels[0]
+    b = pop.pad(solver.problem.rhs_field(device="cuda"))
+    r = b.float()
+    never = torch.zeros((), device="cuda")  # eta 0: the inner runs to its cap
+
+    def pcg(k):
+        return lambda: _pcg_inner_solve(pop, Mp, never, r, k)
+
+    rr = lev.kernels.down(r)
+    ec = lev.prolong_yx(lev.restrict_yx(rr))
+    t = {
+        "inner PCG iteration (6 minus 1 iterations, / 5)":
+            (_event_ms(pcg(6)) - _event_ms(pcg(1))) / 5,
+        "  V-cycle M(r) on the padded layout": _event_ms(lambda: Mp(r)),
+        "    level 0: D3 + U3 kernels": _event_ms(lambda: lev.kernels.up(r, ec))
+        + _event_ms(lambda: lev.kernels.down(r)),
+        "    level 0: y/x restriction + prolongation":
+            _event_ms(lambda: lev.prolong_yx(lev.restrict_yx(rr))),
+        "  7-point apply (S7)": _event_ms(lambda: pop(r)),
+        "FMG warm start": _event_ms(lambda: _maybe_fmg_x0(Mp, solver.fmg_cycles, b)),
+    }
+    for name, ms in t.items():
+        print(f"   {name:52s} {ms:9.3f} ms")
+
+
 def profile_path(name: str, solver: DirichletSolver, out_dir=None) -> None:
     solver.solve()  # warm-up: allocator pools, coarse inverse, masks, FMG payload
     _, wall = _timed(solver.solve)
     pop, Mp = solver._parts
     b = solver.problem.rhs_field(device="cuda")
     u = solver.problem.true_solution_field(device="cuda")
-    if solver.precision == "mixed":
+    if solver.precision == "mixed" and solver.is3d:
+        A_hi, bp, up = _padded_hi_operator(pop), pop.pad(b), pop.pad(u)
+
+        def core():
+            return device_refined_solve(A_hi, pop, bp, preconditioner=Mp, u_true=up,
+                                        stop=solver.stop, fmg=solver.fmg_cycles,
+                                        ff=solver.outer_kind == "ff")
+    elif solver.precision == "mixed":
         def core():
             return fused_refined_solve(pop, Mp, b, u_true=u, stop=solver.stop,
                                        fmg=solver.fmg_cycles, ff=solver.outer_kind == "ff")
@@ -77,21 +161,28 @@ def profile_path(name: str, solver: DirichletSolver, out_dir=None) -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, t_prof = _timed(core)
     busy, first, last = _busy_us(prof)
+    own, other = _own_kernel_us(prof)
     window = max(last - first, 1e-9)
     print(f"== path {name}: {res.reason.name} outer {getattr(res, 'outer_iterations', 0)} "
           f"inner {res.iterations}; facade solve() wall {wall:.3f} s; core {t_core:.4f} s "
           f"(profiled {t_prof:.4f} s)")
     print(f"   device busy {busy / 1e3:.3f} ms over a {window / 1e3:.3f} ms window of device "
           f"events: idle share {100 * (1 - busy / window):.1f} %")
+    print(f"   device time: the port's kernels {own / 1e3:.3f} ms, other device kernels "
+          f"and copies (torch glue) {other / 1e3:.3f} ms")
     print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=18), flush=True)
     if out_dir:
         prof.export_chrome_trace(os.path.join(out_dir, f"trace_{name}.json"))
+    if solver.is3d:
+        breakdown_3d(solver)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=8192)
     ap.add_argument("--nb", type=int, default=1024)
+    ap.add_argument("--n3", type=int, default=512)
+    ap.add_argument("--paths", default="A,f64,B,3D", help="comma-separated subset of A,f64,B,3D")
     ap.add_argument("--out", default=None, help="directory for Chrome traces")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -103,13 +194,17 @@ def main(argv=None) -> int:
                          capture_output=True, text=True, timeout=60).stdout.strip())
     rel6 = StopConfig(eps_precision=-1, eps_residual=-1, eps_relative=1e-6, max_iterations=100000)
     mixed = dict(preconditioner="mg", precision="mixed", device="cuda", stop=rel6)
-    profile_path("A", DirichletSolver(nx=args.n, ny=args.n, outer="ff", **mixed), args.out)
-    torch.cuda.empty_cache()
-    profile_path("f64", DirichletSolver(nx=args.n, ny=args.n, outer="f64", fmg_cycles=0, **mixed),
-                 args.out)
-    torch.cuda.empty_cache()
-    profile_path("B", DirichletSolver(nx=args.nb, ny=args.nb, operator="fused", device="cuda",
-                                      stop=rel6), args.out)
+    solvers = {
+        "A": lambda: DirichletSolver(nx=args.n, ny=args.n, outer="ff", **mixed),
+        "f64": lambda: DirichletSolver(nx=args.n, ny=args.n, outer="f64", fmg_cycles=0, **mixed),
+        "B": lambda: DirichletSolver(nx=args.nb, ny=args.nb, operator="fused", device="cuda",
+                                     stop=rel6),
+        "3D": lambda: DirichletSolver(domain=Domain3D(args.n3, args.n3, args.n3), outer="ff",
+                                      **mixed),
+    }
+    for name in args.paths.split(","):
+        profile_path(name, solvers[name](), args.out)
+        torch.cuda.empty_cache()
     return 0
 
 

@@ -1,19 +1,22 @@
 """Geometric multigrid V-cycle preconditioner (counterpart of iterative_solvers_tpu/solvers/multigrid.py).
 
-One V(ν,ν) cycle of rediscretised multigrid on full-grid masked fields:
-weighted-Jacobi smoothing (ω = 0.8), full-weighting restriction and linear
-prolongation with R = Pᵀ/4, and an exact dense-inverse coarse solve — a
-symmetric linear operator, hence PCG-safe. Fine levels of V(1,1) cycles
-run the fused down/up kernels (kernels/mg_fused.py) on their padded
-layouts; the other levels, and any f64 field, take the plain torch leg.
+One V(ν,ν) cycle of rediscretised multigrid on full-grid masked fields of a
+2D domain or a 3D box: weighted-Jacobi smoothing (ω = 0.8), full-weighting
+restriction and linear prolongation with R = Pᵀ/2^ndim, and an exact
+dense-inverse coarse solve — a symmetric linear operator, hence PCG-safe.
+Fine levels of V(1,1) cycles run the fused down/up kernels on their padded
+layouts (kernels/mg_fused.py in 2D; kernels/mg_fused3d.py in 3D, whose y/x
+transfers are stride-2 torch ops here, not the JAX package's banded
+matmuls); the other levels, and any f64 field, take the plain torch leg.
 
 The FMG warm start (:meth:`MultigridPreconditioner.fmg_stepwise`) walks the
 hierarchy from the exact coarsest solve upwards: BC-aware prolongation of
 each level's solution plus a polish — V-cycles up to ``polish_max_extent``,
 above it weighted-Jacobi sweeps, which on a fused level run the Jacobi
-kernel on the level's padded layout. The JAX package can compile the
-ladder per rung or as one program (its ``combine`` flag); eager PyTorch
-runs the same ops in order either way, so the port has the one form.
+kernel on the level's padded layout (A7 in 2D, J3 in 3D). The JAX package
+can compile the ladder per rung or as one program (its ``combine`` flag);
+eager PyTorch runs the same ops in order either way, so the port has the
+one form.
 """
 
 from __future__ import annotations
@@ -26,12 +29,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from iterative_solvers_tpu_torch.core.domain import Domain2D, MaskSpec, resolve_device
+from iterative_solvers_tpu_torch.core.domain import Domain3D, MaskSpec, resolve_device
 from iterative_solvers_tpu_torch.kernels.mg_fused import (
     FusedLevelKernels,
     lane_prolong,
     lane_restrict,
 )
+from iterative_solvers_tpu_torch.kernels.mg_fused3d import FusedLevelKernels3D
 from iterative_solvers_tpu_torch.kernels.stencil_layout import round_up
 
 F32 = torch.float32
@@ -55,7 +59,7 @@ class _MaskCache:
 def _restrict1d(a: torch.Tensor, axis: int) -> torch.Tensor:
     """Full weighting along one axis: fine extent 2nc+1 -> nc+1, [1,2,1]/4."""
     nc1 = (a.shape[axis] - 1) // 2 + 1
-    pad = [0, 0, 0, 0]
+    pad = [0, 0] * a.ndim
     pad[2 * (a.ndim - 1 - axis)] = pad[2 * (a.ndim - 1 - axis) + 1] = 1
     p = F.pad(a, pad)
     lo = p.narrow(axis, 0, 2 * nc1 - 1)[(slice(None),) * axis + (slice(None, None, 2),)]
@@ -88,8 +92,13 @@ def prolong_linear(e: torch.Tensor) -> torch.Tensor:
     return e
 
 
-def _coarsen_domain(d: Domain2D) -> Optional[Domain2D]:
-    """The next-coarser domain, or None if it cannot be rediscretised."""
+def _coarsen_domain(d):
+    """The next-coarser domain (every interval count halved), or None if it
+    cannot be rediscretised."""
+    if isinstance(d, Domain3D):
+        if d.nx % 2 or d.ny % 2 or d.nz % 2 or min(d.nx, d.ny, d.nz) < 4:
+            return None
+        return dataclasses.replace(d, nx=d.nx // 2, ny=d.ny // 2, nz=d.nz // 2)
     if d.nx % 2 or d.ny % 2 or min(d.nx, d.ny) < 4:
         return None
     cnx, cny = d.nx // 2, d.ny // 2
@@ -99,7 +108,15 @@ def _coarsen_domain(d: Domain2D) -> Optional[Domain2D]:
     return c if c.num_unknowns > 0 else None
 
 
-def _assemble_dense(d: Domain2D) -> Tuple[np.ndarray, np.ndarray]:
+def _axis_coeffs(d) -> Tuple[float, ...]:
+    """The neighbour coefficients in field-axis order: (c_y, c_x) in 2D,
+    (c_z, c_y, c_x) in 3D."""
+    if isinstance(d, Domain3D):
+        return (d.coeff_z, d.coeff_y, d.coeff_x)
+    return (d.coeff_y, d.coeff_x)
+
+
+def _assemble_dense(d) -> Tuple[np.ndarray, np.ndarray]:
     """(interior flat indices, dense f64 matrix) of the coarsest operator."""
     interior = np.asarray(d.interior)
     flat = np.arange(interior.size).reshape(interior.shape)
@@ -109,9 +126,9 @@ def _assemble_dense(d: Domain2D) -> Tuple[np.ndarray, np.ndarray]:
     pos[idx] = np.arange(n)
     A = np.zeros((n, n), dtype=np.float64)
     A[np.arange(n), np.arange(n)] = d.coeff_diag
-    for axis, c in ((0, d.coeff_y), (1, d.coeff_x)):
-        lo = [slice(None)] * 2
-        hi = [slice(None)] * 2
+    for axis, c in enumerate(_axis_coeffs(d)):
+        lo = [slice(None)] * interior.ndim
+        hi = [slice(None)] * interior.ndim
         lo[axis] = slice(None, -1)
         hi[axis] = slice(1, None)
         both = interior[tuple(lo)] & interior[tuple(hi)]
@@ -127,7 +144,7 @@ class _Level:
 
     def __init__(self, mask_spec: MaskSpec, coeffs, omega_over_diag: float):
         self.mask_spec = mask_spec
-        self.coeffs = tuple(float(c) for c in coeffs)  # (cd, c_axis0, c_axis1)
+        self.coeffs = tuple(float(c) for c in coeffs)  # (cd, c_axis0, c_axis1[, c_axis2])
         self.omega_over_diag = float(omega_over_diag)
         self._mask = _MaskCache(mask_spec)
 
@@ -139,12 +156,16 @@ class _Level:
         return self._mask.on(device)
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:
+        """Masked stencil apply, the axes' terms added in field-axis order."""
         m = self.interior(x.device)
         xm = torch.where(m, x, 0.0)
-        p = F.pad(xm, (1, 1, 1, 1))
+        nd = x.ndim
+        p = F.pad(xm, (1, 1) * nd)
         y = self.coeffs[0] * xm
-        y = y + self.coeffs[1] * (p[:-2, 1:-1] + p[2:, 1:-1])
-        y = y + self.coeffs[2] * (p[1:-1, :-2] + p[1:-1, 2:])
+        for ax in range(nd):
+            lo = tuple(slice(0, -2) if a == ax else slice(1, -1) for a in range(nd))
+            hi = tuple(slice(2, None) if a == ax else slice(1, -1) for a in range(nd))
+            y = y + self.coeffs[1 + ax] * (p[lo] + p[hi])
         return torch.where(m, y, 0.0)
 
     def mask(self, x: torch.Tensor) -> torch.Tensor:
@@ -205,6 +226,53 @@ class _FusedLevel:
         return self.jnp_level.mask(x)
 
 
+class _FusedLevel3D:
+    """Fine 3D level running the fused z-leg kernels (D3, U3, J3) on its
+    padded layout; the y/x half of each transfer runs here in plain torch."""
+
+    def __init__(self, kernels: FusedLevelKernels3D, h: int, w: int,
+                 child_mask_spec: MaskSpec, jnp_level: _Level):
+        self.kernels = kernels
+        self.h, self.w = h, w
+        self.child_mask_spec = child_mask_spec
+        self._child_mask = _MaskCache(child_mask_spec)
+        self.jnp_level = jnp_level  # plain leg for non-f32 fields
+
+    @property
+    def grid_shape(self):
+        return (self.kernels.padded_shape[0], self.h, self.w)
+
+    def child_interior(self, device) -> torch.Tensor:
+        return self._child_mask.on(device)
+
+    def pad_in(self, f: torch.Tensor) -> torch.Tensor:
+        _, hp, wp = self.kernels.padded_shape
+        return F.pad(f, (0, wp - self.w, 0, hp - self.h))
+
+    def mask(self, x: torch.Tensor) -> torch.Tensor:
+        return self.jnp_level.mask(x)
+
+    def restrict_yx(self, rr: torch.Tensor) -> torch.Tensor:
+        """(dc, hp, wp) z-restricted residual -> (dc, hc, wc) child field:
+        full weighting along y, then x, on the cropped view (no crop copy)."""
+        return _restrict1d(_restrict1d(rr[:, : self.h, : self.w], 1), 2)
+
+    def prolong_yx(self, ec: torch.Tensor) -> torch.Tensor:
+        """(dc, hc, wc) child correction -> (dc, hp, wp): linear
+        interpolation along y, then x, written by stride-2 slices straight
+        into the zero-padded layout (P = 2 Rᵀ per axis, every weight a power
+        of two)."""
+        dc = ec.shape[0]
+        _, hp, wp = self.kernels.padded_shape
+        t = ec.new_empty((dc, self.h, ec.shape[2]))
+        t[:, 0::2] = ec
+        t[:, 1::2] = 0.5 * (ec[:, :-1] + ec[:, 1:])
+        out = ec.new_zeros((dc, hp, wp))
+        out[:, : self.h, 0 : self.w : 2] = t
+        out[:, : self.h, 1 : self.w : 2] = 0.5 * (t[:, :, :-1] + t[:, :, 1:])
+        return out
+
+
 def fused_block_rows(h: int, w: int) -> Tuple[int, int, int]:
     """(block_rows, hp, wp) of a fused level — the JAX package's rule."""
     by = 64 if h >= 1024 else (32 if h >= 256 else 16)
@@ -212,6 +280,18 @@ def fused_block_rows(h: int, w: int) -> Tuple[int, int, int]:
     while by > 16 and 32 * by * wp > 24 * 2**20:
         by //= 2
     return by, round_up(h, by), wp
+
+
+def _make_fused_3d(d: Domain3D, c: Domain3D, omega: float, plain: _Level) -> _FusedLevel3D:
+    """A fused 3D level on the JAX package's layout: hp = round_up(ny+1, 8),
+    wp = round_up(nx+1, 128), exact depth."""
+    dz, h, w = d.grid_shape
+    hp, wp = round_up(h, 8), round_up(w, 128)
+    k = FusedLevelKernels3D(
+        nx=d.nx, ny=d.ny, nz=d.nz, coeffs=(d.coeff_diag, d.coeff_x, d.coeff_y, d.coeff_z),
+        cs=omega / d.coeff_diag, padded_shape=(dz, hp, wp),
+    )
+    return _FusedLevel3D(k, h, w, c.mask_spec, plain)
 
 
 @dataclass(frozen=True, eq=False)
@@ -222,7 +302,7 @@ class MultigridPreconditioner:
     coarse_solve: Callable
     nu_pre: int = 1
     nu_post: int = 1
-    domains: Tuple = ()  # per-level Domain2D (FMG rediscretisation)
+    domains: Tuple = ()  # per-level Domain2D/Domain3D (FMG rediscretisation)
     # FMG payload (with_fmg): per level None (finest: the caller's b) or the
     # problem rediscretised on that level, whose f32 RHS and Dirichlet field
     # are assembled where the FMG needs them (as the JAX package evaluates
@@ -233,7 +313,7 @@ class MultigridPreconditioner:
 
     @staticmethod
     def from_domain(
-        domain: Domain2D,
+        domain,
         *,
         omega: float = 0.8,
         nu_pre: int = 1,
@@ -243,10 +323,13 @@ class MultigridPreconditioner:
         fuse_min_extent: int = 512,
         device="cuda",
     ) -> "MultigridPreconditioner":
-        """Build the hierarchy for ``device`` (``"cuda"`` raises without a
-        card). ``fuse=None`` fuses on a CUDA device (as the JAX package fuses
-        on an accelerator); ``fuse=True`` on the CPU runs the fused levels
-        through the kernels' plain versions."""
+        """Build the hierarchy of a :class:`Domain2D` or :class:`Domain3D`
+        for ``device`` (``"cuda"`` raises without a card). ``fuse=None``
+        fuses on a CUDA device (as the JAX package fuses on an accelerator);
+        ``fuse=True`` on the CPU runs the fused levels through the kernels'
+        plain versions. A 3D level fuses from ``ny + 1 >= fuse_min_extent //
+        4``, as in the JAX package; its kernels take any depth, so there is
+        no z-chunk option (the JAX package's ``fuse_block_z``)."""
         device = resolve_device(device)
         if nu_pre != nu_post:
             raise ValueError(
@@ -270,16 +353,19 @@ class MultigridPreconditioner:
             fuse = device.type == "cuda"
 
         def make_level(d):
-            return _Level(d.mask_spec, (d.coeff_diag, d.coeff_y, d.coeff_x),
-                          omega / d.coeff_diag)
+            return _Level(d.mask_spec, (d.coeff_diag, *_axis_coeffs(d)), omega / d.coeff_diag)
 
         levels = []
         for i, d in enumerate(domains):
             fusible = fuse and nu_pre == 1 and i < len(domains) - 1
-            if not (fusible and d.ny + 1 >= fuse_min_extent):
+            is3d = isinstance(d, Domain3D)
+            if not (fusible and d.ny + 1 >= (fuse_min_extent // 4 if is3d else fuse_min_extent)):
                 levels.append(make_level(d))
                 continue
             c = domains[i + 1]
+            if is3d:
+                levels.append(_make_fused_3d(d, c, omega, make_level(d)))
+                continue
             h, w = d.grid_shape
             by, hp, wp = fused_block_rows(h, w)
             k = FusedLevelKernels(
@@ -296,6 +382,13 @@ class MultigridPreconditioner:
             domains=tuple(domains),
         )
 
+    def _fused_leg_3d(self, li: int, lev: _FusedLevel3D, bp: torch.Tensor) -> torch.Tensor:
+        """D3, y/x restriction, the coarser cycle, y/x prolongation, U3."""
+        rc = lev.restrict_yx(lev.kernels.down(bp))
+        rc = torch.where(lev.child_interior(rc.device), rc, 0.0)
+        ec = self._vcycle(li + 1, rc)
+        return lev.kernels.up(bp, lev.prolong_yx(ec))
+
     def _fused_leg(self, li: int, lev: _FusedLevel, bp: torch.Tensor, with_dot: bool):
         """K_down, lane restriction, the coarser cycle, lane prolongation, K_up."""
         hp, wp = lev.kernels.padded_shape
@@ -310,13 +403,16 @@ class MultigridPreconditioner:
         if li == len(self.levels) - 1:
             return self.coarse_solve(b)
         lev = self.levels[li]
-        if isinstance(lev, _FusedLevel):
+        if isinstance(lev, (_FusedLevel, _FusedLevel3D)):
             if b.dtype == torch.float32:
                 # a field already on this level's padded layout skips pad/crop
                 padded_in = tuple(b.shape) == tuple(lev.kernels.padded_shape)
                 bp = b if padded_in else lev.pad_in(b)
-                out = self._fused_leg(li, lev, bp, with_dot=False)
-                return out if padded_in else out[: lev.h, : lev.w]
+                if isinstance(lev, _FusedLevel3D):
+                    out = self._fused_leg_3d(li, lev, bp)
+                else:
+                    out = self._fused_leg(li, lev, bp, with_dot=False)
+                return out if padded_in else out[..., : lev.h, : lev.w]
             lev = lev.jnp_level  # the kernels are f32-only
         # pre-smooth from x = 0: the first sweep is a pure scaling of b
         x = lev.omega_over_diag * b
@@ -419,6 +515,12 @@ class MultigridPreconditioner:
         if n_vcycles > 0:
             for _ in range(n_vcycles):
                 x = x + self._vcycle(li, bl - self._apply_at(li, x))
+        elif isinstance(lev, _FusedLevel3D) and x.dtype == F32:
+            # the Jacobi kernel J3 on the level's padded layout
+            xp, bp = lev.pad_in(x), lev.pad_in(bl)
+            for _ in range(n_smooth):
+                xp = lev.kernels.jacobi(xp, bp)
+            x = xp[:, : lev.h, : lev.w]
         else:
             jl = getattr(lev, "jnp_level", lev)
             for _ in range(n_smooth):
@@ -428,7 +530,7 @@ class MultigridPreconditioner:
     def accepts_padded(self, shape) -> bool:
         """True when ``shape`` is the fine level's own padded layout."""
         lev0 = self.levels[0]
-        return isinstance(lev0, _FusedLevel) and tuple(shape) == tuple(
+        return isinstance(lev0, (_FusedLevel, _FusedLevel3D)) and tuple(shape) == tuple(
             lev0.kernels.padded_shape
         )
 
@@ -441,9 +543,10 @@ class MultigridPreconditioner:
         return self._vcycle(0, r)
 
     def call_with_dot(self, r: torch.Tensor):
-        """(z, (r, z)); on a fused padded fine level the dot rides K_up."""
+        """(z, (r, z)); on a fused padded 2D fine level the dot rides K_up."""
         lev = self.levels[0]
-        if r.dtype == torch.float32 and self.accepts_padded(r.shape):
+        if isinstance(lev, _FusedLevel) and r.dtype == torch.float32 and self.accepts_padded(
+                r.shape):
             return self._fused_leg(0, lev, r, with_dot=True)
         z = self(r)
         return z, torch.sum(r * z)

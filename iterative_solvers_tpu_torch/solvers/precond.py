@@ -31,8 +31,9 @@ def parse_preconditioner(name: str) -> Tuple[str, int]:
 
 
 def make_preconditioner(name: str, domain, device="cuda"):
-    """The preconditioner a spec names, built for ``domain`` on ``device``
-    (``"cuda"`` raises without a card)."""
+    """The preconditioner a spec names, built for ``domain`` (a
+    :class:`Domain2D` or :class:`Domain3D`) on ``device`` (``"cuda"`` raises
+    without a card)."""
     kind, param = parse_preconditioner(name)
     if kind != "mg":
         raise NotImplementedError(

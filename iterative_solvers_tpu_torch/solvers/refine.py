@@ -2,11 +2,16 @@
 MG-PCG (counterpart of iterative_solvers_tpu/solvers/refine.py).
 
 The JAX package runs the whole refinement ladder as one compiled program
-(``_device_ir``). Eager PyTorch runs it as a host loop over device tensors
-with the same semantics: the same stop criteria and stall test, the same
-history rows ``(max_outer + 1, 5)`` and the same packed stats vector. The
-host reads one packed tensor per PCG iteration (the inner stop test, decided
-on the device in f32) and one per outer step.
+(``_device_ir``, ``_device_ir_generic``). Eager PyTorch runs it as a host
+loop over device tensors with the same semantics: the same stop criteria and
+stall test, the same history rows ``(max_outer + 1, 5)`` and the same packed
+stats vector. The host reads one packed tensor per PCG iteration (the inner
+stop test, decided on the device in f32) and one per outer step.
+
+Two inner solvers: :func:`fused_refined_solve` runs the 2D fused PCG engine
+(kernels/cg_fused.py); :func:`device_refined_solve` runs the plain PCG
+recurrence around any f32 operator and preconditioner — the 3D path, on the
+padded 7-point operator (kernel S7) and the fused 3D V-cycle.
 
 Two outers, as in the JAX package: f64 (:func:`_outer_refine_loop`; its
 norms are compared on the host in f64, bit-identical to comparing them on
@@ -227,6 +232,32 @@ def _fused_inner_solve(engine, eta, r_hi, inner_max_iter: int):
     return s.x, s.k
 
 
+def _pcg_inner_solve(A_lo, M, eta, r32, inner_max_iter: int):
+    """The plain PCG recurrence on ``A_lo d = r32`` (f32, from zero) to
+    relative tolerance ``eta``, as the JAX package's ``_device_ir_generic``
+    runs it; returns (d, iterations). One host read per iteration."""
+    z = M(r32) if M is not None else r32
+    rz = torch.sum(r32 * z)
+    r2 = torch.sum(r32 * r32)
+    ir0 = torch.sqrt(r2)
+    x, r, k = torch.zeros_like(r32), r32, 0
+    going = bool(r2 > 0)
+    while going and k < inner_max_iter:
+        Az = A_lo(z)
+        alpha = rz / torch.sum(Az * z)
+        x = x + alpha * z
+        r = r - alpha * Az
+        r2 = torch.sum(r * r)
+        w = M(r) if M is not None else r
+        rz_new = torch.sum(r * w)
+        z = w + (rz_new / rz) * z
+        rz = rz_new
+        k += 1
+        done = (torch.sqrt(r2) < eta * ir0) | ~torch.isfinite(r2)
+        going = bool(~done & (r2 > 0))  # the one host read
+    return x, k
+
+
 def _outer_ladder(stop: StopConfig, max_outer: int, has_u: bool, num, r0_norm, x, r,
                   inner_solve, step, norms):
     """The outer refinement loop both outers share. ``inner_solve: r ->
@@ -391,8 +422,31 @@ def _maybe_fmg_x0(M, fmg, b):
                           smooth_sweeps=_FMG_SMOOTH_SWEEPS)
 
 
+def _device_ir_generic(A_hi, A_lo, M, stop: StopConfig, inner_rel_tol: float,
+                       inner_max_iter: int, max_outer: int, b, u_true, x0=None, *,
+                       ff: bool = False):
+    """:func:`_device_ir` with the plain PCG recurrence as the inner solve
+    (:func:`_pcg_inner_solve` on ``A_lo`` and ``M``). The ff outer takes its
+    residuals from the kernel of ``A_lo``'s padded layout (``resid_ff``)."""
+    if ff:
+        b32 = b.to(F32)
+        r0_norm = torch.sqrt(torch.sum(b32 * b32))
+    else:
+        r0_norm = torch.sqrt(torch.sum(b * b))
+
+    def inner_solve(r_hi):
+        r32 = pair_value(r_hi) if ff else r_hi.to(F32)
+        eta = _traced_inner_eta(stop, inner_rel_tol, r32 if ff else r_hi, r0_norm)
+        return _pcg_inner_solve(A_lo, M, eta, r32, inner_max_iter)
+
+    if ff:
+        return _outer_refine_loop_ff(A_lo, stop, max_outer, b, u_true, inner_solve, x0=x0)
+    return _outer_refine_loop(A_hi, stop, max_outer, b, u_true, inner_solve, x0=x0)
+
+
 def _padded_hi_operator(pop) -> StencilOperator:
-    """High-precision plain stencil on the padded layout of ``pop``."""
+    """High-precision plain stencil on the padded layout of ``pop`` (the
+    5-point operator in 2D, the 7-point one in 3D)."""
     return StencilOperator(pop.mask_spec, pop.coeffs)
 
 
@@ -402,7 +456,7 @@ def _join_history(dev_hist, cont_hist, inner_offset: int):
     return np.concatenate([dev_hist, cont[1:]], axis=0)
 
 
-def _finish_refined(stats, x, *, stop: StopConfig, t0: float, max_outer: int, A_hi, b,
+def _finish_refined(stats, x, *, stop: StopConfig, t0: float, max_outer: int, A_hi, A_lo, b,
                     u_true, preconditioner, inner_rel_tol: float, inner_max_iter: int,
                     crop=None) -> RefinedResult:
     """Unpack the stats vector; if the f32 ladder left the criteria unmet,
@@ -415,7 +469,7 @@ def _finish_refined(stats, x, *, stop: StopConfig, t0: float, max_outer: int, A_
     hist = stats[9:].reshape(max_outer + 1, 5)[: k_out + 1].copy()
     if not done and reason == StopReason.ITERATIONS and total_inner < stop.max_iterations:
         res = refined_solve(
-            A_hi, A_hi, b, u_true=u_true, stop=stop, preconditioner=preconditioner,
+            A_hi, A_lo, b, u_true=u_true, stop=stop, preconditioner=preconditioner,
             inner_rel_tol=inner_rel_tol, inner_max_iter=inner_max_iter, x0=x,
         )
         if crop is not None:
@@ -470,7 +524,48 @@ def fused_refined_solve(
     x, stats = _device_ir(engine, A_hi, stop, inner_rel_tol, inner_max_iter, max_outer,
                           bp, up, x0, ff=ff)
     return _finish_refined(
-        stats, x, stop=stop, t0=t0, max_outer=max_outer, A_hi=A_hi, b=bp, u_true=up,
-        preconditioner=M_padded, inner_rel_tol=inner_rel_tol,
+        stats, x, stop=stop, t0=t0, max_outer=max_outer, A_hi=A_hi, A_lo=A_hi, b=bp,
+        u_true=up, preconditioner=M_padded, inner_rel_tol=inner_rel_tol,
         inner_max_iter=inner_max_iter, crop=pop.crop,
+    )
+
+
+def device_refined_solve(
+    A_hi: Callable,  # high-precision operator
+    A_lo: Callable,  # f32 operator on the same field layout
+    b: torch.Tensor,  # f64 RHS on that layout
+    *,
+    preconditioner: Optional[Callable] = None,
+    u_true: Optional[torch.Tensor] = None,
+    stop: Optional[StopConfig] = None,
+    inner_rel_tol: float = 1e-4,
+    inner_max_iter: int = 200,
+    max_outer: int = 8,
+    fmg=False,  # False/0 cold | True/1 | int n = FMG polish V-cycles per level
+    ff: bool = False,  # double-f32 outer
+) -> RefinedResult:
+    """Mixed-precision refinement with the plain PCG recurrence as its inner
+    solve, on the caller's field layout — the JAX package's 3D route, called
+    as its bench calls it: ``A_lo`` the padded 3D operator (S7),
+    ``preconditioner`` a :class:`PaddedPreconditioner` whose multigrid
+    carries the :meth:`with_fmg` payload, ``b`` padded. With ``ff`` the outer
+    takes its residuals from ``A_lo``'s residual kernel, so ``A_lo`` must be
+    a padded stencil operator (the JAX package falls back to a plain
+    residual for other operators; the port has no such fallback). The
+    escalated f64 polish continues host-side if the f32 ladder leaves the
+    criteria unmet."""
+    stop = stop or StopConfig()
+    if ff and not hasattr(A_lo, "padded_shape"):
+        raise TypeError("ff=True needs A_lo to be a padded stencil operator (its residual "
+                        "kernel's layout)")
+    if fmg and preconditioner is None:
+        raise ValueError("fmg needs a multigrid preconditioner with the with_fmg payload")
+    t0 = time.perf_counter()
+    x0 = _maybe_fmg_x0(preconditioner, fmg, b)
+    x, stats = _device_ir_generic(A_hi, A_lo, preconditioner, stop, inner_rel_tol,
+                                  inner_max_iter, max_outer, b, u_true, x0, ff=ff)
+    return _finish_refined(
+        stats, x, stop=stop, t0=t0, max_outer=max_outer, A_hi=A_hi, A_lo=A_lo, b=b,
+        u_true=u_true, preconditioner=preconditioner, inner_rel_tol=inner_rel_tol,
+        inner_max_iter=inner_max_iter,
     )

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain torch versions on the card.
+"""The port's CUDA kernels against their plain torch versions on the card,
+2D (A1–A8) and 3D (S7, D3, U3, J3, R3).
 
 Marked ``cuda``: they need an NVIDIA GPU and nvcc, and skip elsewhere (the
 card is looked for inside the fixture, never at import). Run them on a GPU
@@ -13,8 +14,9 @@ bit-equal, its low word within 32 · max|bh| · 2⁻⁴⁸."""
 import pytest
 import torch
 
-from iterative_solvers_tpu_torch import Domain2D
+from iterative_solvers_tpu_torch import Domain2D, Domain3D
 from iterative_solvers_tpu_torch.kernels import _build, cg_fused, resid_ff
+from iterative_solvers_tpu_torch.kernels.stencil3d_layout import Padded3DStencilOperator
 from iterative_solvers_tpu_torch.kernels.stencil_layout import PaddedStencilOperator
 from iterative_solvers_tpu_torch.ops.ddf32 import split_f64
 from iterative_solvers_tpu_torch.solvers.multigrid import MultigridPreconditioner
@@ -22,6 +24,8 @@ from iterative_solvers_tpu_torch.solvers.multigrid import MultigridPreconditione
 pytestmark = pytest.mark.cuda
 EPS32 = torch.finfo(torch.float32).eps
 SHAPES = [("gamma", 64, 64), ("rect", 40, 50), ("gamma", 512, 512)]
+# (nx, ny, nz): D = 17 and the ragged D = 33, and a box with unequal spacings
+BOXES = [(16, 16, 16), (32, 32, 32), (16, 24, 8)]
 
 
 @pytest.fixture
@@ -112,6 +116,29 @@ def test_stencil_jacobi_resid_ff_match_plain(gen, shape, nx, ny):
     k = MultigridPreconditioner.from_domain(dom, fuse=True, fuse_min_extent=16,
                                             device="cuda").levels[0].kernels
     xj, b = (torch.randn(k.padded_shape, device="cuda", generator=gen) for _ in range(2))
+    _close(k.jacobi(xj, b), k.jacobi_plain(xj, b))
+    m = lay.mask_spec.build("cuda")
+    f64 = dict(device="cuda", dtype=torch.float64, generator=gen)
+    bh, bl = split_f64(torch.where(m, torch.randn(lay.padded_shape, **f64), 0.0) * 1e4)
+    xh, xl = split_f64(torch.where(m, torch.randn(lay.padded_shape, **f64), 0.0))
+    gh, gl = resid_ff.resid_ff(xh, xl, bh, bl, lay)
+    rh, rl = resid_ff.resid_ff_plain(xh, xl, bh, bl, lay)
+    assert torch.equal(gh, rh)
+    assert float((gl - rl).abs().max()) <= 32 * float(bh.abs().max()) * 2.0**-48
+
+
+@pytest.mark.parametrize("dims", BOXES)
+def test_3d_kernels_match_plain(gen, dims):
+    dom = Domain3D(*dims)
+    lay = Padded3DStencilOperator.from_domain(dom)
+    x, b, xj = (torch.randn(lay.padded_shape, device="cuda", generator=gen) for _ in range(3))
+    _close(lay(x), lay.apply_plain(x))  # unmasked inputs: the kernels mask their reads
+    k = MultigridPreconditioner.from_domain(dom, fuse=True, fuse_min_extent=16,
+                                            device="cuda").levels[0].kernels
+    assert k.padded_shape == lay.padded_shape
+    ec = torch.randn((k.dc,) + k.padded_shape[1:], device="cuda", generator=gen)
+    _close(k.down(b), k.down_plain(b))
+    _close(k.up(b, ec), k.up_plain(b, ec))
     _close(k.jacobi(xj, b), k.jacobi_plain(xj, b))
     m = lay.mask_spec.build("cuda")
     f64 = dict(device="cuda", dtype=torch.float64, generator=gen)
