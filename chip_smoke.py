@@ -11,11 +11,13 @@ final ``ok`` line:
    (one nvcc per source, all started together);
 3. kernels: each kernel against its plain torch version on the card, at a
    small gamma grid, a ragged rect grid, path B's 1024² layout and the
-   8192² level-0 layout (2D), and at 16³, the ragged 32³, the unequal box
-   16 × 24 × 8 and the 512³ level-0 layout (3D; D3 and U3 also on each
-   coarser fused level's layout), with the max abs
-   difference, the tolerance and CUDA-event timings of the kernel, its plain
-   version and, for the stencils, one ``F.conv2d`` / ``F.conv3d``;
+   8192² level-0 layout (2D); the custom-mask instantiations on the notched
+   disk at 64² (32-row bands), 1024² and the 8192² level-0 layout; and at
+   16³, the ragged 32³, the unequal box 16 × 24 × 8 and the 512³ level-0
+   layout (3D; D3 and U3 also on each coarser fused level's layout), with
+   the max abs difference, the tolerance and CUDA-event timings of the
+   kernel, its plain version and, for the stencils, one ``F.conv2d`` /
+   ``F.conv3d``;
 4. solves, each main path run with the launch counts set to 0 just before
    it and read just after:
    - 64²: the cold f64-outer solve, the default solve (FMG warm start,
@@ -30,6 +32,12 @@ final ``ok`` line:
      whether ff qualifies for ``outer='auto'``);
    - path B, plain f32 CG on the fused engine (``operator='fused'``), at
      1024² to the relative criterion, and its ms per iteration at 8192²;
+   - the custom-mask domain (the notched disk): at 64² the default solve
+     (ff and f64 outers) and path C-B (plain and with the multigrid), the
+     card against the CPU; path C, the default solve at 8192²
+     (``outer='ff'``, then ``'auto'``): converged, true f64 relative
+     residual < 1e-6, its masked kernels launched; path C-B, plain f32 CG at
+     1024² to the relative criterion and its ms per iteration at 8192²;
    - 3D: 64³ bench-route solves (f64 and ff outers) and the FMG warm start
      with its Jacobi polish, the card against the CPU; the JAX bench's 512³
      route (``device_refined_solve`` on the padded 7-point operator, FMG,
@@ -58,6 +66,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM data sheet, f32 outside the tensor cores
 PKG = "iterative_solvers_tpu_torch/csrc/"
 TPU = "iterative_solvers_tpu/kernels/"
+MASK_NOTE = "iterative_solvers_tpu/ops/ddf32.py:134"  # jnp residual_ff on a custom mask
 # name -> (source, TPU kernel it replaces (the body on the main path), f32
 # operations per node (per interior node in 3D) counted from its formula,
 # the main path whose run gives its launch count)
@@ -75,6 +84,15 @@ KERNELS = {
     "k_up3d": (PKG + "mg_fused3d.cu", TPU + "mg_fused3d.py:343", 17, "3D"),
     "k_jacobi3d": (PKG + "mg_fused3d.cu", TPU + "mg_fused3d.py:149", 13, "3D"),
     "k_resid_ff3d": (PKG + "resid_ff.cu", TPU + "resid_ff.py:312", 110, "3D"),
+    # the custom-mask instantiations (int8 mask operand): C1–C3, the
+    # custom=True bodies of A2–A4, and A8 where JAX runs the jnp residual
+    "stencil_custom": (PKG + "stencil.cu", TPU + "stencil_pallas.py:60", 7, "C-B"),
+    "k1_custom": (PKG + "cg_fused.cu", TPU + "cg_fused.py:89", 14, "C"),
+    "k2_custom": (PKG + "cg_fused.cu", TPU + "cg_fused.py:133", 16, "C-B"),
+    "k2_pcg_custom": (PKG + "cg_fused.cu", TPU + "cg_fused.py:177", 16, "C"),
+    "k_down_custom": (PKG + "mg_fused.cu", TPU + "mg_fused.py:109", 22, "C"),
+    "k_up_custom": (PKG + "mg_fused.cu", TPU + "mg_fused.py:140", 26, "C"),
+    "k_resid_ff_custom": (PKG + "resid_ff.cu", MASK_NOTE, 70, "C"),
 }
 PATH_KERNELS = {
     "A": ("k1", "k2_pcg", "k_down", "k_up", "k_jacobi", "k_resid_ff"),
@@ -84,6 +102,9 @@ PATH_KERNELS = {
     "3D f64": ("stencil3d", "k_down3d", "k_up3d", "k_jacobi3d"),
     "3D facade": ("stencil3d", "k_down3d", "k_up3d", "k_jacobi3d", "k_resid_ff3d"),
     "3D CG": ("stencil3d",),
+    "C": ("k1_custom", "k2_pcg_custom", "k_down_custom", "k_up_custom", "k_resid_ff_custom"),
+    "C f64": ("k1_custom", "k2_pcg_custom", "k_down_custom", "k_up_custom"),
+    "C-B": ("k1_custom", "k2_custom", "stencil_custom"),
 }
 N3 = 512
 
@@ -142,7 +163,9 @@ def compare(name, outs, refs, kinds, scales=None):
 def check_kernels(dom, gen, label, timed, block_rows=None):
     """Each kernel against its plain version on one layout (the solver's own,
     or ``block_rows``-row bands); returns {name: dict of max_abs_err, ms,
-    plain_ms, library_ms, bytes, nodes}."""
+    plain_ms, library_ms, bytes, nodes}. On a custom domain these are the
+    ``*_custom`` instantiations (no Jacobi kernel), every input pre-masked,
+    and the int8 mask counts among the bytes."""
     import torch
     import torch.nn.functional as F
 
@@ -155,6 +178,9 @@ def check_kernels(dom, gen, label, timed, block_rows=None):
     M = MultigridPreconditioner.from_domain(dom, fuse=True, fuse_min_extent=16, device="cuda")
     kl = M.levels[0].kernels
     mask = lay.mask_spec.build("cuda")
+    custom = lay.mask8 is not None
+    # the int8 mask operand each custom kernel reads (none for gamma/rect)
+    m8, m8_level = ((lay.mask8.int8("cuda"), kl.mask8.int8("cuda")) if custom else (None, None))
 
     def field(shape, masked=True):
         t = torch.randn(shape, device="cuda", generator=gen)
@@ -164,6 +190,8 @@ def check_kernels(dom, gen, label, timed, block_rows=None):
     beta = torch.tensor(0.37, device="cuda")
     scal = torch.tensor([-1.3e-4, 0.37], device="cuda")
     b = field(kl.padded_shape, masked=False)
+    if custom:  # the TPU custom kernels' contract: a pre-masked level RHS
+        b = torch.where(kl.mask_spec.build("cuda"), b, 0.0)
     xj = field(kl.padded_shape, masked=False)
     ec = torch.randn(kl.padded_shape[0] // 2, kl.padded_shape[1], device="cuda", generator=gen)
     side = cg_fused.k1_plain(w, z, beta, lay)[0]
@@ -184,23 +212,26 @@ def check_kernels(dom, gen, label, timed, block_rows=None):
     # name: (kernel, plain, output kinds, inputs for the byte count)
     cases = {
         "k1": (lambda: cg_fused.k1(d, z, beta, lay), lambda: cg_fused.k1_plain(d, z, beta, lay),
-               ("field", "sum", "sum", "max"), (d, z)),
+               ("field", "sum", "sum", "max"), (d, z, m8)),
         "k2": (lambda: cg_fused.k2(x, r, z, side_r, scal, lay),
                lambda: cg_fused.k2_plain(x, r, z, side_r, scal, lay),
-               ("field", "field", "field", "sum", "max"), (x, r, z, side_r)),
+               ("field", "field", "field", "sum", "max"), (x, r, z, side_r, m8)),
         "k2_pcg": (lambda: cg_fused.k2_pcg(x, r, z, w, side, scal, lay),
                    lambda: cg_fused.k2_pcg_plain(x, r, z, w, side, scal, lay),
-                   ("field", "field", "field", "sum", "max"), (x, r, z, w, side)),
-        "k_down": (lambda: (kl.down(b),), lambda: (kl.down_plain(b),), ("field",), (b,)),
+                   ("field", "field", "field", "sum", "max"), (x, r, z, w, side, m8)),
+        "k_down": (lambda: (kl.down(b),), lambda: (kl.down_plain(b),), ("field",),
+                   (b, m8_level)),
         "k_up": (lambda: kl.up(b, ec, with_dot=True), lambda: kl.up_plain(b, ec, with_dot=True),
-                 ("field", "sum"), (b, ec)),
+                 ("field", "sum"), (b, ec, m8_level)),
         "k_jacobi": (lambda: (kl.jacobi(xj, b),), lambda: (kl.jacobi_plain(xj, b),),
                      ("field",), (xj, b)),
-        "stencil": (lambda: (lay(x),), lambda: (lay.apply_plain(x),), ("field",), (x,)),
+        "stencil": (lambda: (lay(x),), lambda: (lay.apply_plain(x),), ("field",), (x, m8)),
         "k_resid_ff": (lambda: resid_ff.resid_ff(xh, xl, bh, bl, lay),
                        lambda: resid_ff.resid_ff_plain(xh, xl, bh, bl, lay),
-                       ("exact", "pair"), (xh, xl, bh, bl)),
+                       ("exact", "pair"), (xh, xl, bh, bl, m8)),
     }
+    if custom:
+        del cases["k_jacobi"]  # no custom Jacobi kernel, as on the TPU
     # the true-solution variants of K2 and K2-pcg (the ‖x − u‖∞ partials)
     extra = {
         "k2+u": (lambda: cg_fused.k2(x, r, z, side_r, scal, lay, u=u),
@@ -210,24 +241,26 @@ def check_kernels(dom, gen, label, timed, block_rows=None):
                      lambda: cg_fused.k2_pcg_plain(x, r, z, w, side, scal, lay, u=u),
                      ("field", "field", "field", "sum", "max", "max")),
     }
+    sfx = "_custom" if custom else ""
     for name, (kern, plain, kinds) in extra.items():
         got, ref = kern(), plain()
         torch.cuda.synchronize()
-        err, tol = compare(f"{name} @ {label}", got, ref, kinds)
-        log(f"kernel {name:10s} @ {label}: max_abs_err {err:.3e} tol {tol:.3e}")
+        err, tol = compare(f"{name}{sfx} @ {label}", got, ref, kinds)
+        log(f"kernel {name + sfx:17s} @ {label}: max_abs_err {err:.3e} tol {tol:.3e}")
     out = {}
-    for name, (kern, plain, kinds, ins) in cases.items():
+    for base, (kern, plain, kinds, ins) in cases.items():
+        name = base + sfx
         got, ref = kern(), plain()
         torch.cuda.synchronize()
-        sc = scales[name](ref) if name in scales else None
+        sc = scales[base](ref) if base in scales else None
         err, tol = compare(f"{name} @ {label}", got, ref, kinds, sc)
         rec = {"max_abs_err": err, "bytes": nbytes(ins) + nbytes(got),
                "nodes": lay.padded_shape[0] * lay.padded_shape[1], "library_ms": None}
-        line = f"kernel {name:10s} @ {label}: max_abs_err {err:.3e} tol {tol:.3e}"
+        line = f"kernel {name:17s} @ {label}: max_abs_err {err:.3e} tol {tol:.3e}"
         if timed:
             rec["ms"], rec["plain_ms"] = cuda_ms(kern), cuda_ms(plain)
             line += f"  kernel {rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f} ms"
-            if name == "stencil":
+            if base == "stencil":
                 # yardstick: one cuDNN convolution with the 5-point cross
                 cd, cx, cy = lay.coeffs
                 wt = torch.tensor([[0.0, cy, 0.0], [cx, cd, cx], [0.0, cy, 0.0]],
@@ -348,12 +381,16 @@ def solve_64_agrees(label, run):
         raise AssertionError(f"{label}: the solve on the card disagrees with the CPU")
 
 
-def small_checks():
-    """64² checks of both refinement paths, of the FMG warm start and of
-    path B (plain and preconditioned fused CG through the facade)."""
+def small_checks(dom):
+    """64² checks on ``dom``, the card against the CPU: the refinement (the
+    gamma grid's cold f64 outer, or a custom domain's FMG + f64 default
+    solve), the FMG + ff default solve, the reference algorithm through the
+    facade (path B, or C-B on a custom domain; plain and preconditioned
+    fused CG), and the FMG warm start with its polish at every fused level
+    (the Jacobi kernel on gamma, plain level sweeps on a custom level)."""
     import torch
 
-    from iterative_solvers_tpu_torch import DirichletSolver, Domain2D, PoissonProblem, StopConfig
+    from iterative_solvers_tpu_torch import DirichletSolver, PoissonProblem, StopConfig
     from iterative_solvers_tpu_torch.api import _attach_fmg
     from iterative_solvers_tpu_torch.kernels.stencil_layout import PaddedStencilOperator
     from iterative_solvers_tpu_torch.solvers.multigrid import (
@@ -362,9 +399,10 @@ def small_checks():
     )
     from iterative_solvers_tpu_torch.solvers.refine import fused_refined_solve
 
-    dom = Domain2D(nx=64, ny=64)
     prob = PoissonProblem.manufactured(dom)
     lay = PaddedStencilOperator.from_domain(dom)
+    custom = dom.shape == "custom"
+    tag, path = (" custom", "C-B") if custom else ("", "B")
 
     def padded_mg(dev):
         M = MultigridPreconditioner.from_domain(dom, fuse=True, fuse_min_extent=16, device=dev)
@@ -376,24 +414,27 @@ def small_checks():
         return r.reason, r.outer_iterations, r.iterations, r.converged, r.x.cpu()
 
     def run_b(dev, preconditioner):
-        r = DirichletSolver(nx=64, ny=64, operator="fused", preconditioner=preconditioner,
+        r = DirichletSolver(domain=dom, operator="fused", preconditioner=preconditioner,
                             device=dev).solve()
         return (r.stop_reason, r.outer_iterations, r.iterations, r.converged,
                 torch.from_numpy(r.solution))
 
-    solve_64_agrees("solve 64^2 cold f64", lambda dev: run(
-        dev, StopConfig(eps_precision=-1, eps_residual=-1, eps_relative=1e-9)))
-    solve_64_agrees("solve 64^2 fmg ff", lambda dev: run(
-        dev, StopConfig(eps_precision=-1, eps_residual=-1, eps_relative=1e-6), fmg=1, ff=True))
-    solve_64_agrees("path B 64^2 plain CG", lambda dev: run_b(dev, None))
-    solve_64_agrees("path B 64^2 mg PCG", lambda dev: run_b(dev, "mg"))
-    # the warm start with the Jacobi polish at every fused level (cutoff 16)
+    rel6 = StopConfig(eps_precision=-1, eps_residual=-1, eps_relative=1e-6)
+    if custom:
+        solve_64_agrees("solve 64^2 custom fmg f64", lambda dev: run(dev, rel6, fmg=1))
+    else:
+        solve_64_agrees("solve 64^2 cold f64", lambda dev: run(
+            dev, StopConfig(eps_precision=-1, eps_residual=-1, eps_relative=1e-9)))
+    solve_64_agrees(f"solve 64^2{tag} fmg ff", lambda dev: run(dev, rel6, fmg=1, ff=True))
+    solve_64_agrees(f"path {path} 64^2 plain CG", lambda dev: run_b(dev, None))
+    solve_64_agrees(f"path {path} 64^2 mg PCG", lambda dev: run_b(dev, "mg"))
+    # the warm start with the polish at every fused level (cutoff 16)
     kw = dict(polish_max_extent=16, smooth_sweeps=1)
     x0 = {dev: padded_mg(dev).fmg_stepwise(lay.pad(prob.rhs_field(device=dev)), 1, **kw)
           for dev in ("cpu", "cuda")}
     ref = x0["cpu"]
     gap = float((x0["cuda"].cpu() - ref).abs().max() / ref.abs().max())
-    log(f"fmg_stepwise 64^2 cutoff 16 cuda vs cpu: x0 rel gap {gap:.2e} (tol 1e-5)")
+    log(f"fmg_stepwise 64^2{tag} cutoff 16 cuda vs cpu: x0 rel gap {gap:.2e} (tol 1e-5)")
     if not gap < 1e-5:
         raise AssertionError("FMG warm start on the card disagrees with the CPU")
     torch.cuda.synchronize()
@@ -615,17 +656,17 @@ def refine_ab(run, label, pairs=10):
     return med, traj, qualifies
 
 
-def plain_cg_ms_per_iter():
-    """Plain fused CG at 8192² with every criterion off: (t(105) − t(5)) / 100,
-    each the median of 3 wall times of ``fused_cg_solve`` ending in a sync."""
+def plain_cg_ms_per_iter(dom, label):
+    """Plain fused CG on ``dom`` with every criterion off: (t(105) − t(5)) /
+    100, each the median of 3 wall times of ``fused_cg_solve`` ending in a
+    sync."""
     import torch
 
-    from iterative_solvers_tpu_torch import Domain2D, PoissonProblem, StopConfig
+    from iterative_solvers_tpu_torch import PoissonProblem, StopConfig
     from iterative_solvers_tpu_torch.kernels.cg_fused import fused_cg_solve
     from iterative_solvers_tpu_torch.kernels.stencil_layout import PaddedStencilOperator
     from iterative_solvers_tpu_torch.solvers.cg import CGOptions
 
-    dom = Domain2D(nx=N, ny=N)
     pop = PaddedStencilOperator.from_domain(dom)
     b = PoissonProblem.manufactured(dom).rhs_field(device="cuda")
     t = {}
@@ -638,8 +679,53 @@ def plain_cg_ms_per_iter():
         t.setdefault(n_it, []).append(time.perf_counter() - t0)
         assert res.iterations == n_it
     ms = (statistics.median(t[105]) - statistics.median(t[5])) / 100 * 1e3
-    log(f"plain CG {N}^2: {ms:.4f} ms/iteration (105-it {t[105]} s, 5-it {t[5]} s)")
+    log(f"plain CG {label}: {ms:.4f} ms/iteration (105-it {t[105]} s, 5-it {t[5]} s)")
     return ms
+
+
+def custom_paths(disk):
+    """The custom-mask domain at full size: path C, the default solve on the
+    8192² notched disk ``disk`` (``outer='ff'``, then ``'auto'``, f64 in
+    2D), and path C-B, plain f32 CG at 1024² to the relative criterion and
+    its ms per iteration at 8192². Returns the launch counts per path."""
+    import torch
+
+    from iterative_solvers_tpu_torch import DirichletSolver, Domain2D
+    from iterative_solvers_tpu_torch.core.domain import notched_disk
+
+    rel6 = stop_rel6()
+    launches = {}
+    for path, outer in (("C", "ff"), ("C f64", "auto")):
+        t0 = time.perf_counter()
+        solver = DirichletSolver(domain=disk, preconditioner="mg", precision="mixed", outer=outer,
+                                 device="cuda", stop=rel6)
+        res, wall, launches[path] = timed_solve(solver, path)
+        rel = true_rel(solver, res)
+        log(f"path {path} {N}^2 custom (outer {solver.outer_kind}, {disk.num_unknowns} unknowns): "
+            f"converged {res.converged} reason {res.stop_reason.name} outer "
+            f"{res.outer_iterations} inner {res.iterations} true_rel {rel:.3e} refine "
+            f"{res.elapsed_s:.4f} s wall {wall:.3f} s (with set-up and warm-up "
+            f"{time.perf_counter() - t0:.3f} s)")
+        if not (res.converged and res.stop_reason.name == "RELATIVE_RESIDUAL" and rel < 1e-6):
+            raise AssertionError(f"path {path} failed: reason {res.stop_reason.name} "
+                                 f"rel {rel:.3e}")
+        del solver, res
+        torch.cuda.empty_cache()
+    nb = 1024
+    solver = DirichletSolver(domain=Domain2D(nx=nb, ny=nb, shape="custom", inside_fn=notched_disk),
+                             operator="fused", device="cuda", stop=rel6)
+    res, wall, launches["C-B"] = timed_solve(solver, "C-B")
+    rel = true_rel(solver, res)
+    log(f"path C-B {nb}^2 custom plain CG: converged {res.converged} reason "
+        f"{res.stop_reason.name} iterations {res.iterations} true_rel {rel:.3e} solve "
+        f"{res.elapsed_s:.4f} s wall {wall:.3f} s")
+    if not (res.converged and res.stop_reason.name == "RELATIVE_RESIDUAL" and rel < 1e-3):
+        raise AssertionError(f"path C-B failed: converged={res.converged} rel={rel:.3e}")
+    del solver, res
+    torch.cuda.empty_cache()
+    plain_cg_ms_per_iter(disk, f"{N}^2 custom")
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> int:
@@ -666,7 +752,7 @@ def main() -> int:
 
     # 2. build
     from iterative_solvers_tpu_torch import DirichletSolver
-    from iterative_solvers_tpu_torch.core.domain import Domain2D, Domain3D
+    from iterative_solvers_tpu_torch.core.domain import Domain2D, Domain3D, notched_disk
     from iterative_solvers_tpu_torch.kernels import _build
     from iterative_solvers_tpu_torch.solvers.refine import fused_refined_solve
 
@@ -685,13 +771,26 @@ def main() -> int:
     check_kernels(Domain2D(nx=1024, ny=1024), gen, "1024^2 path B", timed=False)
     stats = check_kernels(Domain2D(nx=N, ny=N), gen, "8192^2 level 0", timed=True)
     torch.cuda.empty_cache()
+    # the custom-mask instantiations on the notched disk: 32-row bands, path
+    # C-B's 1024² layout, the 8192² level-0 layout (its host masks are built
+    # once here and reused by path C)
+    t0 = time.perf_counter()
+    disk = Domain2D(nx=N, ny=N, shape="custom", inside_fn=notched_disk)
+    log(f"custom {N}^2 host masks: {disk.num_unknowns} unknowns, "
+        f"{time.perf_counter() - t0:.3f} s")
+    for n, by in ((64, 32), (1024, None)):
+        check_kernels(Domain2D(nx=n, ny=n, shape="custom", inside_fn=notched_disk), gen,
+                      f"custom {n}^2", timed=False, block_rows=by)
+    stats.update(check_kernels(disk, gen, f"custom {N}^2 level 0", timed=True))
+    torch.cuda.empty_cache()
     for dims in ((16, 16, 16), (32, 32, 32), (16, 24, 8)):
         check_kernels_3d(dims, gen, "x".join(map(str, dims)), timed=False)
     stats.update(check_kernels_3d((N3, N3, N3), gen, f"{N3}^3 level 0", timed=True))
     torch.cuda.empty_cache()
 
     # 4. solves
-    small_checks()
+    small_checks(Domain2D(nx=64, ny=64))
+    small_checks(Domain2D(nx=64, ny=64, shape="custom", inside_fn=notched_disk))
     rel6 = stop_rel6()
     launches = {}
     # path A: the JAX package's default solve (fmg_cycles=1 by default)
@@ -735,8 +834,11 @@ def main() -> int:
         raise AssertionError(f"path B failed: converged={res.converged} rel={rel:.3e}")
     del solver, res
     torch.cuda.empty_cache()
-    plain_cg_ms_per_iter()
+    plain_cg_ms_per_iter(Domain2D(nx=N, ny=N), f"{N}^2")
     torch.cuda.empty_cache()
+    # the custom-mask domain: paths C and C-B
+    launches.update(custom_paths(disk))
+    del disk
 
     # 3D: the 64^3 checks, the bench route at 512^3, the facade, plain CG
     small_checks_3d()

@@ -24,6 +24,10 @@ Two paths are ported:
   takes the padded one so the kernels carry it (ROADMAP Queue 3).
   ``operator="fused"`` with a 3D domain raises ValueError, as in JAX.
 
+A custom-mask domain (``Domain2D(shape="custom", inside_fn=...)``) runs the
+two 2D paths with the same modules, its kernels taking the int8 mask
+operand; its results carry ``interior_mask``, as the JAX package's do.
+
 ``device="cuda"`` (the default) launches the hand-written kernels and raises
 if there is no card; ``device="cpu"`` runs their plain torch versions.
 Nothing falls back from one to the other. Every other option combination of
@@ -94,6 +98,8 @@ class SolverResults:
     # 3D (None/0 for 2D problems)
     z_coords: Optional[np.ndarray] = None
     nz: int = 0
+    # the full-grid interior of a custom domain (None for the others)
+    interior_mask: Optional[np.ndarray] = None
 
     def solution_field(self, domain) -> np.ndarray:
         """Scatter the compacted solution back onto the full grid."""
@@ -113,7 +119,7 @@ def _attach_fmg(M, problem):
 
 
 class DirichletSolver:
-    """Dirichlet–Poisson solver on a gamma/rect domain or a 3D box.
+    """Dirichlet–Poisson solver on a gamma/rect/custom 2D domain or a 3D box.
 
     Ported options: ``precision='mixed'`` with ``preconditioner='mg[:nu]'``,
     any ``fmg_cycles >= 0`` and ``outer`` in ``'f64'``, ``'ff'`` (double-f32)
@@ -300,4 +306,5 @@ class DirichletSolver:
             outer_iterations=getattr(res, "outer_iterations", 0),
             z_coords=zs,
             nz=getattr(dom, "nz", 0),
+            interior_mask=dom.interior if getattr(dom, "shape", "") == "custom" else None,
         )

@@ -6,7 +6,9 @@ box) has shape ``(nz + 1, ny + 1, nx + 1)`` indexed ``[iz, iy, ix]``. The
 masks are numpy arrays built on the host (they describe geometry, not data);
 :class:`MaskSpec` rebuilds the gamma/rect/box interior mask from index
 predicates on any device and canvas, so full-size masks never have to cross
-from host to card.
+from host to card. A custom domain's mask has no closed form:
+:class:`ArrayMask` holds it as an array with the same interface and uploads
+it once per device.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass
 from functools import cached_property
-from typing import Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -76,12 +78,61 @@ class MaskSpec:
         return np.broadcast_to(self._pred(grids), self.shape).copy()
 
 
+class ArrayMask:
+    """A custom domain's interior mask held as a host bool array, with
+    :class:`MaskSpec`'s interface (``shape``, ``build``, ``build_host``), so
+    every consumer of a mask spec takes it unchanged. Device copies are
+    made once per device and cached: ``build`` (bool, for the torch glue)
+    and ``int8`` (the kernels' mask operand on a padded canvas)."""
+
+    kind = "custom"
+
+    def __init__(self, mask: np.ndarray):
+        self._host = np.array(mask, dtype=bool)  # an owned, writable copy
+        self.shape: Tuple[int, ...] = self._host.shape
+        self._bool: Dict[torch.device, torch.Tensor] = {}
+        self._int8: Dict[torch.device, torch.Tensor] = {}
+
+    def build(self, device="cpu") -> torch.Tensor:
+        device = torch.device(device)
+        m = self._bool.get(device)
+        if m is None:
+            m = self._bool[device] = torch.from_numpy(self._host).to(device)
+        return m
+
+    def build_host(self) -> np.ndarray:
+        return self._host.copy()
+
+    def int8(self, device) -> torch.Tensor:
+        device = torch.device(device)
+        m = self._int8.get(device)
+        if m is None:
+            m = self._int8[device] = torch.from_numpy(self._host.view(np.int8)).to(device)
+        return m
+
+    def padded(self, shape) -> "ArrayMask":
+        """The mask on a larger canvas ``shape``; padding is never interior."""
+        out = np.zeros(shape, dtype=bool)
+        out[tuple(slice(0, s) for s in self.shape)] = self._host
+        return ArrayMask(out)
+
+
+def notched_disk(ix: np.ndarray, iy: np.ndarray) -> np.ndarray:
+    """A custom ``inside_fn``: the disk of radius 0.45 with a notch cut
+    from its centre along +x (half-height 0.1), in coordinates normalised to
+    the index grid, so every multigrid level sees the same shape. On a 64²
+    grid it is the notched disk of the JAX package's custom-mask tests."""
+    s, t = ix / ix.max() - 0.5, iy / iy.max() - 0.5
+    return (s * s + t * t <= 0.45**2) & ~((s > 0) & (np.abs(t) < 0.1))
+
+
 @dataclass(frozen=True)
 class Domain2D:
     """A 2D finite-difference node grid over ``[x0, x1] x [y0, y1]``.
 
     ``nx``/``ny`` are interval counts; ``shape`` is ``"gamma"`` (the
-    L-shaped domain) or ``"rect"``."""
+    L-shaped domain), ``"rect"``, or ``"custom"``, whose closure is
+    ``inside_fn(ix, iy)`` on the full index grids (``np.mgrid``)."""
 
     nx: int
     ny: int
@@ -90,18 +141,17 @@ class Domain2D:
     y0: float = 1.0
     y1: float = 2.0
     shape: str = "gamma"
+    inside_fn: Optional[Callable] = None
 
     def __post_init__(self) -> None:
-        if self.shape == "custom":
-            raise NotImplementedError(
-                "shape='custom' is not ported yet (ROADMAP Queue 1 item 11)"
-            )
         if self.nx < 2 or self.ny < 2:
             raise ValueError(f"grid too small: nx={self.nx}, ny={self.ny}")
-        if self.shape not in ("gamma", "rect"):
-            raise ValueError(f"unknown shape {self.shape!r}")
         if self.shape == "gamma" and (self.nx % 2 or self.ny % 2):
             raise ValueError("gamma domain requires even nx and ny")
+        if self.shape not in ("gamma", "rect", "custom"):
+            raise ValueError(f"unknown shape {self.shape!r}")
+        if self.shape == "custom" and self.inside_fn is None:
+            raise ValueError("shape='custom' requires inside_fn")
 
     @property
     def hx(self) -> float:
@@ -130,7 +180,11 @@ class Domain2D:
         return (self.ny + 1, self.nx + 1)
 
     @property
-    def mask_spec(self) -> MaskSpec:
+    def mask_spec(self):
+        """The interior as a :class:`MaskSpec` (gamma/rect) or, for a custom
+        domain, as the cached :class:`ArrayMask` of :attr:`interior`."""
+        if self.shape == "custom":
+            return self._array_masks[0]
         return MaskSpec(self.shape, self.nx, self.ny, self.grid_shape)
 
     # --- host masks -----------------------------------------------------------
@@ -141,17 +195,40 @@ class Domain2D:
         if self.shape == "rect":
             return np.ones(self.grid_shape, dtype=bool)
         iy, ix = np.mgrid[0 : self.ny + 1, 0 : self.nx + 1]
+        if self.shape == "custom":
+            return np.asarray(self.inside_fn(ix, iy), dtype=bool)
         return ~((ix < self.nx // 2) & (iy < self.ny // 2))
 
     @cached_property
     def interior(self) -> np.ndarray:
         """Unknown nodes of the linear system."""
+        if self.shape == "custom":
+            return self.inside & ~self.boundary
         return self.mask_spec.build_host()
 
     @cached_property
     def boundary(self) -> np.ndarray:
-        """Dirichlet nodes: inside the closure but not unknowns."""
-        return self.inside & ~self.interior
+        """Dirichlet nodes: inside the closure but not unknowns. A custom
+        domain's are its inside nodes on the rectangle's edge or with an
+        exterior node in their 8-neighbourhood, as in the JAX package."""
+        if self.shape != "custom":
+            return self.inside & ~self.interior
+        inside = self.inside
+        ext = np.pad(~inside, 1)
+        h, w = self.grid_shape
+        edge = np.zeros(self.grid_shape, dtype=bool)
+        edge[[0, -1], :] = edge[:, [0, -1]] = True
+        for dy in (-1, 0, 1):
+            for dx in (-1, 0, 1):
+                if dy or dx:
+                    edge |= ext[1 + dy : 1 + dy + h, 1 + dx : 1 + dx + w]
+        return inside & edge
+
+    @cached_property
+    def _array_masks(self) -> Tuple[ArrayMask, ArrayMask]:
+        """A custom domain's (interior, boundary) masks, uploaded once per
+        device."""
+        return ArrayMask(self.interior), ArrayMask(self.boundary)
 
     @property
     def num_unknowns(self) -> int:
@@ -161,6 +238,8 @@ class Domain2D:
         return self.mask_spec.build(device)
 
     def boundary_on(self, device) -> torch.Tensor:
+        if self.shape == "custom":
+            return self._array_masks[1].build(device)
         h, w = self.grid_shape
         ri = torch.arange(h, device=device)[:, None]
         ci = torch.arange(w, device=device)[None, :]

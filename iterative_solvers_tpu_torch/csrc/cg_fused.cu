@@ -3,6 +3,11 @@
 // K1 replaces iterative_solvers_tpu/kernels/cg_fused.py:_make_k1 (A2);
 // K2 replaces cg_fused.py:_make_k2 (A3, plain CG);
 // K2-pcg replaces cg_fused.py:_make_k2_pcg (A4).
+// Their kMask = true instantiations (the *_custom launchers) replace the same
+// bodies with custom=True, which take the int8 interior mask as an operand:
+// +1 B/node each. Those trust the fields to be pre-masked and check the
+// halo rows for band validity only; the halo rows here are masked by their
+// own row's mask, which agrees on pre-masked fields (every solver field is).
 //
 // What bounds them on an H100: all are memory-bound stencil sweeps with no
 // tensor-core work. K1 reads two f32 streams (d, z_prev; 8 B/node) and writes
@@ -33,6 +38,7 @@ using ist::TW;
 
 namespace {
 
+template <bool kMask>
 __global__ void k1_kernel(const float* __restrict__ d, const float* __restrict__ zp,
                           const float* __restrict__ beta_p, float* __restrict__ side,
                           float* __restrict__ rz_p, float* __restrict__ azz_p,
@@ -48,8 +54,9 @@ __global__ void k1_kernel(const float* __restrict__ d, const float* __restrict__
     return d[i] + beta * zp[i];
   };
   // halo rows, re-masked with the virtual row's mask (0 off the canvas)
-  const float up = (row0 > 0 && ist::interior(g, row0 - 1, c)) ? zk(row0 - 1, c) : 0.f;
-  const float dn = (row0 + by < g.hp && ist::interior(g, row0 + by, c)) ? zk(row0 + by, c) : 0.f;
+  const float up = (row0 > 0 && ist::interior<kMask>(g, row0 - 1, c)) ? zk(row0 - 1, c) : 0.f;
+  const float dn =
+      (row0 + by < g.hp && ist::interior<kMask>(g, row0 + by, c)) ? zk(row0 + by, c) : 0.f;
   side[((size_t)band * 2 + 0) * wp + c] = up;
   side[((size_t)band * 2 + 1) * wp + c] = dn;
 
@@ -59,7 +66,7 @@ __global__ void k1_kernel(const float* __restrict__ d, const float* __restrict__
     const int r = row0 + k;
     const float next = (k + 1 < by) ? zk(r + 1, c) : dn;
     float az = 0.f;
-    if (ist::interior(g, r, c))
+    if (ist::interior<kMask>(g, r, c))
       az = g.cd * cur + g.cx * (zk(r, c - 1) + zk(r, c + 1)) + g.cy * (prev + next);
     s_rz += d[(size_t)r * wp + c] * cur;
     s_azz += az * cur;
@@ -80,7 +87,7 @@ __global__ void k1_kernel(const float* __restrict__ d, const float* __restrict__
 
 // kPcg: z_k = w + beta * z_prev (A4); else z_k = r + beta * z_prev (A3), and
 // w is not read. u (may be null) adds the max |x' - u| partial.
-template <bool kPcg>
+template <bool kPcg, bool kMask>
 __global__ void k2_kernel(const float* __restrict__ x, const float* __restrict__ r,
                           const float* __restrict__ zp, const float* __restrict__ w,
                           const float* __restrict__ side, const float* __restrict__ scal,
@@ -109,7 +116,7 @@ __global__ void k2_kernel(const float* __restrict__ x, const float* __restrict__
     const size_t i = (size_t)rr * wp + c;
     const float next = (k + 1 < by) ? zk(rr + 1, c) : dn;
     float az = 0.f;
-    if (ist::interior(g, rr, c))
+    if (ist::interior<kMask>(g, rr, c))
       az = g.cd * cur + g.cx * (zk(rr, c - 1) + zk(rr, c + 1)) + g.cy * (prev + next);
     const float xn = x[i] + alpha * cur;
     const float rn = r[i] - alpha * az;
@@ -140,8 +147,18 @@ extern "C" int ist_k1(const float* d, const float* zp, const float* beta, float*
                       int hp, int wp, int by, float cd, float cx, float cy,
                       cudaStream_t stream) {
   const Geom g{nx, ny, gamma, hp, wp, cd, cx, cy};
-  k1_kernel<<<dim3(wp / TW, hp / by), TW, 0, stream>>>(d, zp, beta, side, rz_p, azz_p,
-                                                       zmax_p, g, by);
+  k1_kernel<false><<<dim3(wp / TW, hp / by), TW, 0, stream>>>(d, zp, beta, side, rz_p, azz_p,
+                                                              zmax_p, g, by);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ist_k1_custom(const float* d, const float* zp, const float* beta, float* side,
+                             float* rz_p, float* azz_p, float* zmax_p, const int8_t* mask,
+                             int nx, int ny, int hp, int wp, int by, float cd, float cx,
+                             float cy, cudaStream_t stream) {
+  const Geom g{nx, ny, 0, hp, wp, cd, cx, cy, mask};
+  k1_kernel<true><<<dim3(wp / TW, hp / by), TW, 0, stream>>>(d, zp, beta, side, rz_p, azz_p,
+                                                             zmax_p, g, by);
   return (int)cudaGetLastError();
 }
 
@@ -151,7 +168,18 @@ extern "C" int ist_k2(const float* x, const float* r, const float* zp, const flo
                       int hp, int wp, int by, float cd, float cx, float cy,
                       cudaStream_t stream) {
   const Geom g{nx, ny, gamma, hp, wp, cd, cx, cy};
-  k2_kernel<false><<<dim3(wp / TW, hp / by), TW, 0, stream>>>(
+  k2_kernel<false, false><<<dim3(wp / TW, hp / by), TW, 0, stream>>>(
+      x, r, zp, nullptr, side, scal, u, xo, ro, zo, r2_p, rmax_p, err_p, g, by);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ist_k2_custom(const float* x, const float* r, const float* zp, const float* side,
+                             const float* scal, const float* u, float* xo, float* ro,
+                             float* zo, float* r2_p, float* rmax_p, float* err_p,
+                             const int8_t* mask, int nx, int ny, int hp, int wp, int by,
+                             float cd, float cx, float cy, cudaStream_t stream) {
+  const Geom g{nx, ny, 0, hp, wp, cd, cx, cy, mask};
+  k2_kernel<false, true><<<dim3(wp / TW, hp / by), TW, 0, stream>>>(
       x, r, zp, nullptr, side, scal, u, xo, ro, zo, r2_p, rmax_p, err_p, g, by);
   return (int)cudaGetLastError();
 }
@@ -162,7 +190,19 @@ extern "C" int ist_k2_pcg(const float* x, const float* r, const float* zp, const
                           int nx, int ny, int gamma, int hp, int wp, int by, float cd,
                           float cx, float cy, cudaStream_t stream) {
   const Geom g{nx, ny, gamma, hp, wp, cd, cx, cy};
-  k2_kernel<true><<<dim3(wp / TW, hp / by), TW, 0, stream>>>(
+  k2_kernel<true, false><<<dim3(wp / TW, hp / by), TW, 0, stream>>>(
+      x, r, zp, w, side, scal, u, xo, ro, zo, r2_p, rmax_p, err_p, g, by);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ist_k2_pcg_custom(const float* x, const float* r, const float* zp,
+                                 const float* w, const float* side, const float* scal,
+                                 const float* u, float* xo, float* ro, float* zo, float* r2_p,
+                                 float* rmax_p, float* err_p, const int8_t* mask, int nx,
+                                 int ny, int hp, int wp, int by, float cd, float cx, float cy,
+                                 cudaStream_t stream) {
+  const Geom g{nx, ny, 0, hp, wp, cd, cx, cy, mask};
+  k2_kernel<true, true><<<dim3(wp / TW, hp / by), TW, 0, stream>>>(
       x, r, zp, w, side, scal, u, xo, ro, zo, r2_p, rmax_p, err_p, g, by);
   return (int)cudaGetLastError();
 }

@@ -8,7 +8,15 @@
 // column neighbours c-1 / c+1 are bound-checked: the TPU kernels used a
 // wrapping lane roll there, which gives the same result because the wrapped
 // column is never interior and holds 0.
+//
+// Custom domains: each kernel is a template on kMask. The kMask = false
+// instantiation is the gamma/rect kernel as it was; kMask = true reads the
+// interior from an int8 mask on the padded canvas (g.mask, 1 B/node, false
+// off the canvas) and is exported as the *_custom launcher. It replaces the
+// TPU's custom-mask bodies, which stream the same int8 operand.
 #pragma once
+
+#include <cstdint>
 
 #include <cuda_runtime.h>
 
@@ -19,9 +27,13 @@ constexpr int TW = 128;  // columns per block == threads per block
 struct Geom {
   int nx, ny, gamma, hp, wp;
   float cd, cx, cy;  // stencil diagonal, x- and y-neighbour coefficients
+  const int8_t* mask = nullptr;  // custom domains: (hp, wp) int8 interior
 };
 
+template <bool kMask>
 __device__ __forceinline__ bool interior(const Geom& g, int r, int c) {
+  if (kMask)
+    return r >= 0 && r < g.hp && c >= 0 && c < g.wp && g.mask[(size_t)r * g.wp + c] != 0;
   bool in = r > 0 && r < g.ny && c > 0 && c < g.nx;
   if (g.gamma) in = in && !(c <= g.nx / 2 && r <= g.ny / 2);
   return in;

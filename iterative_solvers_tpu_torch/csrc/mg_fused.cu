@@ -4,6 +4,12 @@
 // K_down replaces iterative_solvers_tpu/kernels/mg_fused.py:_make_k_down (A5);
 // K_up replaces mg_fused.py:_make_k_up (A6), with and without its dot epilogue;
 // K_jacobi replaces mg_fused.py:_make_k_jacobi (A7).
+// The kMask = true instantiations of K_down and K_up (ist_k_down_custom,
+// ist_k_up_custom) replace the custom-mask bodies mg_fused.py:
+// _make_k_down_custom (C2) and _make_k_up_custom (C3): the interior is read
+// from the int8 mask (+1 B/node). Those bodies mask by float multiplies and
+// trust the level RHS to be pre-masked; here every read is masked, which
+// agrees on such input. K_jacobi has no custom form, as on the TPU.
 //
 // What bounds them on an H100: both are memory-bound stencil sweeps with no
 // tensor-core work. K_down reads the level RHS b once (4 B/node) and writes
@@ -29,6 +35,7 @@ using ist::TW;
 
 namespace {
 
+template <bool kMask>
 __global__ void k_down_kernel(const float* __restrict__ b, float* __restrict__ rr, Geom g,
                               float cs, int by) {
   const int c = blockIdx.x * TW + threadIdx.x;
@@ -36,11 +43,11 @@ __global__ void k_down_kernel(const float* __restrict__ b, float* __restrict__ r
   const int wp = g.wp;
   // masked level RHS; the interior test also keeps every read on the canvas
   auto B = [&](int i, int cc) -> float {
-    return ist::interior(g, i, cc) ? b[(size_t)i * wp + cc] : 0.f;
+    return ist::interior<kMask>(g, i, cc) ? b[(size_t)i * wp + cc] : 0.f;
   };
   // residual of the pre-smoothed iterate x = cs * B at fine row i, column c
   auto R = [&](int i) -> float {
-    if (!ist::interior(g, i, c)) return 0.f;
+    if (!ist::interior<kMask>(g, i, c)) return 0.f;
     const float bc = B(i, c);
     const float ax = g.cd * (cs * bc) + g.cx * (cs * B(i, c - 1) + cs * B(i, c + 1)) +
                      g.cy * (cs * B(i - 1, c) + cs * B(i + 1, c));
@@ -56,6 +63,7 @@ __global__ void k_down_kernel(const float* __restrict__ b, float* __restrict__ r
   }
 }
 
+template <bool kMask>
 __global__ void k_up_kernel(const float* __restrict__ b, const float* __restrict__ ec,
                             float* __restrict__ out, float* __restrict__ dot_p, Geom g,
                             float cs, int by, int ch) {
@@ -68,7 +76,7 @@ __global__ void k_up_kernel(const float* __restrict__ b, const float* __restrict
   };
   // corrected iterate cs * b + P ec at fine row i (zero off the interior)
   auto XC = [&](int i, int cc) -> float {
-    if (!ist::interior(g, i, cc)) return 0.f;
+    if (!ist::interior<kMask>(g, i, cc)) return 0.f;
     const float p = (i & 1) ? 0.5f * (EC((i - 1) / 2, cc) + EC((i + 1) / 2, cc)) : EC(i / 2, cc);
     return cs * b[(size_t)i * wp + cc] + p;
   };
@@ -79,7 +87,7 @@ __global__ void k_up_kernel(const float* __restrict__ b, const float* __restrict
     const int i = row0 + k;
     const float next = XC(i + 1, c);
     float o = 0.f;
-    if (ist::interior(g, i, c)) {
+    if (ist::interior<kMask>(g, i, c)) {
       const float bm = b[(size_t)i * wp + c];
       const float ax = g.cd * cur + g.cx * (XC(i, c - 1) + XC(i, c + 1)) + g.cy * (prev + next);
       o = cur + cs * (bm - ax);
@@ -102,7 +110,7 @@ __global__ void k_jacobi_kernel(const float* __restrict__ x, const float* __rest
   const int wp = g.wp;
   // masked read; the interior test also keeps every read on the canvas
   auto X = [&](int i, int cc) -> float {
-    return ist::interior(g, i, cc) ? x[(size_t)i * wp + cc] : 0.f;
+    return ist::interior<false>(g, i, cc) ? x[(size_t)i * wp + cc] : 0.f;
   };
   float prev = X(row0 - 1, c);
   float cur = X(row0, c);
@@ -110,7 +118,7 @@ __global__ void k_jacobi_kernel(const float* __restrict__ x, const float* __rest
     const int i = row0 + k;
     const float next = X(i + 1, c);
     float o = 0.f;
-    if (ist::interior(g, i, c)) {
+    if (ist::interior<false>(g, i, c)) {
       const float ax = g.cd * cur + g.cx * (X(i, c - 1) + X(i, c + 1)) + g.cy * (prev + next);
       o = cur + cs * (b[(size_t)i * wp + c] - ax);
     }
@@ -126,7 +134,15 @@ extern "C" int ist_k_down(const float* b, float* rr, int nx, int ny, int gamma, 
                           int wp, int by, float cd, float cx, float cy, float cs,
                           cudaStream_t stream) {
   const Geom g{nx, ny, gamma, hp, wp, cd, cx, cy};
-  k_down_kernel<<<dim3(wp / TW, hp / by), TW, 0, stream>>>(b, rr, g, cs, by);
+  k_down_kernel<false><<<dim3(wp / TW, hp / by), TW, 0, stream>>>(b, rr, g, cs, by);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ist_k_down_custom(const float* b, float* rr, const int8_t* mask, int nx, int ny,
+                                 int hp, int wp, int by, float cd, float cx, float cy, float cs,
+                                 cudaStream_t stream) {
+  const Geom g{nx, ny, 0, hp, wp, cd, cx, cy, mask};
+  k_down_kernel<true><<<dim3(wp / TW, hp / by), TW, 0, stream>>>(b, rr, g, cs, by);
   return (int)cudaGetLastError();
 }
 
@@ -134,7 +150,18 @@ extern "C" int ist_k_up(const float* b, const float* ec, float* out, float* dot_
                         int ny, int gamma, int hp, int wp, int by, int ch, float cd,
                         float cx, float cy, float cs, cudaStream_t stream) {
   const Geom g{nx, ny, gamma, hp, wp, cd, cx, cy};
-  k_up_kernel<<<dim3(wp / TW, hp / by), TW, 0, stream>>>(b, ec, out, dot_p, g, cs, by, ch);
+  k_up_kernel<false><<<dim3(wp / TW, hp / by), TW, 0, stream>>>(b, ec, out, dot_p, g, cs, by,
+                                                                ch);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ist_k_up_custom(const float* b, const float* ec, float* out, float* dot_p,
+                               const int8_t* mask, int nx, int ny, int hp, int wp, int by,
+                               int ch, float cd, float cx, float cy, float cs,
+                               cudaStream_t stream) {
+  const Geom g{nx, ny, 0, hp, wp, cd, cx, cy, mask};
+  k_up_kernel<true><<<dim3(wp / TW, hp / by), TW, 0, stream>>>(b, ec, out, dot_p, g, cs, by,
+                                                               ch);
   return (int)cudaGetLastError();
 }
 

@@ -2,14 +2,18 @@
 //
 // Replaces iterative_solvers_tpu/kernels/resid_ff.py:_make_k_resid_ff_2d (A8)
 // and, for the 3D box, its 3D bodies (R3, below): the only high-precision
-// work of the double-f32 refinement outer.
+// work of the double-f32 refinement outer. On a custom domain the JAX
+// package runs the jnp ops/ddf32.residual_ff instead (its kernel takes no
+// mask operand); the port runs A8's kMask = true instantiation
+// (ist_k_resid_ff_custom), which reads the int8 interior mask (+1 B/node)
+// and computes exactly that residual on the custom interior.
 //
 // What bounds it on an H100: a memory-bound sweep. It reads xh, xl, bh, bl
 // and writes rh, rl: 24 B/node. The ~60 f32 operations per node are far
 // below the card's f32 rate for those bytes. Each thread owns one column of a
 // band and walks its rows, keeping the rows above and below of xh and xl in
 // registers; column neighbours are re-read through L1. Every read of xh and
-// xl is masked by the algebraic interior predicate, and so is the output.
+// xl is masked by the interior (predicate or custom mask), and so is the output.
 //
 // Rounding: the arithmetic is ops/ddf32.residual_ff operation for operation,
 // in its order: TwoSum first differences per axis, the coefficient applied
@@ -65,6 +69,7 @@ __device__ __forceinline__ FF axis_diff2(float x, float lo, float hi, const Axis
   return scaled_term(t.s, __fadd_rn(__fadd_rn(d1.e, d2.e), t.e), c);
 }
 
+template <bool kMask>
 __global__ void k_resid_ff_kernel(const float* __restrict__ xh, const float* __restrict__ xl,
                                   const float* __restrict__ bh, const float* __restrict__ bl,
                                   float* __restrict__ rh, float* __restrict__ rl, Geom g,
@@ -74,10 +79,10 @@ __global__ void k_resid_ff_kernel(const float* __restrict__ xh, const float* __r
   const int wp = g.wp;
   // masked reads; the interior test also keeps every read on the canvas
   auto H = [&](int i, int cc) -> float {
-    return ist::interior(g, i, cc) ? xh[(size_t)i * wp + cc] : 0.f;
+    return ist::interior<kMask>(g, i, cc) ? xh[(size_t)i * wp + cc] : 0.f;
   };
   auto L = [&](int i, int cc) -> float {
-    return ist::interior(g, i, cc) ? xl[(size_t)i * wp + cc] : 0.f;
+    return ist::interior<kMask>(g, i, cc) ? xl[(size_t)i * wp + cc] : 0.f;
   };
   float h_up = H(row0 - 1, c), h = H(row0, c);
   float l_up = L(row0 - 1, c), l = L(row0, c);
@@ -87,7 +92,7 @@ __global__ void k_resid_ff_kernel(const float* __restrict__ xh, const float* __r
     const float h_dn = H(i + 1, c);
     const float l_dn = L(i + 1, c);
     float o_h = 0.f, o_l = 0.f;
-    if (ist::interior(g, i, c)) {
+    if (ist::interior<kMask>(g, i, c)) {
       const FF mx = axis_diff2(h, H(i, c - 1), H(i, c + 1), ax);
       const FF my = axis_diff2(h, h_up, h_dn, ay);
       // plain f32 A xl, in the stencil's order: cd x + cx (W + E) + cy (N + S)
@@ -207,7 +212,22 @@ extern "C" int ist_k_resid_ff(const float* xh, const float* xl, const float* bh,
   const Geom g{nx, ny, gamma, hp, wp, cd, cx, cy};
   const AxisC ax{pow2_x, cx, cx_hi, cx_lo, cx_res};
   const AxisC ay{pow2_y, cy, cy_hi, cy_lo, cy_res};
-  k_resid_ff_kernel<<<dim3(wp / TW, hp / by), TW, 0, stream>>>(xh, xl, bh, bl, rh, rl, g, by,
-                                                               ax, ay, has_delta, delta);
+  k_resid_ff_kernel<false><<<dim3(wp / TW, hp / by), TW, 0, stream>>>(
+      xh, xl, bh, bl, rh, rl, g, by, ax, ay, has_delta, delta);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ist_k_resid_ff_custom(const float* xh, const float* xl, const float* bh,
+                                     const float* bl, float* rh, float* rl, const int8_t* mask,
+                                     int nx, int ny, int hp, int wp, int by, int pow2_x,
+                                     int pow2_y, int has_delta, float cd, float cx, float cy,
+                                     float cx_hi, float cx_lo, float cx_res, float cy_hi,
+                                     float cy_lo, float cy_res, float delta,
+                                     cudaStream_t stream) {
+  const Geom g{nx, ny, 0, hp, wp, cd, cx, cy, mask};
+  const AxisC ax{pow2_x, cx, cx_hi, cx_lo, cx_res};
+  const AxisC ay{pow2_y, cy, cy_hi, cy_lo, cy_res};
+  k_resid_ff_kernel<true><<<dim3(wp / TW, hp / by), TW, 0, stream>>>(
+      xh, xl, bh, bl, rh, rl, g, by, ax, ay, has_delta, delta);
   return (int)cudaGetLastError();
 }

@@ -17,7 +17,7 @@ from typing import Mapping, Sequence
 import numpy as np
 import torch
 
-from iterative_solvers_tpu_torch.core.domain import MaskSpec
+from iterative_solvers_tpu_torch.core.domain import ArrayMask, MaskSpec
 from iterative_solvers_tpu_torch.kernels.mg_fused import FusedLevelKernels
 from iterative_solvers_tpu_torch.kernels.mg_fused3d import FusedLevelKernels3D
 from iterative_solvers_tpu_torch.solvers.cg import CGState
@@ -30,7 +30,9 @@ from iterative_solvers_tpu_torch.solvers.multigrid import (
 )
 
 
-def _mask_spec(lv: Mapping) -> MaskSpec:
+def _mask_spec(lv: Mapping):
+    if lv["shape"] == "custom":
+        return ArrayMask(np.asarray(lv["interior"]))
     nx, ny = int(lv["nx"]), int(lv["ny"])
     if lv["shape"] == "box":
         nz = int(lv["nz"])
@@ -45,11 +47,13 @@ def multigrid_from_state(
     nu: int = 1,
 ) -> MultigridPreconditioner:
     """Hierarchy from one mapping per level, finest first. Keys of every
-    level: ``shape`` ('gamma'|'rect', or 'box' for a 3D level, which also
-    has ``nz``), ``nx``, ``ny``, ``coeffs`` (the JAX level's (cd, c_y, c_x),
-    in 3D (cd, c_z, c_y, c_x)), ``omega_over_diag``. A fused level also has
+    level: ``shape`` ('gamma'|'rect'|'custom', or 'box' for a 3D level,
+    which also has ``nz``), ``nx``, ``ny``, ``coeffs`` (the JAX level's (cd,
+    c_y, c_x), in 3D (cd, c_z, c_y, c_x)), ``omega_over_diag``; a custom
+    level also its bool ``interior`` array. A fused level also has
     ``padded_shape``, and ``block_rows`` in 2D (a 3D level's kernels take
-    any depth, so its ``block_z`` is not needed). The
+    any depth, so its ``block_z`` is not needed); a fused custom level its
+    padded int8 ``mask8``. The
     coarsest level's solve is ``coarse_a_inv`` applied on the flat interior
     indices ``coarse_idx``."""
     plain = [
@@ -78,6 +82,7 @@ def multigrid_from_state(
             nx=nx, ny=ny, coeffs=(cd, cx, cy), cs=plain[i].omega_over_diag,
             mask_mode=lv["shape"], padded_shape=tuple(int(s) for s in lv["padded_shape"]),
             block_rows=int(lv["block_rows"]),
+            mask8=ArrayMask(np.asarray(lv["mask8"]) != 0) if lv["shape"] == "custom" else None,
         )
         child = plain[i + 1].mask_spec
         out.append(_FusedLevel(kernels, ny + 1, nx + 1, child.shape[0], child.shape[1],

@@ -49,6 +49,15 @@ _SIGNATURES = {
     "ist_k_jacobi": [_P] * 3 + [_I] * 6 + [_F] * 4 + [_P],
     "ist_stencil": [_P] * 2 + [_I] * 6 + [_F] * 3 + [_P],
     "ist_k_resid_ff": [_P] * 6 + [_I] * 9 + [_F] * 10 + [_P],
+    # custom domains: the int8 mask pointer in the gamma flag's place,
+    # (..., mask, nx, ny, hp, wp, by, ...)
+    "ist_k1_custom": [_P] * 8 + [_I] * 5 + [_F] * 3 + [_P],
+    "ist_k2_custom": [_P] * 13 + [_I] * 5 + [_F] * 3 + [_P],
+    "ist_k2_pcg_custom": [_P] * 14 + [_I] * 5 + [_F] * 3 + [_P],
+    "ist_k_down_custom": [_P] * 3 + [_I] * 5 + [_F] * 4 + [_P],
+    "ist_k_up_custom": [_P] * 5 + [_I] * 6 + [_F] * 4 + [_P],
+    "ist_stencil_custom": [_P] * 3 + [_I] * 5 + [_F] * 3 + [_P],
+    "ist_k_resid_ff_custom": [_P] * 7 + [_I] * 8 + [_F] * 10 + [_P],
     # 3D (csrc/zmarch3d.cuh geometry: nx, ny, nz, d, hp, wp, bz)
     "ist_stencil3d": [_P] * 2 + [_I] * 7 + [_F] * 4 + [_P],
     "ist_k_down3d": [_P] * 2 + [_I] * 8 + [_F] * 5 + [_P],

@@ -19,6 +19,13 @@ version (``*_plain``, the same arithmetic on the whole canvas at once) on a
 CPU tensor; any other device raises. Partial sums are reduced afterwards in
 a fixed order with ``torch.sum``/``torch.amax`` — no float atomics, so a
 trajectory repeats bit for bit.
+
+On a custom layout (``op.mask8`` set) the kernels are the ``*_custom``
+instantiations, which read the int8 mask where the others evaluate the
+gamma/rect predicate; they replace the JAX package's ``custom=True``
+bodies. Those trust their fields to be pre-masked (halo rows checked for
+band validity only), as every solver field is; the port's kernels and plain
+versions mask the halo rows by the mask, which agrees on such fields.
 """
 
 from __future__ import annotations
@@ -31,7 +38,12 @@ import torch
 import torch.nn.functional as F
 
 from iterative_solvers_tpu_torch.kernels import _build
-from iterative_solvers_tpu_torch.kernels.stencil_layout import PaddedStencilOperator, check_field
+from iterative_solvers_tpu_torch.kernels.stencil_layout import (
+    PaddedStencilOperator,
+    check_field,
+    kernel_geometry,
+    kernel_name,
+)
 from iterative_solvers_tpu_torch.solvers.cg import CGOptions, CGResult, CGState, cg_solve, stop_reason
 from iterative_solvers_tpu_torch.solvers.stopping import StopConfig, StopReason
 
@@ -59,8 +71,14 @@ def stencil_banded(zk, up_rows, dn_rows, mask, coeffs, by):
     return torch.where(mask, y, 0.0)
 
 
+def _geometry(launcher: str, op: PaddedStencilOperator, device):
+    hp, wp = op.padded_shape
+    return kernel_geometry(launcher, op.nx, op.ny, op.mask_mode, hp, wp, op.block_rows,
+                           op.mask8, device)
+
+
 def k1_plain(d, zp, beta, op: PaddedStencilOperator):
-    _build.note_plain("k1", d)
+    _build.note_plain(kernel_name("k1", op.mask8), d)
     hp, wp = op.padded_shape
     by = op.block_rows
     g = hp // by
@@ -93,16 +111,17 @@ def k1(d, zp, beta, op: PaddedStencilOperator):
     parts = torch.empty((3, g, wp // TW), dtype=d.dtype, device=d.device)
     beta = beta.contiguous()
     p = _build.ptr
+    name, geom = _geometry("ist_k1", op, d.device)
     _build.launch(
-        "ist_k1", p(d), p(zp), p(beta), p(side), p(parts[0]), p(parts[1]), p(parts[2]),
-        op.nx, op.ny, int(op.mask_mode == "gamma"), hp, wp, by, *op.coeffs,
+        name, p(d), p(zp), p(beta), p(side), p(parts[0]), p(parts[1]), p(parts[2]),
+        *geom, *op.coeffs,
     )
     return side, parts[0], parts[1], parts[2]
 
 
 def _k2_plain(name, x, r, zp, d, side, scal, u, op: PaddedStencilOperator):
     """Plain form of K2 (``d`` = r) and K2-pcg (``d`` = w): z_k = d + β z_prev."""
-    _build.note_plain(name, x)
+    _build.note_plain(kernel_name(name, op.mask8), x)
     hp, _ = op.padded_shape
     g = hp // op.block_rows
     alpha, beta = scal[0], scal[1]
@@ -149,10 +168,10 @@ def _k2_launch(name, x, r, zp, w, side, scal, u, op: PaddedStencilOperator):
     parts = torch.empty((3, g, wp // TW), dtype=x.dtype, device=x.device)
     p = _build.ptr
     dirs = (p(x), p(r), p(zp)) + (() if w is None else (p(w),))
+    name, geom = _geometry(name, op, x.device)
     _build.launch(
         name, *dirs, p(side), p(scal.contiguous()), p(u), p(xo), p(ro), p(zo),
-        p(parts[0]), p(parts[1]), p(parts[2]),
-        op.nx, op.ny, int(op.mask_mode == "gamma"), hp, wp, by, *op.coeffs,
+        p(parts[0]), p(parts[1]), p(parts[2]), *geom, *op.coeffs,
     )
     out = (xo, ro, zo, parts[0], parts[1])
     return out + ((parts[2],) if u is not None else ())

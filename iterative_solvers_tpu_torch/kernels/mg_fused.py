@@ -10,6 +10,15 @@
   ``x + (ω/d)(b − A x)`` with masked reads and output — the FMG warm
   start's fine-level polish.
 
+A custom level (``mask8``, its padded interior) runs K_down and K_up as
+their ``*_custom`` instantiations, which replace the JAX package's
+``_make_k_down_custom`` (C2) and ``_make_k_up_custom`` (C3): the int8 mask
+is read where the gamma/rect kernels evaluate the predicate. The JAX bodies
+trust the level RHS to be pre-masked (it is a masked restriction) and mask
+by float multiplies; the port masks every read, which agrees on such input.
+K_jacobi raises on a custom level, as the JAX package's does: its FMG
+polishes custom levels with plain level ops.
+
 The lane (column) half of each transfer runs in plain torch as strided
 slices (:func:`lane_restrict`, :func:`lane_prolong`), P = 2 Rᵀ exactly.
 The JAX package's banded-matmul forms of these transfers exist only for the
@@ -19,15 +28,19 @@ TPU's matrix unit and are not ported.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from iterative_solvers_tpu_torch.core.domain import MaskSpec
+from iterative_solvers_tpu_torch.core.domain import ArrayMask, MaskSpec
 from iterative_solvers_tpu_torch.kernels import _build
 from iterative_solvers_tpu_torch.kernels.cg_fused import TW
-from iterative_solvers_tpu_torch.kernels.stencil_layout import check_field
+from iterative_solvers_tpu_torch.kernels.stencil_layout import (
+    check_field,
+    kernel_geometry,
+    kernel_name,
+)
 
 
 def _stencil(x, cd, cx, cy):
@@ -46,20 +59,24 @@ class FusedLevelKernels:
     cs: float  # ω / diag
     mask_mode: str
     padded_shape: Tuple[int, int]  # (hp, wp), hp % by == 0, wp % 128 == 0
-    block_rows: int
+    block_rows: int  # 32 at least on a custom level
+    mask8: Optional[ArrayMask] = None  # custom: the padded interior
 
     @property
-    def mask_spec(self) -> MaskSpec:
+    def mask_spec(self):
+        if self.mask8 is not None:
+            return self.mask8
         return MaskSpec(self.mask_mode, self.nx, self.ny, tuple(self.padded_shape))
 
-    def _geom(self):
+    def _geom(self, launcher: str, device):
         hp, wp = self.padded_shape
-        return (self.nx, self.ny, int(self.mask_mode == "gamma"), hp, wp, self.block_rows)
+        return kernel_geometry(launcher, self.nx, self.ny, self.mask_mode, hp, wp,
+                               self.block_rows, self.mask8, device)
 
     # --- K_down ---------------------------------------------------------------
 
     def down_plain(self, b: torch.Tensor) -> torch.Tensor:
-        _build.note_plain("k_down", b)
+        _build.note_plain(kernel_name("k_down", self.mask8), b)
         cd, cx, cy = self.coeffs
         m = self.mask_spec.build(b.device)
         bm = torch.where(m, b, 0.0)
@@ -74,15 +91,14 @@ class FusedLevelKernels:
             return self.down_plain(b)
         hp, wp = self.padded_shape
         rr = torch.empty((hp // 2, wp), dtype=b.dtype, device=b.device)
-        _build.launch(
-            "ist_k_down", _build.ptr(b), _build.ptr(rr), *self._geom(), *self.coeffs, self.cs
-        )
+        name, geom = self._geom("ist_k_down", b.device)
+        _build.launch(name, _build.ptr(b), _build.ptr(rr), *geom, *self.coeffs, self.cs)
         return rr
 
     # --- K_up -----------------------------------------------------------------
 
     def up_plain(self, b, ec_lanes, with_dot=False):
-        _build.note_plain("k_up", b)
+        _build.note_plain(kernel_name("k_up", self.mask8), b)
         cd, cx, cy = self.coeffs
         hp, wp = self.padded_shape
         ch = self.ny // 2 + 1
@@ -116,11 +132,10 @@ class FusedLevelKernels:
             torch.empty((hp // self.block_rows, wp // TW), dtype=b.dtype, device=b.device)
             if with_dot else None
         )
-        nx, ny, gamma, hp, wp, by = self._geom()
+        name, geom = self._geom("ist_k_up", b.device)
         _build.launch(
-            "ist_k_up", _build.ptr(b), _build.ptr(ec_lanes), _build.ptr(out),
-            _build.ptr(dot_p), nx, ny, gamma, hp, wp, by, self.ny // 2 + 1,
-            *self.coeffs, self.cs,
+            name, _build.ptr(b), _build.ptr(ec_lanes), _build.ptr(out), _build.ptr(dot_p),
+            *geom, self.ny // 2 + 1, *self.coeffs, self.cs,
         )
         if with_dot:
             return out, torch.sum(dot_p)
@@ -138,7 +153,10 @@ class FusedLevelKernels:
         return torch.where(m, xm + self.cs * R, 0.0)
 
     def jacobi(self, x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        """One weighted-Jacobi sweep on this level's padded layout."""
+        """One weighted-Jacobi sweep on this level's padded layout
+        (gamma/rect levels only, as in the JAX package)."""
+        if self.mask8 is not None:
+            raise NotImplementedError("jacobi kernel: algebraic masks only")
         check_field("x", x, self.padded_shape)
         check_field("b", b, self.padded_shape)
         if x.device != b.device:
@@ -146,10 +164,9 @@ class FusedLevelKernels:
         if x.device.type == "cpu":
             return self.jacobi_plain(x, b)
         out = torch.empty_like(x)
-        _build.launch(
-            "ist_k_jacobi", _build.ptr(x), _build.ptr(b), _build.ptr(out), *self._geom(),
-            *self.coeffs, self.cs,
-        )
+        name, geom = self._geom("ist_k_jacobi", x.device)
+        _build.launch(name, _build.ptr(x), _build.ptr(b), _build.ptr(out), *geom,
+                      *self.coeffs, self.cs)
         return out
 
 

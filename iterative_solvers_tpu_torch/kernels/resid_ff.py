@@ -7,6 +7,11 @@ tensors (A8 on a 2D :class:`PaddedStencilOperator`, R3 on a 3D
 (:func:`~iterative_solvers_tpu_torch.ops.ddf32.residual_ff` on the padded
 mask) on CPU tensors. The double-f32 outer loop (solvers/refine.py) takes
 every true residual through it.
+
+On a custom 2D layout it launches A8's ``k_resid_ff_custom`` instantiation,
+which reads the int8 mask where A8 evaluates the gamma/rect predicate and
+computes exactly ``residual_ff`` on that interior (the JAX package runs the
+jnp ``ops/ddf32.residual_ff`` there; the port keeps the kernel).
 """
 
 from __future__ import annotations
@@ -15,12 +20,17 @@ import torch
 
 from iterative_solvers_tpu_torch.kernels import _build
 from iterative_solvers_tpu_torch.kernels.stencil3d_layout import box_geometry
-from iterative_solvers_tpu_torch.kernels.stencil_layout import check_field
+from iterative_solvers_tpu_torch.kernels.stencil_layout import (
+    check_field,
+    kernel_geometry,
+    kernel_name,
+)
 from iterative_solvers_tpu_torch.ops.ddf32 import Pair, coeff_delta, coeff_split, is_pow2, residual_ff
 
 
 def resid_ff_plain(xh, xl, bh, bl, op) -> Pair:
-    _build.note_plain("k_resid_ff3d" if len(op.padded_shape) == 3 else "k_resid_ff", xh)
+    is3d = len(op.padded_shape) == 3
+    _build.note_plain("k_resid_ff3d" if is3d else kernel_name("k_resid_ff", op.mask8), xh)
     return residual_ff(op.mask_spec.build(xh.device), op.coeffs, (bh, bl), (xh, xl))
 
 
@@ -47,8 +57,7 @@ def resid_ff(xh, xl, bh, bl, op) -> Pair:
         )
         return rh, rl
     hp, wp = op.padded_shape
-    _build.launch(
-        "ist_k_resid_ff", *ptrs, op.nx, op.ny, int(op.mask_mode == "gamma"), hp, wp,
-        op.block_rows, *pow2, int(delta != 0.0), *op.coeffs, *split_args, delta,
-    )
+    name, geom = kernel_geometry("ist_k_resid_ff", op.nx, op.ny, op.mask_mode, hp, wp,
+                                 op.block_rows, op.mask8, xh.device)
+    _build.launch(name, *ptrs, *geom, *pow2, int(delta != 0.0), *op.coeffs, *split_args, delta)
     return rh, rl

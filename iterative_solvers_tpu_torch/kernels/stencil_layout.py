@@ -8,8 +8,15 @@ never interior, so zero padding is inert.
 
 Calling the operator applies the masked 5-point stencil ``y = A x`` to an
 f32 padded field: the CUDA kernel ``csrc/stencil.cu`` (which replaces the
-TPU kernel ``stencil_pallas._make_kernel``) on a CUDA tensor, its plain torch
-version :meth:`PaddedStencilOperator.apply_plain` on a CPU tensor.
+TPU kernel ``stencil_pallas._make_kernel``, and on a custom domain
+``_make_kernel_custom``) on a CUDA tensor, its plain torch version
+:meth:`PaddedStencilOperator.apply_plain` on a CPU tensor.
+
+A custom domain's layout carries its padded interior as an
+:class:`~iterative_solvers_tpu_torch.core.domain.ArrayMask` (``mask8``), and
+its bands are at least 32 rows, the JAX package's rule for its int8 mask
+stream. Its kernels take the int8 mask as an operand (the ``*_custom``
+launchers) where the gamma/rect ones evaluate the predicate.
 """
 
 from __future__ import annotations
@@ -21,7 +28,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from iterative_solvers_tpu_torch.core.domain import MaskSpec
+from iterative_solvers_tpu_torch.core.domain import ArrayMask, MaskSpec
 from iterative_solvers_tpu_torch.kernels import _build
 
 
@@ -50,6 +57,25 @@ def auto_block_rows(wp: int, dtype_bytes: int = 4, budget: int = 12 * 2**20) -> 
     return by
 
 
+def kernel_name(base: str, mask8: Optional[ArrayMask]) -> str:
+    """A 2D kernel's name (launcher, launch and plain counts): ``*_custom``
+    for the instantiation that takes a custom layout's int8 mask."""
+    return base if mask8 is None else base + "_custom"
+
+
+def kernel_geometry(launcher: str, nx: int, ny: int, mask_mode: str, hp: int, wp: int,
+                    by: int, mask8: Optional[ArrayMask], device):
+    """(launcher name, geometry arguments) of a 2D kernel on one layout:
+    ``(nx, ny, gamma, hp, wp, by)`` for the gamma/rect instantiation, and
+    for a custom layout the ``*_custom`` launcher with the int8 mask operand
+    in the predicate's place, ``(mask, nx, ny, hp, wp, by)``."""
+    if mask8 is None:
+        return launcher, (nx, ny, int(mask_mode == "gamma"), hp, wp, by)
+    if mask8.shape != (hp, wp):
+        raise ValueError(f"mask8: expected shape {(hp, wp)}, got {mask8.shape}")
+    return kernel_name(launcher, mask8), (_build.ptr(mask8.int8(device)), nx, ny, hp, wp, by)
+
+
 @dataclass(frozen=True, eq=False)
 class PaddedStencilOperator:
     nx: int
@@ -58,21 +84,27 @@ class PaddedStencilOperator:
     grid_shape: Tuple[int, int]  # unpadded
     padded_shape: Tuple[int, int]
     block_rows: int
-    mask_mode: str  # 'gamma' | 'rect'
+    mask_mode: str  # 'gamma' | 'rect' | 'custom'
+    mask8: Optional[ArrayMask] = None  # custom: the padded interior
 
     @staticmethod
     def from_domain(domain, block_rows: Optional[int] = None) -> "PaddedStencilOperator":
         h, w = domain.grid_shape
         wp = round_up(w, 128)
         by = block_rows or auto_block_rows(wp)
+        custom = domain.shape == "custom"
+        if custom:
+            by = max(by, 32)  # the JAX package's int8 mask tiling
+        hp = round_up(h, by)
         return PaddedStencilOperator(
             nx=domain.nx,
             ny=domain.ny,
             coeffs=(domain.coeff_diag, domain.coeff_x, domain.coeff_y),
             grid_shape=(h, w),
-            padded_shape=(round_up(h, by), wp),
+            padded_shape=(hp, wp),
             block_rows=by,
             mask_mode=domain.shape,
+            mask8=domain.mask_spec.padded((hp, wp)) if custom else None,
         )
 
     @property
@@ -89,7 +121,10 @@ class PaddedStencilOperator:
         return field[:h, :w]
 
     @property
-    def mask_spec(self) -> MaskSpec:
+    def mask_spec(self):
+        """The padded interior: a :class:`MaskSpec`, or the custom ``mask8``."""
+        if self.mask8 is not None:
+            return self.mask8
         return MaskSpec(self.mask_mode, self.nx, self.ny, tuple(self.padded_shape))
 
     def interior_padded(self) -> np.ndarray:
@@ -98,9 +133,16 @@ class PaddedStencilOperator:
     def mask(self, x: torch.Tensor) -> torch.Tensor:
         return torch.where(self.mask_spec.build(x.device), x, 0.0)
 
+    def diagonal(self, device="cuda") -> torch.Tensor:
+        """The stencil's diagonal on the padded layout (0 off the interior)."""
+        return torch.where(self.mask_spec.build(device), self.coeffs[0], 0.0)
+
     def apply_plain(self, x: torch.Tensor) -> torch.Tensor:
-        """The kernel's plain torch version: masked reads, masked output."""
-        _build.note_plain("stencil", x)
+        """The kernel's plain torch version: masked reads, masked output.
+        (The JAX package's custom kernel masks only its panel and trusts its
+        halo rows to be pre-masked; on pre-masked input, as every solver
+        field is, the two agree.)"""
+        _build.note_plain(kernel_name("stencil", self.mask8), x)
         cd, cx, cy = self.coeffs
         m = self.mask_spec.build(x.device)
         p = F.pad(torch.where(m, x, 0.0), (1, 1, 1, 1))
@@ -114,10 +156,9 @@ class PaddedStencilOperator:
             return self.apply_plain(x)
         hp, wp = self.padded_shape
         y = torch.empty_like(x)
-        _build.launch(
-            "ist_stencil", _build.ptr(x), _build.ptr(y), self.nx, self.ny,
-            int(self.mask_mode == "gamma"), hp, wp, self.block_rows, *self.coeffs,
-        )
+        name, geom = kernel_geometry("ist_stencil", self.nx, self.ny, self.mask_mode, hp, wp,
+                                     self.block_rows, self.mask8, x.device)
+        _build.launch(name, _build.ptr(x), _build.ptr(y), *geom, *self.coeffs)
         return y
 
     def nnz(self) -> int:

@@ -2,13 +2,14 @@
 solve of each main path, after a warm-up solve.
 
     python -m iterative_solvers_tpu_torch.profile_paths [--n 8192] [--nb 1024] [--n3 512]
-        [--paths A,f64,B,3D] [--out DIR]
+        [--paths A,f64,B,3D,C] [--out DIR]
 
 Paths: A, the default solve (FMG warm start, double-f32 outer) at ``n``²;
 the cold f64-outer solve at ``n``²; B, plain f32 CG on the fused engine
 (``operator='fused'``) at ``nb``²; 3D, the box at ``n3``³ (FMG warm start,
 double-f32 outer, ``device_refined_solve`` on the padded 7-point operator,
-as the JAX package's bench runs it). For each it prints the facade's
+as the JAX package's bench runs it); C, the default solve (double-f32
+outer) on the custom-mask notched disk at ``n``². For each it prints the facade's
 ``solve()`` wall time, then profiles the solver core alone (the refinement,
 or the CG solve, on fields assembled beforehand): its time without and with
 the profiler, the device-busy time (the union of the device events'
@@ -33,7 +34,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from iterative_solvers_tpu_torch.api import DirichletSolver
-from iterative_solvers_tpu_torch.core.domain import Domain3D
+from iterative_solvers_tpu_torch.core.domain import Domain2D, Domain3D, notched_disk
 from iterative_solvers_tpu_torch.kernels.cg_fused import fused_cg_solve
 from iterative_solvers_tpu_torch.solvers.cg import CGOptions
 from iterative_solvers_tpu_torch.solvers.refine import (
@@ -182,7 +183,8 @@ def main(argv=None) -> int:
     ap.add_argument("--n", type=int, default=8192)
     ap.add_argument("--nb", type=int, default=1024)
     ap.add_argument("--n3", type=int, default=512)
-    ap.add_argument("--paths", default="A,f64,B,3D", help="comma-separated subset of A,f64,B,3D")
+    ap.add_argument("--paths", default="A,f64,B,3D,C",
+                    help="comma-separated subset of A,f64,B,3D,C")
     ap.add_argument("--out", default=None, help="directory for Chrome traces")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -201,6 +203,9 @@ def main(argv=None) -> int:
                                      stop=rel6),
         "3D": lambda: DirichletSolver(domain=Domain3D(args.n3, args.n3, args.n3), outer="ff",
                                       **mixed),
+        "C": lambda: DirichletSolver(
+            domain=Domain2D(args.n, args.n, shape="custom", inside_fn=notched_disk), outer="ff",
+            **mixed),
     }
     for name in args.paths.split(","):
         profile_path(name, solvers[name](), args.out)

@@ -17,6 +17,12 @@ kernel on the level's padded layout (A7 in 2D, J3 in 3D). The JAX package
 can compile the ladder per rung or as one program (its ``combine`` flag);
 eager PyTorch runs the same ops in order either way, so the port has the
 one form.
+
+Custom-mask 2D domains (``shape="custom"``) coarsen by calling their
+``inside_fn`` at each level's own indices, as the JAX package does. Their
+fused levels run the masked K_down/K_up (C2, C3) on 32-row bands at least,
+and their FMG rungs polish with plain level ops (no Jacobi kernel takes a
+mask, as on the TPU).
 """
 
 from __future__ import annotations
@@ -273,11 +279,12 @@ class _FusedLevel3D:
         return out
 
 
-def fused_block_rows(h: int, w: int) -> Tuple[int, int, int]:
-    """(block_rows, hp, wp) of a fused level — the JAX package's rule."""
-    by = 64 if h >= 1024 else (32 if h >= 256 else 16)
+def fused_block_rows(h: int, w: int, by_floor: int = 16) -> Tuple[int, int, int]:
+    """(block_rows, hp, wp) of a fused level — the JAX package's rule;
+    ``by_floor`` is 32 on a custom level (its int8 mask tiling)."""
+    by = 64 if h >= 1024 else (32 if h >= 256 else by_floor)
     wp = round_up(w, 128)
-    while by > 16 and 32 * by * wp > 24 * 2**20:
+    while by > by_floor and 32 * by * wp > 24 * 2**20:
         by //= 2
     return by, round_up(h, by), wp
 
@@ -367,11 +374,12 @@ class MultigridPreconditioner:
                 levels.append(_make_fused_3d(d, c, omega, make_level(d)))
                 continue
             h, w = d.grid_shape
-            by, hp, wp = fused_block_rows(h, w)
+            custom = d.shape == "custom"
+            by, hp, wp = fused_block_rows(h, w, 32 if custom else 16)
             k = FusedLevelKernels(
                 nx=d.nx, ny=d.ny, coeffs=(d.coeff_diag, d.coeff_x, d.coeff_y),
                 cs=omega / d.coeff_diag, mask_mode=d.shape, padded_shape=(hp, wp),
-                block_rows=by,
+                block_rows=by, mask8=d.mask_spec.padded((hp, wp)) if custom else None,
             )
             levels.append(_FusedLevel(k, h, w, c.grid_shape[0], c.grid_shape[1], d.nx,
                                       c.mask_spec, make_level(d)))
@@ -500,7 +508,8 @@ class MultigridPreconditioner:
             x = x + p.boundary_field(F32, x.device).to(x.dtype)
         bl = b.to(F32) if li == 0 else self.fmg_data[li].rhs_field(F32, b.device)
         lev = self.levels[li]
-        if n_vcycles == 0 and n_smooth >= 1 and isinstance(lev, _FusedLevel) and x.dtype == F32:
+        if (n_vcycles == 0 and n_smooth >= 1 and isinstance(lev, _FusedLevel) and x.dtype == F32
+                and lev.kernels.mask8 is None):
             # padded flow: prolong straight into the level's padded layout;
             # the Jacobi kernel masks its reads, so the boundary-interpolated
             # values are discarded exactly as mask(prolong_linear(x)) would

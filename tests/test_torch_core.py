@@ -142,7 +142,7 @@ def test_invalid_options_raise_value_error():
                    dict(operator="fused", preconditioner="jacobi"), dict(outer="ff")):
         with pytest.raises(ValueError):
             port.DirichletSolver(nx=16, ny=16, device="cpu", **kwargs)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="requires inside_fn"):
         port.Domain2D(nx=8, ny=8, shape="custom")
 
 

@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain torch versions on the card,
-2D (A1–A8) and 3D (S7, D3, U3, J3, R3).
+2D (A1–A8), their custom-mask instantiations (C1–C3, K1/K2/K2-pcg and A8
+with the int8 mask operand) and 3D (S7, D3, U3, J3, R3).
 
 Marked ``cuda``: they need an NVIDIA GPU and nvcc, and skip elsewhere (the
 card is looked for inside the fixture, never at import). Run them on a GPU
@@ -15,6 +16,7 @@ import pytest
 import torch
 
 from iterative_solvers_tpu_torch import Domain2D, Domain3D
+from iterative_solvers_tpu_torch.core.domain import notched_disk
 from iterative_solvers_tpu_torch.kernels import _build, cg_fused, resid_ff
 from iterative_solvers_tpu_torch.kernels.stencil3d_layout import Padded3DStencilOperator
 from iterative_solvers_tpu_torch.kernels.stencil_layout import PaddedStencilOperator
@@ -125,6 +127,55 @@ def test_stencil_jacobi_resid_ff_match_plain(gen, shape, nx, ny):
     rh, rl = resid_ff.resid_ff_plain(xh, xl, bh, bl, lay)
     assert torch.equal(gh, rh)
     assert float((gl - rl).abs().max()) <= 32 * float(bh.abs().max()) * 2.0**-48
+
+
+@pytest.mark.parametrize("n,by", [(64, 32), (1024, None)])
+def test_custom_kernels_match_plain(gen, n, by):
+    """The *_custom launchers on the notched disk: 32-row bands at 64², the
+    operator's own layout at 1024²; pre-masked inputs (the solver's
+    invariant, and the TPU custom kernels' contract)."""
+    dom = Domain2D(nx=n, ny=n, shape="custom", inside_fn=notched_disk)
+    lay = PaddedStencilOperator.from_domain(dom, block_rows=by)
+    k = MultigridPreconditioner.from_domain(dom, fuse=True, fuse_min_extent=16,
+                                            device="cuda").levels[0].kernels
+    assert lay.mask8 is not None and k.mask8 is not None
+    m = lay.mask_spec.build("cuda")
+    x, r, z, w, u = (torch.where(m, torch.randn(lay.padded_shape, device="cuda", generator=gen),
+                                 0.0) for _ in range(5))
+    _build.reset_counts()
+    _close(lay(x), lay.apply_plain(x))
+    beta = torch.tensor(0.37, device="cuda")
+    scal = torch.tensor([-2.0e-4, 0.37], device="cuda")
+    got, ref = cg_fused.k1(w, z, beta, lay), cg_fused.k1_plain(w, z, beta, lay)
+    _close(got[0], ref[0])
+    _sum_close(got[1], ref[1], float((w * (w + beta * z)).abs().sum()))
+    side_r, side_w = cg_fused.k1_plain(r, z, beta, lay)[0], ref[0]
+    for uu in (None, u):
+        for got, ref in ((cg_fused.k2(x, r, z, side_r, scal, lay, u=uu),
+                          cg_fused.k2_plain(x, r, z, side_r, scal, lay, u=uu)),
+                         (cg_fused.k2_pcg(x, r, z, w, side_w, scal, lay, u=uu),
+                          cg_fused.k2_pcg_plain(x, r, z, w, side_w, scal, lay, u=uu))):
+            for g, e in zip(got[:3], ref[:3]):
+                _close(g, e)
+            _sum_close(got[3], ref[3], float(ref[3].sum()))
+    mk = k.mask_spec.build("cuda")
+    b = torch.where(mk, torch.randn(k.padded_shape, device="cuda", generator=gen), 0.0)
+    ec = torch.randn((k.padded_shape[0] // 2, k.padded_shape[1]), device="cuda", generator=gen)
+    _close(k.down(b), k.down_plain(b))
+    _close(k.up(b, ec), k.up_plain(b, ec))
+    (o, dot), (o_ref, dot_ref) = k.up(b, ec, with_dot=True), k.up_plain(b, ec, with_dot=True)
+    _close(o, o_ref)
+    assert abs(float(dot) - float(dot_ref)) <= 64 * EPS32 * float((b * o_ref).abs().sum())
+    f64 = dict(device="cuda", dtype=torch.float64, generator=gen)
+    bh, bl = split_f64(torch.where(m, torch.randn(lay.padded_shape, **f64), 0.0) * 1e4)
+    xh, xl = split_f64(torch.where(m, torch.randn(lay.padded_shape, **f64), 0.0))
+    gh, gl = resid_ff.resid_ff(xh, xl, bh, bl, lay)
+    rh, rl = resid_ff.resid_ff_plain(xh, xl, bh, bl, lay)
+    assert torch.equal(gh, rh)
+    assert float((gl - rl).abs().max()) <= 32 * float(bh.abs().max()) * 2.0**-48
+    launched = {name for name, count in _build.launches.items() if count > 0}
+    assert launched == {"stencil_custom", "k1_custom", "k2_custom", "k2_pcg_custom",
+                        "k_down_custom", "k_up_custom", "k_resid_ff_custom"}
 
 
 @pytest.mark.parametrize("dims", BOXES)

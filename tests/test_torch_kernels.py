@@ -24,6 +24,7 @@ from iterative_solvers_tpu.solvers.multigrid import (
 )
 
 from iterative_solvers_tpu_torch import Domain2D
+from iterative_solvers_tpu_torch.core.domain import notched_disk
 from iterative_solvers_tpu_torch.interop import cg_state_from_arrays, multigrid_from_state
 from iterative_solvers_tpu_torch.kernels import cg_fused, mg_fused
 from iterative_solvers_tpu_torch.kernels.stencil_layout import PaddedStencilOperator
@@ -34,8 +35,17 @@ from iterative_solvers_tpu_torch.solvers.multigrid import (
 )
 
 # small ragged shapes: a gamma grid, and a rect grid whose height is not a
-# multiple of the block rows; block_rows=16 gives several bands (halo paths)
-SHAPES = [("gamma", 64, 64), ("rect", 40, 50)]
+# multiple of the block rows; block_rows=16 gives several bands (halo paths).
+# The custom case is the notched disk (the JAX package's custom-mask test
+# domain at 64²) on 32-row bands, the custom floor, with the int8 mask
+# operand; its kernel inputs are pre-masked, the JAX custom kernels' contract.
+SHAPES = [("gamma", 64, 64), ("rect", 40, 50), ("custom", 64, 64)]
+
+
+def _domains(shape, nx, ny):
+    fn = notched_disk if shape == "custom" else None
+    return (JDomain2D(nx=nx, ny=ny, shape=shape, inside_fn=fn),
+            Domain2D(nx=nx, ny=ny, shape=shape, inside_fn=fn))
 
 
 def _close(got, ref, frac=1e-6):
@@ -50,9 +60,9 @@ def _masked_field(rng, pop):
 
 
 def _layouts(shape, nx, ny, by=16):
-    jd = JDomain2D(nx=nx, ny=ny, shape=shape)
+    jd, pd = _domains(shape, nx, ny)
     pop = PallasStencilOperator.from_domain(jd, block_rows=by, interpret=True)
-    lay = PaddedStencilOperator.from_domain(Domain2D(nx=nx, ny=ny, shape=shape), block_rows=by)
+    lay = PaddedStencilOperator.from_domain(pd, block_rows=by)
     return jd, pop, lay
 
 
@@ -105,20 +115,27 @@ def test_k2_pcg_plain_matches_pallas(shape, nx, ny, with_u):
 
 
 def _jax_mg(shape, nx, ny):
-    jd = JDomain2D(nx=nx, ny=ny, shape=shape)
+    jd = _domains(shape, nx, ny)[0]
     return jd, JMG.from_domain(jd, fuse=True, fuse_min_extent=16, interpret=True)
 
 
 def _carry_mg(M):
-    """The JAX hierarchy as plain values, through interop."""
+    """The JAX hierarchy as plain values, through interop (a custom level
+    as its interior array, and a fused one with its padded int8 mask)."""
     levels = []
     for lev in M.levels:
         base = getattr(lev, "jnp_level", lev)
         spec = base.mask_spec
-        d = dict(shape=spec.kind, nx=spec.nx, ny=spec.ny, coeffs=base.coeffs,
-                 omega_over_diag=base.omega_over_diag)
+        if spec is None:
+            d = dict(shape="custom", nx=0, ny=0, interior=np.asarray(base.interior_arr))
+        else:
+            d = dict(shape=spec.kind, nx=spec.nx, ny=spec.ny)
+        d.update(coeffs=base.coeffs, omega_over_diag=base.omega_over_diag)
         if hasattr(lev, "kernels"):
-            d.update(padded_shape=lev.kernels.padded_shape, block_rows=lev.kernels.block_rows)
+            k = lev.kernels
+            d.update(nx=k.nx, ny=k.ny, padded_shape=k.padded_shape, block_rows=k.block_rows)
+            if k.mask8 is not None:
+                d["mask8"] = np.asarray(k.mask8)
         levels.append(d)
     return multigrid_from_state(
         levels, np.asarray(M.coarse_solve.idx), np.asarray(M.coarse_solve.a_inv), nu=M.nu_pre
@@ -130,7 +147,7 @@ def test_hierarchy_from_domain_matches_jax(shape, nx, ny):
     # structure and the coarse inverse are built the same way: exact
     _, M = _jax_mg(shape, nx, ny)
     P = MultigridPreconditioner.from_domain(
-        Domain2D(nx=nx, ny=ny, shape=shape), fuse=True, fuse_min_extent=16, device="cpu"
+        _domains(shape, nx, ny)[1], fuse=True, fuse_min_extent=16, device="cpu"
     )
     assert len(P.levels) == len(M.levels)
     for a, b in zip(P.levels, M.levels):
@@ -154,6 +171,8 @@ def test_k_down_k_up_plain_match_pallas(shape, nx, ny, with_dot):
     hp, wp = jk.padded_shape
     rng = np.random.default_rng(13)
     b = rng.standard_normal((hp, wp)).astype(np.float32)  # unmasked: the kernels mask b
+    if shape == "custom":
+        b *= pk.mask_spec.build_host()  # the JAX custom kernels trust b's halo rows
     ec = rng.standard_normal((hp // 2, wp)).astype(np.float32)
     _close(pk.down(_t(b)), jk.down(jnp.asarray(b)))
     ref = jk.up(jnp.asarray(b), jnp.asarray(ec), with_dot=with_dot)
@@ -220,7 +239,7 @@ def test_pcg_iteration_from_carried_state(shape, nx, ny):
     jd, M = _jax_mg(shape, nx, ny)
     pop = PallasStencilOperator.from_domain(jd, interpret=True)
     Mj = JPadded(inner=M, padded_op=pop)
-    lay = PaddedStencilOperator.from_domain(Domain2D(nx=nx, ny=ny, shape=shape))
+    lay = PaddedStencilOperator.from_domain(_domains(shape, nx, ny)[1])
     Mt = PaddedPreconditioner(inner=_carry_mg(M), padded_op=lay)
     eng_j, eng_t = JEngine(pop, Mj), cg_fused.FusedCGEngine(lay, Mt)
     rng = np.random.default_rng(16)
