@@ -45,6 +45,21 @@ final ``ok`` line:
      kernels launched, and its ff-vs-f64 A/B (10 interleaved pairs); the
      facade's 512³ solve (``outer='auto'``); plain f32 CG on the 7-point
      kernel at 512³: ms per iteration and iterations to rel 1e-6;
+   - the in-place and pipelined stencils (C4, C5): bit-equal to A1 at scale
+     1 on gamma 64² (16-row panels), 1024², the 8192² ``nnz`` layout (256-row
+     panels, 8448 × 8320) and the custom 64² and 8192² layouts, with random
+     and all-ones input, in x's storage, within their side buffer's memory;
+     ``bench.py``'s ``nnz`` chain at 8192² for A1, C4 and C5 (ms per apply
+     as a two-point difference, Gnnz/s), and a short chain on the notched
+     disk;
+   - ``bench.py``'s ``precond`` race at 4096² (plain CG and Chebyshev-8 PCG
+     on A1, fused MG-PCG, to recurrence rel 1e-6) and its ``csr`` race at
+     1024² (200 CG iterations on the plain stencil and on the CSR matrix);
+   - the facade at ``precision=None``: the reference default at 30² (card
+     against CPU), ``operator='pallas'`` with Chebyshev-8 and with the
+     multigrid at 4096², ``operator='sparse'`` at 1024², and
+     ``precision='mixed'`` with Chebyshev at 2048² (f64 and ff outers), each
+     to its stop with its true relative residual;
 5. one JSON line with every kernel's numbers, the card line, then ``ok``.
 
 Imports nothing of JAX. Needs one card; fails without one.
@@ -84,6 +99,12 @@ KERNELS = {
     "k_up3d": (PKG + "mg_fused3d.cu", TPU + "mg_fused3d.py:343", 17, "3D"),
     "k_jacobi3d": (PKG + "mg_fused3d.cu", TPU + "mg_fused3d.py:149", 13, "3D"),
     "k_resid_ff3d": (PKG + "resid_ff.cu", TPU + "resid_ff.py:312", 110, "3D"),
+    # the in-place and pipelined stencils (C4, C5) with the chain's scale,
+    # on the nnz chain's 8192² layout (256-row panels)
+    "stencil_inplace": (PKG + "stencil_pipelined.cu", TPU + "stencil_pipelined.py:134", 8,
+                        "nnz C4"),
+    "stencil_pipelined": (PKG + "stencil_pipelined.cu", TPU + "stencil_pipelined.py:44", 8,
+                          "nnz C5"),
     # the custom-mask instantiations (int8 mask operand): C1–C3, the
     # custom=True bodies of A2–A4, and A8 where JAX runs the jnp residual
     "stencil_custom": (PKG + "stencil.cu", TPU + "stencil_pallas.py:60", 7, "C-B"),
@@ -93,6 +114,11 @@ KERNELS = {
     "k_down_custom": (PKG + "mg_fused.cu", TPU + "mg_fused.py:109", 22, "C"),
     "k_up_custom": (PKG + "mg_fused.cu", TPU + "mg_fused.py:140", 26, "C"),
     "k_resid_ff_custom": (PKG + "resid_ff.cu", MASK_NOTE, 70, "C"),
+    # C4 and C5 with the custom mask, as C1 (the TPU bodies have none)
+    "stencil_inplace_custom": (PKG + "stencil_pipelined.cu", TPU + "stencil_pipelined.py:134",
+                               8, "nnz C4 custom"),
+    "stencil_pipelined_custom": (PKG + "stencil_pipelined.cu", TPU + "stencil_pipelined.py:44",
+                                 8, "nnz C5 custom"),
 }
 PATH_KERNELS = {
     "A": ("k1", "k2_pcg", "k_down", "k_up", "k_jacobi", "k_resid_ff"),
@@ -105,6 +131,20 @@ PATH_KERNELS = {
     "C": ("k1_custom", "k2_pcg_custom", "k_down_custom", "k_up_custom", "k_resid_ff_custom"),
     "C f64": ("k1_custom", "k2_pcg_custom", "k_down_custom", "k_up_custom"),
     "C-B": ("k1_custom", "k2_custom", "stencil_custom"),
+    "nnz A1": ("stencil",),
+    "nnz C4": ("stencil_inplace",),
+    "nnz C5": ("stencil_pipelined",),
+    "nnz C4 custom": ("stencil_inplace_custom",),
+    "nnz C5 custom": ("stencil_pipelined_custom",),
+    "precond plain": ("stencil",),
+    "precond cheb8": ("stencil",),
+    "precond mg": ("k1", "k2_pcg", "k_down", "k_up"),
+    "facade pallas cheb8": ("stencil",),
+    "facade pallas mg": ("stencil", "k_down", "k_up"),
+    # the JAX facade computes these in XLA outside any kernel: torch ops only
+    "facade default": (),
+    "facade sparse": (),
+    "facade mixed cheb": (),
 }
 N3 = 512
 
@@ -599,14 +639,16 @@ def true_rel(solver, res):
     return float(torch.linalg.norm(b - StencilOperator.from_domain(dom)(x)) / torch.linalg.norm(b))
 
 
-def timed_solve(solver, path):
-    """Warm solve, then one solve with the launch counts set to 0 just before
-    it and read just after. Returns (results, wall s, launches)."""
+def timed_solve(solver, path, warm=True):
+    """A warm solve (unless ``warm`` is False), then one solve with the
+    launch counts set to 0 just before it and read just after. Returns
+    (results, wall s, launches)."""
     import torch
 
     from iterative_solvers_tpu_torch.kernels import _build
 
-    solver.solve()  # warm: allocator pools, coarse inverse, masks, FMG payload
+    if warm:
+        solver.solve()  # warm: allocator pools, coarse inverse, masks, FMG payload
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_counts()
@@ -728,6 +770,298 @@ def custom_paths(disk):
     return launches
 
 
+def check_pipelined(dom, gen, label, timed, block_rows=None):
+    """C4 and C5 on one layout, random and all-ones unmasked input: C4 at
+    scale 1 and C5 (in place and not, lookahead 2 and 4) bit-equal to A1,
+    the in-place results in x's storage, an in-place call's peak memory
+    within its side buffer plus 1 MiB; then both against their plain
+    versions with the chain's scale 7e-6 (64 eps32 · max|plain|). Returns
+    {name: dict of max_abs_err, ms, plain_ms, library_ms, bytes, nodes}:
+    timed on the all-ones canvas, as the chain runs."""
+    import torch
+    import torch.nn.functional as F
+
+    from iterative_solvers_tpu_torch.kernels import stencil_pipelined as sp
+    from iterative_solvers_tpu_torch.kernels.stencil_layout import PaddedStencilOperator
+
+    lay = PaddedStencilOperator.from_domain(dom, block_rows=block_rows)
+    sfx = "_custom" if lay.mask8 is not None else ""
+    hp, wp = lay.padded_shape
+    scale = 7e-6
+
+    def peak_growth(fn, x):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        y = fn(x)
+        torch.cuda.synchronize()
+        return y, torch.cuda.max_memory_allocated() - base
+
+    for kind in ("random", "ones"):
+        x = (torch.randn(lay.padded_shape, device="cuda", generator=gen) if kind == "random"
+             else torch.ones(lay.padded_shape, device="cuda"))
+        a1 = lay(x)
+        xc = x.clone()
+        y, grow4 = peak_growth(lambda t: sp.stencil_apply_inplace(t, lay), xc)
+        side4 = (hp // lay.block_rows) * 2 * wp * 4
+        if y.data_ptr() != xc.data_ptr():
+            raise AssertionError(f"stencil_inplace{sfx} @ {label}: result not in x's storage")
+        if not torch.equal(y, a1):
+            raise AssertionError(f"stencil_inplace{sfx} @ {label} {kind}: differs from A1")
+        if grow4 > side4 + 2**20:
+            raise AssertionError(f"stencil_inplace{sfx} @ {label}: peak grew {grow4} B, side "
+                                 f"buffer {side4} B")
+        grow5 = 0
+        for lookahead in (2, 4):
+            for in_place in (True, False):
+                xc = x.clone()
+                y, grow = peak_growth(lambda t: sp.stencil_apply_pipelined(
+                    t, lay, in_place=in_place, lookahead=lookahead), xc)
+                if not torch.equal(y, a1) or (y.data_ptr() == xc.data_ptr()) != in_place:
+                    raise AssertionError(f"stencil_pipelined{sfx} @ {label} {kind} in_place "
+                                         f"{in_place} lookahead {lookahead}: differs from A1")
+                if in_place:
+                    grow5 = max(grow5, grow)
+        if grow5 > 2 * 132 * 2 * wp * 4 + 2**20:
+            raise AssertionError(f"stencil_pipelined{sfx} @ {label}: peak grew {grow5} B")
+        log(f"kernel C4/C5{sfx} @ {label} {kind}: bit-equal to A1 (C5 in place and not, "
+            f"lookahead 2 and 4), in x's storage; in-place peak +{grow4} B (C4, side "
+            f"{side4} B), +{grow5} B (C5)")
+        del x, xc, y, a1
+    x = torch.randn(lay.padded_shape, device="cuda", generator=gen)
+    ones = torch.ones(lay.padded_shape, device="cuda")
+    cases = {
+        "stencil_inplace": (lambda t: sp.stencil_apply_inplace(t, lay, scale),
+                            lambda t: sp.inplace_plain(t, lay, scale)),
+        "stencil_pipelined": (lambda t: sp.stencil_apply_pipelined(t, lay, scale=scale),
+                              lambda t: sp.pipelined_plain(t, lay, scale=scale)),
+    }
+    out = {}
+    for base, (kern, plain) in cases.items():
+        name = base + sfx
+        got, ref = kern(x.clone()), plain(x.clone())
+        torch.cuda.synchronize()
+        err, tol = compare(f"{name} @ {label}", (got,), (ref,), ("field",))
+        rec = {"max_abs_err": err, "bytes": hp * wp * (9 if sfx else 8), "nodes": hp * wp,
+               "library_ms": None}
+        line = f"kernel {name:24s} @ {label}: max_abs_err {err:.3e} tol {tol:.3e}"
+        if timed:
+            xk, xp = ones.clone(), ones.clone()
+            rec["ms"], rec["plain_ms"] = cuda_ms(lambda: kern(xk)), cuda_ms(lambda: plain(xp))
+            cd, cx, cy = lay.coeffs
+            wt = torch.tensor([[0.0, cy, 0.0], [cx, cd, cx], [0.0, cy, 0.0]],
+                              device="cuda").view(1, 1, 3, 3)
+            rec["library_ms"] = cuda_ms(lambda: F.conv2d(ones.view(1, 1, hp, wp), wt, padding=1))
+            line += (f"  kernel {rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f} ms  conv2d "
+                     f"{rec['library_ms']:.4f} ms")
+        log(line)
+        out[name] = rec
+    if timed:  # the other C5 forms and A1, for the record
+        xk = ones.clone()
+        log(f"C5{sfx} @ {label}: lookahead 4 in place "
+            f"{cuda_ms(lambda: sp.stencil_apply_pipelined(xk, lay, lookahead=4, scale=scale)):.4f}"
+            f" ms, lookahead 2 out of place "
+            f"{cuda_ms(lambda: sp.stencil_apply_pipelined(ones, lay, in_place=False)):.4f} ms; "
+            f"A1 {cuda_ms(lambda: lay(ones)):.4f} ms")
+    return out
+
+
+def nnz_chain(dom, block_rows, label, kernels):
+    """``bench.py``'s ``nnz`` mode on the port's chain (``spmv_chain`` from an
+    all-ones canvas, scale 7e-6): per ``(path, kernel)`` the ms per apply as
+    ``(t(4 k_lo) − t(k_lo)) / (3 k_lo)``, each the minimum of three runs,
+    with k_lo sized for ~0.15 s as the bench does (``kernels`` with k None),
+    or only a counted chain of k applies. Then one chain with the launch
+    counts set to 0 just before it. Gnnz/s with the unpadded operator's nnz;
+    the bound counts 8 B per canvas node (``bench.py``'s roofline, 9).
+    The 4-apply chains are finite and give bit-equal sums (C4 and C5 fold
+    the scale after A1's arithmetic, as A1's chain multiplies after it).
+    Longer chains overflow: at 8192² the scale times the spectral radius of
+    A is ~3.8e3, so the boundary modes reach f32's limit within ~11 applies
+    and the timed chains, the bench's too, run on inf and NaN (at full
+    speed: the card has no slow path for them). Returns {path: launches}."""
+    import torch
+
+    from iterative_solvers_tpu_torch.kernels import _build
+    from iterative_solvers_tpu_torch.kernels.stencil_layout import PaddedStencilOperator
+    from iterative_solvers_tpu_torch.kernels.stencil_pipelined import spmv_chain
+    from iterative_solvers_tpu_torch.ops.stencil import StencilOperator
+
+    lay = PaddedStencilOperator.from_domain(dom, block_rows=block_rows)
+    hp, wp = lay.padded_shape
+    nnz = StencilOperator.from_domain(dom).nnz()
+    x = torch.ones(lay.padded_shape, device="cuda")
+    bound = 8 * hp * wp / HBM_BYTES_PER_S * 1e3
+
+    def run(kernel, k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        total = float(spmv_chain(lay, x, k, kernel=kernel))
+        return time.perf_counter() - t0, total
+
+    log(f"nnz {label}: layout {lay.padded_shape}, {lay.block_rows}-row panels, nnz {nnz}; "
+        f"bound 8 B/node {bound:.4f} ms ({nnz / bound * 1e3 / 1e9:.1f} Gnnz/s; bench.py's "
+        f"roofline counts 9 B/node: {9 * hp * wp / HBM_BYTES_PER_S * 1e3:.4f} ms)")
+    launches, sums = {}, {}
+    for path, kernel, k in kernels:
+        run(kernel, 2)  # warm
+        sums[path] = run(kernel, 4)[1]
+        if k is None:
+            per_est = max(run(kernel, 8)[0] / 8, 1e-7)
+            k = max(8, int(0.15 / per_est))
+            t_lo = min(run(kernel, k)[0] for _ in range(3))
+            t_hi = min(run(kernel, 4 * k)[0] for _ in range(3))
+            per = (t_hi - t_lo) / (3 * k)
+            log(f"nnz {label} {kernel}: {per * 1e3:.4f} ms/apply, {nnz / per / 1e9:.1f} Gnnz/s "
+                f"(k {k} / {4 * k}: {t_lo:.4f} / {t_hi:.4f} s), {bound / (per * 1e3):.1%} of "
+                f"the 8 B/node bound")
+        _build.reset_counts()
+        t, total = run(kernel, k)
+        launches[path], plain = dict(_build.launches), dict(_build.plain_on_cuda)
+        want = PATH_KERNELS[path][0]
+        log(f"nnz {label} {kernel} counted chain: k {k} sum {total:.6e} {t:.4f} s launches "
+            f"{launches[path]} plain_on_cuda {plain}")
+        if launches[path].get(want, 0) != k or plain:
+            raise AssertionError(f"nnz {label} {kernel}: launches {launches[path]}, plain "
+                                 f"{plain}")
+    if len(set(sums.values())) != 1 or not all(abs(v) < float("inf") for v in sums.values()):
+        raise AssertionError(f"nnz {label}: the 4-apply chains disagree or overflow: {sums}")
+    log(f"nnz {label}: 4-apply chain sums bit-equal across kernels: {sums}")
+    return launches
+
+
+def precond_race(n):
+    """``bench.py``'s ``precond`` mode at n²: plain CG and Chebyshev-8 PCG on
+    the padded operator (A1), fused MG-PCG, each to recurrence rel 1e-6 with
+    the launch counts set to 0 just before it. Returns {path: launches}."""
+    import torch
+
+    from iterative_solvers_tpu_torch import Domain2D, PoissonProblem
+    from iterative_solvers_tpu_torch.kernels import _build
+    from iterative_solvers_tpu_torch.kernels.cg_fused import fused_cg_solve
+    from iterative_solvers_tpu_torch.kernels.stencil_layout import PaddedStencilOperator
+    from iterative_solvers_tpu_torch.ops.stencil import StencilOperator
+    from iterative_solvers_tpu_torch.solvers.cg import CGOptions, cg_solve
+    from iterative_solvers_tpu_torch.solvers.multigrid import (
+        MultigridPreconditioner,
+        PaddedPreconditioner,
+    )
+    from iterative_solvers_tpu_torch.solvers.precond import ChebyshevPreconditioner
+
+    dom = Domain2D(nx=n, ny=n)
+    op = PaddedStencilOperator.from_domain(dom)
+    b64 = PoissonProblem.manufactured(dom).rhs_field(torch.float64, "cuda")
+    b = op.pad(b64.float())
+    rel6 = stop_rel6()
+    M_cheb = ChebyshevPreconditioner.from_domain(op, dom, degree=8)
+    M_mg = PaddedPreconditioner(inner=MultigridPreconditioner.from_domain(dom, device="cuda"),
+                                padded_op=op)
+    runs = {
+        "precond plain": lambda: cg_solve(op, b, options=CGOptions(stop=rel6)),
+        "precond cheb8": lambda: cg_solve(op, b, options=CGOptions(stop=rel6,
+                                                                  preconditioner=M_cheb)),
+        "precond mg": lambda: fused_cg_solve(op, op.crop(b), options=CGOptions(
+            stop=rel6, preconditioner=M_mg)),
+    }
+    runs["precond mg"]()  # warm: the V-cycle's coarse inverse and masks
+    A64 = StencilOperator.from_domain(dom)
+    launches, secs = {}, {}
+    for path, run in runs.items():
+        torch.cuda.synchronize()
+        _build.reset_counts()
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        secs[path] = time.perf_counter() - t0
+        launches[path], plain = dict(_build.launches), dict(_build.plain_on_cuda)
+        x = res.x if res.x.shape == b64.shape else op.crop(res.x)
+        rel = float(torch.linalg.norm(b64 - A64(x.double())) / torch.linalg.norm(b64))
+        log(f"{path} {n}^2: reason {res.reason.name} iterations {res.iterations} "
+            f"{secs[path]:.4f} s true_rel {rel:.3e} launches {launches[path]} plain_on_cuda "
+            f"{plain}")
+        missing = [k for k in PATH_KERNELS[path] if launches[path].get(k, 0) <= 0]
+        if not (res.converged and res.reason.name == "RELATIVE_RESIDUAL") or missing or plain:
+            raise AssertionError(f"{path}: reason {res.reason.name}, missing {missing}, "
+                                 f"plain {plain}")
+    log(f"precond {n}^2: plain / cheb8 {secs['precond plain'] / secs['precond cheb8']:.2f}x, "
+        f"plain / mg {secs['precond plain'] / secs['precond mg']:.2f}x")
+    return launches
+
+
+def csr_race(n):
+    """``bench.py``'s ``csr`` mode at n²: 200 f32 CG iterations on the plain
+    stencil (full-grid fields) and on the CSR matrix (compacted vectors),
+    each after a warm run; equal counts, ms per iteration of each."""
+    import torch
+
+    from iterative_solvers_tpu_torch import Domain2D, PoissonProblem, StopConfig
+    from iterative_solvers_tpu_torch.core import ordering
+    from iterative_solvers_tpu_torch.ops.sparse import SparseOperator
+    from iterative_solvers_tpu_torch.ops.stencil import StencilOperator
+    from iterative_solvers_tpu_torch.solvers.cg import CGOptions, cg_solve
+
+    dom = Domain2D(nx=n, ny=n)
+    b = PoissonProblem.manufactured(dom).rhs_field(torch.float32, "cuda")
+    opts = CGOptions(stop=StopConfig(max_iterations=200).disable_all_but_iterations())
+    ms = {}
+    for name, A, rhs in (("matrix-free", StencilOperator.from_domain(dom), b),
+                         ("csr", SparseOperator.from_domain(dom, torch.float32, "cuda"),
+                          ordering.pack(b, dom))):
+        cg_solve(A, rhs, options=opts)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = cg_solve(A, rhs, options=opts)
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) / res.iterations * 1e3
+        if res.iterations != 200:
+            raise AssertionError(f"csr race {name}: {res.iterations} iterations")
+    log(f"csr {n}^2, 200 CG iterations each: matrix-free {ms['matrix-free']:.4f} ms/iteration, "
+        f"csr {ms['csr']:.4f} ms/iteration (csr / matrix-free {ms['csr'] / ms['matrix-free']:.2f})")
+
+
+def facade_paths():
+    """The facade's precision=None paths and the generic mixed ladder, each
+    with the launch counts set to 0 just before it. Returns {path: launches}."""
+    import torch
+
+    from iterative_solvers_tpu_torch import DirichletSolver
+
+    launches = {}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        out[dev] = DirichletSolver(nx=30, ny=30, device=dev).solve()
+    res, wall, launches["facade default"] = timed_solve(DirichletSolver(nx=30, ny=30),
+                                                        "facade default")
+    log(f"facade default 30^2 cuda / cpu: reason {res.stop_reason.name} / "
+        f"{out['cpu'].stop_reason.name} iterations {res.iterations} / {out['cpu'].iterations} "
+        f"error_norm {res.error_norm:.4e} / {out['cpu'].error_norm:.4e} wall {wall:.4f} s")
+    if (res.stop_reason, res.iterations) != (out["cpu"].stop_reason, out["cpu"].iterations):
+        raise AssertionError("facade default: the card and the CPU disagree")
+    rel6 = stop_rel6()
+    for path, kw, gate in (
+        ("facade pallas cheb8", dict(nx=4096, ny=4096, operator="pallas",
+                                     preconditioner="chebyshev:8"), 1e-3),
+        ("facade pallas mg", dict(nx=4096, ny=4096, operator="pallas", preconditioner="mg"),
+         1e-3),
+        ("facade sparse", dict(nx=1024, ny=1024, operator="sparse"), 1e-6),
+        ("facade mixed cheb", dict(nx=2048, ny=2048, precision="mixed",
+                                   preconditioner="chebyshev", outer="f64"), 1e-6),
+        ("facade mixed cheb", dict(nx=2048, ny=2048, precision="mixed",
+                                   preconditioner="chebyshev", outer="ff"), 1e-6),
+    ):
+        solver = DirichletSolver(device="cuda", stop=rel6, **kw)
+        res, wall, launches[path] = timed_solve(solver, path, warm=False)
+        rel = true_rel(solver, res)
+        log(f"{path} {kw['nx']}^2 {kw.get('outer', '')}: converged {res.converged} reason "
+            f"{res.stop_reason.name} outer {res.outer_iterations} iterations {res.iterations} "
+            f"true_rel {rel:.3e} solve {res.elapsed_s:.4f} s wall {wall:.3f} s")
+        if not (res.converged and res.stop_reason.name == "RELATIVE_RESIDUAL" and rel < gate):
+            raise AssertionError(f"{path} failed: reason {res.stop_reason.name} rel {rel:.3e}")
+        del solver, res
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -787,6 +1121,16 @@ def main() -> int:
         check_kernels_3d(dims, gen, "x".join(map(str, dims)), timed=False)
     stats.update(check_kernels_3d((N3, N3, N3), gen, f"{N3}^3 level 0", timed=True))
     torch.cuda.empty_cache()
+    # C4 and C5: the gamma 64² (16-row panels) and 1024² layouts, the nnz
+    # chain's 8192² layout (256-row panels), the custom 64² and 8192² ones
+    check_pipelined(Domain2D(nx=64, ny=64), gen, "gamma 64^2", timed=False, block_rows=16)
+    check_pipelined(Domain2D(nx=1024, ny=1024), gen, "1024^2", timed=False)
+    stats.update(check_pipelined(Domain2D(nx=N, ny=N), gen, f"{N}^2 nnz", timed=True,
+                                 block_rows=256))
+    check_pipelined(Domain2D(nx=64, ny=64, shape="custom", inside_fn=notched_disk), gen,
+                    "custom 64^2", timed=False, block_rows=32)
+    stats.update(check_pipelined(disk, gen, f"custom {N}^2 nnz", timed=True, block_rows=256))
+    torch.cuda.empty_cache()
 
     # 4. solves
     small_checks(Domain2D(nx=64, ny=64))
@@ -838,7 +1182,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     # the custom-mask domain: paths C and C-B
     launches.update(custom_paths(disk))
+    # bench.py's nnz chain: A1, C4 and C5 at 8192², and C4/C5 on the disk
+    launches.update(nnz_chain(Domain2D(nx=N, ny=N), 256, f"{N}^2", (
+        ("nnz A1", "stencil", None), ("nnz C4", "inplace", None),
+        ("nnz C5", "pipelined", None))))
+    launches.update(nnz_chain(disk, 256, f"custom {N}^2", (
+        ("nnz C4 custom", "inplace", 8), ("nnz C5 custom", "pipelined", 8))))
     del disk
+    torch.cuda.empty_cache()
+    # bench.py's precond (4096²) and csr (1024²) races, the facade's paths
+    launches.update(precond_race(4096))
+    torch.cuda.empty_cache()
+    csr_race(1024)
+    launches.update(facade_paths())
+    torch.cuda.empty_cache()
 
     # 3D: the 64^3 checks, the bench route at 512^3, the facade, plain CG
     small_checks_3d()

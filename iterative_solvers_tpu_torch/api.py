@@ -1,55 +1,65 @@
 """High-level facade (counterpart of iterative_solvers_tpu/api.py).
 
-Two paths are ported:
+``DirichletSolver`` configures a Dirichlet–Poisson problem on a 2D domain
+(gamma, rect, custom) or a 3D box, solves it and returns
+:class:`SolverResults` in the compacted unknown ordering. Every option
+combination of the JAX facade without a mesh runs, with the JAX facade's
+validation messages:
 
-- ``DirichletSolver(..., preconditioner="mg", precision="mixed")``, the JAX
-  package's default solve: the manufactured problem assembled on ``device``
-  in f64, then :func:`~iterative_solvers_tpu_torch.solvers.refine.fused_refined_solve`
-  — the FMG warm start (``fmg_cycles``, default 1), the refinement outer
-  (``outer``: f64 or double-f32) around the fused f32 PCG engine and its
-  fused V-cycle. ``operator`` stays ``"stencil"`` here, as in the JAX facade,
-  whose mixed path runs the fused engine whatever the operator.
-- ``DirichletSolver(..., operator="fused")``: f32 MSG CG (or, with
-  ``preconditioner="mg"``, PCG) on the fused engine through
-  :func:`~iterative_solvers_tpu_torch.kernels.cg_fused.fused_cg_solve`, the
-  reference algorithm; the final residual goes through the padded
-  operator's stencil kernel, as in the JAX facade.
-- ``DirichletSolver(domain=Domain3D(...), preconditioner="mg",
-  precision="mixed")``, the 3D box:
+- ``precision=None``: (preconditioned) CG in ``dtype`` on the operator
+  ``operator`` names — ``"stencil"`` (the plain masked stencil, full-grid
+  fields), ``"sparse"`` (a CSR matrix over compacted vectors), ``"pallas"``
+  (the padded layout on the stencil kernel: A1/C1 in 2D, S7 in 3D) or
+  ``"fused"`` (2D: the fused f32 engine, K1 + K2/K2-pcg, the reference
+  algorithm) — with ``preconditioner`` none, ``"jacobi"``,
+  ``"chebyshev[:m]"`` or ``"mg[:nu]"`` (on ``"pallas"`` the V-cycle runs
+  behind a ``PaddedPreconditioner``, its fused legs on the card).
+- ``precision="mixed"`` (``operator="stencil"``): iterative refinement, an
+  f64 or double-f32 outer (``outer``) around f32 inner PCG. With
+  ``preconditioner="mg"`` the JAX package's default solve: in 2D
+  :func:`~iterative_solvers_tpu_torch.solvers.refine.fused_refined_solve`
+  (the FMG warm start, the fused engine and V-cycle), in 3D
   :func:`~iterative_solvers_tpu_torch.solvers.refine.device_refined_solve`
-  on the padded 7-point operator (kernel S7) with the fused 3D V-cycle
-  behind a ``PaddedPreconditioner``, the FMG warm start and the f64 or ff
-  outer (kernel R3) — the route the JAX package's bench takes. The JAX
-  facade runs its 3D mixed solve on the *unpadded* plain operator; the port
-  takes the padded one so the kernels carry it (ROADMAP Queue 3).
-  ``operator="fused"`` with a 3D domain raises ValueError, as in JAX.
+  on the padded 7-point operator (the JAX facade runs its 3D solve on the
+  unpadded operator; the port takes the bench's route so the kernels carry
+  it). With any other preconditioner or none, ``device_refined_solve`` on
+  the plain stencil, as the JAX facade's device ladder. With a
+  ``callback``, any preconditioner runs the host ladder
+  :func:`~iterative_solvers_tpu_torch.solvers.refine.refined_solve`, as in
+  JAX.
 
-A custom-mask domain (``Domain2D(shape="custom", inside_fn=...)``) runs the
-two 2D paths with the same modules, its kernels taking the int8 mask
-operand; its results carry ``interior_mask``, as the JAX package's do.
+A custom-mask domain (``Domain2D(shape="custom", inside_fn=...)``) runs
+every path with the same modules, its kernels taking the int8 mask operand;
+its results carry ``interior_mask``, as the JAX package's do.
 
-``device="cuda"`` (the default) launches the hand-written kernels and raises
-if there is no card; ``device="cpu"`` runs their plain torch versions.
-Nothing falls back from one to the other. Every other option combination of
-the JAX facade raises NotImplementedError naming its ROADMAP item.
+``solve(callback=...)`` receives ``(k, prec∞, r∞, err∞)`` at the JAX
+driver's cadence; :meth:`DirichletSolver.request_stop` interrupts a
+chunked solve at its next chunk (INTERRUPTED). ``device="cuda"`` (the
+default) launches the hand-written kernels and raises if there is no card;
+``device="cpu"`` runs their plain torch versions. Nothing falls back from
+one to the other. A mesh (``mesh=``) raises NotImplementedError (ROADMAP
+Queue 1 item 14).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 from dataclasses import dataclass
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
+from iterative_solvers_tpu_torch.core import ordering
 from iterative_solvers_tpu_torch.core.domain import Domain2D, Domain3D, resolve_device
 from iterative_solvers_tpu_torch.core.problem import PoissonProblem
 from iterative_solvers_tpu_torch.kernels.cg_fused import fused_cg_solve
 from iterative_solvers_tpu_torch.kernels.stencil3d_layout import Padded3DStencilOperator
 from iterative_solvers_tpu_torch.kernels.stencil_layout import PaddedStencilOperator
+from iterative_solvers_tpu_torch.ops.sparse import SparseOperator
 from iterative_solvers_tpu_torch.ops.stencil import StencilOperator
-from iterative_solvers_tpu_torch.solvers.cg import CGOptions
+from iterative_solvers_tpu_torch.solvers.cg import CGOptions, cg_solve
 from iterative_solvers_tpu_torch.solvers.multigrid import (
     MultigridPreconditioner,
     PaddedPreconditioner,
@@ -59,9 +69,11 @@ from iterative_solvers_tpu_torch.solvers.precond import (
     parse_preconditioner,
 )
 from iterative_solvers_tpu_torch.solvers.refine import (
+    _maybe_fmg_x0,
     _padded_hi_operator,
     device_refined_solve,
     fused_refined_solve,
+    refined_solve,
 )
 from iterative_solvers_tpu_torch.solvers.stopping import StopConfig, StopReason
 
@@ -80,12 +92,12 @@ class SolverResults:
     error: np.ndarray  # x − u_exact
     x_coords: np.ndarray
     y_coords: np.ndarray
-    iterations: int  # total inner PCG iterations
+    iterations: int  # total (inner) CG iterations
     converged: bool
     stop_reason: StopReason
     residual_norm: float  # ‖r‖∞
     error_norm: float  # ‖x−u‖∞
-    precision_norm: float  # ‖d‖∞ of the last outer step
+    precision_norm: float  # ‖x_k − x_{k−1}‖∞ at the last step
     elapsed_s: float
     nx: int = 0
     ny: int = 0
@@ -103,9 +115,7 @@ class SolverResults:
 
     def solution_field(self, domain) -> np.ndarray:
         """Scatter the compacted solution back onto the full grid."""
-        out = np.zeros(domain.grid_shape)
-        out[domain.interior] = self.solution
-        return out
+        return ordering.unpack(np.asarray(self.solution, np.float64), domain)
 
 
 def _attach_fmg(M, problem):
@@ -121,13 +131,17 @@ def _attach_fmg(M, problem):
 class DirichletSolver:
     """Dirichlet–Poisson solver on a gamma/rect/custom 2D domain or a 3D box.
 
-    Ported options: ``precision='mixed'`` with ``preconditioner='mg[:nu]'``,
-    any ``fmg_cycles >= 0`` and ``outer`` in ``'f64'``, ``'ff'`` (double-f32)
-    or ``'auto'`` — which means :data:`AUTO_OUTER` of the domain's
-    dimension, chosen by measurement on the card (the JAX package's 'auto'
-    picks ff on a TPU); and, 2D
-    only, ``operator='fused'`` with ``precision=None``, with or without
-    ``preconditioner='mg[:nu]'``.
+    ``DirichletSolver(nx=30, ny=30, device=...)`` is the reference's GUI
+    default: the Г-domain on [1,2]², eps 1e-6 on precision and residual,
+    at most 10000 iterations, CG on the plain stencil in f64.
+
+    ``dtype``: the field type of a ``precision=None`` solve. ``None`` means
+    what the JAX package picks under x64 (its tests' and its mixed path's
+    setting): f64 for ``"stencil"``, ``"sparse"`` and ``"fused"`` (whose
+    engine computes in f32 whatever ``b`` is), f32 for ``"pallas"``, whose
+    kernels take f32 only — ``"pallas"`` with f64 raises. ``outer='auto'``
+    means :data:`AUTO_OUTER` of the domain's dimension, chosen by
+    measurement on the card (the JAX package's 'auto' picks ff on a TPU).
     """
 
     def __init__(
@@ -142,9 +156,12 @@ class DirichletSolver:
         domain=None,
         problem: Optional[PoissonProblem] = None,
         operator: str = "stencil",
+        dtype: Optional[torch.dtype] = None,
         stop: Optional[StopConfig] = None,
+        beta_kind: str = "msg",
         preconditioner: Optional[str] = None,
         precision: Optional[str] = None,
+        mesh=None,
         fmg_cycles: int = 1,
         outer: str = "auto",
         device="cuda",
@@ -155,14 +172,19 @@ class DirichletSolver:
             dom = domain or Domain2D(nx=nx, ny=ny, x0=x0, x1=x1, y0=y0, y1=y1)
             self.problem = PoissonProblem.manufactured(dom)
         self.operator_kind = operator
+        self.dtype = dtype
         self.stop = stop or StopConfig()
+        self.beta_kind = beta_kind
         self.preconditioner = preconditioner
         self.precision = precision
+        self.mesh = mesh
         self.fmg_cycles = fmg_cycles
         self.outer = outer
         self._validate_config()
         self.device = resolve_device(device)
-        self._parts = None  # (layout, padded M or None), built on first solve
+        self._stop_event = threading.Event()
+        self._routes = {}  # route -> (operator, preconditioner), built on first use
+        self._parts = None  # the (operator, preconditioner) of the last solve
 
     @property
     def domain(self):
@@ -178,103 +200,194 @@ class DirichletSolver:
             raise ValueError(
                 f"unknown operator {operator!r} (use 'stencil', 'sparse', 'pallas' or 'fused')"
             )
-        if operator == "fused" and self.is3d:
-            raise ValueError("operator='fused' is 2D-only; a 3D domain runs with "
-                             "precision='mixed', preconditioner='mg'")
-        kind = None
+        if self.beta_kind not in ("msg", "fr"):
+            raise ValueError(f"unknown beta_kind {self.beta_kind!r} (use 'msg' or 'fr')")
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "the mesh (distributed solve) is not ported yet (ROADMAP Queue 1 item 14)"
+            )
+        if operator == "fused":
+            if self.is3d:
+                raise ValueError("operator='fused' is 2D-only; use operator='pallas' for 3D")
+            if self.beta_kind != "msg":
+                raise ValueError(
+                    "the fused engine implements the MSG recurrence only (beta_kind='msg')"
+                )
         if self.preconditioner is not None:
             kind, _ = parse_preconditioner(self.preconditioner)
             if kind == "mg" and operator == "sparse":
-                raise ValueError("preconditioner='mg' needs grid-shaped fields, "
-                                 "which operator='sparse' does not have")
+                raise ValueError(
+                    "preconditioner='mg' needs grid-shaped fields, but operator='sparse' works "
+                    "on compacted vectors — use operator='stencil' or 'pallas'"
+                )
             if operator == "fused" and kind != "mg":
-                raise ValueError("operator='fused' supports preconditioner='mg[:nu]' only")
+                raise ValueError(
+                    "operator='fused' supports preconditioner='mg[:nu]' only (the fused PCG "
+                    "engine folds the V-cycle between its two kernels; use operator='pallas' "
+                    "for jacobi/chebyshev PCG)"
+                )
         if self.precision not in (None, "mixed"):
             raise ValueError(f"unknown precision {self.precision!r} (use None or 'mixed')")
         if self.outer not in ("auto", "f64", "ff"):
             raise ValueError(f"unknown outer {self.outer!r} (use 'auto', 'f64' or 'ff')")
         if self.outer == "ff" and self.precision != "mixed":
-            raise ValueError("outer='ff' needs precision='mixed'")
+            raise ValueError(
+                "outer='ff' selects the mixed ladder's outer arithmetic — it needs "
+                "precision='mixed'"
+            )
         if self.precision == "mixed" and operator != "stencil":
-            # the JAX facade's rule without a mesh (no mesh is ported)
-            raise ValueError("precision='mixed' requires operator='stencil'")
+            # the JAX facade's rule without a mesh
+            raise ValueError("precision='mixed' requires the matrix-free stencil operator")
         if not (isinstance(self.fmg_cycles, int) and self.fmg_cycles >= 0):
             raise ValueError(f"fmg_cycles must be an int >= 0, got {self.fmg_cycles!r}")
-        # --- what the port does not run yet ---
-        if self.precision == "mixed" and kind != "mg":
-            raise NotImplementedError(
-                "precision='mixed' runs with preconditioner='mg[:nu]' only; the generic "
-                "ladder and the other preconditioners are not ported yet "
-                "(ROADMAP Queue 1 item 12)"
-            )
-        if self.precision is None and operator != "fused":
-            raise NotImplementedError(
-                f"operator={operator!r} with precision=None is not ported yet "
-                "(ROADMAP Queue 1 items 12 and 13); use operator='fused'"
-                + (" (2D) or precision='mixed' (3D)" if self.is3d else "")
-            )
+        if self.dtype not in (None, torch.float32, torch.float64):
+            raise ValueError(f"dtype must be None, torch.float32 or torch.float64, got "
+                             f"{self.dtype!r}")
+        if operator == "pallas" and self.dtype == torch.float64:
+            raise ValueError("operator='pallas' runs the f32 stencil kernels; use dtype=None or "
+                             "torch.float32 (or operator='stencil' for f64)")
 
     @property
     def outer_kind(self) -> str:
-        """The outer this solver runs: 'f64' or 'ff'."""
+        """The outer a mixed solve runs: 'f64' or 'ff'."""
         return AUTO_OUTER[3 if self.is3d else 2] if self.outer == "auto" else self.outer
 
-    def _build_parts(self):
+    @property
+    def field_dtype(self) -> torch.dtype:
+        """The field type of a ``precision=None`` solve (the dtype rule)."""
+        if self.dtype is not None:
+            return self.dtype
+        return torch.float32 if self.operator_kind == "pallas" else torch.float64
+
+    def request_stop(self) -> None:
+        """Cooperative interrupt: a chunked solve stops at its next chunk
+        boundary with INTERRUPTED (a solve with a ``callback`` polls every
+        ``callback_every`` iterations, the mixed ladder before each outer
+        step). A mixed solve without a callback runs its ladder to the end,
+        as the JAX package's one-dispatch ladder does."""
+        self._stop_event.set()
+
+    def _route(self, callback) -> str:
+        if self.precision == "mixed":
+            kind = parse_preconditioner(self.preconditioner)[0] if self.preconditioner else None
+            if callback is not None:
+                return "ladder"  # the host ladder, any preconditioner
+            if kind == "mg":
+                return "padded3d" if self.is3d else "fused_ir"
+            return "generic_ir"
+        return self.operator_kind
+
+    def _build(self, route: str):
+        """(operator, preconditioner) of one route."""
         dom = self.domain
         layout = Padded3DStencilOperator if self.is3d else PaddedStencilOperator
-        pop = layout.from_domain(dom)
-        Mp = None
-        if self.preconditioner is not None:
-            M = make_preconditioner(self.preconditioner, dom, device=self.device)
-            Mp = PaddedPreconditioner(inner=M, padded_op=pop)
-            if self.precision == "mixed":
-                # FMG payload: the problem rediscretised on each coarse level
-                Mp = _attach_fmg(Mp, self.problem)
-        return pop, Mp
-
-    def solve(self) -> SolverResults:
-        dom = self.domain
-        if self._parts is None:
-            self._parts = self._build_parts()
-        pop, Mp = self._parts
-        b = self.problem.rhs_field(torch.float64, self.device)
-        u = (
-            self.problem.true_solution_field(torch.float64, self.device)
-            if self.problem.u_exact is not None
-            else None
-        )
-        if self.precision == "mixed" and self.is3d:
-            res = device_refined_solve(
-                _padded_hi_operator(pop), pop, pop.pad(b), preconditioner=Mp,
-                u_true=None if u is None else pop.pad(u), stop=self.stop, fmg=self.fmg_cycles,
-                ff=self.outer_kind == "ff",
-            )
-            x = pop.crop(res.x)
-            r = b - StencilOperator.from_domain(dom)(x)
-        elif self.precision == "mixed":
-            res = fused_refined_solve(pop, Mp, b, u_true=u, stop=self.stop,
-                                      fmg=self.fmg_cycles, ff=self.outer_kind == "ff")
-            x = res.x
-            r = b - StencilOperator.from_domain(dom)(x)
+        if route in ("fused_ir", "padded3d", "pallas", "fused"):
+            A = layout.from_domain(dom)
+        elif route == "sparse":
+            A = SparseOperator.from_domain(dom, self.field_dtype, self.device)
         else:
-            opts = CGOptions(stop=self.stop, preconditioner=Mp, record_history=True)
-            res = fused_cg_solve(pop, b, u_true=u, options=opts)
-            x = res.x.to(torch.float64)
-            # final residual through the stencil kernel, as the JAX facade does
-            r = b - pop.crop(pop(pop.pad(res.x))).to(torch.float64)
-        interior = dom.interior_on(self.device)
-        sol = x[interior].cpu().numpy()
-        resid = r[interior].cpu().numpy()
+            A = StencilOperator.from_domain(dom)
+        if self.preconditioner is None:
+            return A, None
+        M = make_preconditioner(self.preconditioner, A, dom, device=self.device)
+        if isinstance(M, MultigridPreconditioner) and route not in ("stencil", "ladder"):
+            # the multigrid works on unpadded grids: adapt it to the padded layout
+            M = PaddedPreconditioner(inner=M, padded_op=A)
+        if self.precision == "mixed":
+            # FMG payload: the problem rediscretised on each coarse level
+            M = _attach_fmg(M, self.problem)
+        return A, M
+
+    def solve(
+        self,
+        callback: Optional[Callable[[int, float, float, float], None]] = None,
+        completion_callback: Optional[Callable[[bool, str], None]] = None,
+        record_history: bool = True,
+        callback_every: int = 100,
+        state_callback: Optional[Callable] = None,
+    ) -> SolverResults:
+        self._stop_event.clear()
+        if self.outer == "ff" and callback is not None:
+            raise RuntimeError(
+                "outer='ff' runs the whole ladder as one device program — live iteration "
+                "callbacks need the host-chunked loop; use outer='auto'/'f64' with callbacks"
+            )
+        route = self._route(callback)
+        if route not in self._routes:
+            self._routes[route] = self._build(route)
+        A, M = self._parts = self._routes[route]
+        dev, f64 = self.device, torch.float64
+        has_u = self.problem.u_exact is not None
+        if self.precision == "mixed":
+            b = self.problem.rhs_field(f64, dev)
+            u = self.problem.true_solution_field(f64, dev) if has_u else None
+            ff = self.outer_kind == "ff"
+            if route == "fused_ir":
+                res = fused_refined_solve(A, M, b, u_true=u, stop=self.stop,
+                                          fmg=self.fmg_cycles, ff=ff)
+                x = res.x
+            elif route == "padded3d":
+                res = device_refined_solve(
+                    _padded_hi_operator(A), A, A.pad(b), preconditioner=M,
+                    u_true=None if u is None else A.pad(u), stop=self.stop,
+                    fmg=self.fmg_cycles, ff=ff,
+                )
+                x = A.crop(res.x)
+            elif route == "ladder":
+                res = refined_solve(A, A, b, u_true=u, stop=self.stop, preconditioner=M,
+                                    callback=callback, stop_requested=self._stop_event.is_set,
+                                    x0=_maybe_fmg_x0(M, self.fmg_cycles, b))
+                x = res.x
+            else:
+                res = device_refined_solve(A, A, b, preconditioner=M, u_true=u, stop=self.stop,
+                                           fmg=self.fmg_cycles, ff=ff)
+                x = res.x
+            r = b - StencilOperator.from_domain(self.domain)(x)
+        else:
+            b = self.problem.rhs_field(self.field_dtype, dev)
+            u = self.problem.true_solution_field(self.field_dtype, dev) if has_u else None
+            opts = CGOptions(
+                stop=self.stop, beta_kind=self.beta_kind, preconditioner=M, callback=callback,
+                callback_every=callback_every, stop_requested=self._stop_event.is_set,
+                record_history=record_history, state_callback=state_callback,
+            )
+            if route == "fused":
+                res = fused_cg_solve(A, b, u_true=u, options=opts)
+                x = res.x
+                # the final residual through the stencil kernel, as the JAX facade does
+                r = b - A.crop(A(A.pad(x))).to(b.dtype)
+            elif route == "pallas":
+                bp = A.pad(b)
+                res = cg_solve(A, bp, u_true=None if u is None else A.pad(u), options=opts)
+                x, r = A.crop(res.x), A.crop(bp - A(res.x))
+            elif route == "sparse":
+                b, u = ordering.pack(b, self.domain), (ordering.pack(u, self.domain)
+                                                       if has_u else None)
+                res = cg_solve(A, b, u_true=u, options=opts)
+                x = res.x
+                r = b - A(x)
+            else:
+                res = cg_solve(A, b, u_true=u, options=opts)
+                x = res.x
+                r = b - A(x)
+        results = self._assemble_results(res, x, r, u)
+        if completion_callback is not None:
+            completion_callback(results.converged, results.stop_reason.text())
+        return results
+
+    def _assemble_results(self, res, x, r, u) -> SolverResults:
+        dom = self.domain
+        if self.operator_kind != "sparse" or self.precision == "mixed":
+            x, r = ordering.pack(x, dom), ordering.pack(r, dom)
+            u = ordering.pack(u, dom) if u is not None else None
+        sol = x.cpu().numpy().astype(np.float64)
+        resid = r.cpu().numpy().astype(np.float64)
         if u is not None:
-            tru = u[interior].cpu().numpy()
+            tru = u.cpu().numpy().astype(np.float64)
             err = sol - tru
         else:
             tru = err = np.zeros(0)
-        X = dom.x0 + np.arange(dom.nx + 1) * dom.hx
-        Y = dom.y0 + np.arange(dom.ny + 1) * dom.hy
-        idx = np.nonzero(dom.interior)  # ([iz,] iy, ix), row-major as the solution
-        iy, ix = idx[-2], idx[-1]
-        zs = dom.z0 + idx[0] * dom.hz if self.is3d else None
+        coords = ordering.node_coordinates(dom)
         eps_active = [
             e
             for e in (self.stop.eps_precision, self.stop.eps_residual,
@@ -286,8 +399,8 @@ class DirichletSolver:
             true_solution=tru,
             residual=resid,
             error=err,
-            x_coords=X[ix],
-            y_coords=Y[iy],
+            x_coords=coords[0],
+            y_coords=coords[1],
             iterations=res.iterations,
             converged=res.converged,
             stop_reason=res.reason,
@@ -297,14 +410,13 @@ class DirichletSolver:
             elapsed_s=res.elapsed_s,
             nx=dom.nx,
             ny=dom.ny,
-            bounds=(dom.x0, dom.x1, dom.y0, dom.y1)
-            + ((dom.z0, dom.z1) if self.is3d else ()),
+            bounds=(dom.x0, dom.x1, dom.y0, dom.y1) + ((dom.z0, dom.z1) if self.is3d else ()),
             eps=min(eps_active) if eps_active else -1.0,
             max_iterations=self.stop.max_iterations,
             history=res.history,
             shape=getattr(dom, "shape", ""),
             outer_iterations=getattr(res, "outer_iterations", 0),
-            z_coords=zs,
+            z_coords=coords[2] if self.is3d else None,
             nz=getattr(dom, "nz", 0),
             interior_mask=dom.interior if getattr(dom, "shape", "") == "custom" else None,
         )

@@ -39,6 +39,15 @@ __device__ __forceinline__ bool interior(const Geom& g, int r, int c) {
   return in;
 }
 
+// The 5-point stencil on masked values: the centre, its row neighbours
+// (left, right) and its column neighbours (up, down). One expression for
+// every kernel that applies A alone, so they contract it into the same
+// FMAs and agree bit for bit.
+__device__ __forceinline__ float stencil5(const Geom& g, float c, float l, float r, float u,
+                                          float d) {
+  return g.cd * c + g.cx * (l + r) + g.cy * (u + d);
+}
+
 // Sum (or max) over the TW threads of a block; the result is valid in
 // thread 0. Fixed shuffle order, no atomics: the same inputs give the same
 // bits on every run.

@@ -37,7 +37,7 @@ __global__ void stencil_kernel(const float* __restrict__ x, float* __restrict__ 
     const float next = X(i + 1, c);
     float o = 0.f;
     if (ist::interior<kMask>(g, i, c))
-      o = g.cd * cur + g.cx * (X(i, c - 1) + X(i, c + 1)) + g.cy * (prev + next);
+      o = ist::stencil5(g, cur, X(i, c - 1), X(i, c + 1), prev, next);
     y[(size_t)i * wp + c] = o;
     prev = cur;
     cur = next;

@@ -7,7 +7,10 @@ of each JAX array), so this module needs numpy and torch only:
   hierarchy from per-level descriptions plus the dense coarse solve's index
   set and inverse;
 - :func:`cg_state_from_arrays` rebuilds a :class:`CGState` — a fused PCG
-  state, or a plain-CG one whose ``w`` and ``rz_prev`` are None.
+  state, or a plain-CG one whose ``w`` and ``rz_prev`` are None;
+- :func:`sparse_operator_from_csr` wraps a CSR matrix the JAX package
+  assembled (``ops.sparse.assemble_csr``, its native engine included) as a
+  :class:`SparseOperator`.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import torch
 from iterative_solvers_tpu_torch.core.domain import ArrayMask, MaskSpec
 from iterative_solvers_tpu_torch.kernels.mg_fused import FusedLevelKernels
 from iterative_solvers_tpu_torch.kernels.mg_fused3d import FusedLevelKernels3D
+from iterative_solvers_tpu_torch.ops.sparse import SparseOperator
 from iterative_solvers_tpu_torch.solvers.cg import CGState
 from iterative_solvers_tpu_torch.solvers.multigrid import (
     MultigridPreconditioner,
@@ -117,3 +121,11 @@ def cg_state_from_arrays(arrays: Mapping[str, object], device="cpu") -> CGState:
                                device=device),
         **vals,
     )
+
+
+def sparse_operator_from_csr(row_map, entries, values, n: int, dtype=torch.float64,
+                             device="cuda") -> SparseOperator:
+    """The ``n``-by-``n`` CSR matrix (row pointers ``row_map``, column
+    indices ``entries``, ``values``) as a :class:`SparseOperator` on
+    ``device`` (``"cuda"`` raises without a card)."""
+    return SparseOperator.from_csr(row_map, entries, values, n, dtype, device)

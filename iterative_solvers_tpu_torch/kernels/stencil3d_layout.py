@@ -27,7 +27,7 @@ import torch.nn.functional as F
 from iterative_solvers_tpu_torch.core.domain import MaskSpec, resolve_device
 from iterative_solvers_tpu_torch.kernels import _build
 from iterative_solvers_tpu_torch.kernels.stencil_layout import check_field, round_up
-from iterative_solvers_tpu_torch.ops.stencil import stencil_apply_3d
+from iterative_solvers_tpu_torch.ops.stencil import mask_nnz, stencil_apply_3d
 
 ZMARCH_TY = 8  # rows per block of the z-march kernels (csrc/zmarch3d.cuh)
 ZMARCH_TX = 32  # columns per block
@@ -123,12 +123,5 @@ class Padded3DStencilOperator:
         return y
 
     def nnz(self) -> int:
-        """Stored-matrix-equivalent nonzero count: the diagonal plus two
-        entries per interior-interior neighbour link."""
-        m = self.interior_padded()
-        total = int(m.sum())
-        for ax in range(3):
-            lo = tuple(slice(None, -1) if a == ax else slice(None) for a in range(3))
-            hi = tuple(slice(1, None) if a == ax else slice(None) for a in range(3))
-            total += 2 * int((m[lo] & m[hi]).sum())
-        return total
+        """Stored-matrix-equivalent nonzero count (:func:`mask_nnz`)."""
+        return mask_nnz(self.interior_padded())

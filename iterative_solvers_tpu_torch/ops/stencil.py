@@ -11,10 +11,11 @@ from __future__ import annotations
 
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from iterative_solvers_tpu_torch.core.domain import MaskSpec
+from iterative_solvers_tpu_torch.core.domain import MaskSpec, resolve_device
 
 
 def stencil_apply(x: torch.Tensor, interior: torch.Tensor, cd: float, cx: float,
@@ -44,6 +45,18 @@ def stencil_apply_3d(x: torch.Tensor, interior: torch.Tensor, cd: float, cx: flo
     return torch.where(interior, y, 0.0)
 
 
+def mask_nnz(m: np.ndarray) -> int:
+    """Stored-matrix-equivalent nonzero count of the masked stencil on the
+    bool interior ``m``: the diagonal plus two entries per interior-interior
+    neighbour link (the nnz of the reference's CSR assembly)."""
+    total = int(m.sum())
+    for ax in range(m.ndim):
+        lo = tuple(slice(None, -1) if a == ax else slice(None) for a in range(m.ndim))
+        hi = tuple(slice(1, None) if a == ax else slice(None) for a in range(m.ndim))
+        total += 2 * int((m[lo] & m[hi]).sum())
+    return total
+
+
 class StencilOperator:
     """Callable ``y = A @ x`` over full-grid (or padded-canvas) fields;
     ``coeffs`` is (cd, cx, cy) in 2D and (cd, cx, cy, cz) in 3D."""
@@ -70,3 +83,20 @@ class StencilOperator:
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         apply = stencil_apply_3d if len(self.coeffs) == 4 else stencil_apply
         return apply(x, self.interior(x.device), *self.coeffs)
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return tuple(self.mask_spec.shape)
+
+    def mask(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.where(self.interior(x.device), x, 0.0)
+
+    def diagonal(self, device="cuda", dtype=torch.float64) -> torch.Tensor:
+        """The operator's diagonal as a field (0 off the interior)."""
+        m = self.interior(resolve_device(device))
+        return torch.where(m, self.coeffs[0], 0.0).to(dtype)
+
+    def nnz(self) -> int:
+        """Stored-matrix-equivalent nonzero count (:func:`mask_nnz`), built
+        from the host mask."""
+        return mask_nnz(self.mask_spec.build_host())

@@ -3,12 +3,18 @@
 PyTorch runs eagerly, so the JAX package's compiled chunk becomes a host
 loop over device tensors. Every scalar of the recurrence stays a 0-dim tensor
 on the fields' device; the host reads the progress scalars with ONE packed
-transfer per iteration (`_sync_stats`), which is also where the stop test is
-decided. The iteration count ``k`` is a host integer.
+transfer per iteration (`_sync_stats`), which is also where the stop test and
+the end of a chunk are decided. The iteration count ``k`` is a host integer.
 
-History rows, when recorded, fall where the JAX ``cg_solve``'s would: at the
-initial state, at each chunk boundary of ``min(max_iterations, 500)``
-iterations, and at the end.
+The driver keeps the JAX ``cg_solve``'s host protocol: chunks end at
+``chunk_size`` (default ``min(max_iterations, 500)``) or, with a
+``callback``, at iterations 1, ``callback_every``, 2·``callback_every``, …;
+``stop_requested`` is polled at the top of each chunk (INTERRUPTED),
+``state_callback`` sees the state at each chunk's end, and the callback and
+the history rows ``(k, prec∞, r∞, err∞, ‖r‖₂)`` fire at the initial state,
+at each chunk's end and once more at the end. ``beta_kind`` is ``"msg"``
+(the reference recurrence, β = ‖r_new‖²/(r, z)) or ``"fr"``
+(Fletcher–Reeves, β = ‖r_new‖²/‖r‖²); a preconditioner runs standard PCG.
 """
 
 from __future__ import annotations
@@ -47,8 +53,14 @@ class CGState(NamedTuple):
 @dataclass
 class CGOptions:
     stop: StopConfig = dataclass_field(default_factory=StopConfig)
+    beta_kind: str = "msg"  # 'msg' | 'fr'
     preconditioner: Optional[Operator] = None
+    callback: Optional[Callable[[int, float, float, float], None]] = None
+    callback_every: int = 100  # the reference's trace cadence
+    chunk_size: Optional[int] = None  # iterations between host protocol points
+    stop_requested: Optional[Callable[[], bool]] = None  # cooperative interrupt
     record_history: bool = False
+    state_callback: Optional[Callable[["CGState"], None]] = None  # the state at each sync
     # alternative iteration ``(state, u_true) -> state`` that also sets
     # done/reason, e.g. the fused engine's step (kernels/cg_fused.py); the
     # loop's stop protocol and result assembly stay the same around it
@@ -121,9 +133,9 @@ def _cg_init(A, M, b, x0, u_true) -> CGState:
     )
 
 
-def cg_iteration(A, M, stop: StopConfig, s: CGState, u_true) -> CGState:
-    """One (P)CG step (MSG β without a preconditioner) with the stop flags
-    evaluated on device."""
+def cg_iteration(A, M, stop: StopConfig, s: CGState, u_true, beta_kind: str = "msg") -> CGState:
+    """One (P)CG step (without a preconditioner, β by ``beta_kind``:
+    ``"msg"`` or ``"fr"``) with the stop flags evaluated on device."""
     Az = A(s.z)
     rz = s.rz if M is not None else _dot(s.r, s.z)
     alpha = rz / _dot(Az, s.z)
@@ -136,7 +148,7 @@ def cg_iteration(A, M, stop: StopConfig, s: CGState, u_true) -> CGState:
     done, reason = stop_reason(stop, prec_max, r_max, err_max, r2, s.r0_norm,
                                u_true is not None)
     if M is None:
-        z = r + (r2 / rz) * s.z
+        z = r + (r2 / (s.r_norm2 if beta_kind == "fr" else rz)) * s.z
         rz_new = r2
     else:
         w = M(r)
@@ -171,49 +183,65 @@ def cg_solve(
     ``init_state`` when given (then ``A``, ``b`` and ``x0`` are not read)."""
     opts = options or CGOptions()
     stop = opts.stop
+    if opts.beta_kind not in ("msg", "fr"):
+        raise ValueError(f"unknown beta_kind {opts.beta_kind!r}")
     t0 = time.perf_counter()
-    if init_state is None:
-        state = _cg_init(A, opts.preconditioner, b, x0, u_true)
-    else:
-        state = init_state
+    state = init_state if init_state is not None else _cg_init(A, opts.preconditioner, b, x0,
+                                                                u_true)
     step = opts.step_fn or (
-        lambda s, u: cg_iteration(A, opts.preconditioner, stop, s, u)
+        lambda s, u: cg_iteration(A, opts.preconditioner, stop, s, u, opts.beta_kind)
     )
-    _, _, _, rmax, emax, r2, r0n = _sync_stats(state)
-    prec = math.inf
     history = []
 
-    def fire(rn: float) -> None:
+    def fire(k: int, prec: float, rmax: float, emax: float, rn: float) -> None:
+        if opts.callback is not None:
+            opts.callback(k, prec, rmax, emax)
         if opts.record_history:
-            history.append((state.k, prec, rmax, emax, rn))
+            history.append((k, prec, rmax, emax, rn))
 
-    fire(r0n if state.k == 0 else math.sqrt(max(r2, 0.0)))
-    chunk = min(stop.max_iterations, 500)
-    # r == 0: x0 is already exact (and the recurrence would divide 0/0)
-    exact0 = r2 == 0.0
-    reason = StopReason.RESIDUAL if exact0 else StopReason.ITERATIONS
-    while reason == StopReason.ITERATIONS and state.k < stop.max_iterations:
-        state = step(state, u_true)
-        done, code, prec, rmax, emax, r2, r0n = _sync_stats(state)
+    def result(reason: StopReason, converged: bool) -> CGResult:
+        return CGResult(
+            x=state.x, iterations=k, converged=converged, reason=reason, precision_max=prec,
+            residual_max=rmax, error_max=emax, residual_norm=math.sqrt(max(r2, 0.0)),
+            initial_residual_norm=r0n, elapsed_s=time.perf_counter() - t0,
+            history=np.asarray(history) if opts.record_history else None,
+        )
+
+    k = state.k
+    _, _, prec, rmax, emax, r2, r0n = _sync_stats(state)
+    if k == 0:
+        prec = math.inf
+    fire(k, prec, rmax, emax, r0n if k == 0 else math.sqrt(max(r2, 0.0)))
+    if r2 == 0.0:  # x is already exact (and the recurrence would divide 0/0)
+        return result(StopReason.RESIDUAL, True)
+    max_iter = stop.max_iterations
+    every = max(1, opts.callback_every)
+    chunk = opts.chunk_size or (every if opts.callback else min(max_iter, 500))
+    interrupted = False
+    reason = StopReason.ITERATIONS
+    while k < max_iter:
+        if opts.stop_requested is not None and opts.stop_requested():
+            interrupted, reason = True, StopReason.INTERRUPTED
+            break
+        if opts.callback is not None:
+            k_stop = 1 if k == 0 else min((k // every + 1) * every, max_iter)
+        else:
+            k_stop = min(k + chunk, max_iter)
+        k_prev, done = k, False
+        # one chunk: the JAX chunk's loop condition, read once per iteration
+        while not done and k < k_stop and r2 > 0:
+            state = step(state, u_true)
+            k = state.k
+            done, code, prec, rmax, emax, r2, r0n = _sync_stats(state)
+        if opts.state_callback is not None:
+            opts.state_callback(state)
         if done:
             reason = StopReason(code)
             break
-        if state.k % chunk == 0 or state.k == stop.max_iterations or r2 == 0.0:
-            fire(math.sqrt(max(r2, 0.0)))  # a chunk boundary (or its early exit)
-        if r2 == 0.0:
-            reason = StopReason.RESIDUAL
-    if not exact0:
-        fire(math.sqrt(max(r2, 0.0)))
-    return CGResult(
-        x=state.x,
-        iterations=state.k,
-        converged=reason.converged,
-        reason=reason,
-        precision_max=prec,
-        residual_max=rmax,
-        error_max=emax,
-        residual_norm=math.sqrt(max(r2, 0.0)),
-        initial_residual_norm=r0n,
-        elapsed_s=time.perf_counter() - t0,
-        history=np.asarray(history) if opts.record_history else None,
-    )
+        if k == k_prev:  # no progress without a stop flag: r == 0, x is exact
+            fire(k, prec, rmax, emax, math.sqrt(max(r2, 0.0)))
+            return result(StopReason.RESIDUAL, True)
+        if opts.callback is not None or opts.record_history:
+            fire(k, prec, rmax, emax, math.sqrt(max(r2, 0.0)))
+    fire(k, prec, rmax, emax, math.sqrt(max(r2, 0.0)))  # the final call, unconditional
+    return result(reason, reason.converged and not interrupted)

@@ -3,7 +3,8 @@
 One V(ν,ν) cycle of rediscretised multigrid on full-grid masked fields of a
 2D domain or a 3D box: weighted-Jacobi smoothing (ω = 0.8), full-weighting
 restriction and linear prolongation with R = Pᵀ/2^ndim, and an exact
-dense-inverse coarse solve — a symmetric linear operator, hence PCG-safe.
+dense-inverse coarse solve (above ``dense_coarse_limit`` coarsest unknowns,
+a fixed-degree Chebyshev one) — a symmetric linear operator, hence PCG-safe.
 Fine levels of V(1,1) cycles run the fused down/up kernels on their padded
 layouts (kernels/mg_fused.py in 2D; kernels/mg_fused3d.py in 3D, whose y/x
 transfers are stride-2 torch ops here, not the JAX package's banded
@@ -206,6 +207,22 @@ class _CoarseSolveDense:
         return out.view(b.shape)
 
 
+class _CoarseSolveChebyshev:
+    """A fixed-degree Chebyshev approximation of A⁻¹ on the coarsest level
+    (plain torch, as the JAX package's): linear and symmetric, the coarse
+    solve where that level has too many unknowns to invert densely."""
+
+    def __init__(self, level: _Level, lam_lo: float, lam_hi: float, degree: int):
+        self.level = level
+        self.lam_lo, self.lam_hi, self.degree = lam_lo, lam_hi, degree
+
+    def __call__(self, b: torch.Tensor) -> torch.Tensor:
+        from iterative_solvers_tpu_torch.solvers.precond import chebyshev_apply
+
+        z = chebyshev_apply(self.level.apply, b, self.lam_lo, self.lam_hi, self.degree)
+        return self.level.mask(z)
+
+
 class _FusedLevel:
     """Fine level running the fused down/up kernels on its padded layout."""
 
@@ -326,6 +343,7 @@ class MultigridPreconditioner:
         nu_pre: int = 1,
         nu_post: int = 1,
         dense_coarse_limit: int = 2048,
+        coarse_chebyshev_degree: int = 48,
         fuse: Optional[bool] = None,
         fuse_min_extent: int = 512,
         device="cuda",
@@ -352,10 +370,6 @@ class MultigridPreconditioner:
             if c.num_unknowns <= dense_coarse_limit:
                 break
         coarsest = domains[-1]
-        if coarsest.num_unknowns > dense_coarse_limit:
-            raise NotImplementedError(
-                "the Chebyshev coarse solve is not ported yet (ROADMAP Queue 1 item 5)"
-            )
         if fuse is None:
             fuse = device.type == "cuda"
 
@@ -383,8 +397,14 @@ class MultigridPreconditioner:
             )
             levels.append(_FusedLevel(k, h, w, c.grid_shape[0], c.grid_shape[1], d.nx,
                                       c.mask_spec, make_level(d)))
-        idx, A = _assemble_dense(coarsest)
-        coarse = _CoarseSolveDense(idx, np.linalg.inv(A))
+        if coarsest.num_unknowns <= dense_coarse_limit:
+            idx, A = _assemble_dense(coarsest)
+            coarse = _CoarseSolveDense(idx, np.linalg.inv(A))
+        else:
+            from iterative_solvers_tpu_torch.solvers.precond import spectral_bounds
+
+            coarse = _CoarseSolveChebyshev(levels[-1], *spectral_bounds(coarsest),
+                                           coarse_chebyshev_degree)
         return MultigridPreconditioner(
             levels=tuple(levels), coarse_solve=coarse, nu_pre=nu_pre, nu_post=nu_post,
             domains=tuple(domains),

@@ -11,13 +11,19 @@ stop test, decided on the device in f32) and one per outer step.
 Two inner solvers: :func:`fused_refined_solve` runs the 2D fused PCG engine
 (kernels/cg_fused.py); :func:`device_refined_solve` runs the plain PCG
 recurrence around any f32 operator and preconditioner — the 3D path, on the
-padded 7-point operator (kernel S7) and the fused 3D V-cycle.
+padded 7-point operator (kernel S7) and the fused 3D V-cycle, and the
+generic ladder on the plain stencil with Jacobi, Chebyshev or no
+preconditioner. :func:`refined_solve` is the host ladder: the escalated f64
+polish of both, and the facade's path when a caller listens (``callback``,
+``stop_requested``).
 
 Two outers, as in the JAX package: f64 (:func:`_outer_refine_loop`; its
 norms are compared on the host in f64, bit-identical to comparing them on
 the device) and double-f32 pairs (:func:`_outer_refine_loop_ff`, ``ff=True``;
-the compensated residual kernel ``kernels/resid_ff.py``, f32 norms compared
-in f32 as the device would). ``fmg`` starts the ladder from the FMG warm
+on a padded layout the compensated residual kernel ``kernels/resid_ff.py``,
+on the plain stencil its torch form ``ops/ddf32.residual_ff``, as the JAX
+package computes it there outside any kernel; f32 norms compared in f32 as
+the device would). ``fmg`` starts the ladder from the FMG warm
 start (:func:`_maybe_fmg_x0`) instead of zero.
 """
 
@@ -33,7 +39,13 @@ import torch
 
 from iterative_solvers_tpu_torch.kernels.cg_fused import _engine_for
 from iterative_solvers_tpu_torch.kernels.resid_ff import resid_ff
-from iterative_solvers_tpu_torch.ops.ddf32 import pair_add_f32, pair_value, split_f64, two_sum
+from iterative_solvers_tpu_torch.ops.ddf32 import (
+    pair_add_f32,
+    pair_value,
+    residual_ff,
+    split_f64,
+    two_sum,
+)
 from iterative_solvers_tpu_torch.ops.stencil import StencilOperator
 from iterative_solvers_tpu_torch.solvers.cg import CGOptions, CGResult, CGState, cg_solve
 from iterative_solvers_tpu_torch.solvers.stopping import StopConfig, StopReason
@@ -76,11 +88,16 @@ def refined_solve(
     inner_max_iter: int = 200,
     max_outer: int = 40,
     x0: Optional[torch.Tensor] = None,
+    callback: Optional[Callable[[int, float, float, float], None]] = None,
+    stop_requested: Optional[Callable[[], bool]] = None,
 ) -> RefinedResult:
     """Host-driven refinement with the precision ladder: inner solves run in
     f32 until an outer step shrinks ‖r‖∞ by less than 20x, then in
     ``b.dtype`` (f64). This is the escalated polish of
-    :func:`fused_refined_solve`, continuing from ``x0``."""
+    :func:`fused_refined_solve`, continuing from ``x0``, and the facade's
+    ladder when a caller listens: ``callback(total inner, ‖d‖∞, ‖r‖∞,
+    err∞)`` fires at the start and after each outer step, and
+    ``stop_requested`` is polled before each (INTERRUPTED)."""
     stop = stop or StopConfig()
     lo_dtype = F32
     if b.dtype == lo_dtype:
@@ -114,7 +131,10 @@ def refined_solve(
     cur_dtype = lo_dtype
     escalated = False
     stalls = 0
+    interrupted = False
     hist_rows = [(0, math.inf, r_max, err_max, r_norm)]
+    if callback is not None:
+        callback(0, math.inf, r_max, err_max)
 
     for outer in range(max_outer):
         if r_max == 0.0:
@@ -134,6 +154,9 @@ def refined_solve(
             break
         if total_inner >= stop.max_iterations:
             reason = StopReason.ITERATIONS
+            break
+        if stop_requested is not None and stop_requested():
+            interrupted, reason = True, StopReason.INTERRUPTED
             break
         opts = CGOptions(
             stop=StopConfig(
@@ -170,11 +193,13 @@ def refined_solve(
                 reason = StopReason.ITERATIONS
                 break
         r_max = r_max_new
+        if callback is not None:
+            callback(total_inner, prec_max, r_max, err_max)
 
     return RefinedResult(
         x=x,
         iterations=total_inner,
-        converged=bool(reason.converged),
+        converged=bool(reason.converged and not interrupted),
         reason=reason,
         precision_max=prec_max,
         residual_max=r_max,
@@ -333,12 +358,13 @@ def _outer_refine_loop(A_hi, stop: StopConfig, max_outer: int, b, u_true, inner_
 def _outer_refine_loop_ff(op, stop: StopConfig, max_outer: int, b, u_true, inner_solve,
                           x0=None):
     """:func:`_outer_ladder` with the high-precision state as double-f32
-    pairs (ops/ddf32.py) on ``op``'s padded layout: no f64 op until the
-    final ``x = xh + xl``. The true residual is the compensated residual
-    kernel (:func:`resid_ff`). Norms are f32 reductions, and every stop and
-    stall test compares f32 values in f32, as the JAX package's device loop
-    does. ``inner_solve: (rh, rl) -> (d_f32, k_inner)``; the stats vector is
-    f32."""
+    pairs (ops/ddf32.py): no f64 op until the final ``x = xh + xl``. The
+    true residual is the compensated residual kernel (:func:`resid_ff`) on a
+    padded operator ``op``, and its torch form (``ddf32.residual_ff``) on a
+    plain :class:`StencilOperator`. Norms are f32 reductions, and every stop
+    and stall test compares f32 values in f32, as the JAX package's device
+    loop does. ``inner_solve: (rh, rl) -> (d_f32, k_inner)``; the stats
+    vector is f32."""
     f32 = np.float32
     if b.dtype == F32:
         bh, bl = b, torch.zeros_like(b)
@@ -350,8 +376,17 @@ def _outer_refine_loop_ff(op, stop: StopConfig, max_outer: int, b, u_true, inner
     r0 = f32(torch.sqrt(torch.sum(s0 * s0)).item())
     inf = torch.full((), math.inf, dtype=F32, device=b.device)
 
-    def residual(x_pair):
-        return resid_ff(x_pair[0], x_pair[1], bh, bl, op)
+    if tuple(op.shape) != tuple(b.shape):
+        raise ValueError(f"the ff outer's operator works on {tuple(op.shape)} fields, "
+                         f"b is {tuple(b.shape)}")
+    if isinstance(op, StencilOperator):
+        interior = op.interior(b.device)
+
+        def residual(x_pair):
+            return residual_ff(interior, op.coeffs, (bh, bl), x_pair)
+    else:
+        def residual(x_pair):
+            return resid_ff(x_pair[0], x_pair[1], bh, bl, op)
 
     def step(x_pair, d32):
         x_pair = pair_add_f32(x_pair, d32)
@@ -411,13 +446,24 @@ _FMG_POLISH_MAX_EXTENT = 512
 _FMG_SMOOTH_SWEEPS = 1
 
 
+def _multigrid_of(M):
+    """The multigrid inside ``M`` (through a PaddedPreconditioner), or None."""
+    M = getattr(M, "inner", M)
+    return M if hasattr(M, "fmg_stepwise") and hasattr(M, "levels") else None
+
+
 def _maybe_fmg_x0(M, fmg, b):
-    """FMG warm-start field (f32) on ``b``'s padded layout, or None for a
-    cold start. ``fmg``: False/0 cold, True/1 or n >= 1 polish V-cycles per
-    level. ``M``: the :class:`PaddedPreconditioner` whose multigrid carries
-    the :meth:`with_fmg` payload (``fmg_stepwise`` raises without it)."""
-    if not fmg:
+    """FMG warm-start field (f32) on ``b``'s layout, or None for a cold
+    start. ``fmg``: False/0 cold, True/1 or n >= 1 polish V-cycles per
+    level. ``M``: a multigrid, or a :class:`PaddedPreconditioner` around
+    one; with the :meth:`with_fmg` payload the stepwise warm start, without
+    it the algebraic ``fmg``; any other preconditioner (or none) starts
+    cold, as in the JAX package."""
+    mg = _multigrid_of(M)
+    if not fmg or mg is None:
         return None
+    if mg.fmg_data is None:
+        return M.fmg(b.to(F32), int(fmg))
     return M.fmg_stepwise(b, int(fmg), polish_max_extent=_FMG_POLISH_MAX_EXTENT,
                           smooth_sweeps=_FMG_SMOOTH_SWEEPS)
 
@@ -427,7 +473,7 @@ def _device_ir_generic(A_hi, A_lo, M, stop: StopConfig, inner_rel_tol: float,
                        ff: bool = False):
     """:func:`_device_ir` with the plain PCG recurrence as the inner solve
     (:func:`_pcg_inner_solve` on ``A_lo`` and ``M``). The ff outer takes its
-    residuals from the kernel of ``A_lo``'s padded layout (``resid_ff``)."""
+    residuals from ``A_lo`` (:func:`_outer_refine_loop_ff`)."""
     if ff:
         b32 = b.to(F32)
         r0_norm = torch.sqrt(torch.sum(b32 * b32))
@@ -545,21 +591,17 @@ def device_refined_solve(
     ff: bool = False,  # double-f32 outer
 ) -> RefinedResult:
     """Mixed-precision refinement with the plain PCG recurrence as its inner
-    solve, on the caller's field layout — the JAX package's 3D route, called
-    as its bench calls it: ``A_lo`` the padded 3D operator (S7),
+    solve, on the caller's field layout: the JAX package's 3D route, called
+    as its bench calls it (``A_lo`` the padded 3D operator (S7),
     ``preconditioner`` a :class:`PaddedPreconditioner` whose multigrid
-    carries the :meth:`with_fmg` payload, ``b`` padded. With ``ff`` the outer
-    takes its residuals from ``A_lo``'s residual kernel, so ``A_lo`` must be
-    a padded stencil operator (the JAX package falls back to a plain
-    residual for other operators; the port has no such fallback). The
-    escalated f64 polish continues host-side if the f32 ladder leaves the
-    criteria unmet."""
+    carries the :meth:`with_fmg` payload, ``b`` padded), and its facade's
+    generic ladder (``A_hi = A_lo`` the plain stencil, any preconditioner or
+    none; ``fmg`` then starts cold, as in JAX, unless the preconditioner is a
+    multigrid). With ``ff`` the outer takes its residuals from ``A_lo``: the
+    residual kernel of a padded operator, ``ddf32.residual_ff`` on a plain
+    :class:`StencilOperator`, on ``b``'s shape. The escalated f64 polish
+    continues host-side if the f32 ladder leaves the criteria unmet."""
     stop = stop or StopConfig()
-    if ff and not hasattr(A_lo, "padded_shape"):
-        raise TypeError("ff=True needs A_lo to be a padded stencil operator (its residual "
-                        "kernel's layout)")
-    if fmg and preconditioner is None:
-        raise ValueError("fmg needs a multigrid preconditioner with the with_fmg payload")
     t0 = time.perf_counter()
     x0 = _maybe_fmg_x0(preconditioner, fmg, b)
     x, stats = _device_ir_generic(A_hi, A_lo, preconditioner, stop, inner_rel_tol,

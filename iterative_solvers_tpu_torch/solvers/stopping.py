@@ -5,7 +5,7 @@ compare by integer code across the two packages."""
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from enum import IntEnum
 
 
@@ -28,6 +28,18 @@ class StopReason(IntEnum):
             StopReason.RELATIVE_RESIDUAL,
         )
 
+    def text(self) -> str:
+        """The stop reason in words, as the JAX package gives it."""
+        return {
+            StopReason.ITERATIONS: "iteration limit reached",
+            StopReason.PRECISION: "step precision ||x(n)-x(n-1)||_inf below eps",
+            StopReason.RESIDUAL: "residual ||Ax-b||_inf below eps",
+            StopReason.EXACT_ERROR: "exact error ||x-u||_inf below eps",
+            StopReason.INTERRUPTED: "interrupted by user",
+            StopReason.RELATIVE_RESIDUAL: "relative residual ||r||_2/||r0||_2 below eps",
+            StopReason.DIVERGED: "diverged: residual became non-finite",
+        }[self]
+
 
 @dataclass(frozen=True)
 class StopConfig:
@@ -42,3 +54,7 @@ class StopConfig:
     def __post_init__(self) -> None:
         if self.max_iterations < 1:
             raise ValueError("max_iterations must be >= 1")
+
+    def disable_all_but_iterations(self) -> "StopConfig":
+        return replace(self, eps_precision=-1.0, eps_residual=-1.0, eps_exact_error=-1.0,
+                       eps_relative=-1.0)

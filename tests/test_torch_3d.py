@@ -203,16 +203,22 @@ def test_dirichlet_solver_3d():
 
 
 def test_dirichlet_solver_3d_rejects_unported():
+    """What a 3D solve still refuses: the 2D-only fused engine, f64 on the
+    f32 kernels, the mesh (ROADMAP item 14), and an ff outer whose operator
+    is not on b's layout."""
     dom = Domain3D(8, 8, 8)
     with pytest.raises(ValueError):
         DirichletSolver(domain=dom, operator="fused", device="cpu")
+    with pytest.raises(ValueError):
+        DirichletSolver(domain=dom, operator="pallas", dtype=torch.float64, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DirichletSolver(domain=dom, operator="pallas", device="cpu")
+        DirichletSolver(domain=dom, operator="pallas", mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DirichletSolver(domain=dom, precision="mixed", preconditioner="jacobi", device="cpu")
+        DirichletSolver(domain=dom, precision="mixed", preconditioner="jacobi", mesh=object(),
+                        device="cpu")
     lay = Padded3DStencilOperator.from_domain(Domain3D(16, 16, 16))
     b = torch.zeros(lay.padded_shape, dtype=torch.float64)
-    with pytest.raises(TypeError):  # the ff outer needs a residual kernel's layout
+    with pytest.raises(ValueError):  # the plain operator is not on the padded layout
         trefine.device_refined_solve(StencilOperator.from_domain(Domain3D(16, 16, 16)),
                                      StencilOperator.from_domain(Domain3D(16, 16, 16)),
                                      b, ff=True)

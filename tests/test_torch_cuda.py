@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain torch versions on the card,
 2D (A1–A8), their custom-mask instantiations (C1–C3, K1/K2/K2-pcg and A8
-with the int8 mask operand) and 3D (S7, D3, U3, J3, R3).
+with the int8 mask operand), 3D (S7, D3, U3, J3, R3) and the in-place and
+pipelined stencils (C4, C5), which must equal A1 bit for bit at scale 1.
 
 Marked ``cuda``: they need an NVIDIA GPU and nvcc, and skip elsewhere (the
 card is looked for inside the fixture, never at import). Run them on a GPU
@@ -18,6 +19,7 @@ import torch
 from iterative_solvers_tpu_torch import Domain2D, Domain3D
 from iterative_solvers_tpu_torch.core.domain import notched_disk
 from iterative_solvers_tpu_torch.kernels import _build, cg_fused, resid_ff
+from iterative_solvers_tpu_torch.kernels import stencil_pipelined as sp
 from iterative_solvers_tpu_torch.kernels.stencil3d_layout import Padded3DStencilOperator
 from iterative_solvers_tpu_torch.kernels.stencil_layout import PaddedStencilOperator
 from iterative_solvers_tpu_torch.ops.ddf32 import split_f64
@@ -215,3 +217,53 @@ def test_wrappers_reject_bad_input(gen):
         lay(f.double())
     with pytest.raises(ValueError):
         resid_ff.resid_ff(f, f, f, f.cpu(), lay)  # mixed devices
+
+
+@pytest.mark.parametrize("shape,n,by", [("gamma", 64, 16), ("rect", 40, 16), ("gamma", 1024, None),
+                                        ("custom", 64, 32)])
+def test_inplace_pipelined_match_plain_and_a1(gen, shape, n, by):
+    """C4 and C5 on an unmasked field: bit-equal to A1 at scale 1, within
+    tolerance of their plain versions with the chain's scale; the in-place
+    results in x's own storage; C5 both ways and at lookahead 2 and 4."""
+    fn = notched_disk if shape == "custom" else None
+    lay = PaddedStencilOperator.from_domain(Domain2D(nx=n, ny=n, shape=shape, inside_fn=fn),
+                                            block_rows=by)
+    x = torch.randn(lay.padded_shape, device="cuda", generator=gen)
+    _build.reset_counts()
+    a1 = lay(x)
+    xc = x.clone()
+    ptr = xc.data_ptr()
+    y = sp.stencil_apply_inplace(xc, lay)
+    assert y.data_ptr() == ptr and torch.equal(xc, a1)
+    xc = x.clone()
+    _close(sp.stencil_apply_inplace(xc, lay, 7e-6), sp.inplace_plain(x.clone(), lay, 7e-6))
+    for lookahead in (2, 4):
+        xc = x.clone()
+        y = sp.stencil_apply_pipelined(xc, lay, lookahead=lookahead)
+        assert y.data_ptr() == xc.data_ptr() and torch.equal(y, a1)
+        y = sp.stencil_apply_pipelined(x, lay, in_place=False, lookahead=lookahead)
+        assert y.data_ptr() != x.data_ptr() and torch.equal(y, a1)
+    _close(sp.stencil_apply_pipelined(x.clone(), lay, scale=7e-6),
+           sp.pipelined_plain(x.clone(), lay, scale=7e-6))
+    sfx = "_custom" if shape == "custom" else ""
+    assert _build.launches["stencil_inplace" + sfx] == 2
+    assert _build.launches["stencil_pipelined" + sfx] == 5
+    assert set(_build.plain_on_cuda) == {"stencil_inplace" + sfx, "stencil_pipelined" + sfx}
+
+
+def test_inplace_pipelined_reject_bad_input(gen):
+    lay = PaddedStencilOperator.from_domain(Domain2D(nx=64, ny=64), block_rows=16)
+    x = torch.zeros(lay.padded_shape, device="cuda")
+    with pytest.raises(TypeError):
+        sp.stencil_apply_inplace(x.double(), lay)
+    with pytest.raises(ValueError):
+        sp.stencil_apply_pipelined(x[:, :-128].contiguous(), lay)
+    with pytest.raises(ValueError):
+        sp.stencil_apply_pipelined(x, lay, lookahead=5)
+    # 20096 columns: three rows need 241152 bytes, more than a block's 232448
+    wide = PaddedStencilOperator.from_domain(Domain2D(nx=20000, ny=16, shape="rect"))
+    xw = torch.zeros(wide.padded_shape, device="cuda")
+    with pytest.raises(ValueError, match="shared memory"):
+        sp.stencil_apply_inplace(xw, wide)
+    with pytest.raises(ValueError, match="shared memory"):
+        sp.stencil_apply_pipelined(xw, wide)
