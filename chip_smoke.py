@@ -17,7 +17,12 @@ final ``ok`` line:
    layout (3D; D3 and U3 also on each coarser fused level's layout), with
    the max abs difference, the tolerance and CUDA-event timings of the
    kernel, its plain version and, for the stencils, one ``F.conv2d`` /
-   ``F.conv3d``;
+   ``F.conv3d``; S7 bit-equal to its plain version; the mesh block
+   kernels D1, D3, D4 on a virtual (4, 2) partition of the 8192² level-0
+   grid and D2 on a (2, 1, 2) split of 512³, each block with its halos cut
+   from the global field, against its plain version, stitched against
+   A1, A5, A6, S7 (bit-equal away from block edges, edges within f32
+   round-off), and timed on the 1x1 block;
 4. solves, each main path run with the launch counts set to 0 just before
    it and read just after:
    - 64²: the cold f64-outer solve, the default solve (FMG warm start,
@@ -27,6 +32,13 @@ final ``ok`` line:
    - path A, the JAX package's default solve, at 8192² through
      ``DirichletSolver`` (FMG, outer='ff'): converged, true f64 relative
      residual < 1e-6, its kernels launched;
+   - the mesh: the sharded fast path (``device_refined_solve`` with the
+     f64 halo twin, D1 and the shard-fused V-cycle with its FMG) at 8192²
+     on a 1x1 mesh beside path A's counts; ``bench.py``'s ``shard`` ratio
+     (the fused V-cycle single-device vs shard-fused on 1x1); a (2, 2)
+     world of four ranks on the one card (``gloo``, halos through host
+     memory) at 2048²: the fast path and the facade's ``pallas`` + ``mg``
+     against the 1x1 mesh and the single-device solves;
    - the cold f64-outer 8192² solve of the first slice, as before;
    - the ff-vs-f64 A/B of path A's refinement (10 interleaved pairs, and
      whether ff qualifies for ``outer='auto'``);
@@ -60,6 +72,8 @@ final ``ok`` line:
      multigrid at 4096², ``operator='sparse'`` at 1024², and
      ``precision='mixed'`` with Chebyshev at 2048² (f64 and ff outers), each
      to its stop with its true relative residual;
+   - the 3D facade with a mesh (``pallas``, ``mg``, ``mixed``; D2 and the
+     plain V-cycle) at 512³ on a 1x1 mesh;
 5. one JSON line with every kernel's numbers, the card line, then ``ok``.
 
 Imports nothing of JAX. Needs one card; fails without one.
@@ -68,6 +82,7 @@ Imports nothing of JAX. Needs one card; fails without one.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -81,6 +96,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM data sheet, f32 outside the tensor cores
 PKG = "iterative_solvers_tpu_torch/csrc/"
 TPU = "iterative_solvers_tpu/kernels/"
+PAR = "iterative_solvers_tpu/parallel/"
 MASK_NOTE = "iterative_solvers_tpu/ops/ddf32.py:134"  # jnp residual_ff on a custom mask
 # name -> (source, TPU kernel it replaces (the body on the main path), f32
 # operations per node (per interior node in 3D) counted from its formula,
@@ -119,6 +135,13 @@ KERNELS = {
                                8, "nnz C4 custom"),
     "stencil_pipelined_custom": (PKG + "stencil_pipelined.cu", TPU + "stencil_pipelined.py:44",
                                  8, "nnz C5 custom"),
+    # the mesh block kernels (D1–D4): launches from the sharded fast path
+    # and the 3D facade with a mesh
+    "stencil_block": (PKG + "halo_pallas.cu", PAR + "halo_pallas.py:130", 7, "mesh a"),
+    "stencil3d_block": (PKG + "halo_pallas.cu", PAR + "halo_pallas.py:415", 10,
+                        "mesh 3D facade"),
+    "k_down_block": (PKG + "mg_sharded.cu", PAR + "mg_sharded.py:203", 22, "mesh a"),
+    "k_up_block": (PKG + "mg_sharded.cu", PAR + "mg_sharded.py:257", 26, "mesh a"),
 }
 PATH_KERNELS = {
     "A": ("k1", "k2_pcg", "k_down", "k_up", "k_jacobi", "k_resid_ff"),
@@ -145,6 +168,9 @@ PATH_KERNELS = {
     "facade default": (),
     "facade sparse": (),
     "facade mixed cheb": (),
+    "mesh a": ("stencil_block", "k_down_block", "k_up_block"),
+    "mesh facade": ("stencil_block", "k_down_block", "k_up_block"),
+    "mesh 3D facade": ("stencil3d_block",),
 }
 N3 = 512
 
@@ -351,7 +377,8 @@ def check_kernels_3d(dims, gen, label, timed):
     bh_max = float(bh.abs().max())
     # name: (kernel, plain, output kinds, f32 elements it must read)
     cases = {
-        "stencil3d": (lambda: (lay(x),), lambda: (lay.apply_plain(x),), ("field",), n_in),
+        # S7 writes the fmaf chain its plain version emulates: bit-equal
+        "stencil3d": (lambda: (lay(x),), lambda: (lay.apply_plain(x),), ("exact",), n_in),
         "k_down3d": (lambda: (kl.down(b),), lambda: (kl.down_plain(b),), ("field",), n_in),
         "k_up3d": (lambda: (kl.up(b, ec),), lambda: (kl.up_plain(b, ec),), ("field",),
                    n_in + n_ec),
@@ -1062,6 +1089,454 @@ def facade_paths():
     return launches
 
 
+
+# --- the mesh layer (D1–D4) ----------------------------------------------------
+
+MESH_N = 2048  # the 4-rank world on the one card
+MESH_N3 = 512  # the 3D facade on a 1x1 mesh
+
+
+def _virtual(shape):
+    """The ranks of a mesh shape, for a block partition run in one process."""
+    from iterative_solvers_tpu_torch.parallel import SolverMesh
+
+    names = ("slice", "y", "x") if len(shape) == 3 else ("y", "x")
+    return [SolverMesh(names, shape, rank=r) for r in range(math.prod(shape))]
+
+
+def _stitch(meshes, parts):
+    import torch
+
+    rows = [[p for m, p in zip(meshes, parts) if m.coords[0] == ri]
+            for ri in range(meshes[0].rows)]
+    return torch.cat([torch.cat(r, dim=-1) for r in rows], dim=0)
+
+
+def _stitched_agree(name, got, ref, block):
+    """Stitched blocks against the single-device kernel: nodes away from the
+    block edges bit-equal, edge nodes within 64 eps32 · max|ref| (the
+    tolerance of mg_sharded.py:31-34's f32 round-off); logs whether the
+    edges are bit-equal too."""
+    import torch
+
+    diff = got != ref
+    edge = torch.zeros_like(diff)
+    for ax, b in ((0, block[0]), (diff.ndim - 1, block[-1])):
+        idx = torch.arange(diff.shape[ax], device=diff.device) % b
+        on = (idx == 0) | (idx == b - 1)
+        edge |= on.view([-1 if a == ax else 1 for a in range(diff.ndim)])
+    inner = int((diff & ~edge).sum())
+    err = float((got.double() - ref.double())[edge].abs().max())
+    tol = 64 * EPS32 * float(ref.double().abs().max())
+    log(f"stitched {name}: {int(diff.sum())} nodes differ ({inner} away from block edges), "
+        f"edge max err {err:.3e} tol {tol:.3e}")
+    if inner or not err <= tol:
+        raise AssertionError(f"stitched {name} differs from the single-device kernel")
+
+
+def check_mesh_kernels(gen):
+    """D1, D3, D4 on a virtual (4, 2) partition of the 8192² Г level-0 grid
+    and D2 on a (2, 1, 2) split of the 512³ box: each block's halos cut from
+    the global field as the ring exchange delivers them, each launch against
+    its plain version, the stitched blocks against the single-device A1,
+    A5, A6 and S7. Then each kernel timed on the 1x1 block (the whole
+    canvas) beside its plain version and, for D1/D2, F.conv2d/F.conv3d.
+    Returns {name: stats} as check_kernels."""
+    import torch
+    import torch.nn.functional as F
+
+    from iterative_solvers_tpu_torch import Domain2D, Domain3D
+    from iterative_solvers_tpu_torch.kernels.mg_fused import FusedLevelKernels
+    from iterative_solvers_tpu_torch.kernels.stencil3d_layout import Padded3DStencilOperator
+    from iterative_solvers_tpu_torch.kernels.stencil_layout import PaddedStencilOperator
+    from iterative_solvers_tpu_torch.parallel import (
+        ShardedPallas3DStencilOperator,
+        ShardedPallasStencilOperator,
+        make_solver_mesh,
+    )
+    from iterative_solvers_tpu_torch.parallel.halo_pallas import (
+        block_stencil3d_plain,
+        block_stencil_plain,
+    )
+    from iterative_solvers_tpu_torch.parallel.mg_sharded import ShardedFusedMultigrid
+
+    worst = {k: 0.0 for k in ("stencil_block", "k_down_block", "k_up_block", "stencil3d_block")}
+
+    def check(name, got, ref, kinds, scales=None):
+        torch.cuda.synchronize()
+        err, tol = compare(name, got, ref, kinds, scales)
+        key = name.split(" ")[0]
+        worst[key] = max(worst[key], err)
+        return err, tol
+
+    dom = Domain2D(nx=N, ny=N)
+    meshes = _virtual((4, 2))
+    ops = [ShardedPallasStencilOperator.from_domain(dom, m) for m in meshes]
+    # a level is the same on every rank (each call takes its block's origin)
+    levs = [ShardedFusedMultigrid.from_operator(ops[0], dom, device="cuda").levels[0]] * len(ops)
+    (hp, wp), by = ops[0].padded_shape, ops[0].block_rows
+    x = torch.randn((hp, wp), device="cuda", generator=gen)
+    ec = torch.randn((hp // 2, wp), device="cuda", generator=gen)
+    parts = {"stencil_block": [], "k_down_block": [], "k_up_block": []}
+    for op, lev in zip(ops, levs):
+        h = op.halos_from_global(x, op.origin)
+        y = op.apply_block(*h)
+        check("stencil_block @ (4,2)", (y,), (block_stencil_plain(*h, op.block_spec(), op.coeffs),),
+              ("field",))
+        dh = lev.down_halos_from_global(x, op.origin)
+        rr = lev.down_block(*dh, op.origin)
+        check("k_down_block @ (4,2)", (rr,), (lev.down_plain(*dh, op.origin),), ("field",))
+        uh = lev.up_halos_from_global(x, ec, op.origin)
+        got = lev.up_block(*uh, op.origin, with_dot=True)
+        ref = lev.up_plain(*uh, op.origin, with_dot=True)
+        bm = torch.where(lev.spec(op.origin).build("cuda"), uh[0], 0.0)
+        check("k_up_block @ (4,2)", got, ref, ("field", "sum"),
+              {1: float((bm * ref[0]).abs().double().sum())})
+        parts["stencil_block"].append(y)
+        parts["k_down_block"].append(rr)
+        parts["k_up_block"].append(got[0])
+        del h, dh, uh, got, ref, bm
+    lev0 = levs[0]
+    blk = ops[0].block_shape
+    single = FusedLevelKernels(N, N, lev0.coeffs, lev0.cs, "gamma", (hp, wp), by)
+    lay = PaddedStencilOperator(N, N, ops[0].coeffs, dom.grid_shape, (hp, wp), by, "gamma")
+    _stitched_agree("D1 vs A1 @ 8192^2 (4,2)", _stitch(meshes, parts["stencil_block"]), lay(x), blk)
+    _stitched_agree("D3 vs A5 @ 8192^2 (4,2)", _stitch(meshes, parts["k_down_block"]),
+                    single.down(x), (blk[0] // 2, blk[1]))
+    _stitched_agree("D4 vs A6 @ 8192^2 (4,2)", _stitch(meshes, parts["k_up_block"]),
+                    single.up(x, ec), blk)
+    del parts, x, ec, single, lay
+    torch.cuda.empty_cache()
+
+    box = Domain3D(N3, N3, N3)
+    meshes3 = _virtual((2, 1, 2))
+    ops3 = [ShardedPallas3DStencilOperator.from_domain(box, m) for m in meshes3]
+    x3 = torch.randn(ops3[0].padded_shape, device="cuda", generator=gen)
+    parts3 = []
+    for op in ops3:
+        h = op.halos_from_global(x3, op.origin)
+        parts3.append(op.apply_block(*h))
+        check("stencil3d_block @ (2,1,2)", (parts3[-1],),
+              (block_stencil3d_plain(*h, op.block_spec(), op.coeffs),), ("exact",))
+        del h
+        torch.cuda.empty_cache()
+    s7 = Padded3DStencilOperator.from_domain(box)
+    d, h3, w3 = s7.padded_shape
+    _stitched_agree("D2 vs S7 @ 512^3 (2,1,2)", _stitch(meshes3, parts3)[:d, :h3, :w3],
+                    s7(x3[:d, :h3, :w3].contiguous()), ops3[0].block_shape)
+    del parts3, x3
+    torch.cuda.empty_cache()
+
+    # timings on the 1x1 block: the whole canvas, self-halos
+    one = make_solver_mesh(1)
+    out = {}
+    op1 = ShardedPallasStencilOperator.from_domain(dom, one)
+    lev1 = ShardedFusedMultigrid.from_operator(op1, dom, device="cuda").levels[0]
+    org = (0, 0)
+    xb = torch.randn(op1.padded_shape, device="cuda", generator=gen)
+    ecb = torch.randn((op1.padded_shape[0] // 2, op1.padded_shape[1]), device="cuda",
+                      generator=gen)
+    h1 = op1.halos_from_global(xb, org)
+    dh1 = lev1.down_halos_from_global(xb, org)
+    uh1 = lev1.up_halos_from_global(xb, ecb, org)
+    spec = op1.block_spec()
+    nodes = op1.padded_shape[0] * op1.padded_shape[1]
+    cases = {
+        "stencil_block": (lambda: (op1.apply_block(*h1),),
+                          lambda: (block_stencil_plain(*h1, spec, op1.coeffs),), ("field",), h1),
+        "k_down_block": (lambda: (lev1.down_block(*dh1, org),),
+                         lambda: (lev1.down_plain(*dh1, org),), ("field",), dh1),
+        "k_up_block": (lambda: lev1.up_block(*uh1, org, with_dot=True),
+                       lambda: lev1.up_plain(*uh1, org, with_dot=True), ("field", "sum"), uh1),
+    }
+    for name, (kern, plain, kinds, ins) in cases.items():
+        got, ref = kern(), plain()
+        sc = None
+        if name == "k_up_block":
+            bm = torch.where(spec.build("cuda"), uh1[0], 0.0)
+            sc = {1: float((bm * ref[0]).abs().double().sum())}
+        err, tol = check(f"{name} @ 8192^2 1x1", got, ref, kinds, sc)
+        rec = {"max_abs_err": worst[name], "bytes": nbytes(ins) + nbytes(got), "nodes": nodes,
+               "library_ms": None, "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain, reps=5)}
+        line = (f"kernel {name:17s} @ 8192^2 1x1: max_abs_err {err:.3e} tol {tol:.3e}  "
+                f"kernel {rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f} ms")
+        if name == "stencil_block":
+            cd, cx, cy = op1.coeffs
+            wt = torch.tensor([[0.0, cy, 0.0], [cx, cd, cx], [0.0, cy, 0.0]],
+                              device="cuda").view(1, 1, 3, 3)
+            xin = xb.view(1, 1, *xb.shape)
+            rec["library_ms"] = cuda_ms(lambda: F.conv2d(xin, wt, padding=1))
+            line += f"  conv2d {rec['library_ms']:.4f} ms"
+        log(line)
+        out[name] = rec
+        del got, ref
+    del xb, ecb, h1, dh1, uh1
+    torch.cuda.empty_cache()
+    op31 = ShardedPallas3DStencilOperator.from_domain(box, one)
+    x31 = torch.randn(op31.padded_shape, device="cuda", generator=gen)
+    h31 = op31.halos_from_global(x31, (0, 0, 0))
+    spec3 = op31.block_spec()
+    kern = lambda: (op31.apply_block(*h31),)  # noqa: E731
+    plain = lambda: (block_stencil3d_plain(*h31, spec3, op31.coeffs),)  # noqa: E731
+    got = kern()
+    err, tol = check("stencil3d_block @ 512^3 1x1", got, plain(), ("exact",))
+    n_in = int(spec3.build("cuda").sum())
+    rec = {"max_abs_err": worst["stencil3d_block"], "nodes": n_in,
+           # interior reads (the mask is algebraic), whole-canvas write, halos
+           "bytes": 4 * n_in + nbytes(got) + nbytes(h31[1:]),
+           "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain, reps=3)}
+    cd, cx, cy, cz = op31.coeffs
+    wt = torch.zeros((1, 1, 3, 3, 3), device="cuda")
+    wt[0, 0, 1, 1] = torch.tensor([cx, cd, cx])
+    wt[0, 0, 1, 0, 1] = wt[0, 0, 1, 2, 1] = cy
+    wt[0, 0, 0, 1, 1] = wt[0, 0, 2, 1, 1] = cz
+    xin = x31.view(1, 1, *x31.shape)
+    rec["library_ms"] = cuda_ms(lambda: F.conv3d(xin, wt, padding=1))
+    log(f"kernel stencil3d_block   @ 512^3 1x1: max_abs_err {err:.3e} tol {tol:.3e}  kernel "
+        f"{rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f} ms  conv3d {rec['library_ms']:.4f} ms")
+    out["stencil3d_block"] = rec
+    del x31, h31, got, xin
+    torch.cuda.empty_cache()
+    return out
+
+
+def _fast_path_parts(n, mesh, device="cuda"):
+    """The sharded fast path's parts at n² on ``mesh``: the D1 operator, the
+    shard-fused V-cycle with its FMG payload, the f64 halo twin, this
+    rank's block of b."""
+    import torch
+
+    from iterative_solvers_tpu_torch import DirichletSolver, Domain2D, PoissonProblem
+    from iterative_solvers_tpu_torch.parallel import ShardedPallasStencilOperator
+    from iterative_solvers_tpu_torch.parallel.mg_sharded import ShardedFusedMultigrid
+
+    dom = Domain2D(nx=n, ny=n)
+    prob = PoissonProblem.manufactured(dom)
+    pop = ShardedPallasStencilOperator.from_domain(dom, mesh)
+    M = ShardedFusedMultigrid.from_operator(pop, dom, device=device).with_fmg(prob)
+    b = pop.shard(prob.rhs_field(torch.float64, device))
+    return pop, M, DirichletSolver._hi_operator(pop), b
+
+
+def _fast_path_true_rel(pop, x_global):
+    import torch
+
+    from iterative_solvers_tpu_torch import Domain2D, PoissonProblem
+    from iterative_solvers_tpu_torch.ops.stencil import StencilOperator
+
+    dom = Domain2D(nx=pop.nx, ny=pop.ny)
+    b = PoissonProblem.manufactured(dom).rhs_field(device=x_global.device)
+    x = pop.crop(x_global)
+    return float(torch.linalg.norm(b - StencilOperator.from_domain(dom)(x)) / torch.linalg.norm(b))
+
+
+def sharded_fast_path(path_a):
+    """Path (a), the JAX package's sharded fast path, at 8192² on a 1x1
+    mesh: ``device_refined_solve`` with the f64 halo twin outside and D1 +
+    the shard-fused V-cycle (D3, D4) with the FMG warm start inside, to
+    true rel < 1e-6; a warm run, then one with the counts reset."""
+    import torch
+
+    from iterative_solvers_tpu_torch.kernels import _build
+    from iterative_solvers_tpu_torch.parallel import make_solver_mesh
+    from iterative_solvers_tpu_torch.solvers.refine import device_refined_solve
+
+    rel6 = stop_rel6()
+    pop, M, A_hi, b = _fast_path_parts(N, make_solver_mesh(1))
+    log(f"mesh a {N}^2 1x1: {len(M.levels)} shard-fused levels, layout {pop.padded_shape}")
+
+    def run():
+        return device_refined_solve(A_hi, pop, b, preconditioner=M, stop=rel6, fmg=True)
+
+    run()
+    torch.cuda.synchronize()
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    res = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = dict(_build.launches), dict(_build.plain_on_cuda)
+    log(f"path mesh a launches {launches} plain_on_cuda {plain}")
+    missing = [k for k in PATH_KERNELS["mesh a"] if launches.get(k, 0) <= 0]
+    if missing or plain:
+        raise AssertionError(f"mesh a: kernels not launched {missing}; plain on CUDA {plain}")
+    rel = _fast_path_true_rel(pop, res.x)
+    log(f"mesh a {N}^2 1x1 sharded fast path: converged {res.converged} reason "
+        f"{res.reason.name} outer "
+        f"{res.outer_iterations} inner {res.iterations} true_rel {rel:.3e} refine "
+        f"{res.elapsed_s:.4f} s wall {wall:.3f} s (path A single-device: outer {path_a[0]} "
+        f"inner {path_a[1]})")
+    if not (res.converged and rel < 1e-6):
+        raise AssertionError(f"mesh a failed: converged={res.converged} rel={rel:.3e}")
+    del pop, M, A_hi, b, res
+    torch.cuda.empty_cache()
+    return launches
+
+
+def vcycle_ratio():
+    """bench.py's shard mode: the shard-fused V-cycle on a 1x1 mesh against
+    the single-device fused V-cycle at 8192², ms each and their ratio."""
+    import torch
+
+    from iterative_solvers_tpu_torch import Domain2D
+    from iterative_solvers_tpu_torch.parallel import ShardedPallasStencilOperator, make_solver_mesh
+    from iterative_solvers_tpu_torch.parallel.mg_sharded import ShardedFusedMultigrid
+    from iterative_solvers_tpu_torch.solvers.multigrid import MultigridPreconditioner
+
+    dom = Domain2D(nx=N, ny=N)
+    M1 = MultigridPreconditioner.from_domain(dom, device="cuda")
+    a1 = torch.ones(M1.levels[0].kernels.padded_shape, device="cuda")
+    op = ShardedPallasStencilOperator.from_domain(dom, make_solver_mesh(1))
+    M2 = ShardedFusedMultigrid.from_operator(op, dom, device="cuda")
+    a2 = torch.ones(op.padded_shape, device="cuda")
+    t1, t2, t2b, t1b = (cuda_ms(lambda: M1(a1), reps=10), cuda_ms(lambda: M2(a2), reps=10),
+                        cuda_ms(lambda: M2(a2), reps=10), cuda_ms(lambda: M1(a1), reps=10))
+    single, shard = (t1 + t1b) / 2, (t2 + t2b) / 2
+    log(f"shard {N}^2: fused V-cycle single-device {single:.3f} ms ({t1:.3f}/{t1b:.3f}), "
+        f"shard-fused on a 1x1 mesh ({len(M2.levels)} fused levels) {shard:.3f} ms "
+        f"({t2:.3f}/{t2b:.3f}), per-chip ratio {single / shard:.3f}")
+    del M1, M2, a1, a2
+    torch.cuda.empty_cache()
+
+
+def _mesh_rank(rank, n):
+    """One rank of the 4-rank world on the one card: the sharded fast path
+    and the facade's 'pallas' + 'mg' at n² on a (2, 2) mesh, each with the
+    launch counts set to 0 just before it and read just after."""
+    import torch
+    import torch.distributed as dist
+
+    from iterative_solvers_tpu_torch import DirichletSolver, StopConfig
+    from iterative_solvers_tpu_torch.kernels import _build
+    from iterative_solvers_tpu_torch.parallel import make_solver_mesh
+    from iterative_solvers_tpu_torch.solvers.refine import device_refined_solve
+
+    mesh = make_solver_mesh(4, (2, 2))
+    pop, M, A_hi, b = _fast_path_parts(n, mesh)
+    dist.barrier()
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    res = device_refined_solve(A_hi, pop, b, preconditioner=M, stop=stop_rel6(), fmg=True)
+    torch.cuda.synchronize()
+    t_fast = time.perf_counter() - t0
+    fast_counts = (dict(_build.launches), dict(_build.plain_on_cuda))
+    x = pop.crop(mesh.gather(res.x)).cpu().numpy()  # results cross processes as numpy
+    s = DirichletSolver(nx=n, ny=n, operator="pallas", preconditioner="mg", mesh=mesh,
+                        device="cuda",
+                        stop=StopConfig(eps_precision=-1, eps_residual=1e-3, max_iterations=200))
+    dist.barrier()
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    r = s.solve(record_history=False)
+    t_facade = time.perf_counter() - t0
+    facade_counts = (dict(_build.launches), dict(_build.plain_on_cuda))
+    out = {"fast": (int(res.reason), res.outer_iterations, res.iterations), "t_fast": t_fast,
+           "facade": (int(r.stop_reason), r.iterations), "t_facade": t_facade,
+           "transport": mesh.transport(b.device), "counts": {"mesh a": fast_counts,
+                                                              "mesh facade": facade_counts}}
+    if rank == 0:
+        out["x"], out["solution"] = x, r.solution
+    return out
+
+
+def _count_gap(what, got, want, why):
+    """Equal counts pass; a difference of one passes with its reason logged;
+    more fails."""
+    if got == want:
+        return
+    if abs(got - want) > 1:
+        raise AssertionError(f"4 ranks: {what} {got} vs {want}")
+    log(f"mesh 4 ranks: {what} {got} vs {want}, within the 1 allowed: {why}")
+
+
+def four_ranks_one_card(n=MESH_N):
+    """A (2, 2) gloo world of 4 ranks on the one card (NCCL refuses two
+    ranks on one GPU, so the halos and reductions are staged through host
+    memory), against the 1x1 mesh and the single-device solves. Returns
+    each path's launches (rank 0)."""
+    import numpy as np
+    import torch
+
+    from iterative_solvers_tpu_torch import DirichletSolver, Domain2D, StopConfig
+    from iterative_solvers_tpu_torch.parallel import make_solver_mesh, run_world
+    from iterative_solvers_tpu_torch.solvers.refine import device_refined_solve
+
+    t0 = time.perf_counter()
+    ranks = run_world(_mesh_rank, 4, (n,), timeout=240)
+    t_world = time.perf_counter() - t0
+    r0 = ranks[0]
+    pop, M, A_hi, b = _fast_path_parts(n, make_solver_mesh(1))
+    one = device_refined_solve(A_hi, pop, b, preconditioner=M, stop=stop_rel6(), fmg=True)
+    x1 = pop.crop(one.x).cpu()
+    stop3 = StopConfig(eps_precision=-1, eps_residual=1e-3, max_iterations=200)
+    f1 = DirichletSolver(nx=n, ny=n, operator="pallas", preconditioner="mg", device="cuda",
+                         mesh=make_solver_mesh(1), stop=stop3).solve(record_history=False)
+    fs = DirichletSolver(nx=n, ny=n, operator="pallas", preconditioner="mg", device="cuda",
+                         stop=stop3).solve(record_history=False)
+    xs = DirichletSolver(nx=n, ny=n, preconditioner="mg", precision="mixed", outer="f64",
+                         device="cuda", stop=stop_rel6()).solve(record_history=False)
+    x4 = torch.from_numpy(r0["x"])
+    gap = float((x4 - x1).abs().max() / x1.abs().max())
+    sol = torch.from_numpy(xs.solution_field(Domain2D(nx=n, ny=n)))
+    gap_s = float((x4.double() - sol).abs().max() / sol.abs().max())
+    gap_f = float(np.abs(r0["solution"] - fs.solution).max() / np.abs(fs.solution).max())
+    one_t = (int(one.reason), one.outer_iterations, one.iterations)
+    log(f"mesh 4 ranks {n}^2 (2,2) on one card, transport {r0['transport']}: world "
+        f"{t_world:.1f} s; fast path {r0['fast']} (reason, outer, inner) in {r0['t_fast']:.3f} s "
+        f"vs 1x1 {one_t}, x gap to 1x1 {gap:.2e}, to the single-device mixed solve "
+        f"{gap_s:.2e}; facade pallas+mg {r0['facade']} in {r0['t_facade']:.3f} s vs 1x1 "
+        f"{(int(f1.stop_reason), f1.iterations)} vs single-device "
+        f"{(int(fs.stop_reason), fs.iterations)}, solution gap {gap_f:.2e}")
+    if any(r["fast"] != r0["fast"] or r["facade"] != r0["facade"] for r in ranks):
+        raise AssertionError("the ranks disagree")
+    launches = {}
+    for path, (counts, plain) in r0["counts"].items():
+        log(f"mesh 4 ranks {path} launches (rank 0) {counts} plain_on_cuda {plain}")
+        missing = [k for k in PATH_KERNELS[path] if counts.get(k, 0) <= 0]
+        if missing or plain:
+            raise AssertionError(f"4 ranks {path}: kernels not launched {missing}; "
+                                 f"plain on CUDA {plain}")
+        launches[f"{path} 4 ranks"] = counts
+    if r0["fast"][:2] != one_t[:2] or r0["facade"][0] != int(f1.stop_reason):
+        raise AssertionError(f"4 ranks: stop reason or outer count differ from the 1x1 mesh "
+                             f"(fast path {r0['fast']} vs {one_t})")
+    why = ("each dot's block partials are all-reduced over 4 ranks, so its f32 sum "
+           "rounds in another order than on one block")
+    _count_gap("fast path inners vs 1x1", r0["fast"][2], one_t[2], why)
+    _count_gap("facade iterations vs 1x1", r0["facade"][1], f1.iterations, why)
+    _count_gap("facade iterations vs single-device", r0["facade"][1], fs.iterations,
+               why + "; the single-device solve takes one dot over the whole field")
+    if not (gap < 1e-5 and gap_s < 1e-5 and gap_f < 1e-4):
+        raise AssertionError(f"4 ranks: solutions differ (gaps {gap:.2e} {gap_s:.2e} {gap_f:.2e})")
+    del pop, M, A_hi, b, one
+    torch.cuda.empty_cache()
+    return launches
+
+
+def mesh_facade_3d(n=MESH_N3):
+    """The 3D facade with a mesh: operator='pallas' (D2), 'mg' (the plain
+    V-cycle on the gathered field, as JAX runs its jnp legs there), mixed,
+    on a 1x1 mesh, to true rel < 1e-6."""
+    import torch
+
+    from iterative_solvers_tpu_torch import DirichletSolver, Domain3D
+    from iterative_solvers_tpu_torch.parallel import make_solver_mesh
+
+    solver = DirichletSolver(domain=Domain3D(n, n, n), operator="pallas", preconditioner="mg",
+                             precision="mixed", mesh=make_solver_mesh(1), device="cuda",
+                             stop=stop_rel6())
+    res, wall, launches = timed_solve(solver, "mesh 3D facade", warm=False)
+    rel = true_rel(solver, res)
+    log(f"mesh 3D facade {n}^3 1x1 (pallas, mg, mixed, outer {solver.outer_kind}): converged "
+        f"{res.converged} reason {res.stop_reason.name} outer {res.outer_iterations} inner "
+        f"{res.iterations} true_rel {rel:.3e} refine {res.elapsed_s:.4f} s wall {wall:.3f} s")
+    if not (res.converged and rel < 1e-6):
+        raise AssertionError(f"mesh 3D facade failed: converged={res.converged} rel={rel:.3e}")
+    del solver, res
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1121,6 +1596,9 @@ def main() -> int:
         check_kernels_3d(dims, gen, "x".join(map(str, dims)), timed=False)
     stats.update(check_kernels_3d((N3, N3, N3), gen, f"{N3}^3 level 0", timed=True))
     torch.cuda.empty_cache()
+    # the mesh block kernels D1–D4: virtual partitions, stitched, timed
+    stats.update(check_mesh_kernels(gen))
+    torch.cuda.empty_cache()
     # C4 and C5: the gamma 64² (16-row panels) and 1024² layouts, the nnz
     # chain's 8192² layout (256-row panels), the custom 64² and 8192² ones
     check_pipelined(Domain2D(nx=64, ny=64), gen, "gamma 64^2", timed=False, block_rows=16)
@@ -1147,6 +1625,7 @@ def main() -> int:
         f"refine {res.elapsed_s:.4f} s wall {wall:.3f} s")
     if not res.converged or not rel < 1e-6:
         raise AssertionError(f"path A failed: converged={res.converged} rel={rel:.3e}")
+    path_a = (res.outer_iterations, res.iterations)
     pop, Mp = solver._parts
     b, u = solver.problem.rhs_field(device="cuda"), solver.problem.true_solution_field(device="cuda")
     refine_ab(lambda ff: fused_refined_solve(pop, Mp, b, u_true=u, stop=rel6, fmg=1, ff=ff),
@@ -1154,6 +1633,11 @@ def main() -> int:
     del pop, Mp, b, u
     del solver, res
     torch.cuda.empty_cache()
+    # the mesh: the sharded fast path on a 1x1 mesh, the per-chip V-cycle
+    # ratio, four ranks on the one card
+    launches["mesh a"] = sharded_fast_path(path_a)
+    vcycle_ratio()
+    launches.update(four_ranks_one_card())
     # the first slice's cold f64-outer solve, unchanged
     solver = DirichletSolver(nx=N, ny=N, preconditioner="mg", precision="mixed", outer="f64",
                              fmg_cycles=0, device="cuda", stop=rel6)
@@ -1213,6 +1697,7 @@ def main() -> int:
     del solver, res
     torch.cuda.empty_cache()
     launches["3D CG"] = plain_cg_3d()
+    launches["mesh 3D facade"] = mesh_facade_3d()
 
     # 5. summary
     kernels = []

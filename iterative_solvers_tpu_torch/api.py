@@ -37,8 +37,28 @@ driver's cadence; :meth:`DirichletSolver.request_stop` interrupts a
 chunked solve at its next chunk (INTERRUPTED). ``device="cuda"`` (the
 default) launches the hand-written kernels and raises if there is no card;
 ``device="cpu"`` runs their plain torch versions. Nothing falls back from
-one to the other. A mesh (``mesh=``) raises NotImplementedError (ROADMAP
-Queue 1 item 14).
+one to the other.
+
+With a mesh (``mesh=``, a :class:`~iterative_solvers_tpu_torch.parallel.
+mesh.SolverMesh` over the ranks of a ``torch.distributed`` group; every
+rank constructs the same solver and calls ``solve``) each rank holds one
+block of every field, on the routes the JAX facade takes without its
+sharded fused engine:
+
+- ``precision=None``: CG on ``operator="stencil"`` (the halo stencil,
+  any domain, f64 by default) or ``"pallas"`` (the block kernels: D1 on a
+  Г/rect domain, D2 on the box; f32), with no preconditioner, Jacobi,
+  Chebyshev or ``"mg"`` — on ``"pallas"`` in 2D the shard-fused V-cycle
+  (D3, D4), otherwise the plain V-cycle on the gathered field;
+- ``precision="mixed"``: the f64 outer (``outer="ff"`` is rejected with a
+  mesh, as in JAX) through the halo stencil, around the f32 PCG on the
+  mesh operator: ``device_refined_solve``, or with a ``callback`` the host
+  ladder ``refined_solve``. ``operator="pallas"`` with ``"mg"`` in 2D and
+  no callback is the JAX facade's sharded-engine ladder, and
+  ``operator="fused"`` with a mesh its sharded engine: both raise
+  NotImplementedError (ROADMAP Queue 1 item 14c).
+
+The results are gathered: every rank returns the whole solution.
 """
 
 from __future__ import annotations
@@ -59,10 +79,18 @@ from iterative_solvers_tpu_torch.kernels.stencil3d_layout import Padded3DStencil
 from iterative_solvers_tpu_torch.kernels.stencil_layout import PaddedStencilOperator
 from iterative_solvers_tpu_torch.ops.sparse import SparseOperator
 from iterative_solvers_tpu_torch.ops.stencil import StencilOperator
+from iterative_solvers_tpu_torch.parallel import mesh as mesh_lib
+from iterative_solvers_tpu_torch.parallel.halo import ShardedStencilOperator
+from iterative_solvers_tpu_torch.parallel.halo_pallas import (
+    ShardedPallas3DStencilOperator,
+    ShardedPallasStencilOperator,
+)
+from iterative_solvers_tpu_torch.parallel.mg_sharded import ShardedFusedMultigrid
 from iterative_solvers_tpu_torch.solvers.cg import CGOptions, cg_solve
 from iterative_solvers_tpu_torch.solvers.multigrid import (
     MultigridPreconditioner,
     PaddedPreconditioner,
+    ShardedMultigridPreconditioner,
 )
 from iterative_solvers_tpu_torch.solvers.precond import (
     make_preconditioner,
@@ -120,12 +148,19 @@ class SolverResults:
 
 def _attach_fmg(M, problem):
     """Attach the FMG payload (:meth:`MultigridPreconditioner.with_fmg`) to
-    the multigrid inside adapter ``M``; anything else passes through."""
-    if isinstance(M, PaddedPreconditioner):
+    the multigrid inside adapter ``M`` (padded, sharded or shard-fused);
+    anything else passes through."""
+    if isinstance(M, (PaddedPreconditioner, ShardedMultigridPreconditioner)):
         return dataclasses.replace(M, inner=_attach_fmg(M.inner, problem))
     if isinstance(M, MultigridPreconditioner) and M.domains:
         return M.with_fmg(problem)
+    if isinstance(M, ShardedFusedMultigrid):
+        return M.with_fmg(problem)
     return M
+
+
+_ENGINE_14C = ("the sharded fused CG engine ({what}) is not ported yet "
+               "(ROADMAP Queue 1 item 14c)")
 
 
 class DirichletSolver:
@@ -202,10 +237,6 @@ class DirichletSolver:
             )
         if self.beta_kind not in ("msg", "fr"):
             raise ValueError(f"unknown beta_kind {self.beta_kind!r} (use 'msg' or 'fr')")
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "the mesh (distributed solve) is not ported yet (ROADMAP Queue 1 item 14)"
-            )
         if operator == "fused":
             if self.is3d:
                 raise ValueError("operator='fused' is 2D-only; use operator='pallas' for 3D")
@@ -235,9 +266,32 @@ class DirichletSolver:
                 "outer='ff' selects the mixed ladder's outer arithmetic — it needs "
                 "precision='mixed'"
             )
-        if self.precision == "mixed" and operator != "stencil":
-            # the JAX facade's rule without a mesh
-            raise ValueError("precision='mixed' requires the matrix-free stencil operator")
+        if self.outer == "ff" and self.mesh is not None:
+            raise ValueError(
+                "outer='ff' is single-chip only: the sharded outer loops evaluate the true "
+                "residual through the halo-exchange operator, which the double-f32 "
+                "evaluation does not partition — use outer='auto' (ff where supported) or 'f64'"
+            )
+        if self.precision == "mixed" and operator != "stencil" and not (
+                operator in ("pallas", "fused") and self.mesh is not None):
+            raise ValueError(
+                "precision='mixed' requires the matrix-free stencil operator (or "
+                "operator='pallas'/'fused' with a mesh for the sharded fast path)"
+            )
+        if self.mesh is not None:
+            if operator not in ("stencil", "pallas", "fused"):
+                raise ValueError(
+                    "mesh (distributed solve) requires operator='stencil' (halo exchange), "
+                    "'pallas' (sharded kernel fast path) or 'fused' (sharded fused CG engine)"
+                )
+            if operator in ("pallas", "fused") and not self.is3d and self.domain.shape not in (
+                    "gamma", "rect"):
+                raise ValueError(
+                    f"operator={operator!r} with a mesh needs a gamma/rect domain (algebraic "
+                    "masks); use operator='stencil' for custom masks"
+                )
+            if operator == "fused":
+                raise NotImplementedError(_ENGINE_14C.format(what="operator='fused' with a mesh"))
         if not (isinstance(self.fmg_cycles, int) and self.fmg_cycles >= 0):
             raise ValueError(f"fmg_cycles must be an int >= 0, got {self.fmg_cycles!r}")
         if self.dtype not in (None, torch.float32, torch.float64):
@@ -249,8 +303,10 @@ class DirichletSolver:
 
     @property
     def outer_kind(self) -> str:
-        """The outer a mixed solve runs: 'f64' or 'ff'."""
-        return AUTO_OUTER[3 if self.is3d else 2] if self.outer == "auto" else self.outer
+        """The outer a mixed solve runs: 'f64' or 'ff' (a mesh's is f64)."""
+        if self.outer == "auto":
+            return "f64" if self.mesh is not None else AUTO_OUTER[3 if self.is3d else 2]
+        return self.outer
 
     @property
     def field_dtype(self) -> torch.dtype:
@@ -268,6 +324,10 @@ class DirichletSolver:
         self._stop_event.set()
 
     def _route(self, callback) -> str:
+        if self.mesh is not None:
+            if self.precision != "mixed":
+                return "mesh"
+            return "mesh_ladder" if callback is not None else "mesh_ir"
         if self.precision == "mixed":
             kind = parse_preconditioner(self.preconditioner)[0] if self.preconditioner else None
             if callback is not None:
@@ -279,6 +339,8 @@ class DirichletSolver:
 
     def _build(self, route: str):
         """(operator, preconditioner) of one route."""
+        if route.startswith("mesh"):
+            return self._build_mesh()
         dom = self.domain
         layout = Padded3DStencilOperator if self.is3d else PaddedStencilOperator
         if route in ("fused_ir", "padded3d", "pallas", "fused"):
@@ -297,6 +359,84 @@ class DirichletSolver:
             # FMG payload: the problem rediscretised on each coarse level
             M = _attach_fmg(M, self.problem)
         return A, M
+
+    def _build_mesh(self):
+        """(operator, preconditioner) on the mesh, as the JAX facade builds
+        them: the shard-fused V-cycle behind ``operator="pallas"`` in 2D,
+        the plain V-cycle on the gathered field otherwise."""
+        dom, mesh = self.domain, self.mesh
+        if self.operator_kind == "pallas":
+            layout = ShardedPallas3DStencilOperator if self.is3d else ShardedPallasStencilOperator
+            A = layout.from_domain(dom, mesh)
+        else:
+            A = ShardedStencilOperator.from_domain(dom, mesh)
+        M = None
+        if self.preconditioner is not None:
+            kind, param = parse_preconditioner(self.preconditioner)
+            if kind != "mg":
+                M = make_preconditioner(self.preconditioner, A, dom, device=self.device)
+            elif self.operator_kind == "pallas" and not self.is3d:
+                M = ShardedFusedMultigrid.from_operator(A, dom, nu_pre=param or 1,
+                                                        nu_post=param or 1, device=self.device)
+            else:
+                M = ShardedMultigridPreconditioner.from_domain(
+                    dom, mesh, nu_pre=param or 1, nu_post=param or 1, device=self.device)
+            if self.precision == "mixed":
+                M = _attach_fmg(M, self.problem)
+        return A, M
+
+    @staticmethod
+    def _hi_operator(A):
+        """The f64 twin of a mesh operator on its own layout (the halo
+        stencil); the halo stencil is its own twin."""
+        if isinstance(A, ShardedPallasStencilOperator):
+            kind, dims = A.mask_mode, (A.nx, A.ny)
+        elif isinstance(A, ShardedPallas3DStencilOperator):
+            kind, dims = "box3", (A.nx, A.ny, A.nz)
+        else:
+            return A
+        return ShardedStencilOperator(A.mesh, A.coeffs, A.grid_shape, A.padded_shape, kind,
+                                      dims)
+
+    def _solve_mesh(self, route, A, M, callback, opts_kw):
+        """One solve over the mesh; returns (result, global x, global r, u)."""
+        mesh, dev = self.mesh, self.device
+        dom = self.domain
+        has_u = self.problem.u_exact is not None
+
+        def shard(f):
+            return A.shard(f) if hasattr(A, "shard") else mesh_lib.shard_field(f, mesh)
+
+        if self.precision == "mixed":
+            dtype = torch.float64
+            b = self.problem.rhs_field(dtype, dev)
+            u = self.problem.true_solution_field(dtype, dev) if has_u else None
+            bs, us = shard(b), (shard(u) if has_u else None)
+            A_hi = self._hi_operator(A)
+            if route == "mesh_ladder":
+                res = refined_solve(A_hi, A, bs, u_true=us, stop=self.stop, preconditioner=M,
+                                    callback=callback, stop_requested=self._stop_event.is_set,
+                                    x0=_maybe_fmg_x0(M, self.fmg_cycles, bs))
+            else:
+                if isinstance(M, ShardedFusedMultigrid):
+                    raise NotImplementedError(_ENGINE_14C.format(
+                        what="precision='mixed', operator='pallas', preconditioner='mg' with a "
+                             "mesh and no callback"))
+                res = device_refined_solve(A_hi, A, bs, preconditioner=M, u_true=us,
+                                           stop=self.stop, fmg=self.fmg_cycles)
+            r = bs - A_hi(res.x)
+        else:
+            dtype = self.field_dtype
+            b = self.problem.rhs_field(dtype, dev)
+            u = self.problem.true_solution_field(dtype, dev) if has_u else None
+            bs, us = shard(b), (shard(u) if has_u else None)
+            res = cg_solve(A, bs, u_true=us, options=CGOptions(preconditioner=M, **opts_kw))
+            r = bs - A(res.x)
+
+        def gathered(block):
+            return mesh_lib.crop_field(mesh.gather(block), dom.grid_shape)
+
+        return res, gathered(res.x), gathered(r), u
 
     def solve(
         self,
@@ -318,7 +458,13 @@ class DirichletSolver:
         A, M = self._parts = self._routes[route]
         dev, f64 = self.device, torch.float64
         has_u = self.problem.u_exact is not None
-        if self.precision == "mixed":
+        if route.startswith("mesh"):
+            res, x, r, u = self._solve_mesh(route, A, M, callback, dict(
+                stop=self.stop, beta_kind=self.beta_kind, callback=callback,
+                callback_every=callback_every, stop_requested=self._stop_event.is_set,
+                record_history=record_history, state_callback=state_callback,
+            ))
+        elif self.precision == "mixed":
             b = self.problem.rhs_field(f64, dev)
             u = self.problem.true_solution_field(f64, dev) if has_u else None
             ff = self.outer_kind == "ff"

@@ -57,6 +57,9 @@ class MaskSpec:
     ny: int
     shape: Tuple[int, ...]
     nz: int = 0
+    # global index of the canvas's first node per axis: a mesh block's mask
+    # is the predicate at its own global indices (parallel/mesh.py)
+    origin: Tuple[int, ...] = ()
 
     def _pred(self, grids):
         if self.kind == "box":
@@ -67,14 +70,16 @@ class MaskSpec:
     def build(self, device="cpu") -> torch.Tensor:
         """The interior mask as a bool tensor on ``device``."""
         n = len(self.shape)
+        org = self.origin or (0,) * n
         grids = [
-            torch.arange(s, device=device).view([-1 if a == i else 1 for a in range(n)])
-            for i, s in enumerate(self.shape)
+            torch.arange(o, o + s, device=device).view([-1 if a == i else 1 for a in range(n)])
+            for i, (o, s) in enumerate(zip(org, self.shape))
         ]
         return self._pred(grids).expand(self.shape)
 
     def build_host(self) -> np.ndarray:
-        grids = np.ogrid[tuple(slice(0, s) for s in self.shape)]
+        org = self.origin or (0,) * len(self.shape)
+        grids = np.ogrid[tuple(slice(o, o + s) for o, s in zip(org, self.shape))]
         return np.broadcast_to(self._pred(grids), self.shape).copy()
 
 

@@ -48,6 +48,92 @@ __device__ __forceinline__ float stencil5(const Geom& g, float c, float l, float
   return g.cd * c + g.cx * (l + r) + g.cy * (u + d);
 }
 
+// The column sweeps of the 2D stencil (A1) and the V-cycle legs (A5, A6),
+// shared with their mesh-block forms (csrc/halo_pallas.cu, mg_sharded.cu)
+// so that a block and the single-device canvas take the same arithmetic at
+// every node. One thread owns column c and walks rows row0 .. row0 + by - 1
+// (indices local to the field it writes, row stride ld); the caller says
+// where values come from: in(i, cc) is the interior test of a node, X / B
+// return a masked value (0 off the interior), XC the corrected iterate.
+
+// y = A x on one column (A1).
+template <class In, class X>
+__device__ __forceinline__ void stencil_column(const Geom& g, const In& in, const X& x,
+                                               float* __restrict__ y, int ld, int c, int row0,
+                                               int by) {
+  float prev = x(row0 - 1, c);
+  float cur = x(row0, c);
+  for (int k = 0; k < by; ++k) {
+    const int i = row0 + k;
+    const float next = x(i + 1, c);
+    float o = 0.f;
+    if (in(i, c)) o = stencil5(g, cur, x(i, c - 1), x(i, c + 1), prev, next);
+    y[(size_t)i * ld + c] = o;
+    prev = cur;
+    cur = next;
+  }
+}
+
+// K_down on one column (A5): the residual of the pre-smoothed iterate
+// x = cs * B at fine rows row0 - 1 .. row0 + by - 1, row-restricted [1,2,1]/4
+// into coarse rows row0 / 2 .. row0 / 2 + by / 2 - 1 (row0 even).
+template <class In, class B>
+__device__ __forceinline__ void k_down_column(const Geom& g, const In& in, const B& b, float cs,
+                                              float* __restrict__ rr, int ld, int c, int row0,
+                                              int by) {
+  auto R = [&](int i) -> float {
+    if (!in(i, c)) return 0.f;
+    const float bc = b(i, c);
+    const float ax = g.cd * (cs * bc) + g.cx * (cs * b(i, c - 1) + cs * b(i, c + 1)) +
+                     g.cy * (cs * b(i - 1, c) + cs * b(i + 1, c));
+    return bc - ax;
+  };
+  float below = R(row0 - 1);
+  for (int j = 0; j < by / 2; ++j) {
+    const int J = row0 / 2 + j;
+    const float center = R(2 * J);
+    const float upper = R(2 * J + 1);
+    rr[(size_t)J * ld + c] = 0.25f * below + 0.5f * center + 0.25f * upper;
+    below = upper;
+  }
+}
+
+// K_up's corrected iterate cs * b + P ec at a node of fine row i (a global
+// index: its parity picks the prolongation; ec(J) is the coarse correction
+// at global coarse row J of the node's column).
+template <class EC>
+__device__ __forceinline__ float corrected(float cs, int i, float b, const EC& ec) {
+  const float p = (i & 1) ? 0.5f * (ec((i - 1) / 2) + ec((i + 1) / 2)) : ec(i / 2);
+  return cs * b + p;
+}
+
+// K_up on one column (A6): one post-smoothing sweep of the corrected
+// iterate XC; b(i, c) is the level RHS at an interior node. Returns the
+// column's share of (b, out).
+template <class In, class XC, class B>
+__device__ __forceinline__ float k_up_column(const Geom& g, const In& in, const XC& xc,
+                                             const B& b, float cs, float* __restrict__ out,
+                                             int ld, int c, int row0, int by) {
+  float s_dot = 0.f;
+  float prev = xc(row0 - 1, c);
+  float cur = xc(row0, c);
+  for (int k = 0; k < by; ++k) {
+    const int i = row0 + k;
+    const float next = xc(i + 1, c);
+    float o = 0.f;
+    if (in(i, c)) {
+      const float bm = b(i, c);
+      const float ax = g.cd * cur + g.cx * (xc(i, c - 1) + xc(i, c + 1)) + g.cy * (prev + next);
+      o = cur + cs * (bm - ax);
+      s_dot += bm * o;
+    }
+    out[(size_t)i * ld + c] = o;
+    prev = cur;
+    cur = next;
+  }
+  return s_dot;
+}
+
 // Sum (or max) over the TW threads of a block; the result is valid in
 // thread 0. Fixed shuffle order, no atomics: the same inputs give the same
 // bits on every run.

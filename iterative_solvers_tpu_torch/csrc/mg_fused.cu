@@ -38,65 +38,29 @@ namespace {
 template <bool kMask>
 __global__ void k_down_kernel(const float* __restrict__ b, float* __restrict__ rr, Geom g,
                               float cs, int by) {
-  const int c = blockIdx.x * TW + threadIdx.x;
-  const int row0 = blockIdx.y * by;
   const int wp = g.wp;
+  auto in = [&](int i, int cc) { return ist::interior<kMask>(g, i, cc); };
   // masked level RHS; the interior test also keeps every read on the canvas
-  auto B = [&](int i, int cc) -> float {
-    return ist::interior<kMask>(g, i, cc) ? b[(size_t)i * wp + cc] : 0.f;
-  };
-  // residual of the pre-smoothed iterate x = cs * B at fine row i, column c
-  auto R = [&](int i) -> float {
-    if (!ist::interior<kMask>(g, i, c)) return 0.f;
-    const float bc = B(i, c);
-    const float ax = g.cd * (cs * bc) + g.cx * (cs * B(i, c - 1) + cs * B(i, c + 1)) +
-                     g.cy * (cs * B(i - 1, c) + cs * B(i + 1, c));
-    return bc - ax;
-  };
-  float below = R(row0 - 1);
-  for (int j = 0; j < by / 2; ++j) {
-    const int J = row0 / 2 + j;
-    const float center = R(2 * J);
-    const float upper = R(2 * J + 1);
-    rr[(size_t)J * wp + c] = 0.25f * below + 0.5f * center + 0.25f * upper;
-    below = upper;
-  }
+  auto B = [&](int i, int cc) -> float { return in(i, cc) ? b[(size_t)i * wp + cc] : 0.f; };
+  ist::k_down_column(g, in, B, cs, rr, wp, blockIdx.x * TW + threadIdx.x, blockIdx.y * by, by);
 }
 
 template <bool kMask>
 __global__ void k_up_kernel(const float* __restrict__ b, const float* __restrict__ ec,
                             float* __restrict__ out, float* __restrict__ dot_p, Geom g,
                             float cs, int by, int ch) {
-  const int c = blockIdx.x * TW + threadIdx.x;
-  const int row0 = blockIdx.y * by;
   const int wp = g.wp;
-  // coarse correction row J; rows outside [0, ch) are zero
-  auto EC = [&](int J, int cc) -> float {
-    return (J >= 0 && J < ch) ? ec[(size_t)J * wp + cc] : 0.f;
-  };
-  // corrected iterate cs * b + P ec at fine row i (zero off the interior)
+  auto in = [&](int i, int cc) { return ist::interior<kMask>(g, i, cc); };
+  // corrected iterate cs * b + P ec at fine row i (zero off the interior);
+  // coarse rows outside [0, ch) are zero
   auto XC = [&](int i, int cc) -> float {
-    if (!ist::interior<kMask>(g, i, cc)) return 0.f;
-    const float p = (i & 1) ? 0.5f * (EC((i - 1) / 2, cc) + EC((i + 1) / 2, cc)) : EC(i / 2, cc);
-    return cs * b[(size_t)i * wp + cc] + p;
+    if (!in(i, cc)) return 0.f;
+    auto EC = [&](int J) -> float { return (J >= 0 && J < ch) ? ec[(size_t)J * wp + cc] : 0.f; };
+    return ist::corrected(cs, i, b[(size_t)i * wp + cc], EC);
   };
-  float s_dot = 0.f;
-  float prev = XC(row0 - 1, c);
-  float cur = XC(row0, c);
-  for (int k = 0; k < by; ++k) {
-    const int i = row0 + k;
-    const float next = XC(i + 1, c);
-    float o = 0.f;
-    if (ist::interior<kMask>(g, i, c)) {
-      const float bm = b[(size_t)i * wp + c];
-      const float ax = g.cd * cur + g.cx * (XC(i, c - 1) + XC(i, c + 1)) + g.cy * (prev + next);
-      o = cur + cs * (bm - ax);
-      s_dot += bm * o;
-    }
-    out[(size_t)i * wp + c] = o;
-    prev = cur;
-    cur = next;
-  }
+  auto B = [&](int i, int cc) -> float { return b[(size_t)i * wp + cc]; };
+  float s_dot = ist::k_up_column(g, in, XC, B, cs, out, wp, blockIdx.x * TW + threadIdx.x,
+                                 blockIdx.y * by, by);
   if (dot_p != nullptr) {
     s_dot = ist::block_reduce<false>(s_dot);
     if (threadIdx.x == 0) dot_p[blockIdx.y * gridDim.x + blockIdx.x] = s_dot;

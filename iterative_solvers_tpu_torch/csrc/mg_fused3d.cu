@@ -45,9 +45,10 @@ __global__ void k_down3d_kernel(const float* __restrict__ b, float* __restrict__
     // residual of the pre-smoothed iterate x = cs * B at fine plane t
     float R = 0.f;
     if (g.interior(t, r, c)) {
-      const float ax = k.cd * (cs * v.c) + k.cx * (cs * v.w + cs * v.e) +
-                       k.cy * (cs * v.n + cs * v.s) + k.cz * (cs * v.zm + cs * v.zp);
-      R = v.c - ax;
+      const Nbr x{__fmul_rn(cs, v.c), __fmul_rn(cs, v.w), __fmul_rn(cs, v.e),
+                  __fmul_rn(cs, v.n), __fmul_rn(cs, v.s), __fmul_rn(cs, v.zm),
+                  __fmul_rn(cs, v.zp)};
+      R = __fsub_rn(v.c, ist3::apply7(k, x));
     }
     if (t & 1) {  // t = 2C + 1: last term of coarse plane C, first of C + 1
       acc += 0.25f * R;

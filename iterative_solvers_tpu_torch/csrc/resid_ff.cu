@@ -126,7 +126,7 @@ __global__ void k_resid_ff_kernel(const float* __restrict__ xh, const float* __r
 // per chunk, bh and bl once. 24 B/node, ~90 uncontracted f32 operations per
 // node. Order, as ops/ddf32.residual_ff: axis mains and errors x, y, z; the
 // mains summed exactly x + y, then + z (TwoSum, errors summed in order);
-// corr = ((ex + ey) + ez) + A xl (+ delta xh).
+// corr = ((ex + ey) + ez) + A xl (+ delta xh), A xl as S7 computes it.
 __global__ void k_resid_ff3d_kernel(const float* __restrict__ xh, const float* __restrict__ xl,
                                     const float* __restrict__ bh, const float* __restrict__ bl,
                                     float* __restrict__ rh, float* __restrict__ rl, ist3::Box g,
@@ -159,11 +159,8 @@ __global__ void k_resid_ff3d_kernel(const float* __restrict__ xh, const float* _
         const FF mx = axis_diff2(h, vh.w, vh.e, ax);
         const FF my = axis_diff2(h, vh.n, vh.s, ay);
         const FF mz = axis_diff2(h, h_zm, h_zp, az);
-        // plain f32 A xl, in the stencil's order
-        const float axl = __fadd_rn(
-            __fadd_rn(__fadd_rn(__fmul_rn(k.cd, l), __fmul_rn(k.cx, __fadd_rn(vl.w, vl.e))),
-                      __fmul_rn(k.cy, __fadd_rn(vl.n, vl.s))),
-            __fmul_rn(k.cz, __fadd_rn(l_zm, l_zp)));
+        // plain f32 A xl, in the stencil's order (S7's fmaf chain)
+        const float axl = ist3::apply7(k, vl);
         float corr = __fadd_rn(__fadd_rn(__fadd_rn(mx.e, my.e), mz.e), axl);
         if (has_delta) corr = __fadd_rn(corr, __fmul_rn(delta, h));
         const FF S2 = two_sum(mx.s, my.s);

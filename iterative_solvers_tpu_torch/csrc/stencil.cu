@@ -23,25 +23,11 @@ namespace {
 template <bool kMask>
 __global__ void stencil_kernel(const float* __restrict__ x, float* __restrict__ y, Geom g,
                                int by) {
-  const int c = blockIdx.x * TW + threadIdx.x;
-  const int row0 = blockIdx.y * by;
   const int wp = g.wp;
+  auto in = [&](int i, int cc) { return ist::interior<kMask>(g, i, cc); };
   // masked read; the interior test also keeps every read on the canvas
-  auto X = [&](int i, int cc) -> float {
-    return ist::interior<kMask>(g, i, cc) ? x[(size_t)i * wp + cc] : 0.f;
-  };
-  float prev = X(row0 - 1, c);
-  float cur = X(row0, c);
-  for (int k = 0; k < by; ++k) {
-    const int i = row0 + k;
-    const float next = X(i + 1, c);
-    float o = 0.f;
-    if (ist::interior<kMask>(g, i, c))
-      o = ist::stencil5(g, cur, X(i, c - 1), X(i, c + 1), prev, next);
-    y[(size_t)i * wp + c] = o;
-    prev = cur;
-    cur = next;
-  }
+  auto X = [&](int i, int cc) -> float { return in(i, cc) ? x[(size_t)i * wp + cc] : 0.f; };
+  ist::stencil_column(g, in, X, y, wp, blockIdx.x * TW + threadIdx.x, blockIdx.y * by, by);
 }
 
 }  // namespace

@@ -10,7 +10,9 @@
 // (csrc/zmarch3d.cuh) reads each plane of x once per chunk: the y/x
 // neighbours come from a shared tile of the current plane, the z
 // neighbours from the thread's registers. Reads and the output are masked by
-// the algebraic box predicate.
+// the algebraic box predicate. The node update is the fmaf chain of
+// ist3::apply7, XLA's order, so the kernel equals its plain version
+// (ops/stencil.py: stencil_apply_3d) bit for bit.
 #include "zmarch3d.cuh"
 
 using ist3::Box;

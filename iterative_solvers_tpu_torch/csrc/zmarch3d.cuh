@@ -52,9 +52,16 @@ struct Nbr {
   float c, w, e, n, s, zm, zp;  // n: row y - 1, s: row y + 1, zm: plane z - 1
 };
 
-// cd c + cx (W + E) + cy (N + S) + cz (Zm + Zp), in the plain versions' order
+// cd c + cx (W + E) + cy (N + S) + cz (Zm + Zp) as the chain
+// fma(cz, Zm + Zp, fma(cy, N + S, fma(cd, c, cx (W + E)))): the order the
+// JAX package's XLA evaluates and the plain versions emulate
+// (ops/stencil.py: combine7). Every step is an explicit round-to-nearest
+// intrinsic, so no contraction choice of the compiler changes the bits.
 __device__ __forceinline__ float apply7(const Coef& k, const Nbr& v) {
-  return k.cd * v.c + k.cx * (v.w + v.e) + k.cy * (v.n + v.s) + k.cz * (v.zm + v.zp);
+  const float t = __fmul_rn(k.cx, __fadd_rn(v.w, v.e));
+  const float u = __fmaf_rn(k.cd, v.c, t);
+  const float w = __fmaf_rn(k.cy, __fadd_rn(v.n, v.s), u);
+  return __fmaf_rn(k.cz, __fadd_rn(v.zm, v.zp), w);
 }
 
 // One plane's tile of TY x TX values plus a one-cell halo (no corners).

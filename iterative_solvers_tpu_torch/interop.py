@@ -10,7 +10,13 @@ of each JAX array), so this module needs numpy and torch only:
   state, or a plain-CG one whose ``w`` and ``rz_prev`` are None;
 - :func:`sparse_operator_from_csr` wraps a CSR matrix the JAX package
   assembled (``ops.sparse.assemble_csr``, its native engine included) as a
-  :class:`SparseOperator`.
+  :class:`SparseOperator`;
+- :func:`block_from_global` and :func:`global_from_blocks` carry a mesh
+  field across: a JAX mesh field as numpy (``np.asarray`` of a sharded
+  array: the padded global field) to this rank's block, and the port's
+  blocks back to that padded global field. The port's mesh layouts are
+  the JAX package's (``parallel/mesh.py``, ``parallel/halo_pallas.py``),
+  so the two compare like for like.
 """
 
 from __future__ import annotations
@@ -129,3 +135,16 @@ def sparse_operator_from_csr(row_map, entries, values, n: int, dtype=torch.float
     indices ``entries``, ``values``) as a :class:`SparseOperator` on
     ``device`` (``"cuda"`` raises without a card)."""
     return SparseOperator.from_csr(row_map, entries, values, n, dtype, device)
+
+
+def block_from_global(field, mesh, device="cpu") -> torch.Tensor:
+    """This rank's block of a padded global field given as numpy (a JAX
+    mesh field, ``np.asarray`` of its sharded array)."""
+    t = torch.as_tensor(np.array(field), device=device)  # a writable copy
+    return mesh.take_block(t, mesh.block_shape(tuple(t.shape)))
+
+
+def global_from_blocks(block: torch.Tensor, mesh) -> np.ndarray:
+    """The padded global field of every rank's block, as numpy — what
+    ``np.asarray`` gives of the JAX mesh field on the same mesh shape."""
+    return mesh.gather(block).cpu().numpy()

@@ -70,6 +70,12 @@ _SIGNATURES = {
     "ist_stencil_inplace_custom": [_P] * 3 + [_I] * 5 + [_F] * 4 + [_P],
     "ist_stencil_pipelined": [_P] * 3 + [_I] * 6 + [_F] * 4 + [_I] * 2 + [_P],
     "ist_stencil_pipelined_custom": [_P] * 4 + [_I] * 5 + [_F] * 4 + [_I] * 2 + [_P],
+    # mesh blocks (D1–D4): the block and its halo operands, the 2D geometry
+    # of the block, its global origin (roff, coff), then the coefficients
+    "ist_stencil_block": [_P] * 6 + [_I] * 8 + [_F] * 3 + [_P],
+    "ist_stencil3d_block": [_P] * 6 + [_I] * 9 + [_F] * 4 + [_P],
+    "ist_k_down_block": [_P] * 6 + [_I] * 8 + [_F] * 4 + [_P],
+    "ist_k_up_block": [_P] * 12 + [_I] * 9 + [_F] * 4 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -4,11 +4,14 @@ of iterative_solvers_tpu/ops/stencil.py).
 This is the high-precision operator ``A_hi`` of the mixed-precision outer
 loop: it runs in f64 (or f32) outside any kernel, exactly as the JAX package
 computes it in XLA outside any Pallas kernel. The interior mask is rebuilt
-from :class:`MaskSpec` on the field's device and cached there.
+from :class:`MaskSpec` on the field's device and cached there. The f32
+7-point sum is evaluated in XLA's order (:func:`combine7`).
 """
 
 from __future__ import annotations
 
+import functools
+import math
 from typing import Dict, Tuple
 
 import numpy as np
@@ -31,16 +34,62 @@ def stencil_apply(x: torch.Tensor, interior: torch.Tensor, cd: float, cx: float,
     return torch.where(interior, y, 0.0)
 
 
+def fma_f32(a: float, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``fmaf(a, b, c)`` elementwise on f32 tensors: a·b + c rounded once
+    to f32, as a fused multiply-add does (``a`` a coefficient, taken as
+    f32). The product of two f32 values is exact in f64; the f64 sum is
+    rounded to odd (TwoSum's error sets the last bit), so its rounding to
+    f32 is the correctly rounded result, with no double rounding."""
+    p = float(np.float32(a)) * b.double()
+    c = c.double()
+    s = p + c
+    t = s - p
+    e = (p - (s - t)) + (c - t)
+    to_odd = (e != 0) & ((s.view(torch.int64) & 1) == 0)
+    away = torch.nextafter(s, torch.where(e > 0, math.inf, -math.inf).to(s.dtype))
+    return torch.where(to_odd, away, s).float()
+
+
+@functools.lru_cache(maxsize=None)
+def _coeff_on(a: float, device: torch.device) -> torch.Tensor:
+    return torch.tensor(a, dtype=torch.float32, device=device)
+
+
+def _fma_f32_cuda(a: float, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``fmaf(a, b, c)`` on CUDA f32 tensors in one pass: the kernel of
+    ``torch.addcmul`` computes ``c + 1·b·a``, which nvcc contracts into one
+    ``fmaf(b, a, c)`` (``tests/test_torch_cuda.py`` and ``chip_smoke.py``
+    hold it bit for bit against the exact emulation and S7's ``__fmaf_rn``
+    chain). The coefficient stays on the card, made once per device."""
+    return torch.addcmul(c, b, _coeff_on(float(a), b.device))
+
+
+def combine7(xm, sx, sy, sz, cd: float, cx: float, cy: float, cz: float) -> torch.Tensor:
+    """cd·xm + cx·sx + cy·sy + cz·sz from the centre and the neighbour sums
+    per axis. In f32 in XLA's order, ``fma(cz, sz, fma(cy, sy, fma(cd, xm,
+    cx·sx)))``, which the JAX package's CPU runs in its vectorised loop body
+    and the 3D kernels write as the same ``fmaf`` chain
+    (``csrc/zmarch3d.cuh: apply7``), so the card and this plain version
+    agree bit for bit. On the CPU each fma is emulated exactly
+    (:func:`fma_f32`); on CUDA it is one ``addcmul`` pass, the cost of the
+    plain sum. Other types sum left to right."""
+    if xm.dtype == torch.float32:
+        fma = _fma_f32_cuda if xm.is_cuda else fma_f32
+        return fma(cz, sz, fma(cy, sy, fma(cd, xm, cx * sx)))
+    return cd * xm + cx * sx + cy * sy + cz * sz
+
+
 def stencil_apply_3d(x: torch.Tensor, interior: torch.Tensor, cd: float, cx: float,
                      cy: float, cz: float) -> torch.Tensor:
     """y = A @ x for the masked 7-point stencil on a full 3D grid."""
     xm = torch.where(interior, x, 0.0)
     p = F.pad(xm, (1, 1, 1, 1, 1, 1))
-    y = (
-        cd * xm
-        + cx * (p[1:-1, 1:-1, :-2] + p[1:-1, 1:-1, 2:])
-        + cy * (p[1:-1, :-2, 1:-1] + p[1:-1, 2:, 1:-1])
-        + cz * (p[:-2, 1:-1, 1:-1] + p[2:, 1:-1, 1:-1])
+    y = combine7(
+        xm,
+        p[1:-1, 1:-1, :-2] + p[1:-1, 1:-1, 2:],
+        p[1:-1, :-2, 1:-1] + p[1:-1, 2:, 1:-1],
+        p[:-2, 1:-1, 1:-1] + p[2:, 1:-1, 1:-1],
+        cd, cx, cy, cz,
     )
     return torch.where(interior, y, 0.0)
 

@@ -2,7 +2,7 @@
 solve of each main path, after a warm-up solve.
 
     python -m iterative_solvers_tpu_torch.profile_paths [--n 8192] [--nb 1024] [--n3 512]
-        [--paths A,f64,B,3D,C] [--out DIR]
+        [--ns 128] [--paths A,f64,B,3D,C,S] [--out DIR]
 
 Paths: A, the default solve (FMG warm start, double-f32 outer) at ``n``²;
 the cold f64-outer solve at ``n``²; B, plain f32 CG on the fused engine
@@ -18,8 +18,10 @@ port's own kernels against all other device ops (torch glue), and the
 device ops with the most self time; with ``--out``, also a Chrome trace per
 path. For the 3D path it then times the refinement's parts with CUDA
 events: one inner PCG iteration, the V-cycle in it, level 0's kernels and
-its y/x transfers, the 7-point apply, the FMG warm start. Needs a CUDA
-device.
+its y/x transfers, the 7-point apply, the FMG warm start. S is not
+profiled but timed: the 3D ``operator="stencil"`` route's plain f32
+7-point apply and one inner Jacobi PCG iteration on it at ``n3``³ (CUDA
+events), then its mixed Jacobi solve at ``ns``³. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -36,7 +38,9 @@ from torch.profiler import ProfilerActivity, profile
 from iterative_solvers_tpu_torch.api import DirichletSolver
 from iterative_solvers_tpu_torch.core.domain import Domain2D, Domain3D, notched_disk
 from iterative_solvers_tpu_torch.kernels.cg_fused import fused_cg_solve
-from iterative_solvers_tpu_torch.solvers.cg import CGOptions
+from iterative_solvers_tpu_torch.ops.stencil import StencilOperator
+from iterative_solvers_tpu_torch.solvers.cg import CGOptions, cg_solve
+from iterative_solvers_tpu_torch.solvers.precond import JacobiPreconditioner
 from iterative_solvers_tpu_torch.solvers.refine import (
     _maybe_fmg_x0,
     _padded_hi_operator,
@@ -137,6 +141,34 @@ def breakdown_3d(solver: DirichletSolver) -> None:
         print(f"   {name:52s} {ms:9.3f} ms")
 
 
+def stencil_route_3d(n3: int, ns: int, stop: StopConfig) -> None:
+    """The 3D ``operator="stencil"`` route: the plain f32 7-point apply
+    (``ops/stencil.py``, which also runs the 3D V-cycle's plain coarse
+    levels and the mesh's gathered V-cycle) and one inner Jacobi PCG
+    iteration on it at ``n3``³, CUDA events; then the facade's mixed Jacobi
+    solve at ``ns``³ (warm), its counts and wall."""
+    dom = Domain3D(n3, n3, n3)
+    A = StencilOperator.from_domain(dom)
+    M = JacobiPreconditioner.from_operator(A, dom)
+    x = torch.randn(dom.grid_shape, device="cuda")
+
+    def pcg(k):
+        opts = CGOptions(stop=StopConfig(eps_precision=-1, eps_residual=-1, eps_relative=-1,
+                                         max_iterations=k), preconditioner=M)
+        return lambda: cg_solve(A, x, options=opts)
+
+    print(f"== path S: 3D operator='stencil' at {n3}^3: plain f32 7-point apply "
+          f"{_event_ms(lambda: A(x)):.3f} ms; inner Jacobi PCG iteration "
+          f"{(_event_ms(pcg(6)) - _event_ms(pcg(1))) / 5:.3f} ms")
+    del x
+    solver = DirichletSolver(domain=Domain3D(ns, ns, ns), operator="stencil",
+                             preconditioner="jacobi", precision="mixed", device="cuda", stop=stop)
+    solver.solve()
+    res, wall = _timed(solver.solve)
+    print(f"   mixed Jacobi solve {ns}^3: {res.stop_reason.name} outer {res.outer_iterations} "
+          f"inner {res.iterations}, wall {wall:.3f} s")
+
+
 def profile_path(name: str, solver: DirichletSolver, out_dir=None) -> None:
     solver.solve()  # warm-up: allocator pools, coarse inverse, masks, FMG payload
     _, wall = _timed(solver.solve)
@@ -183,8 +215,9 @@ def main(argv=None) -> int:
     ap.add_argument("--n", type=int, default=8192)
     ap.add_argument("--nb", type=int, default=1024)
     ap.add_argument("--n3", type=int, default=512)
+    ap.add_argument("--ns", type=int, default=128)
     ap.add_argument("--paths", default="A,f64,B,3D,C",
-                    help="comma-separated subset of A,f64,B,3D,C")
+                    help="comma-separated subset of A,f64,B,3D,C,S")
     ap.add_argument("--out", default=None, help="directory for Chrome traces")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -208,7 +241,10 @@ def main(argv=None) -> int:
             **mixed),
     }
     for name in args.paths.split(","):
-        profile_path(name, solvers[name](), args.out)
+        if name == "S":
+            stencil_route_3d(args.n3, args.ns, rel6)
+        else:
+            profile_path(name, solvers[name](), args.out)
         torch.cuda.empty_cache()
     return 0
 

@@ -27,6 +27,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from iterative_solvers_tpu_torch.parallel.mesh import all_max, all_sum, mesh_of
 from iterative_solvers_tpu_torch.solvers.stopping import StopConfig, StopReason
 
 Operator = Callable[[torch.Tensor], torch.Tensor]
@@ -114,6 +115,7 @@ def stop_reason(stop: StopConfig, prec, r_max, err, r2, r0_norm, has_u: bool):
 
 
 def _cg_init(A, M, b, x0, u_true) -> CGState:
+    mesh = mesh_of(A)
     if x0 is None:
         x = torch.zeros_like(b)
         r = b.clone()
@@ -121,38 +123,48 @@ def _cg_init(A, M, b, x0, u_true) -> CGState:
         x = x0.clone()
         r = b - A(x0)
     z = M(r) if M is not None else r.clone()
-    r2_0 = _dot(r, r)
+    r2_0, rz = all_sum(mesh, _dot(r, r), _dot(r, z))
     inf = torch.full((), math.inf, dtype=b.dtype, device=b.device)
+    r_max, err_max = all_max(mesh, _maxabs(r),
+                             _maxabs(x - u_true) if u_true is not None else inf)
     return CGState(
         x=x, r=r, z=z, k=0,
         done=torch.zeros((), dtype=torch.bool, device=b.device),
         reason=torch.full((), int(StopReason.ITERATIONS), dtype=torch.int32, device=b.device),
-        rz=_dot(r, z), r_norm2=r2_0, prec_max=inf, r_max=_maxabs(r),
-        err_max=_maxabs(x - u_true) if u_true is not None else inf,
+        rz=rz, r_norm2=r2_0, prec_max=inf, r_max=r_max, err_max=err_max,
         r0_norm=torch.sqrt(r2_0),
     )
 
 
 def cg_iteration(A, M, stop: StopConfig, s: CGState, u_true, beta_kind: str = "msg") -> CGState:
     """One (P)CG step (without a preconditioner, β by ``beta_kind``:
-    ``"msg"`` or ``"fr"``) with the stop flags evaluated on device."""
+    ``"msg"`` or ``"fr"``) with the stop flags evaluated on device. On a
+    mesh operator every reduction is all-reduced over the mesh, so every
+    rank takes the same branch."""
+    mesh = mesh_of(A)
     Az = A(s.z)
-    rz = s.rz if M is not None else _dot(s.r, s.z)
-    alpha = rz / _dot(Az, s.z)
+    if M is not None:
+        rz = s.rz
+        (zAz,) = all_sum(mesh, _dot(Az, s.z))
+    else:
+        rz, zAz = all_sum(mesh, _dot(s.r, s.z), _dot(Az, s.z))
+    alpha = rz / zAz
     x = s.x + alpha * s.z
     r = s.r - alpha * Az
-    r2 = _dot(r, r)
-    r_max = _maxabs(r)
-    prec_max = torch.abs(alpha) * _maxabs(s.z)
-    err_max = _maxabs(x - u_true) if u_true is not None else s.err_max
+    if M is not None:
+        w = M(r)
+        r2, rz_new = all_sum(mesh, _dot(r, r), _dot(r, w))
+    else:
+        (r2,) = all_sum(mesh, _dot(r, r))
+    r_max, z_max, err_max = all_max(
+        mesh, _maxabs(r), _maxabs(s.z), _maxabs(x - u_true) if u_true is not None else s.err_max)
+    prec_max = torch.abs(alpha) * z_max
     done, reason = stop_reason(stop, prec_max, r_max, err_max, r2, s.r0_norm,
                                u_true is not None)
     if M is None:
         z = r + (r2 / (s.r_norm2 if beta_kind == "fr" else rz)) * s.z
         rz_new = r2
     else:
-        w = M(r)
-        rz_new = _dot(r, w)
         z = w + (rz_new / rz) * s.z
     return s._replace(
         x=x, r=r, z=z, k=s.k + 1, done=done, reason=reason, rz=rz_new,

@@ -612,3 +612,40 @@ class PaddedPreconditioner:
         return self.padded_op.pad(
             self.inner.fmg_stepwise(self.padded_op.crop(r), n_vcycles, **kw)
         )
+
+
+@dataclass(frozen=True, eq=False)
+class ShardedMultigridPreconditioner:
+    """The multigrid V-cycle over mesh blocks (``parallel/mesh.py``
+    layout). The V-cycle's transfers need the exact ``2^k·n + 1`` node
+    extents, so each call gathers the blocks into the global field, crops
+    it to the grid, runs the plain hierarchy there (on every rank, the same
+    arithmetic) and takes this rank's block of the zero-padded result — the
+    JAX package runs the same crop, cycle and pad on global arrays under
+    GSPMD. The gather of the fine field does not scale: a limit of the
+    port's mesh."""
+
+    inner: MultigridPreconditioner
+    grid_shape: Tuple[int, ...]
+    mesh: object  # parallel.mesh.SolverMesh
+
+    @staticmethod
+    def from_domain(domain, mesh, **kwargs) -> "ShardedMultigridPreconditioner":
+        kwargs.setdefault("fuse", False)  # the plain levels, as in the JAX package
+        return ShardedMultigridPreconditioner(
+            inner=MultigridPreconditioner.from_domain(domain, **kwargs),
+            grid_shape=tuple(domain.grid_shape), mesh=mesh,
+        )
+
+    def __call__(self, r: torch.Tensor) -> torch.Tensor:
+        return self.mesh.global_apply(self.inner, r, self.grid_shape)
+
+    def fmg(self, r: torch.Tensor, n_vcycles: int = 1) -> torch.Tensor:
+        """FMG initial guess on the mesh-padded layout."""
+        return self.mesh.global_apply(lambda g: self.inner.fmg(g, n_vcycles), r,
+                                      self.grid_shape)
+
+    def fmg_stepwise(self, r: torch.Tensor, n_vcycles: int = 1, **kw) -> torch.Tensor:
+        """Stepwise FMG initial guess on the mesh-padded layout."""
+        return self.mesh.global_apply(lambda g: self.inner.fmg_stepwise(g, n_vcycles, **kw), r,
+                                      self.grid_shape)

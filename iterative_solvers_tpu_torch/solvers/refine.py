@@ -47,6 +47,7 @@ from iterative_solvers_tpu_torch.ops.ddf32 import (
     two_sum,
 )
 from iterative_solvers_tpu_torch.ops.stencil import StencilOperator
+from iterative_solvers_tpu_torch.parallel.mesh import all_max, all_sum, mesh_of
 from iterative_solvers_tpu_torch.solvers.cg import CGOptions, CGResult, CGState, cg_solve
 from iterative_solvers_tpu_torch.solvers.stopping import StopConfig, StopReason
 
@@ -63,16 +64,16 @@ class RefinedResult(CGResult):
     escalated: bool = False
 
 
-def _norms(r, d, x, u_true):
-    """(‖r‖∞, ‖d‖∞, ‖x−u‖∞, ‖r‖₂²) as host floats — one transfer."""
+def _norms(r, d, x, u_true, mesh=None):
+    """(‖r‖∞, ‖d‖∞, ‖x−u‖∞, ‖r‖₂²) as host floats — one transfer (over a
+    mesh, of the all-reduced values)."""
     e = (
         torch.max(torch.abs(x - u_true))
         if u_true is not None
         else torch.full((), math.inf, dtype=r.dtype, device=r.device)
     )
-    v = torch.stack(
-        [torch.max(torch.abs(r)), torch.max(torch.abs(d)), e, torch.sum(r * r)]
-    ).tolist()
+    maxes = all_max(mesh, torch.max(torch.abs(r)), torch.max(torch.abs(d)), e)
+    v = torch.stack([*maxes, *all_sum(mesh, torch.sum(r * r))]).tolist()
     return v[0], v[1], v[2], v[3]
 
 
@@ -103,6 +104,7 @@ def refined_solve(
     if b.dtype == lo_dtype:
         raise ValueError("b must be f64 for the high-precision outer loop")
     t0 = time.perf_counter()
+    mesh = mesh_of(A_hi)
 
     def adaptive_inner_tol(r_max_now: float, r_norm_now: float) -> float:
         need = math.inf
@@ -121,9 +123,10 @@ def refined_solve(
     else:
         x = x0.to(b.dtype).clone()
         r = b - A_hi(x)
-    r_max, _, err_max, r2 = _norms(r, r, x, u_true)
+    r_max, _, err_max, r2 = _norms(r, r, x, u_true, mesh)
     r_norm = math.sqrt(max(r2, 0.0))
-    r0_norm = r_norm if x0 is None else math.sqrt(max(float(torch.sum(b * b)), 0.0))
+    r0_norm = r_norm if x0 is None else math.sqrt(
+        max(float(all_sum(mesh, torch.sum(b * b))[0]), 0.0))
     prec_max = math.inf
     reason = StopReason.ITERATIONS
     total_inner = 0
@@ -174,7 +177,7 @@ def refined_solve(
         r = b - A_hi(x)
         total_inner += inner.iterations
         inner_counts.append(inner.iterations)
-        r_max_new, prec_max, err, r2 = _norms(r, d, x, u_true)
+        r_max_new, prec_max, err, r2 = _norms(r, d, x, u_true, mesh)
         r_norm = math.sqrt(max(r2, 0.0))
         if u_true is not None:
             err_max = err
@@ -214,12 +217,12 @@ def refined_solve(
     )
 
 
-def _traced_inner_eta(stop: StopConfig, inner_rel_tol: float, r_hi, r0_norm):
+def _traced_inner_eta(stop: StopConfig, inner_rel_tol: float, r_hi, r0_norm, mesh=None):
     """Loosest inner tolerance meeting the outer target this step, as a
     device f32 scalar (safety factor 0.45, clipped to [inner_rel_tol, 0.1];
     a non-finite need falls back to inner_rel_tol)."""
-    r_norm_hi = torch.sqrt(torch.sum(r_hi * r_hi))
-    r_max_hi = torch.max(torch.abs(r_hi))
+    r_norm_hi = torch.sqrt(all_sum(mesh, torch.sum(r_hi * r_hi))[0])
+    (r_max_hi,) = all_max(mesh, torch.max(torch.abs(r_hi)))
     need = torch.full((), math.inf, dtype=r_hi.dtype, device=r_hi.device)
     if stop.eps_relative > 0:
         need = torch.minimum(
@@ -260,21 +263,21 @@ def _fused_inner_solve(engine, eta, r_hi, inner_max_iter: int):
 def _pcg_inner_solve(A_lo, M, eta, r32, inner_max_iter: int):
     """The plain PCG recurrence on ``A_lo d = r32`` (f32, from zero) to
     relative tolerance ``eta``, as the JAX package's ``_device_ir_generic``
-    runs it; returns (d, iterations). One host read per iteration."""
+    runs it; returns (d, iterations). One host read per iteration. Over a
+    mesh (``A_lo`` sharded) every dot is all-reduced."""
+    mesh = mesh_of(A_lo)
     z = M(r32) if M is not None else r32
-    rz = torch.sum(r32 * z)
-    r2 = torch.sum(r32 * r32)
+    rz, r2 = all_sum(mesh, torch.sum(r32 * z), torch.sum(r32 * r32))
     ir0 = torch.sqrt(r2)
     x, r, k = torch.zeros_like(r32), r32, 0
     going = bool(r2 > 0)
     while going and k < inner_max_iter:
         Az = A_lo(z)
-        alpha = rz / torch.sum(Az * z)
+        alpha = rz / all_sum(mesh, torch.sum(Az * z))[0]
         x = x + alpha * z
         r = r - alpha * Az
-        r2 = torch.sum(r * r)
         w = M(r) if M is not None else r
-        rz_new = torch.sum(r * w)
+        r2, rz_new = all_sum(mesh, torch.sum(r * r), torch.sum(r * w))
         z = w + (rz_new / rz) * z
         rz = rz_new
         k += 1
@@ -344,13 +347,16 @@ def _outer_refine_loop(A_hi, stop: StopConfig, max_outer: int, b, u_true, inner_
         x = x + d32.to(b.dtype)
         return x, b - A_hi(x)
 
+    mesh = mesh_of(A_hi)
+
     def norms(r, d32, x):
-        r_max, prec, err, r2 = _norms(r, r if d32 is None else d32.to(b.dtype), x, u_true)
+        r_max, prec, err, r2 = _norms(r, r if d32 is None else d32.to(b.dtype), x, u_true,
+                                      mesh)
         return r_max, r2, prec, err
 
     x = torch.zeros_like(b) if x0 is None else x0.to(b.dtype)
     r = b if x0 is None else b - A_hi(x)
-    r0_norm = float(torch.sqrt(torch.sum(b * b)))
+    r0_norm = float(torch.sqrt(all_sum(mesh, torch.sum(b * b))[0]))
     return _outer_ladder(stop, max_outer, u_true is not None, float, r0_norm, x, r,
                          inner_solve, step, norms)
 
@@ -474,15 +480,16 @@ def _device_ir_generic(A_hi, A_lo, M, stop: StopConfig, inner_rel_tol: float,
     """:func:`_device_ir` with the plain PCG recurrence as the inner solve
     (:func:`_pcg_inner_solve` on ``A_lo`` and ``M``). The ff outer takes its
     residuals from ``A_lo`` (:func:`_outer_refine_loop_ff`)."""
+    mesh = mesh_of(A_lo)
     if ff:
         b32 = b.to(F32)
         r0_norm = torch.sqrt(torch.sum(b32 * b32))
     else:
-        r0_norm = torch.sqrt(torch.sum(b * b))
+        r0_norm = torch.sqrt(all_sum(mesh, torch.sum(b * b))[0])
 
     def inner_solve(r_hi):
         r32 = pair_value(r_hi) if ff else r_hi.to(F32)
-        eta = _traced_inner_eta(stop, inner_rel_tol, r32 if ff else r_hi, r0_norm)
+        eta = _traced_inner_eta(stop, inner_rel_tol, r32 if ff else r_hi, r0_norm, mesh)
         return _pcg_inner_solve(A_lo, M, eta, r32, inner_max_iter)
 
     if ff:
@@ -602,6 +609,8 @@ def device_refined_solve(
     :class:`StencilOperator`, on ``b``'s shape. The escalated f64 polish
     continues host-side if the f32 ladder leaves the criteria unmet."""
     stop = stop or StopConfig()
+    if ff and mesh_of(A_lo) is not None:
+        raise ValueError("the ff outer is single-device: over a mesh the outer is f64")
     t0 = time.perf_counter()
     x0 = _maybe_fmg_x0(preconditioner, fmg, b)
     x, stats = _device_ir_generic(A_hi, A_lo, preconditioner, stop, inner_rel_tol,

@@ -46,12 +46,14 @@ from iterative_solvers_tpu_torch.api import _attach_fmg
 from iterative_solvers_tpu_torch.interop import multigrid_from_state
 from iterative_solvers_tpu_torch.kernels.stencil3d_layout import Padded3DStencilOperator
 from iterative_solvers_tpu_torch.ops.stencil import StencilOperator
+from iterative_solvers_tpu_torch.parallel import make_solver_mesh
 from iterative_solvers_tpu_torch.solvers.cg import CGOptions, cg_solve
 from iterative_solvers_tpu_torch.solvers.multigrid import (
     MultigridPreconditioner,
     PaddedPreconditioner,
     _FusedLevel3D,
 )
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 REL = dict(eps_precision=-1, eps_residual=-1, eps_relative=1e-6, max_iterations=100000)
 BOXES = [dict(nx=16, ny=16, nz=16), dict(nx=16, ny=24, nz=8),
@@ -203,19 +205,20 @@ def test_dirichlet_solver_3d():
 
 
 def test_dirichlet_solver_3d_rejects_unported():
-    """What a 3D solve still refuses: the 2D-only fused engine, f64 on the
-    f32 kernels, the mesh (ROADMAP item 14), and an ff outer whose operator
-    is not on b's layout."""
+    """What a 3D solve still refuses: the 2D-only fused engine (with a mesh
+    too), f64 on the f32 kernels, the ff outer on a mesh, and an ff outer
+    whose operator is not on b's layout."""
     dom = Domain3D(8, 8, 8)
+    mesh = make_solver_mesh(1)
     with pytest.raises(ValueError):
         DirichletSolver(domain=dom, operator="fused", device="cpu")
     with pytest.raises(ValueError):
         DirichletSolver(domain=dom, operator="pallas", dtype=torch.float64, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DirichletSolver(domain=dom, operator="pallas", mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DirichletSolver(domain=dom, precision="mixed", preconditioner="jacobi", mesh=object(),
-                        device="cpu")
+    with pytest.raises(ValueError, match="2D-only"):
+        DirichletSolver(domain=dom, operator="fused", mesh=mesh, device="cpu")
+    with pytest.raises(ValueError, match="single-chip"):
+        DirichletSolver(domain=dom, precision="mixed", preconditioner="jacobi", outer="ff",
+                        mesh=mesh, device="cpu")
     lay = Padded3DStencilOperator.from_domain(Domain3D(16, 16, 16))
     b = torch.zeros(lay.padded_shape, dtype=torch.float64)
     with pytest.raises(ValueError):  # the plain operator is not on the padded layout

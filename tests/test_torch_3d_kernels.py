@@ -20,6 +20,7 @@ Tolerances:
 """
 
 import dataclasses
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -40,6 +41,7 @@ from iterative_solvers_tpu_torch.kernels import _build, resid_ff
 from iterative_solvers_tpu_torch.kernels.stencil3d_layout import Padded3DStencilOperator
 from iterative_solvers_tpu_torch.ops import ddf32
 from iterative_solvers_tpu_torch.solvers.multigrid import MultigridPreconditioner, _FusedLevel3D
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 EPS32 = float(np.finfo(np.float32).eps)
 # (nx, ny, nz): per-plane bodies, z-chunked ragged bodies, the unequal box
@@ -55,7 +57,10 @@ def _doms(dims):
     return JDomain3D(nx=nx, ny=ny, nz=nz), Domain3D(nx=nx, ny=ny, nz=nz)
 
 
+@functools.lru_cache(maxsize=None)
 def _levels(dims):
+    """Both hierarchies, built once per box: the tests that read them share
+    the JAX programs they compile."""
     jd, td = _doms(dims)
     Mj = JMG.from_domain(jd, fuse=True, fuse_min_extent=16, interpret=True)
     Mt = MultigridPreconditioner.from_domain(td, fuse=True, fuse_min_extent=16, device="cpu")

@@ -19,6 +19,8 @@ from iterative_solvers_tpu.ops.stencil import StencilOperator as JStencil
 import iterative_solvers_tpu_torch as port
 from iterative_solvers_tpu_torch.kernels.stencil_layout import PaddedStencilOperator
 from iterative_solvers_tpu_torch.ops.stencil import StencilOperator
+from iterative_solvers_tpu_torch.parallel import make_solver_mesh
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CASES = [("gamma", 64, 64), ("rect", 40, 24), ("gamma", 6, 6), ("rect", 33, 17)]
@@ -123,19 +125,22 @@ def test_cuda_without_card_raises(monkeypatch):
 @pytest.mark.parametrize(
     "kwargs",
     [
-        dict(operator="sparse"),
-        dict(operator="pallas", preconditioner="mg"),
-        dict(preconditioner="mg"),  # operator='stencil' with precision=None
-        dict(_MIXED, preconditioner="jacobi"),
-        dict(preconditioner=None),
+        dict(operator="fused"),
+        dict(operator="fused", preconditioner="mg"),
+        dict(_MIXED, operator="fused"),
+        dict(_MIXED, operator="pallas"),  # the mesh engine ladder: raises at solve
+        dict(_MIXED, operator="pallas", preconditioner="mg:2"),
     ],
 )
 def test_unported_options_raise(kwargs):
-    """The mesh is the one facade option still to port: with any other
-    options it raises naming its ROADMAP item (the native CSR engine is
-    the other, tests/test_torch_secondary.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 14"):
-        port.DirichletSolver(nx=16, ny=16, device="cpu", mesh=object(), **kwargs)
+    """The sharded fused engine is the one mesh route still to port:
+    ``operator='fused'`` with a mesh, and the mixed ladder on 'pallas' with
+    the multigrid and no callback, raise naming its ROADMAP item (the
+    native CSR engine is the other unported option,
+    tests/test_torch_secondary.py)."""
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 14c"):
+        port.DirichletSolver(nx=16, ny=16, device="cpu", mesh=make_solver_mesh(1),
+                             **kwargs).solve()
 
 
 def test_invalid_options_raise_value_error():

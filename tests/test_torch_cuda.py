@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain torch versions on the card,
 2D (A1–A8), their custom-mask instantiations (C1–C3, K1/K2/K2-pcg and A8
-with the int8 mask operand), 3D (S7, D3, U3, J3, R3) and the in-place and
-pipelined stencils (C4, C5), which must equal A1 bit for bit at scale 1.
+with the int8 mask operand), 3D (S7, D3, U3, J3, R3), the in-place and
+pipelined stencils (C4, C5), which must equal A1 bit for bit at scale 1,
+and the mesh block kernels (D1–D4), whose stitched blocks must equal the
+single-device kernels bit for bit; S7 equals its plain version bit for bit.
 
 Marked ``cuda``: they need an NVIDIA GPU and nvcc, and skip elsewhere (the
 card is looked for inside the fixture, never at import). Run them on a GPU
@@ -13,6 +15,8 @@ their terms' magnitudes. The double-f32 residual kernel runs every operation
 uncontracted in its plain version's order: its high word must be
 bit-equal, its low word within 32 · max|bh| · 2⁻⁴⁸."""
 
+import math
+
 import pytest
 import torch
 
@@ -21,9 +25,22 @@ from iterative_solvers_tpu_torch.core.domain import notched_disk
 from iterative_solvers_tpu_torch.kernels import _build, cg_fused, resid_ff
 from iterative_solvers_tpu_torch.kernels import stencil_pipelined as sp
 from iterative_solvers_tpu_torch.kernels.stencil3d_layout import Padded3DStencilOperator
+from iterative_solvers_tpu_torch.kernels.mg_fused import FusedLevelKernels
 from iterative_solvers_tpu_torch.kernels.stencil_layout import PaddedStencilOperator
+from iterative_solvers_tpu_torch.ops import stencil as stencil_ops
 from iterative_solvers_tpu_torch.ops.ddf32 import split_f64
+from iterative_solvers_tpu_torch.parallel import (
+    ShardedPallas3DStencilOperator,
+    ShardedPallasStencilOperator,
+    SolverMesh,
+)
+from iterative_solvers_tpu_torch.parallel.halo_pallas import (
+    block_stencil3d_plain,
+    block_stencil_plain,
+)
+from iterative_solvers_tpu_torch.parallel.mg_sharded import ShardedFusedMultigrid
 from iterative_solvers_tpu_torch.solvers.multigrid import MultigridPreconditioner
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 pytestmark = pytest.mark.cuda
 EPS32 = torch.finfo(torch.float32).eps
@@ -267,3 +284,92 @@ def test_inplace_pipelined_reject_bad_input(gen):
         sp.stencil_apply_inplace(xw, wide)
     with pytest.raises(ValueError, match="shared memory"):
         sp.stencil_apply_pipelined(xw, wide)
+
+
+def test_cuda_fma_pass_equals_exact_fma(gen):
+    """The plain 3D sum's fma on CUDA (one ``addcmul`` pass) equals the
+    exact emulation of the CPU path bit for bit, on terms spread over 24
+    binades and the stencil's coefficient scales."""
+    n = 1 << 22
+    b, c = (torch.randn(n, device="cuda", generator=gen)
+            * torch.exp2(torch.randint(-12, 12, (n,), device="cuda", generator=gen).float())
+            for _ in range(2))
+    for a in (1.0 / 3.0, -6.0 * 262144.0, 262144.0 * 1.000001):
+        assert torch.equal(stencil_ops._fma_f32_cuda(a, b, c), stencil_ops.fma_f32(a, b, c))
+
+
+@pytest.mark.parametrize("dims", BOXES)
+def test_stencil3d_bit_equal_to_plain(gen, dims):
+    """S7 writes the fmaf chain that the plain version computes (XLA's
+    order, ops/stencil.combine7): bit for bit, unmasked input."""
+    lay = Padded3DStencilOperator.from_domain(Domain3D(*dims))
+    x = torch.randn(lay.padded_shape, device="cuda", generator=gen)
+    assert torch.equal(lay(x), lay.apply_plain(x))
+
+
+def _virtual(shape):
+    """The ranks of a mesh shape, for a block partition run in one process."""
+    names = ("slice", "y", "x") if len(shape) == 3 else ("y", "x")
+    return [SolverMesh(names, shape, rank=r) for r in range(math.prod(shape))]
+
+
+def _stitch(meshes, parts):
+    rows = [[p for m, p in zip(meshes, parts) if m.coords[0] == ri]
+            for ri in range(meshes[0].rows)]
+    return torch.cat([torch.cat(r, dim=-1) for r in rows], dim=0)
+
+
+@pytest.mark.parametrize("mesh_shape", [(2, 2), (4, 2)])
+def test_mesh_block_kernels_match_single_device(gen, mesh_shape):
+    """D1, D3 and D4 on every block of a partition of the 1024² Г grid (D2:
+    a (2, 1, 2) split of 32³), each block's halos cut from the global field
+    as the ring exchange delivers them: each launch within tolerance of its
+    plain version, and the stitched blocks bit-equal to the single-device
+    kernels (A1, A5, A6, S7) at every node, edges included."""
+    dom = Domain2D(nx=1024, ny=1024)
+    meshes = _virtual(mesh_shape)
+    ops = [ShardedPallasStencilOperator.from_domain(dom, m) for m in meshes]
+    # a level is the same on every rank (each call takes its block's origin)
+    levs = [ShardedFusedMultigrid.from_operator(ops[0], dom, fuse_min_extent=33,
+                                                device="cuda").levels[0]] * len(ops)
+    (hp, wp), by = ops[0].padded_shape, ops[0].block_rows
+    x = torch.randn((hp, wp), device="cuda", generator=gen)
+    ec = torch.randn((hp // 2, wp), device="cuda", generator=gen)
+    _build.reset_counts()
+    outs = {"D1": [], "D3": [], "D4": []}
+    for op, lev in zip(ops, levs):
+        halos = op.halos_from_global(x, op.origin)
+        outs["D1"].append(op.apply_block(*halos))
+        _close(outs["D1"][-1], block_stencil_plain(*halos, op.block_spec(), op.coeffs))
+        dh = lev.down_halos_from_global(x, op.origin)
+        outs["D3"].append(lev.down_block(*dh, op.origin))
+        _close(outs["D3"][-1], lev.down_plain(*dh, op.origin))
+        uh = lev.up_halos_from_global(x, ec, op.origin)
+        o, part = lev.up_block(*uh, op.origin, with_dot=True)
+        o_ref, part_ref = lev.up_plain(*uh, op.origin, with_dot=True)
+        _close(o, o_ref)
+        assert abs(float(part) - float(part_ref)) <= 64 * EPS32 * float(
+            (uh[0] * o_ref).abs().sum())
+        outs["D4"].append(o)
+    lev = levs[0]
+    single = FusedLevelKernels(1024, 1024, lev.coeffs, lev.cs, "gamma", (hp, wp), by)
+    lay = PaddedStencilOperator(1024, 1024, ops[0].coeffs, (1025, 1025), (hp, wp), by, "gamma")
+    assert torch.equal(_stitch(meshes, outs["D1"]), lay(x))
+    assert torch.equal(_stitch(meshes, outs["D3"]), single.down(x))
+    assert torch.equal(_stitch(meshes, outs["D4"]), single.up(x, ec))
+    box = Domain3D(32, 32, 32)
+    meshes3 = _virtual((2, 1, 2))
+    ops3 = [ShardedPallas3DStencilOperator.from_domain(box, m) for m in meshes3]
+    x3 = torch.randn(ops3[0].padded_shape, device="cuda", generator=gen)
+    parts = []
+    for op in ops3:
+        halos = op.halos_from_global(x3, op.origin)
+        parts.append(op.apply_block(*halos))
+        _close(parts[-1], block_stencil3d_plain(*halos, op.block_spec(), op.coeffs))
+    s7 = Padded3DStencilOperator.from_domain(box)
+    d, h, w = s7.padded_shape
+    assert torch.equal(_stitch(meshes3, parts)[:d, :h, :w], s7(x3[:d, :h, :w].contiguous()))
+    n = len(meshes)
+    assert {k: v for k, v in _build.launches.items() if v} == {
+        "stencil_block": n, "k_down_block": n, "k_up_block": n, "stencil": 1, "k_down": 1,
+        "k_up": 1, "stencil3d_block": 4, "stencil3d": 1}

@@ -22,6 +22,8 @@ JAX custom kernels' contract. Tolerances:
   column exact; x within 1e-5 · max|x| (as tests/test_torch_ff_fmg.py).
 """
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -61,6 +63,7 @@ from iterative_solvers_tpu_torch.solvers.multigrid import (
     _coarsen_domain,
     _FusedLevel,
 )
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 EPS32 = float(np.finfo(np.float32).eps)
 REL = dict(eps_precision=-1, eps_residual=-1, eps_relative=1e-6, max_iterations=100000)
@@ -180,7 +183,9 @@ def test_custom_residual_ff_matches_jax(name):
     np.testing.assert_allclose(got_l.numpy(), want_l, rtol=0, atol=32 * scale * 2.0**-48)
 
 
+@functools.lru_cache(maxsize=None)
 def _jax_mg(jd, fuse_min_extent=16):
+    """Built once per domain: the tests that read it share its programs."""
     prob = JProblem.manufactured(jd)
     pop = PallasStencilOperator.from_domain(jd, interpret=True)
     M = JMG.from_domain(jd, fuse=True, fuse_min_extent=fuse_min_extent, interpret=True)

@@ -18,6 +18,8 @@ The JAX side runs its Pallas kernels in interpret mode. Tolerances:
   1e-6 · max|b|, ‖r‖₂ within 1e-6 · ‖b‖₂; x within 1e-5 · max|x|.
 """
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -47,6 +49,7 @@ from iterative_solvers_tpu_torch.solvers.multigrid import (
     PaddedPreconditioner,
 )
 from iterative_solvers_tpu_torch.solvers.refine import fused_refined_solve
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 REL = dict(eps_precision=-1, eps_residual=-1, eps_relative=1e-6, max_iterations=100000)
 
@@ -55,7 +58,9 @@ def _t(a):
     return torch.from_numpy(np.array(a))
 
 
+@functools.lru_cache(maxsize=None)
 def _jax_mg(shape, n, fuse_min_extent=16):
+    """Built once per domain: the tests that read it share its programs."""
     jd = JDomain2D(nx=n, ny=n, shape=shape)
     prob = JProblem.manufactured(jd)
     pop = PallasStencilOperator.from_domain(jd, interpret=True)

@@ -8,6 +8,8 @@ run in different orders, so element fields are held to a few f32 ulps of
 the field's max (1e-6 · max|ref|) and reductions to 1e-5 relative; V-cycle
 outputs chain ~10 f32 sweeps and a coarse solve, so 1e-5 · max|ref|."""
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -33,6 +35,7 @@ from iterative_solvers_tpu_torch.solvers.multigrid import (
     PaddedPreconditioner,
     _FusedLevel,
 )
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 # small ragged shapes: a gamma grid, and a rect grid whose height is not a
 # multiple of the block rows; block_rows=16 gives several bands (halo paths).
@@ -114,7 +117,10 @@ def test_k2_pcg_plain_matches_pallas(shape, nx, ny, with_u):
     np.testing.assert_array_equal(x_in.numpy(), x)  # inputs untouched
 
 
+@functools.lru_cache(maxsize=None)
 def _jax_mg(shape, nx, ny):
+    """The JAX hierarchy, built once per domain: the tests that read it
+    share its compiled kernel programs."""
     jd = _domains(shape, nx, ny)[0]
     return jd, JMG.from_domain(jd, fuse=True, fuse_min_extent=16, interpret=True)
 

@@ -35,6 +35,7 @@ from iterative_solvers_tpu_torch.core.domain import notched_disk
 from iterative_solvers_tpu_torch.kernels import stencil_pipelined as sp
 from iterative_solvers_tpu_torch.kernels.stencil_layout import PaddedStencilOperator
 from iterative_solvers_tpu_torch.ops.stencil import StencilOperator
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 EPS32 = float(np.finfo(np.float32).eps)
 CASES = [("gamma", 24, 8), ("rect", 20, 8), ("gamma", 64, 16)]

@@ -33,6 +33,7 @@ from iterative_solvers_tpu_torch.core.domain import notched_disk
 from iterative_solvers_tpu_torch.interop import cg_state_from_arrays
 from iterative_solvers_tpu_torch.kernels import cg_fused
 from iterative_solvers_tpu_torch.kernels.stencil_layout import PaddedStencilOperator
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 EPS32 = float(np.finfo(np.float32).eps)
 SHAPES = [("gamma", 64, 64), ("rect", 40, 50)]

@@ -22,6 +22,7 @@ Sizes: 2D at most 36², 3D at 8³. Tolerances:
   1e-6 · max|x| (as tests/test_torch_3d.py).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -46,13 +47,15 @@ from iterative_solvers_tpu_torch.core import ordering
 from iterative_solvers_tpu_torch.core.domain import notched_disk
 from iterative_solvers_tpu_torch.interop import sparse_operator_from_csr
 from iterative_solvers_tpu_torch.ops import sparse
-from iterative_solvers_tpu_torch.ops.stencil import StencilOperator
+from iterative_solvers_tpu_torch.ops.stencil import StencilOperator, fma_f32
+from iterative_solvers_tpu_torch.parallel import make_solver_mesh
 from iterative_solvers_tpu_torch.solvers import precond
 from iterative_solvers_tpu_torch.solvers.cg import CGOptions, cg_solve
 from iterative_solvers_tpu_torch.solvers.multigrid import (
     MultigridPreconditioner,
     _CoarseSolveChebyshev,
 )
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 REL9 = dict(eps_precision=-1, eps_residual=-1, eps_relative=1e-9)
 DOMAINS = {
@@ -136,12 +139,14 @@ def test_csr_assembly_and_spmv_match_jax(name):
 
 
 def test_unported_assembly_and_mesh_raise():
+    """The native CSR engine (item 15) and the mesh's sharded fused
+    engine (item 14c) raise naming their ROADMAP items."""
     with pytest.raises(NotImplementedError, match="item 15"):
         sparse.assemble_csr(Domain2D(nx=8, ny=8), backend="native")
     with pytest.raises(ValueError):
         sparse.assemble_csr(Domain2D(nx=8, ny=8), backend="bogus")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        DirichletSolver(nx=8, ny=8, mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 14c"):
+        DirichletSolver(nx=8, ny=8, operator="fused", mesh=make_solver_mesh(1), device="cpu")
 
 
 @pytest.mark.parametrize("name", ["gamma", "rect", "3d", "gamma_wide"])
@@ -338,3 +343,85 @@ def test_generic_mixed_ladder_matches_jax(pc, ladder):
     x = torch.from_numpy(res.solution_field(dom))
     rel = torch.linalg.norm(b - StencilOperator.from_domain(dom)(x)) / torch.linalg.norm(b)
     assert float(rel) < 1e-9
+
+
+def test_stencil_apply_3d_f32_order_matches_xla():
+    """The f32 7-point sum in XLA's order, ``fma(cz, sz, fma(cy, sy,
+    fma(cd, xm, cx·sx)))`` (ops/stencil.combine7): at 16³ and 24³ every
+    node equals the JAX package's. No one order reproduces XLA's CPU code
+    at every extent: its 8-wide vectorised loop body contracts the products
+    into FMAs and its remainder does not (at 8³ nothing contracts). So at
+    12³ (13 columns) every node of the first 8 columns equals JAX's and the
+    nodes that differ sit in the remainder columns 8-11; at 8³ they spread
+    over every column. There each node is held within eps32 · max|y| (one
+    rounding of the largest term). At 16³ and 24³ the remainder is the
+    boundary column, which the mask zeroes."""
+    eps = float(np.finfo(np.float32).eps)
+    for n in (8, 12, 16, 24):
+        jd, pd = JDomain3D(nx=n, ny=n, nz=n), Domain3D(nx=n, ny=n, nz=n)
+        x = np.random.default_rng(n).standard_normal(pd.grid_shape).astype(np.float32)
+        ref = np.asarray(JStencil.from_domain(jd)(jnp.asarray(x)))
+        got = StencilOperator.from_domain(pd)(torch.from_numpy(x)).numpy()
+        if n >= 16:
+            np.testing.assert_array_equal(got, ref)
+            continue
+        np.testing.assert_allclose(got, ref, rtol=0, atol=eps * np.abs(ref).max())
+        if n == 12:
+            body = (pd.grid_shape[-1] // 8) * 8
+            np.testing.assert_array_equal(got[..., :body], ref[..., :body])
+            assert (got[..., body:] != ref[..., body:]).any()
+
+
+def test_xla_f32_field_dot_is_a_sequential_fma_chain():
+    """Why the 3D ladders below keep a count tolerance even at 16³, where
+    the operator equals JAX's at every node: XLA's CPU code sums an f32
+    field's ``sum(a * b)`` (the CG's dots and norms) as one sequential
+    chain in row-major order, ``acc = fma(a_i, b_i, acc)``; torch sums
+    pairwise in vector lanes. So the two CGs' (r, z) differ in the last bit
+    from the first iteration on, and the inner counts may drift apart by a
+    few. Reproducing the chain would serialise every reduction."""
+    a, b = (np.random.default_rng(s).standard_normal((17, 17, 17)).astype(np.float32)
+            for s in (1, 2))
+    ref = np.float32(jax.jit(lambda u, v: jnp.sum(u * v))(jnp.asarray(a), jnp.asarray(b)))
+    acc = np.zeros(1, np.float32)
+    for u, v in zip(a.ravel(), b.ravel()):
+        acc = fma_f32(float(u), torch.tensor([v]), torch.from_numpy(acc)).numpy()
+    assert acc[0] == ref
+
+
+@pytest.mark.parametrize("n", [8, 12, 16])
+def test_3d_jacobi_mixed_ladder_matches_jax(n):
+    """The 3D mixed host ladder with Jacobi (f64 outer, f32 CG inners).
+    The JAX package takes 42, 68 and 92 inner iterations at 8³, 12³ and
+    16³. The f32 inner CG is the plain recurrence, whose count moves with
+    the last bits of its operator (at 8³ and 12³ XLA's rounding depends on
+    the node's place in its loop) and of its dots (XLA's are sequential fma
+    chains, the port's pairwise sums; see the two tests above), so the
+    inner count is held within 3 of JAX's (the port takes 45, 68, 91), the
+    outer count and the stop reason exactly, x within 1e-6 · max|x|
+    (ROADMAP Queue 3, open)."""
+    kw = dict(precision="mixed", preconditioner="jacobi", outer="f64")
+    ref = japi.DirichletSolver(domain=JDomain3D(nx=n, ny=n, nz=n), stop=JStop(**REL9),
+                               **kw).solve(callback=lambda *a: None)
+    res = DirichletSolver(domain=Domain3D(nx=n, ny=n, nz=n), stop=StopConfig(**REL9),
+                          device="cpu", **kw).solve(callback=lambda *a: None)
+    assert (int(res.stop_reason), res.converged) == (int(ref.stop_reason), ref.converged)
+    assert res.outer_iterations == len(ref.history) - 1
+    assert abs(res.iterations - ref.iterations) <= 3
+    _close(res.solution, ref.solution, 1e-6)
+
+
+def test_3d_ff_ladder_without_preconditioner_matches_jax():
+    """The 3D device ladder with the ff outer and no preconditioner at 8³:
+    JAX's total of 40 inner iterations over 3 outers, each outer's inner
+    count within one of JAX's split (17/16/7; the port takes 17/15/8, for
+    the reasons the Jacobi ladder's test states; ROADMAP Queue 3, open)."""
+    kw = dict(precision="mixed", outer="ff")
+    ref = japi.DirichletSolver(domain=JDomain3D(nx=8, ny=8, nz=8), stop=JStop(**REL9),
+                               **kw).solve()
+    res = DirichletSolver(domain=Domain3D(nx=8, ny=8, nz=8), stop=StopConfig(**REL9),
+                          device="cpu", **kw).solve()
+    assert (int(res.stop_reason), res.iterations) == (int(ref.stop_reason), ref.iterations)
+    split, jsplit = np.diff(np.asarray(res.history)[:, 0]), np.diff(np.asarray(ref.history)[:, 0])
+    assert len(split) == len(jsplit) and np.abs(split - jsplit).max() <= 1
+    _close(res.solution, ref.solution, 1e-6)

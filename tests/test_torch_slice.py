@@ -34,6 +34,7 @@ from iterative_solvers_tpu_torch.solvers.multigrid import (
     PaddedPreconditioner,
 )
 from iterative_solvers_tpu_torch.solvers.refine import fused_refined_solve
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 STOPS = {
     "rel1e-6": dict(eps_precision=-1, eps_residual=-1, eps_relative=1e-6, max_iterations=100000),
