@@ -22,7 +22,12 @@ final ``ok`` line:
    grid and D2 on a (2, 1, 2) split of 512³, each block with its halos cut
    from the global field, against its plain version, stitched against
    A1, A5, A6, S7 (bit-equal away from block edges, edges within f32
-   round-off), and timed on the 1x1 block;
+   round-off), and timed on the 1x1 block; the sharded fused engine's D5
+   and D6 (MSG and PCG, with and without u) on the same (4, 2) partition,
+   each against its plain version, the stitched side rows, x', r' and z_k
+   against K1, K2 and K2-pcg bit for bit at every node, the summed
+   partials within f32 round-off, each timed on the 1x1 block beside K1,
+   K2 and K2-pcg;
 4. solves, each main path run with the launch counts set to 0 just before
    it and read just after:
    - 64²: the cold f64-outer solve, the default solve (FMG warm start,
@@ -34,16 +39,22 @@ final ``ok`` line:
      residual < 1e-6, its kernels launched;
    - the mesh: the sharded fast path (``device_refined_solve`` with the
      f64 halo twin, D1 and the shard-fused V-cycle with its FMG) at 8192²
-     on a 1x1 mesh beside path A's counts; ``bench.py``'s ``shard`` ratio
-     (the fused V-cycle single-device vs shard-fused on 1x1); a (2, 2)
-     world of four ranks on the one card (``gloo``, halos through host
-     memory) at 2048²: the fast path and the facade's ``pallas`` + ``mg``
-     against the 1x1 mesh and the single-device solves;
+     on a 1x1 mesh beside path A's counts; the engine ladder (the facade's
+     ``pallas`` + ``mg`` + ``mixed`` with a mesh: ``engine_refined_solve``
+     on D5, D6-pcg and the shard-fused V-cycle) at 8192² on 1x1 against
+     path A's f64 outer; ``bench.py``'s ``shard`` ratio (the fused V-cycle
+     single-device vs shard-fused on 1x1); a (2, 2) world of four ranks on
+     the one card (``gloo``, halos through host memory) at 2048²: the fast
+     path, the facade's ``pallas`` + ``mg``, the engine ladder and the
+     ``fused`` MSG and PCG solves against the 1x1 mesh and the
+     single-device solves;
    - the cold f64-outer 8192² solve of the first slice, as before;
    - the ff-vs-f64 A/B of path A's refinement (10 interleaved pairs, and
      whether ff qualifies for ``outer='auto'``);
    - path B, plain f32 CG on the fused engine (``operator='fused'``), at
-     1024² to the relative criterion, and its ms per iteration at 8192²;
+     1024² to the relative criterion, and its ms per iteration at 8192²
+     beside the sharded fused engine's (D5 + D6) on a 1x1 mesh, whose
+     facade route runs at 1024² too ("mesh fused B");
    - the custom-mask domain (the notched disk): at 64² the default solve
      (ff and f64 outers) and path C-B (plain and with the multigrid), the
      card against the CPU; path C, the default solve at 8192²
@@ -142,6 +153,13 @@ KERNELS = {
                         "mesh 3D facade"),
     "k_down_block": (PKG + "mg_sharded.cu", PAR + "mg_sharded.py:203", 22, "mesh a"),
     "k_up_block": (PKG + "mg_sharded.cu", PAR + "mg_sharded.py:257", 26, "mesh a"),
+    # the sharded fused engine (D5, D6): launches from the engine ladder and
+    # the engine's MSG CG, each at full width on a 1x1 mesh
+    "k1_block": (PKG + "cg_fused_sharded.cu", PAR + "cg_fused_sharded.py:68", 14, "mesh engine"),
+    "k2_block": (PKG + "cg_fused_sharded.cu", PAR + "cg_fused_sharded.py:108", 16,
+                 "mesh fused B"),
+    "k2_pcg_block": (PKG + "cg_fused_sharded.cu", PAR + "cg_fused_sharded.py:108", 16,
+                     "mesh engine"),
 }
 PATH_KERNELS = {
     "A": ("k1", "k2_pcg", "k_down", "k_up", "k_jacobi", "k_resid_ff"),
@@ -171,6 +189,9 @@ PATH_KERNELS = {
     "mesh a": ("stencil_block", "k_down_block", "k_up_block"),
     "mesh facade": ("stencil_block", "k_down_block", "k_up_block"),
     "mesh 3D facade": ("stencil3d_block",),
+    "mesh engine": ("k1_block", "k2_pcg_block", "k_down_block", "k_up_block"),
+    "mesh fused B": ("k1_block", "k2_block"),
+    "mesh fused mg": ("k1_block", "k2_pcg_block", "k_down_block", "k_up_block"),
 }
 N3 = 512
 
@@ -725,25 +746,31 @@ def refine_ab(run, label, pairs=10):
     return med, traj, qualifies
 
 
-def plain_cg_ms_per_iter(dom, label):
+def plain_cg_ms_per_iter(dom, label, mesh=False):
     """Plain fused CG on ``dom`` with every criterion off: (t(105) − t(5)) /
-    100, each the median of 3 wall times of ``fused_cg_solve`` ending in a
-    sync."""
+    100, each the median of 3 wall times of ``fused_cg_solve`` (with
+    ``mesh``, ``sharded_fused_cg_solve`` on a 1x1 mesh) ending in a sync."""
     import torch
 
     from iterative_solvers_tpu_torch import PoissonProblem, StopConfig
     from iterative_solvers_tpu_torch.kernels.cg_fused import fused_cg_solve
     from iterative_solvers_tpu_torch.kernels.stencil_layout import PaddedStencilOperator
+    from iterative_solvers_tpu_torch.parallel import ShardedPallasStencilOperator, make_solver_mesh
+    from iterative_solvers_tpu_torch.parallel.cg_fused_sharded import sharded_fused_cg_solve
     from iterative_solvers_tpu_torch.solvers.cg import CGOptions
 
-    pop = PaddedStencilOperator.from_domain(dom)
+    if mesh:
+        pop = ShardedPallasStencilOperator.from_domain(dom, make_solver_mesh(1))
+        solve = sharded_fused_cg_solve
+    else:
+        pop, solve = PaddedStencilOperator.from_domain(dom), fused_cg_solve
     b = PoissonProblem.manufactured(dom).rhs_field(device="cuda")
     t = {}
     for n_it in (5, 105, 5, 105, 5, 105):
         opts = CGOptions(stop=StopConfig(eps_precision=-1, eps_residual=-1, max_iterations=n_it))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = fused_cg_solve(pop, b, options=opts)
+        res = solve(pop, b, options=opts)
         torch.cuda.synchronize()
         t.setdefault(n_it, []).append(time.perf_counter() - t0)
         assert res.iterations == n_it
@@ -1300,6 +1327,185 @@ def check_mesh_kernels(gen):
     return out
 
 
+def _check_engine_partition(n, shape, gen, check, dot_scale, beta, scal):
+    """D5 and D6 (MSG and PCG, each with and without u) on a virtual
+    ``shape`` partition of the n² Г grid: each block's halos cut from the
+    global fields as the engine's exchange delivers them, each launch
+    against its plain version (through ``check``), the stitched side rows,
+    x', r' and z_k against K1, K2 and K2-pcg on the whole canvas bit for
+    bit at every node (edges included), the summed partials within f32
+    round-off of the sum."""
+    import torch
+
+    from iterative_solvers_tpu_torch import Domain2D
+    from iterative_solvers_tpu_torch.kernels import cg_fused
+    from iterative_solvers_tpu_torch.kernels.stencil_layout import PaddedStencilOperator
+    from iterative_solvers_tpu_torch.parallel import ShardedPallasStencilOperator
+    from iterative_solvers_tpu_torch.parallel import cg_fused_sharded as S
+
+    dom = Domain2D(nx=n, ny=n)
+    meshes = _virtual(shape)
+    ops = [ShardedPallasStencilOperator.from_domain(dom, m) for m in meshes]
+    (hp, wp), by = ops[0].padded_shape, ops[0].block_rows
+    lay = PaddedStencilOperator(n, n, ops[0].coeffs, dom.grid_shape, (hp, wp), by, "gamma")
+    mask = lay.mask_spec.build("cuda")
+    x, r, z, w, u = (torch.where(mask, torch.randn((hp, wp), device="cuda", generator=gen), 0.0)
+                     for _ in range(5))
+    at = f"{n}^2 {shape}"
+
+    def cut(f, op):
+        (h, wd), (r0, c0) = op.block_shape, op.origin
+        return f[r0:r0 + h, c0:c0 + wd].contiguous()
+
+    for pcg in (False, True):
+        d = w if pcg else r
+        side_ref, *parts_ref = cg_fused.k1(d, z, beta, lay)
+        blocks = {"side": [], "rz": [], "azz": [], "zmax": []}
+        k2_name = "k2_pcg_block" if pcg else "k2_block"
+        k2_outs = {False: [], True: []}
+        for op in ops:
+            db, zb, up, dn, left, right = S.halos_from_global(op, d, z)
+            got = S.k1_block(db, zb, beta, up, dn, left, right, op)
+            ref = S.k1_block_plain(db, zb, beta, up, dn, left, right, op)
+            check(f"k1_block @ {at}", got, ref, ("field", "sum", "sum", "max"),
+                  dot_scale(db, zb, beta))
+            for key, t in zip(blocks, got):
+                blocks[key].append(t)
+            side = got[0]
+            for with_u in (False, True):
+                ub = cut(u, op) if with_u else None
+                xb, rb, zpb = cut(x, op), cut(r, op), cut(z, op)
+                if pcg:
+                    wb_ = cut(w, op)
+                    got2 = S.k2_pcg_block(xb, rb, zpb, wb_, side, left, right, scal, op, ub)
+                    ref2 = S.k2_pcg_block_plain(xb, rb, zpb, wb_, side, left, right, scal, op, ub)
+                else:
+                    got2 = S.k2_block(xb, rb, zpb, side, left, right, scal, op, ub)
+                    ref2 = S.k2_block_plain(xb, rb, zpb, side, left, right, scal, op, ub)
+                kinds = ("field", "field", "field", "sum", "max") + (("max",) if with_u else ())
+                check(f"{k2_name}{'+u' if with_u else ''} @ {at}", got2, ref2, kinds)
+                k2_outs[with_u].append(got2)
+            del db, zb, up, dn, left, right, got
+        # stitched against the single-device kernels on the whole canvas
+        side_st = _stitch(meshes, blocks["side"])
+        if not torch.equal(side_st, side_ref):
+            raise AssertionError(f"stitched D5 side rows differ from K1 @ {at} (pcg={pcg})")
+        for key, ref_p, kind in zip(("rz", "azz", "zmax"), parts_ref, ("sum", "sum", "max")):
+            got_p = torch.stack([p.double().sum() if kind == "sum" else p.double().max()
+                                 for p in blocks[key]])
+            compare(f"stitched D5 {key} vs K1 @ {at}", (got_p,), (ref_p,), (kind,),
+                    {0: dot_scale(d, z, beta)[1]} if key == "rz" else None)
+        single = (lambda uu: cg_fused.k2_pcg(x, r, z, w, side_ref, scal, lay, u=uu)) if pcg else (
+            lambda uu: cg_fused.k2(x, r, z, side_ref, scal, lay, u=uu))
+        for with_u in (False, True):
+            ref_all = single(u if with_u else None)
+            for i, what in enumerate(("x'", "r'", "z_k")):
+                st = _stitch(meshes, [o[i] for o in k2_outs[with_u]])
+                if not torch.equal(st, ref_all[i]):
+                    n_diff = int((st != ref_all[i]).sum())
+                    raise AssertionError(f"stitched {k2_name} {what} differs from the "
+                                         f"single-device kernel at {n_diff} nodes @ {at} "
+                                         f"(u={with_u})")
+            for i, kind in ((3, "sum"), (4, "max")) + (((5, "max"),) if with_u else ()):
+                red = [o[i].double().sum() if kind == "sum" else o[i].double().max()
+                       for o in k2_outs[with_u]]
+                got_p = torch.stack(red)
+                compare(f"stitched {k2_name} partial {i} @ {at}", (got_p,), (ref_all[i],),
+                        (kind,),
+                        {0: float((ref_all[1].double() ** 2).sum())} if kind == "sum" else None)
+            del ref_all
+        log(f"stitched D5 + {'D6-pcg' if pcg else 'D6'} vs K1 + {'K2-pcg' if pcg else 'K2'} @ "
+            f"{at}: side rows, x', r', z_k bit-equal at every node (with and without u); "
+            f"summed partials within f32 round-off")
+        del blocks, k2_outs, side_ref, parts_ref
+        torch.cuda.empty_cache()
+    del x, r, z, w, u
+    torch.cuda.empty_cache()
+
+
+def check_engine_kernels(gen):
+    """D5 and D6 against their plain versions and, stitched, against K1, K2
+    and K2-pcg (``_check_engine_partition``) on the (4, 2) partition of
+    8192², the 1x1 block of 1024² (the layout of path "mesh fused B"'s live
+    run) and the (2, 2) partition of 2048² (the 4-rank world's). Then each
+    against its plain version on the 1x1 block of 8192² (path "mesh
+    engine"'s layout, which is K1's and K2's there), and timed there beside
+    K1, K2 and K2-pcg. Returns {name: stats}."""
+    import torch
+
+    from iterative_solvers_tpu_torch import Domain2D
+    from iterative_solvers_tpu_torch.kernels import cg_fused
+    from iterative_solvers_tpu_torch.kernels.stencil_layout import PaddedStencilOperator
+    from iterative_solvers_tpu_torch.parallel import ShardedPallasStencilOperator, make_solver_mesh
+    from iterative_solvers_tpu_torch.parallel import cg_fused_sharded as S
+
+    names = ("k1_block", "k2_block", "k2_pcg_block")
+    worst = dict.fromkeys(names, 0.0)
+
+    def check(name, got, ref, kinds, scales=None):
+        torch.cuda.synchronize()
+        err, tol = compare(name, got, ref, kinds, scales)
+        key = name.split(" ")[0].removesuffix("+u")
+        worst[key] = max(worst[key], err)
+        return err, tol
+
+    def dot_scale(d, z, beta):
+        return {1: float((d * (d + beta * z)).abs().double().sum())}
+
+    beta = torch.tensor(0.37, device="cuda")
+    scal = torch.tensor([-1.3e-4, 0.37], device="cuda")
+    for n, shape in ((N, (4, 2)), (1024, (1, 1)), (MESH_N, (2, 2))):
+        _check_engine_partition(n, shape, gen, check, dot_scale, beta, scal)
+
+    # timings on the 1x1 block (the whole canvas, self-halos) beside K1 / K2
+    dom = Domain2D(nx=N, ny=N)
+    op1 = ShardedPallasStencilOperator.from_domain(dom, make_solver_mesh(1))
+    lay1 = PaddedStencilOperator.from_domain(dom)
+    if (lay1.padded_shape, lay1.block_rows) != (op1.padded_shape, op1.block_rows):
+        raise AssertionError(f"8192^2: 1x1 block layout {op1.padded_shape}/{op1.block_rows} "
+                             f"!= single-device {lay1.padded_shape}/{lay1.block_rows}")
+    mask = lay1.mask_spec.build("cuda")
+    x, r, z, w, u = (torch.where(mask, torch.randn(lay1.padded_shape, device="cuda",
+                                                   generator=gen), 0.0) for _ in range(5))
+    hr = S.halos_from_global(op1, r, z)
+    hw = S.halos_from_global(op1, w, z)
+    side_r = S.k1_block(*hr[:2], beta, *hr[2:], op1)[0]
+    side_w = S.k1_block(*hw[:2], beta, *hw[2:], op1)[0]
+    single_side_r = cg_fused.k1(r, z, beta, lay1)[0]
+    single_side_w = cg_fused.k1(w, z, beta, lay1)[0]
+    nodes = op1.padded_shape[0] * op1.padded_shape[1]
+    cases = {
+        "k1_block": (lambda: S.k1_block(*hr[:2], beta, *hr[2:], op1),
+                     lambda: S.k1_block_plain(*hr[:2], beta, *hr[2:], op1),
+                     ("field", "sum", "sum", "max"), hr, dot_scale(r, z, beta),
+                     "k1", lambda: cg_fused.k1(r, z, beta, lay1)),
+        "k2_block": (lambda: S.k2_block(x, r, z, side_r, *hr[4:], scal, op1),
+                     lambda: S.k2_block_plain(x, r, z, side_r, *hr[4:], scal, op1),
+                     ("field", "field", "field", "sum", "max"), (x, r, z, side_r) + hr[4:], None,
+                     "k2", lambda: cg_fused.k2(x, r, z, single_side_r, scal, lay1)),
+        "k2_pcg_block": (lambda: S.k2_pcg_block(x, r, z, w, side_w, *hw[4:], scal, op1),
+                         lambda: S.k2_pcg_block_plain(x, r, z, w, side_w, *hw[4:], scal, op1),
+                         ("field", "field", "field", "sum", "max"),
+                         (x, r, z, w, side_w) + hw[4:], None,
+                         "k2_pcg", lambda: cg_fused.k2_pcg(x, r, z, w, single_side_w, scal, lay1)),
+    }
+    out = {}
+    for name, (kern, plain, kinds, ins, sc, single_name, single) in cases.items():
+        got, ref = kern(), plain()
+        err, tol = check(f"{name} @ 8192^2 1x1", got, ref, kinds, sc)
+        rec = {"max_abs_err": worst[name], "bytes": nbytes(ins) + nbytes(got), "nodes": nodes,
+               "library_ms": None, "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain, reps=5),
+               "single_ms": cuda_ms(single)}
+        log(f"kernel {name:17s} @ 8192^2 1x1: max_abs_err {err:.3e} tol {tol:.3e}  kernel "
+            f"{rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f} ms  ({single_name} in this call "
+            f"{rec['single_ms']:.4f} ms)")
+        out[name] = rec
+        del got, ref
+    del x, r, z, w, u, hr, hw
+    torch.cuda.empty_cache()
+    return out
+
+
 def _fast_path_parts(n, mesh, device="cuda"):
     """The sharded fast path's parts at n² on ``mesh``: the D1 operator, the
     shard-fused V-cycle with its FMG payload, the f64 halo twin, this
@@ -1368,7 +1574,72 @@ def sharded_fast_path(path_a):
         f"inner {path_a[1]})")
     if not (res.converged and rel < 1e-6):
         raise AssertionError(f"mesh a failed: converged={res.converged} rel={rel:.3e}")
+    counts = (int(res.reason), res.outer_iterations, res.iterations)
     del pop, M, A_hi, b, res
+    torch.cuda.empty_cache()
+    return launches, counts
+
+
+def mesh_engine_path(path_a_f64, fast_path):
+    """Path "mesh engine": path A's problem at 8192² through the facade on a
+    1x1 mesh, ``operator="pallas"`` + ``"mg"`` + ``"mixed"`` with no
+    callback: ``engine_refined_solve`` on the sharded fused engine (D5,
+    D6-pcg) and the shard-fused V-cycle (D3, D4) with its FMG warm start,
+    f64 outer, to true rel < 1e-6. The 1x1 block layout is path A's
+    (8256 x 8320, 64-row bands), so its counts are held against path A's
+    f64 outer and logged beside the sharded fast path's."""
+    import torch
+
+    from iterative_solvers_tpu_torch import DirichletSolver
+    from iterative_solvers_tpu_torch.parallel import make_solver_mesh
+
+    solver = DirichletSolver(nx=N, ny=N, operator="pallas", preconditioner="mg",
+                             precision="mixed", mesh=make_solver_mesh(1), device="cuda",
+                             stop=stop_rel6())
+    res, wall, launches = timed_solve(solver, "mesh engine")
+    rel = true_rel(solver, res)
+    counts = (int(res.stop_reason), res.outer_iterations, res.iterations)
+    log(f"mesh engine {N}^2 1x1 (pallas, mg, mixed; engine ladder): converged {res.converged} "
+        f"reason {res.stop_reason.name} outer {res.outer_iterations} inner {res.iterations} "
+        f"true_rel {rel:.3e} refine {res.elapsed_s:.4f} s wall {wall:.3f} s; (reason, outer, "
+        f"inner) {counts} vs path A f64 outer {path_a_f64}, sharded fast path {fast_path}")
+    if not (res.converged and res.stop_reason.name == "RELATIVE_RESIDUAL" and rel < 1e-6):
+        raise AssertionError(f"mesh engine failed: converged={res.converged} rel={rel:.3e}")
+    if counts[:2] != tuple(path_a_f64)[:2]:
+        raise AssertionError(f"mesh engine: (reason, outer) {counts[:2]} differ from path A's "
+                             f"f64 outer {tuple(path_a_f64)[:2]}")
+    _count_gap("mesh engine: inners vs path A's f64 outer", counts[2], path_a_f64[2],
+               "path A preconditions with the single-device fused V-cycle, the engine with "
+               "the shard-fused V-cycle (D3, D4), whose f32 values may differ in the last bit")
+    del solver, res
+    torch.cuda.empty_cache()
+    return launches
+
+
+def mesh_fused_b(path_b_iterations, nb=1024):
+    """Path "mesh fused B": ``operator="fused"`` with a 1x1 mesh, the sharded
+    fused engine's MSG CG (D5, D6): its ms/iteration at 8192² beside K1 +
+    K2's, and a live run at nb² to rel 1e-6 beside path B's count."""
+    import torch
+
+    from iterative_solvers_tpu_torch import DirichletSolver, Domain2D
+    from iterative_solvers_tpu_torch.parallel import make_solver_mesh
+
+    dom = Domain2D(nx=N, ny=N)
+    single, sharded = (plain_cg_ms_per_iter(dom, f"{N}^2 K1 + K2"),
+                       plain_cg_ms_per_iter(dom, f"{N}^2 D5 + D6 (1x1 mesh)", mesh=True))
+    log(f"mesh fused B {N}^2: D5 + D6 {sharded:.4f} ms/iteration vs K1 + K2 {single:.4f} in "
+        f"this call (ratio {sharded / single:.3f})")
+    solver = DirichletSolver(nx=nb, ny=nb, operator="fused", mesh=make_solver_mesh(1),
+                             device="cuda", stop=stop_rel6())
+    res, wall, launches = timed_solve(solver, "mesh fused B", warm=False)
+    rel = true_rel(solver, res)
+    log(f"mesh fused B {nb}^2 1x1 plain CG: converged {res.converged} reason "
+        f"{res.stop_reason.name} iterations {res.iterations} (path B {path_b_iterations}) "
+        f"true_rel {rel:.3e} solve {res.elapsed_s:.4f} s wall {wall:.3f} s")
+    if not (res.converged and res.stop_reason.name == "RELATIVE_RESIDUAL" and rel < 1e-3):
+        raise AssertionError(f"mesh fused B failed: converged={res.converged} rel={rel:.3e}")
+    del solver, res
     torch.cuda.empty_cache()
     return launches
 
@@ -1399,10 +1670,28 @@ def vcycle_ratio():
     torch.cuda.empty_cache()
 
 
+def _engine_runs():
+    """The facade's engine routes run in the 4-rank world and on the 1x1
+    mesh: the engine ladder, and the sharded fused engine's MSG CG (to rel
+    1e-2: plain CG at 2048² to 1e-6 would take thousands of iterations, each
+    with host-staged collectives) and PCG; path -> DirichletSolver kwargs."""
+    from iterative_solvers_tpu_torch import StopConfig
+
+    return {
+        "mesh engine": dict(operator="pallas", preconditioner="mg", precision="mixed",
+                            stop=stop_rel6()),
+        "mesh fused B": dict(operator="fused", stop=StopConfig(
+            eps_precision=-1, eps_residual=-1, eps_relative=1e-2, max_iterations=5000)),
+        "mesh fused mg": dict(operator="fused", preconditioner="mg", stop=StopConfig(
+            eps_precision=-1, eps_residual=1e-3, max_iterations=200)),
+    }
+
+
 def _mesh_rank(rank, n):
-    """One rank of the 4-rank world on the one card: the sharded fast path
-    and the facade's 'pallas' + 'mg' at n² on a (2, 2) mesh, each with the
-    launch counts set to 0 just before it and read just after."""
+    """One rank of the 4-rank world on the one card: the sharded fast path,
+    the facade's 'pallas' + 'mg' and its engine routes (``_engine_runs``)
+    at n² on a (2, 2) mesh, each with the launch counts set to 0 just
+    before it and read just after."""
     import torch
     import torch.distributed as dist
 
@@ -1436,6 +1725,18 @@ def _mesh_rank(rank, n):
                                                               "mesh facade": facade_counts}}
     if rank == 0:
         out["x"], out["solution"] = x, r.solution
+    out["engine"] = {}
+    for path, kw in _engine_runs().items():
+        s = DirichletSolver(nx=n, ny=n, mesh=mesh, device="cuda", **kw)
+        dist.barrier()
+        _build.reset_counts()
+        t0 = time.perf_counter()
+        r = s.solve(record_history=False)
+        out["engine"][path] = dict(
+            counts=(int(r.stop_reason), r.outer_iterations, r.iterations),
+            t=time.perf_counter() - t0,
+            launches=(dict(_build.launches), dict(_build.plain_on_cuda)),
+            solution=r.solution if rank == 0 else None)
     return out
 
 
@@ -1445,8 +1746,8 @@ def _count_gap(what, got, want, why):
     if got == want:
         return
     if abs(got - want) > 1:
-        raise AssertionError(f"4 ranks: {what} {got} vs {want}")
-    log(f"mesh 4 ranks: {what} {got} vs {want}, within the 1 allowed: {why}")
+        raise AssertionError(f"{what} {got} vs {want}")
+    log(f"{what} {got} vs {want}, within the 1 allowed: {why}")
 
 
 def four_ranks_one_card(n=MESH_N):
@@ -1502,12 +1803,36 @@ def four_ranks_one_card(n=MESH_N):
                              f"(fast path {r0['fast']} vs {one_t})")
     why = ("each dot's block partials are all-reduced over 4 ranks, so its f32 sum "
            "rounds in another order than on one block")
-    _count_gap("fast path inners vs 1x1", r0["fast"][2], one_t[2], why)
-    _count_gap("facade iterations vs 1x1", r0["facade"][1], f1.iterations, why)
-    _count_gap("facade iterations vs single-device", r0["facade"][1], fs.iterations,
+    _count_gap("mesh 4 ranks: fast path inners vs 1x1", r0["fast"][2], one_t[2], why)
+    _count_gap("mesh 4 ranks: facade iterations vs 1x1", r0["facade"][1], f1.iterations, why)
+    _count_gap("mesh 4 ranks: facade iterations vs single-device", r0["facade"][1],
+               fs.iterations,
                why + "; the single-device solve takes one dot over the whole field")
     if not (gap < 1e-5 and gap_s < 1e-5 and gap_f < 1e-4):
         raise AssertionError(f"4 ranks: solutions differ (gaps {gap:.2e} {gap_s:.2e} {gap_f:.2e})")
+    for path, kw in _engine_runs().items():
+        got = r0["engine"][path]
+        ref = DirichletSolver(nx=n, ny=n, mesh=make_solver_mesh(1), device="cuda",
+                              **kw).solve(record_history=False)
+        ref_c = (int(ref.stop_reason), ref.outer_iterations, ref.iterations)
+        gap_e = float(np.abs(got["solution"] - ref.solution).max() / np.abs(ref.solution).max())
+        counts, plain = got["launches"]
+        log(f"mesh 4 ranks {path} {n}^2 (2,2): (reason, outer, inner) {got['counts']} in "
+            f"{got['t']:.3f} s vs 1x1 {ref_c}, solution gap to 1x1 {gap_e:.2e}; launches "
+            f"(rank 0) {counts} plain_on_cuda {plain}")
+        if any(rk["engine"][path]["counts"] != got["counts"] for rk in ranks):
+            raise AssertionError(f"4 ranks {path}: the ranks disagree")
+        missing = [k for k in PATH_KERNELS[path] if counts.get(k, 0) <= 0]
+        if missing or plain:
+            raise AssertionError(f"4 ranks {path}: kernels not launched {missing}; "
+                                 f"plain on CUDA {plain}")
+        launches[f"{path} 4 ranks"] = counts
+        if got["counts"][:2] != ref_c[:2]:
+            raise AssertionError(f"4 ranks {path}: stop reason or outer count differ from the "
+                                 f"1x1 mesh ({got['counts']} vs {ref_c})")
+        _count_gap(f"mesh 4 ranks: {path} inners vs 1x1", got["counts"][2], ref_c[2], why)
+        if not gap_e < 1e-5:
+            raise AssertionError(f"4 ranks {path}: solution differs from 1x1 by {gap_e:.2e}")
     del pop, M, A_hi, b, one
     torch.cuda.empty_cache()
     return launches
@@ -1599,6 +1924,9 @@ def main() -> int:
     # the mesh block kernels D1–D4: virtual partitions, stitched, timed
     stats.update(check_mesh_kernels(gen))
     torch.cuda.empty_cache()
+    # the sharded fused engine's kernels D5, D6: the same, against K1 / K2
+    stats.update(check_engine_kernels(gen))
+    torch.cuda.empty_cache()
     # C4 and C5: the gamma 64² (16-row panels) and 1024² layouts, the nnz
     # chain's 8192² layout (256-row panels), the custom 64² and 8192² ones
     check_pipelined(Domain2D(nx=64, ny=64), gen, "gamma 64^2", timed=False, block_rows=16)
@@ -1628,14 +1956,16 @@ def main() -> int:
     path_a = (res.outer_iterations, res.iterations)
     pop, Mp = solver._parts
     b, u = solver.problem.rhs_field(device="cuda"), solver.problem.true_solution_field(device="cuda")
-    refine_ab(lambda ff: fused_refined_solve(pop, Mp, b, u_true=u, stop=rel6, fmg=1, ff=ff),
-              f"{N}^2 path A")
+    _, traj_a, _ = refine_ab(
+        lambda ff: fused_refined_solve(pop, Mp, b, u_true=u, stop=rel6, fmg=1, ff=ff),
+        f"{N}^2 path A")
     del pop, Mp, b, u
     del solver, res
     torch.cuda.empty_cache()
     # the mesh: the sharded fast path on a 1x1 mesh, the per-chip V-cycle
     # ratio, four ranks on the one card
-    launches["mesh a"] = sharded_fast_path(path_a)
+    launches["mesh a"], fast_path = sharded_fast_path(path_a)
+    launches["mesh engine"] = mesh_engine_path(traj_a["f64"], fast_path)
     vcycle_ratio()
     launches.update(four_ranks_one_card())
     # the first slice's cold f64-outer solve, unchanged
@@ -1660,9 +1990,10 @@ def main() -> int:
         f"wall {wall:.3f} s")
     if not (res.converged and res.stop_reason.name == "RELATIVE_RESIDUAL" and rel < 1e-3):
         raise AssertionError(f"path B failed: converged={res.converged} rel={rel:.3e}")
+    res_b_iterations = res.iterations
     del solver, res
     torch.cuda.empty_cache()
-    plain_cg_ms_per_iter(Domain2D(nx=N, ny=N), f"{N}^2")
+    launches["mesh fused B"] = mesh_fused_b(res_b_iterations)
     torch.cuda.empty_cache()
     # the custom-mask domain: paths C and C-B
     launches.update(custom_paths(disk))

@@ -42,21 +42,26 @@ one to the other.
 With a mesh (``mesh=``, a :class:`~iterative_solvers_tpu_torch.parallel.
 mesh.SolverMesh` over the ranks of a ``torch.distributed`` group; every
 rank constructs the same solver and calls ``solve``) each rank holds one
-block of every field, on the routes the JAX facade takes without its
-sharded fused engine:
+block of every field, on the JAX facade's mesh routes:
 
 - ``precision=None``: CG on ``operator="stencil"`` (the halo stencil,
   any domain, f64 by default) or ``"pallas"`` (the block kernels: D1 on a
   Г/rect domain, D2 on the box; f32), with no preconditioner, Jacobi,
   Chebyshev or ``"mg"`` — on ``"pallas"`` in 2D the shard-fused V-cycle
-  (D3, D4), otherwise the plain V-cycle on the gathered field;
+  (D3, D4), otherwise the plain V-cycle on the gathered field; and
+  ``operator="fused"`` (2D), the sharded fused engine (D5, D6:
+  :class:`~iterative_solvers_tpu_torch.parallel.cg_fused_sharded.
+  ShardedFusedCGEngine`, driven as ``sharded_fused_cg_solve`` drives it
+  but with x kept as this rank's block), plain or with the shard-fused
+  V-cycle;
 - ``precision="mixed"``: the f64 outer (``outer="ff"`` is rejected with a
-  mesh, as in JAX) through the halo stencil, around the f32 PCG on the
-  mesh operator: ``device_refined_solve``, or with a ``callback`` the host
-  ladder ``refined_solve``. ``operator="pallas"`` with ``"mg"`` in 2D and
-  no callback is the JAX facade's sharded-engine ladder, and
-  ``operator="fused"`` with a mesh its sharded engine: both raise
-  NotImplementedError (ROADMAP Queue 1 item 14c).
+  mesh, as in JAX) through the halo stencil, around f32 inners on the mesh
+  operator. ``operator="pallas"`` or ``"fused"`` with ``"mg"`` in 2D is
+  the engine ladder, :func:`~iterative_solvers_tpu_torch.solvers.refine.
+  engine_refined_solve` on the sharded fused engine and the shard-fused
+  V-cycle with its FMG warm start; the other routes run
+  ``device_refined_solve``. With a ``callback``, any route runs the host
+  ladder ``refined_solve``.
 
 The results are gathered: every rank returns the whole solution.
 """
@@ -74,12 +79,13 @@ import torch
 from iterative_solvers_tpu_torch.core import ordering
 from iterative_solvers_tpu_torch.core.domain import Domain2D, Domain3D, resolve_device
 from iterative_solvers_tpu_torch.core.problem import PoissonProblem
-from iterative_solvers_tpu_torch.kernels.cg_fused import fused_cg_solve
+from iterative_solvers_tpu_torch.kernels.cg_fused import fused_cg_solve, run_fused_solve
 from iterative_solvers_tpu_torch.kernels.stencil3d_layout import Padded3DStencilOperator
 from iterative_solvers_tpu_torch.kernels.stencil_layout import PaddedStencilOperator
 from iterative_solvers_tpu_torch.ops.sparse import SparseOperator
 from iterative_solvers_tpu_torch.ops.stencil import StencilOperator
 from iterative_solvers_tpu_torch.parallel import mesh as mesh_lib
+from iterative_solvers_tpu_torch.parallel.cg_fused_sharded import ShardedFusedCGEngine
 from iterative_solvers_tpu_torch.parallel.halo import ShardedStencilOperator
 from iterative_solvers_tpu_torch.parallel.halo_pallas import (
     ShardedPallas3DStencilOperator,
@@ -100,6 +106,7 @@ from iterative_solvers_tpu_torch.solvers.refine import (
     _maybe_fmg_x0,
     _padded_hi_operator,
     device_refined_solve,
+    engine_refined_solve,
     fused_refined_solve,
     refined_solve,
 )
@@ -157,10 +164,6 @@ def _attach_fmg(M, problem):
     if isinstance(M, ShardedFusedMultigrid):
         return M.with_fmg(problem)
     return M
-
-
-_ENGINE_14C = ("the sharded fused CG engine ({what}) is not ported yet "
-               "(ROADMAP Queue 1 item 14c)")
 
 
 class DirichletSolver:
@@ -290,8 +293,6 @@ class DirichletSolver:
                     f"operator={operator!r} with a mesh needs a gamma/rect domain (algebraic "
                     "masks); use operator='stencil' for custom masks"
                 )
-            if operator == "fused":
-                raise NotImplementedError(_ENGINE_14C.format(what="operator='fused' with a mesh"))
         if not (isinstance(self.fmg_cycles, int) and self.fmg_cycles >= 0):
             raise ValueError(f"fmg_cycles must be an int >= 0, got {self.fmg_cycles!r}")
         if self.dtype not in (None, torch.float32, torch.float64):
@@ -365,7 +366,7 @@ class DirichletSolver:
         them: the shard-fused V-cycle behind ``operator="pallas"`` in 2D,
         the plain V-cycle on the gathered field otherwise."""
         dom, mesh = self.domain, self.mesh
-        if self.operator_kind == "pallas":
+        if self.operator_kind in ("pallas", "fused"):
             layout = ShardedPallas3DStencilOperator if self.is3d else ShardedPallasStencilOperator
             A = layout.from_domain(dom, mesh)
         else:
@@ -375,7 +376,7 @@ class DirichletSolver:
             kind, param = parse_preconditioner(self.preconditioner)
             if kind != "mg":
                 M = make_preconditioner(self.preconditioner, A, dom, device=self.device)
-            elif self.operator_kind == "pallas" and not self.is3d:
+            elif self.operator_kind in ("pallas", "fused") and not self.is3d:
                 M = ShardedFusedMultigrid.from_operator(A, dom, nu_pre=param or 1,
                                                         nu_post=param or 1, device=self.device)
             else:
@@ -417,11 +418,11 @@ class DirichletSolver:
                 res = refined_solve(A_hi, A, bs, u_true=us, stop=self.stop, preconditioner=M,
                                     callback=callback, stop_requested=self._stop_event.is_set,
                                     x0=_maybe_fmg_x0(M, self.fmg_cycles, bs))
+            elif isinstance(M, ShardedFusedMultigrid):
+                # the engine ladder: the sharded fused engine (D5, D6) inside
+                res = engine_refined_solve(ShardedFusedCGEngine(A, M), A_hi, bs, u_true=us,
+                                           stop=self.stop, fmg=self.fmg_cycles)
             else:
-                if isinstance(M, ShardedFusedMultigrid):
-                    raise NotImplementedError(_ENGINE_14C.format(
-                        what="precision='mixed', operator='pallas', preconditioner='mg' with a "
-                             "mesh and no callback"))
                 res = device_refined_solve(A_hi, A, bs, preconditioner=M, u_true=us,
                                            stop=self.stop, fmg=self.fmg_cycles)
             r = bs - A_hi(res.x)
@@ -429,8 +430,14 @@ class DirichletSolver:
             dtype = self.field_dtype
             b = self.problem.rhs_field(dtype, dev)
             u = self.problem.true_solution_field(dtype, dev) if has_u else None
+            opts = CGOptions(preconditioner=M, **opts_kw)
             bs, us = shard(b), (shard(u) if has_u else None)
-            res = cg_solve(A, bs, u_true=us, options=CGOptions(preconditioner=M, **opts_kw))
+            if self.operator_kind == "fused":
+                # the sharded fused engine (D5, D6); x stays this rank's block
+                res = run_fused_solve(ShardedFusedCGEngine(A, M), b, u, opts, lay=A.shard,
+                                      unlay=lambda x: x)
+            else:
+                res = cg_solve(A, bs, u_true=us, options=opts)
             r = bs - A(res.x)
 
         def gathered(block):

@@ -20,6 +20,9 @@
 // registers in both kernels and never stored, so Az costs no device-memory
 // traffic at all; the stencil is simply evaluated twice per iteration.
 //
+// The column sweeps are ist::k1_column / ist::k2_column (common.cuh), which
+// the mesh-block forms D5 / D6 (csrc/cg_fused_sharded.cu) share.
+//
 // Halos: a band's rows row0-1 and row0+by of z_k are written by K1 into a
 // side buffer (2, wp) per band and read back by K2, which therefore reads no
 // row of another band's direction. K1 and K2 tile rows identically (band
@@ -45,35 +48,19 @@ __global__ void k1_kernel(const float* __restrict__ d, const float* __restrict__
                           float* __restrict__ zmax_p, Geom g, int by) {
   const int c = blockIdx.x * TW + threadIdx.x;
   const int band = blockIdx.y;
-  const int row0 = band * by;
   const int wp = g.wp;
   const float beta = *beta_p;
+  auto in = [&](int r, int cc) { return ist::interior<kMask>(g, r, cc); };
   auto zk = [&](int r, int cc) -> float {
     if (cc < 0 || cc >= wp) return 0.f;
     const size_t i = (size_t)r * wp + cc;
     return d[i] + beta * zp[i];
   };
-  // halo rows, re-masked with the virtual row's mask (0 off the canvas)
-  const float up = (row0 > 0 && ist::interior<kMask>(g, row0 - 1, c)) ? zk(row0 - 1, c) : 0.f;
-  const float dn =
-      (row0 + by < g.hp && ist::interior<kMask>(g, row0 + by, c)) ? zk(row0 + by, c) : 0.f;
+  auto dv = [&](int r, int cc) { return d[(size_t)r * wp + cc]; };
+  float up, dn, s_rz = 0.f, s_azz = 0.f, s_max = 0.f;
+  ist::k1_column(g, in, zk, zk, dv, c, band * by, by, up, dn, s_rz, s_azz, s_max);
   side[((size_t)band * 2 + 0) * wp + c] = up;
   side[((size_t)band * 2 + 1) * wp + c] = dn;
-
-  float s_rz = 0.f, s_azz = 0.f, s_max = 0.f;
-  float prev = up, cur = zk(row0, c);
-  for (int k = 0; k < by; ++k) {
-    const int r = row0 + k;
-    const float next = (k + 1 < by) ? zk(r + 1, c) : dn;
-    float az = 0.f;
-    if (ist::interior<kMask>(g, r, c))
-      az = g.cd * cur + g.cx * (zk(r, c - 1) + zk(r, c + 1)) + g.cy * (prev + next);
-    s_rz += d[(size_t)r * wp + c] * cur;
-    s_azz += az * cur;
-    s_max = fmaxf(s_max, fabsf(cur));
-    prev = cur;
-    cur = next;
-  }
   s_rz = ist::block_reduce<false>(s_rz);
   s_azz = ist::block_reduce<false>(s_azz);
   s_max = ist::block_reduce<true>(s_max);
@@ -97,38 +84,20 @@ __global__ void k2_kernel(const float* __restrict__ x, const float* __restrict__
                           float* __restrict__ err_p, Geom g, int by) {
   const int c = blockIdx.x * TW + threadIdx.x;
   const int band = blockIdx.y;
-  const int row0 = band * by;
   const int wp = g.wp;
   const float alpha = scal[0];
   const float beta = scal[1];
   const float* __restrict__ dir = kPcg ? w : r;
+  auto in = [&](int rr, int cc) { return ist::interior<kMask>(g, rr, cc); };
   auto zk = [&](int rr, int cc) -> float {
     if (cc < 0 || cc >= wp) return 0.f;
     const size_t i = (size_t)rr * wp + cc;
     return dir[i] + beta * zp[i];
   };
   float s_r2 = 0.f, s_max = 0.f, s_err = 0.f;
-  float prev = side[((size_t)band * 2 + 0) * wp + c];
-  const float dn = side[((size_t)band * 2 + 1) * wp + c];
-  float cur = zk(row0, c);
-  for (int k = 0; k < by; ++k) {
-    const int rr = row0 + k;
-    const size_t i = (size_t)rr * wp + c;
-    const float next = (k + 1 < by) ? zk(rr + 1, c) : dn;
-    float az = 0.f;
-    if (ist::interior<kMask>(g, rr, c))
-      az = g.cd * cur + g.cx * (zk(rr, c - 1) + zk(rr, c + 1)) + g.cy * (prev + next);
-    const float xn = x[i] + alpha * cur;
-    const float rn = r[i] - alpha * az;
-    xo[i] = xn;
-    ro[i] = rn;
-    zo[i] = cur;
-    s_r2 += rn * rn;
-    s_max = fmaxf(s_max, fabsf(rn));
-    if (u != nullptr) s_err = fmaxf(s_err, fabsf(xn - u[i]));
-    prev = cur;
-    cur = next;
-  }
+  ist::k2_column(g, in, zk, x, r, u, xo, ro, zo, wp, c, band * by, by,
+                 side[((size_t)band * 2 + 0) * wp + c], side[((size_t)band * 2 + 1) * wp + c],
+                 alpha, s_r2, s_max, s_err);
   s_r2 = ist::block_reduce<false>(s_r2);
   s_max = ist::block_reduce<true>(s_max);
   if (u != nullptr) s_err = ist::block_reduce<true>(s_err);

@@ -134,6 +134,71 @@ __device__ __forceinline__ float k_up_column(const Geom& g, const In& in, const 
   return s_dot;
 }
 
+// The column sweeps of the fused CG iteration (A2, A3/A4), shared with
+// their mesh-block forms (csrc/cg_fused_sharded.cu) in the same way. zk(i,
+// cc) is the direction z_k = d + beta * z_prev at a node, formed by the
+// caller as that one expression (nvcc contracts it into fmaf(beta, z, d))
+// and 0 off the canvas; band-internal and column neighbours are read raw,
+// the band's halo rows masked by their own row.
+
+// K1 on one column (A2): the band's z_k halo rows (returned through up /
+// dn; zh(i, cc) reads them) and the column's shares of (d, z_k), (A z_k,
+// z_k) and max |z_k|.
+template <class In, class ZK, class ZH, class D>
+__device__ __forceinline__ void k1_column(const Geom& g, const In& in, const ZK& zk, const ZH& zh,
+                                          const D& d, int c, int row0, int by, float& up,
+                                          float& dn, float& s_rz, float& s_azz, float& s_max) {
+  up = in(row0 - 1, c) ? zh(row0 - 1, c) : 0.f;
+  dn = in(row0 + by, c) ? zh(row0 + by, c) : 0.f;
+  float prev = up, cur = zk(row0, c);
+  for (int k = 0; k < by; ++k) {
+    const int r = row0 + k;
+    const float next = (k + 1 < by) ? zk(r + 1, c) : dn;
+    float az = 0.f;
+    if (in(r, c)) az = g.cd * cur + g.cx * (zk(r, c - 1) + zk(r, c + 1)) + g.cy * (prev + next);
+    s_rz += d(r, c) * cur;
+    s_azz += az * cur;
+    s_max = fmaxf(s_max, fabsf(cur));
+    prev = cur;
+    cur = next;
+  }
+}
+
+// K2 / K2-pcg on one column (A3, A4): x' = x + alpha z_k, r' = r - alpha
+// A z_k and z_k written at rows row0 .. row0 + by - 1 (row stride ld), the
+// band's halo rows up / dn from K1's side buffer; the column's shares of
+// |r'|^2, max |r'| and, with u, max |x' - u|.
+template <class In, class ZK>
+__device__ __forceinline__ void k2_column(const Geom& g, const In& in, const ZK& zk,
+                                          const float* __restrict__ x,
+                                          const float* __restrict__ r,
+                                          const float* __restrict__ u, float* __restrict__ xo,
+                                          float* __restrict__ ro, float* __restrict__ zo, int ld,
+                                          int c, int row0, int by, float up, float dn,
+                                          float alpha, float& s_r2, float& s_max,
+                                          float& s_err) {
+  float prev = up;
+  float cur = zk(row0, c);
+  for (int k = 0; k < by; ++k) {
+    const int rr = row0 + k;
+    const size_t i = (size_t)rr * ld + c;
+    const float next = (k + 1 < by) ? zk(rr + 1, c) : dn;
+    float az = 0.f;
+    if (in(rr, c))
+      az = g.cd * cur + g.cx * (zk(rr, c - 1) + zk(rr, c + 1)) + g.cy * (prev + next);
+    const float xn = x[i] + alpha * cur;
+    const float rn = r[i] - alpha * az;
+    xo[i] = xn;
+    ro[i] = rn;
+    zo[i] = cur;
+    s_r2 += rn * rn;
+    s_max = fmaxf(s_max, fabsf(rn));
+    if (u != nullptr) s_err = fmaxf(s_err, fabsf(xn - u[i]));
+    prev = cur;
+    cur = next;
+  }
+}
+
 // Sum (or max) over the TW threads of a block; the result is valid in
 // thread 0. Fixed shuffle order, no atomics: the same inputs give the same
 // bits on every run.

@@ -44,6 +44,7 @@ from iterative_solvers_tpu_torch.kernels.stencil_layout import (
     kernel_geometry,
     kernel_name,
 )
+from iterative_solvers_tpu_torch.parallel.mesh import all_max, all_sum, mesh_of
 from iterative_solvers_tpu_torch.solvers.cg import CGOptions, CGResult, CGState, cg_solve, stop_reason
 from iterative_solvers_tpu_torch.solvers.stopping import StopConfig, StopReason
 
@@ -55,10 +56,12 @@ def _scalar(name: str, t: torch.Tensor, device) -> None:
         raise TypeError(f"{name}: expected a float32 tensor on {device}")
 
 
-def stencil_banded(zk, up_rows, dn_rows, mask, coeffs, by):
+def stencil_banded(zk, up_rows, dn_rows, mask, coeffs, by, left=None, right=None):
     """Masked ``A z_k`` where the rows just outside each band of ``by`` rows
     come from ``up_rows``/``dn_rows`` (g, wp) instead of the neighbouring band
-    — the plain form of the kernels' band-local stencil."""
+    — the plain form of the kernels' band-local stencil. The columns just
+    outside are ``left``/``right`` (hp,), zero when not given (off the
+    canvas); a mesh block passes its neighbours' z_k there."""
     cd, cx, cy = coeffs
     hp, wp = zk.shape
     g = hp // by
@@ -66,7 +69,10 @@ def stencil_banded(zk, up_rows, dn_rows, mask, coeffs, by):
     up[:, 0] = up_rows
     dn = torch.cat([zk[1:], zk[-1:]]).view(g, by, wp).clone()
     dn[:, -1] = dn_rows
-    lr = F.pad(zk, (1, 1))
+    if left is None:
+        lr = F.pad(zk, (1, 1))
+    else:
+        lr = torch.cat([left[:, None], zk, right[:, None]], dim=1)
     y = cd * zk + cx * (lr[:, :-2] + lr[:, 2:]) + cy * (up.view(hp, wp) + dn.view(hp, wp))
     return torch.where(mask, y, 0.0)
 
@@ -202,66 +208,65 @@ class FusedCGEngine:
     """Fused iteration for one padded layout. With ``M`` (PCG): K1, K2-pcg
     and one preconditioner application (``M.call_with_dot``) per iteration,
     β deferred as in the JAX engine: β_k = (r_k, w_k)/(r_{k−1}, w_{k−1}).
-    Without ``M`` (plain MSG CG): K1 and K2, β = ‖r‖²/(r, z)."""
+    Without ``M`` (plain MSG CG): K1 and K2, β = ‖r‖²/(r, z).
+
+    The iteration is written once for one device and for a mesh: a mesh
+    engine (``parallel/cg_fused_sharded.ShardedFusedCGEngine``) supplies
+    the block kernels (:meth:`_k1`, :meth:`_k2`), and every scalar is
+    all-reduced over ``mesh_of(op)`` (an identity without a mesh)."""
 
     op: PaddedStencilOperator
     M: Optional[object] = None
 
-    def _pcg_iteration(self, state: CGState, u_true) -> CGState:
-        if state.k == 0:
-            beta = torch.zeros((), dtype=state.r.dtype, device=state.r.device)
-        else:
-            beta = (state.rz / state.rz_prev).to(state.r.dtype)
-        # K1 forms z_k from w (in d's slot); its (w, z_k) dot is not the PCG rz
-        side, _, azz_p, zmax_p = k1(state.w, state.z, beta, self.op)
-        azz = torch.sum(azz_p)
-        zmax = torch.amax(zmax_p)
-        alpha = state.rz / azz
-        outs = k2_pcg(state.x, state.r, state.z, state.w, side, torch.stack([alpha, beta]),
-                      self.op, u_true)
-        xn, rn, zk, r2_p, rmax_p = outs[:5]
-        wn, rz_new = self.M.call_with_dot(rn)
-        return state._replace(
-            x=xn,
-            r=rn,
-            z=zk,
-            w=wn,
-            k=state.k + 1,
-            rz=rz_new,
-            rz_prev=state.rz,
-            r_norm2=torch.sum(r2_p),
-            prec_max=torch.abs(alpha) * zmax,
-            r_max=torch.amax(rmax_p),
-            err_max=_err_max(outs, rn),
-        )
+    def _k1(self, d, zp, beta):
+        """K1 on ``z_k = d + β z_prev``: (side, rz_p, azz_p, zmax_p, halo),
+        ``halo`` whatever :meth:`_k2` needs besides (nothing here)."""
+        return k1(d, zp, beta, self.op) + (None,)
+
+    def _k2(self, s: CGState, side, halo, scal, u_true):
+        if self.M is not None:
+            return k2_pcg(s.x, s.r, s.z, s.w, side, scal, self.op, u_true)
+        return k2(s.x, s.r, s.z, side, scal, self.op, u_true)
+
+    def precondition(self, r):
+        """``(M r, (r, M r))``: the fused dot of ``M.call_with_dot`` where
+        ``M`` has one, else the all-reduced dot."""
+        fn = getattr(self.M, "call_with_dot", None)
+        if fn is not None:
+            return fn(r)
+        w = self.M(r)
+        return w, all_sum(mesh_of(self.op), torch.sum(r * w))[0]
 
     def iteration(self, state: CGState, u_true=None) -> CGState:
-        """One fused MSG iteration; ``state.z`` holds z_{k−1} (the direction
+        """One fused iteration; ``state.z`` holds z_{k−1} (the direction
         update is deferred into K1/K2, where β is known)."""
-        if self.M is not None:
-            return self._pcg_iteration(state, u_true)
+        mesh = mesh_of(self.op)
+        pcg = self.M is not None
         if state.k == 0:
             beta = torch.zeros((), dtype=state.r.dtype, device=state.r.device)
+        elif pcg:
+            beta = (state.rz / state.rz_prev).to(state.r.dtype)
         else:
             beta = (state.r_norm2 / state.rz).to(state.r.dtype)
-        side, rz_p, azz_p, zmax_p = k1(state.r, state.z, beta, self.op)
-        rz = torch.sum(rz_p)
-        azz = torch.sum(azz_p)
-        zmax = torch.amax(zmax_p)
+        # PCG: K1 forms z_k from w (in d's slot); its (w, z_k) dot is not the PCG rz
+        side, rz_p, azz_p, zmax_p, halo = self._k1(state.w if pcg else state.r, state.z, beta)
+        if pcg:
+            rz = state.rz
+            (azz,) = all_sum(mesh, torch.sum(azz_p))
+        else:
+            rz, azz = all_sum(mesh, torch.sum(rz_p), torch.sum(azz_p))
         alpha = rz / azz
-        outs = k2(state.x, state.r, state.z, side, torch.stack([alpha, beta]), self.op, u_true)
+        outs = self._k2(state, side, halo, torch.stack([alpha, beta]), u_true)
         xn, rn, zk, r2_p, rmax_p = outs[:5]
-        return state._replace(
-            x=xn,
-            r=rn,
-            z=zk,
-            k=state.k + 1,
-            rz=rz,
-            r_norm2=torch.sum(r2_p),
-            prec_max=torch.abs(alpha) * zmax,
-            r_max=torch.amax(rmax_p),
-            err_max=_err_max(outs, rn),
-        )
+        (r2,) = all_sum(mesh, torch.sum(r2_p))
+        zmax, r_max, err = all_max(mesh, torch.amax(zmax_p), torch.amax(rmax_p),
+                                   _err_max(outs, rn))
+        s = state._replace(x=xn, r=rn, z=zk, k=state.k + 1, rz=rz, r_norm2=r2,
+                           prec_max=torch.abs(alpha) * zmax, r_max=r_max, err_max=err)
+        if pcg:
+            wn, rz_new = self.precondition(rn)
+            s = s._replace(w=wn, rz=rz_new, rz_prev=state.rz)
+        return s
 
     def step(self, stop: StopConfig, state: CGState, u_true=None) -> CGState:
         """One iteration plus the stop flags of the JAX package's fused chunk
@@ -279,6 +284,43 @@ def _engine_for(op: PaddedStencilOperator, M) -> FusedCGEngine:
     return FusedCGEngine(op, M)
 
 
+def run_fused_solve(engine: FusedCGEngine, b: torch.Tensor, u_true, opts: CGOptions, *, lay,
+                    unlay) -> CGResult:
+    """The driver of the single-device and the mesh fused solves (the JAX
+    package's ``_run_fused_solve``): the state init (z_prev convention,
+    PCG carries z_0 = w_0 = M r_0), the CG loop with the fused-chunk stop
+    rules, in one place so the twins cannot drift. ``lay`` maps an unpadded
+    full-grid field onto the engine's layout (``op.pad``, or ``op.shard``
+    over a mesh), ``unlay`` the iterate back (crop; gather and crop)."""
+    if opts.beta_kind != "msg":
+        raise ValueError("fused engine implements the MSG recurrence only")
+    M = opts.preconditioner
+    mesh = mesh_of(engine.op)
+    f32 = torch.float32
+    bp = lay(b.to(f32))
+    up = lay(u_true.to(f32)) if u_true is not None else None
+    dev = bp.device
+    inf = torch.full((), float("inf"), dtype=f32, device=dev)
+    one = torch.ones((), dtype=f32, device=dev)
+    (r2_0,) = all_sum(mesh, torch.sum(bp * bp))
+    w0, rz0 = engine.precondition(bp) if M is not None else (None, None)
+    r_max, err_max = all_max(mesh, torch.max(torch.abs(bp)),
+                             torch.max(torch.abs(up)) if up is not None else inf)
+    state = CGState(
+        x=torch.zeros_like(bp), r=bp, z=torch.zeros_like(bp), k=0,
+        done=torch.zeros((), dtype=torch.bool, device=dev),
+        reason=torch.full((), int(StopReason.ITERATIONS), dtype=torch.int32, device=dev),
+        rz=rz0 if rz0 is not None else one, r_norm2=r2_0, prec_max=inf,
+        r_max=r_max, err_max=err_max,
+        r0_norm=torch.sqrt(r2_0), w=w0, rz_prev=one if M is not None else None,
+    )
+    stop = opts.stop
+    fused = dataclasses.replace(opts, step_fn=lambda s, u: engine.step(stop, s, u))
+    res = cg_solve(None, bp, u_true=up, options=fused, init_state=state)
+    res.x = unlay(res.x)
+    return res
+
+
 def fused_cg_solve(
     op: PaddedStencilOperator,
     b: torch.Tensor,
@@ -290,27 +332,5 @@ def fused_cg_solve(
     full-grid fields; the returned ``x`` is cropped back to the grid shape.
     With ``options.preconditioner`` the engine runs PCG (z_0 = w_0 = M r_0)."""
     opts = options or CGOptions()
-    M = opts.preconditioner
-    engine = _engine_for(op, M)
-    f32 = torch.float32
-    bp = op.pad(b.to(f32))
-    up = op.pad(u_true.to(f32)) if u_true is not None else None
-    dev = bp.device
-    r2_0 = torch.sum(bp * bp)
-    w0, rz0 = M.call_with_dot(bp) if M is not None else (None, None)
-    inf = torch.full((), float("inf"), dtype=f32, device=dev)
-    one = torch.ones((), dtype=f32, device=dev)
-    state = CGState(
-        x=torch.zeros_like(bp), r=bp, z=torch.zeros_like(bp), k=0,
-        done=torch.zeros((), dtype=torch.bool, device=dev),
-        reason=torch.full((), int(StopReason.ITERATIONS), dtype=torch.int32, device=dev),
-        rz=rz0 if rz0 is not None else one, r_norm2=r2_0, prec_max=inf,
-        r_max=torch.max(torch.abs(bp)),
-        err_max=torch.max(torch.abs(up)) if up is not None else inf,
-        r0_norm=torch.sqrt(r2_0), w=w0, rz_prev=one if M is not None else None,
-    )
-    stop = opts.stop
-    fused = dataclasses.replace(opts, step_fn=lambda s, u: engine.step(stop, s, u))
-    res = cg_solve(None, bp, u_true=up, options=fused, init_state=state)
-    res.x = op.crop(res.x)
-    return res
+    return run_fused_solve(_engine_for(op, opts.preconditioner), b, u_true, opts, lay=op.pad,
+                           unlay=op.crop)

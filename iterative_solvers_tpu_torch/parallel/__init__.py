@@ -1,7 +1,7 @@
 """The mesh layer (counterpart of iterative_solvers_tpu/parallel): solver
 meshes over ``torch.distributed`` ranks, the block partition of fields, the
-halo-exchanging stencils and the shard-fused V-cycle
-(``parallel.mg_sharded``)."""
+halo-exchanging stencils, the shard-fused V-cycle (``parallel.mg_sharded``)
+and the sharded fused CG engine (``parallel.cg_fused_sharded``)."""
 
 from iterative_solvers_tpu_torch.parallel.halo import ShardedStencilOperator
 from iterative_solvers_tpu_torch.parallel.halo_pallas import (

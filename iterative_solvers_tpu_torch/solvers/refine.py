@@ -8,8 +8,10 @@ stall test, the same history rows ``(max_outer + 1, 5)`` and the same packed
 stats vector. The host reads one packed tensor per PCG iteration (the inner
 stop test, decided on the device in f32) and one per outer step.
 
-Two inner solvers: :func:`fused_refined_solve` runs the 2D fused PCG engine
-(kernels/cg_fused.py); :func:`device_refined_solve` runs the plain PCG
+Two inner solvers: :func:`engine_refined_solve` runs a 2D fused PCG engine
+on the caller's layout — the single-device engine (kernels/cg_fused.py)
+behind :func:`fused_refined_solve`, which pads and crops, or the mesh's
+(parallel/cg_fused_sharded.py); :func:`device_refined_solve` runs the plain PCG
 recurrence around any f32 operator and preconditioner — the 3D path, on the
 padded 7-point operator (kernel S7) and the fused 3D V-cycle, and the
 generic ladder on the plain stencil with Jacobi, Chebyshev or no
@@ -236,10 +238,13 @@ def _traced_inner_eta(stop: StopConfig, inner_rel_tol: float, r_hi, r0_norm, mes
 
 def _fused_inner_solve(engine, eta, r_hi, inner_max_iter: int):
     """Fused PCG on ``A d = r`` (f32, from zero) to relative tolerance
-    ``eta``; returns (d, iterations). One host read per iteration."""
+    ``eta``; returns (d, iterations). One host read per iteration. Over a
+    mesh (the engine's operator sharded) the norms are all-reduced."""
+    mesh = mesh_of(engine.op)
     r32 = r_hi.to(F32)
-    w0, rz0 = engine.M.call_with_dot(r32)
-    r2_0 = torch.sum(r32 * r32)
+    w0, rz0 = engine.precondition(r32)
+    (r2_0,) = all_sum(mesh, torch.sum(r32 * r32))
+    (r_max,) = all_max(mesh, torch.max(torch.abs(r32)))
     dev = r32.device
     s = CGState(
         x=torch.zeros_like(r32), r=r32, z=torch.zeros_like(r32), k=0,
@@ -247,7 +252,7 @@ def _fused_inner_solve(engine, eta, r_hi, inner_max_iter: int):
         reason=torch.full((), int(StopReason.ITERATIONS), dtype=torch.int32, device=dev),
         rz=rz0, r_norm2=r2_0,
         prec_max=torch.full((), math.inf, dtype=F32, device=dev),
-        r_max=torch.max(torch.abs(r32)),
+        r_max=r_max,
         err_max=torch.full((), math.inf, dtype=F32, device=dev),
         r0_norm=torch.sqrt(r2_0),
         w=w0, rz_prev=torch.ones((), dtype=F32, device=dev),
@@ -427,16 +432,18 @@ def _device_ir(engine, A_hi, stop: StopConfig, inner_rel_tol: float, inner_max_i
                max_outer: int, b, u_true, x0=None, *, ff: bool = False):
     """The f32 ladder of mixed-precision refinement: the f64 outer (or, with
     ``ff``, the double-f32 outer) around fused PCG inner solves, from
-    ``x0`` when given. Returns (x, packed stats)."""
+    ``x0`` when given. Returns (x, packed stats). Over a mesh (the engine's
+    operator sharded; f64 outer only) every norm is all-reduced."""
+    mesh = mesh_of(engine.op)
     if ff:
         b32 = b.to(F32)
         r0_norm = torch.sqrt(torch.sum(b32 * b32))
     else:
-        r0_norm = torch.sqrt(torch.sum(b * b))
+        r0_norm = torch.sqrt(all_sum(mesh, torch.sum(b * b))[0])
 
     def inner_solve(r_hi):
         r = pair_value(r_hi) if ff else r_hi
-        eta = _traced_inner_eta(stop, inner_rel_tol, r, r0_norm)
+        eta = _traced_inner_eta(stop, inner_rel_tol, r, r0_norm, mesh)
         return _fused_inner_solve(engine, eta, r, inner_max_iter)
 
     if ff:
@@ -510,8 +517,8 @@ def _join_history(dev_hist, cont_hist, inner_offset: int):
 
 
 def _finish_refined(stats, x, *, stop: StopConfig, t0: float, max_outer: int, A_hi, A_lo, b,
-                    u_true, preconditioner, inner_rel_tol: float, inner_max_iter: int,
-                    crop=None) -> RefinedResult:
+                    u_true, preconditioner, inner_rel_tol: float,
+                    inner_max_iter: int) -> RefinedResult:
     """Unpack the stats vector; if the f32 ladder left the criteria unmet,
     continue with the escalated polish (:func:`refined_solve` from x)."""
     k_out, total_inner = int(stats[0]), int(stats[1])
@@ -525,8 +532,6 @@ def _finish_refined(stats, x, *, stop: StopConfig, t0: float, max_outer: int, A_
             A_hi, A_lo, b, u_true=u_true, stop=stop, preconditioner=preconditioner,
             inner_rel_tol=inner_rel_tol, inner_max_iter=inner_max_iter, x0=x,
         )
-        if crop is not None:
-            res.x = crop(res.x)
         res.iterations += total_inner
         res.outer_iterations += k_out
         res.escalated = True
@@ -534,7 +539,7 @@ def _finish_refined(stats, x, *, stop: StopConfig, t0: float, max_outer: int, A_
         res.history = _join_history(hist, res.history, total_inner)
         return res
     return RefinedResult(
-        x=crop(x) if crop is not None else x,
+        x=x,
         iterations=total_inner,
         converged=bool(done and reason.converged),
         reason=reason,
@@ -546,6 +551,42 @@ def _finish_refined(stats, x, *, stop: StopConfig, t0: float, max_outer: int, A_
         elapsed_s=time.perf_counter() - t0,
         history=hist,
         outer_iterations=k_out,
+    )
+
+
+def engine_refined_solve(
+    engine,  # fused engine: kernels.cg_fused.FusedCGEngine or its mesh form
+    A_hi: Callable,  # high-precision operator on the engine's field layout
+    b: torch.Tensor,  # f64 RHS on that layout (padded; this rank's block on a mesh)
+    *,
+    u_true: Optional[torch.Tensor] = None,
+    stop: Optional[StopConfig] = None,
+    inner_rel_tol: float = 1e-4,
+    inner_max_iter: int = 200,
+    max_outer: int = 8,
+    fmg=False,  # False/0 cold | True/1 | int n = FMG polish V-cycles per level
+    ff: bool = False,  # double-f32 outer (single-device only)
+) -> RefinedResult:
+    """Mixed-precision refinement around any fused engine, on the caller's
+    field layout: the FMG warm start when ``fmg`` (and ``engine.M`` carries
+    the :meth:`with_fmg` payload), then the f64 or, with ``ff``, the
+    double-f32 outer around fused PCG inners; the escalated f64 polish
+    continues host-side if the f32 ladder leaves the criteria unmet. The
+    layout-agnostic core of :func:`fused_refined_solve`; with a
+    ``parallel.cg_fused_sharded.ShardedFusedCGEngine`` and the f64 halo
+    twin as ``A_hi`` it is the mesh's engine ladder (every norm
+    all-reduced; the outer is f64 there, as in the JAX package)."""
+    stop = stop or StopConfig()
+    if ff and mesh_of(engine.op) is not None:
+        raise ValueError("the ff outer is single-device: over a mesh the outer is f64")
+    t0 = time.perf_counter()
+    x0 = _maybe_fmg_x0(engine.M, fmg, b)
+    x, stats = _device_ir(engine, A_hi, stop, inner_rel_tol, inner_max_iter, max_outer, b,
+                          u_true, x0, ff=ff)
+    return _finish_refined(
+        stats, x, stop=stop, t0=t0, max_outer=max_outer, A_hi=A_hi, A_lo=A_hi, b=b,
+        u_true=u_true, preconditioner=engine.M, inner_rel_tol=inner_rel_tol,
+        inner_max_iter=inner_max_iter,
     )
 
 
@@ -562,25 +603,16 @@ def fused_refined_solve(
     fmg=False,  # False/0 cold | True/1 | int n = FMG polish V-cycles per level
     ff: bool = False,  # double-f32 outer
 ) -> RefinedResult:
-    """Mixed-precision refinement around the fused PCG engine, on the padded
-    layout of ``pop``: the FMG warm start when ``fmg`` (and ``M_padded``
-    carries the :meth:`with_fmg` payload), then the f64 or, with ``ff``, the
-    double-f32 outer; the escalated f64 polish continues host-side if the
-    f32 ladder leaves the criteria unmet."""
-    stop = stop or StopConfig()
-    t0 = time.perf_counter()
-    engine = _engine_for(pop, M_padded)
-    A_hi = _padded_hi_operator(pop)
-    bp = pop.pad(b)
-    up = pop.pad(u_true) if u_true is not None else None
-    x0 = _maybe_fmg_x0(engine.M, fmg, bp)
-    x, stats = _device_ir(engine, A_hi, stop, inner_rel_tol, inner_max_iter, max_outer,
-                          bp, up, x0, ff=ff)
-    return _finish_refined(
-        stats, x, stop=stop, t0=t0, max_outer=max_outer, A_hi=A_hi, A_lo=A_hi, b=bp,
-        u_true=up, preconditioner=M_padded, inner_rel_tol=inner_rel_tol,
-        inner_max_iter=inner_max_iter, crop=pop.crop,
+    """:func:`engine_refined_solve` on the single-device fused engine of
+    ``pop``'s padded layout: pads ``b`` (and ``u_true``), crops ``x``."""
+    res = engine_refined_solve(
+        _engine_for(pop, M_padded), _padded_hi_operator(pop), pop.pad(b),
+        u_true=pop.pad(u_true) if u_true is not None else None, stop=stop,
+        inner_rel_tol=inner_rel_tol, inner_max_iter=inner_max_iter, max_outer=max_outer,
+        fmg=fmg, ff=ff,
     )
+    res.x = pop.crop(res.x)
+    return res
 
 
 def device_refined_solve(

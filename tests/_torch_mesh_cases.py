@@ -32,13 +32,18 @@ from iterative_solvers_tpu_torch.parallel import (
     make_solver_mesh,
     shard_field,
 )
+from iterative_solvers_tpu_torch.parallel.cg_fused_sharded import (
+    ShardedFusedCGEngine,
+    sharded_fused_cg_solve,
+)
 from iterative_solvers_tpu_torch.parallel.mg_sharded import ShardedFusedMultigrid
 from iterative_solvers_tpu_torch.solvers.cg import CGOptions, cg_solve
 from iterative_solvers_tpu_torch.solvers.multigrid import (
     MultigridPreconditioner,
     ShardedMultigridPreconditioner,
 )
-from iterative_solvers_tpu_torch.solvers.refine import device_refined_solve
+from iterative_solvers_tpu_torch.solvers.precond import make_preconditioner
+from iterative_solvers_tpu_torch.solvers.refine import device_refined_solve, engine_refined_solve
 
 CPU = "cpu"
 MESHES = [(2, 2), (4, 1), (1, 4)]
@@ -274,3 +279,59 @@ def _facade_cases():
 
 
 FACADE = _facade_cases()
+
+
+# --- world 3: the sharded fused engine (tests/test_torch_mesh_engine.py) ------
+
+REL8 = dict(eps_precision=-1, eps_residual=-1, eps_exact_error=-1, eps_relative=1e-8,
+            max_iterations=10000)
+
+
+def _engine_facade_cases():
+    """The facade's engine routes: ``fused`` (MSG CG, PCG with the
+    shard-fused V-cycle) at the default stop, and the engine ladder
+    (``fused`` or ``pallas`` with ``mg`` and ``mixed``, no callback) to rel
+    1e-8."""
+    mixed = dict(preconditioner="mg", precision="mixed", stop=StopConfig(**REL8))
+    return {
+        "fused": dict(operator="fused"),
+        "fused_mg": dict(operator="fused", preconditioner="mg"),
+        "fused_mg_mixed": dict(mixed, operator="fused"),
+        "pallas_mg_mixed": dict(mixed, operator="pallas"),
+    }
+
+
+ENGINE_FACADE = _engine_facade_cases()
+
+
+def world_engine(rank: int) -> dict:
+    """sharded_fused_cg_solve (MSG; PCG with the shard-fused V-cycle, and
+    with Jacobi, whose (r, M r) the engine all-reduces itself) and
+    engine_refined_solve (cold; warm with the FMG) at 64² on every mesh
+    shape, the facade's engine routes on (2, 2)."""
+    out = {}
+    dom = Domain2D(nx=64, ny=64)
+    prob = PoissonProblem.manufactured(dom)
+    b32, u32 = prob.rhs_field(torch.float32, CPU), prob.true_solution_field(torch.float32, CPU)
+    b64 = prob.rhs_field(torch.float64, CPU)
+    for shape in MESHES:
+        mesh = _mesh(shape)
+        op, M = _fused(dom, mesh)
+        jacobi = make_preconditioner("jacobi", op, dom, device=CPU)  # no call_with_dot
+        for kind, pc in (("msg", None), ("pcg", M), ("jacobi", jacobi)):
+            res = sharded_fused_cg_solve(op, b32, u_true=u32, options=CGOptions(preconditioner=pc))
+            out[(kind, shape)] = dict(_res(res), x=_np(res.x), levels=len(M.levels))
+        engine = ShardedFusedCGEngine(op, M.with_fmg(prob))
+        for fmg in (False, True):
+            res = engine_refined_solve(engine, DirichletSolver._hi_operator(op), op.shard(b64),
+                                       stop=StopConfig(**REL8), fmg=fmg)
+            out[("ladder", shape, fmg)] = dict(
+                _res(res), x=_np(op.crop(mesh.gather(res.x))),
+                rel=res.residual_norm / res.initial_residual_norm)
+    mesh = _mesh((2, 2))
+    for key, kw in ENGINE_FACADE.items():
+        r = DirichletSolver(nx=64, ny=64, mesh=mesh, device=CPU, **kw).solve()
+        out[("facade", key)] = dict(reason=int(r.stop_reason), iterations=r.iterations,
+                                    outers=r.outer_iterations, solution=r.solution,
+                                    residual_norm=r.residual_norm)
+    return out

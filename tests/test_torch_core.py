@@ -128,19 +128,26 @@ def test_cuda_without_card_raises(monkeypatch):
         dict(operator="fused"),
         dict(operator="fused", preconditioner="mg"),
         dict(_MIXED, operator="fused"),
-        dict(_MIXED, operator="pallas"),  # the mesh engine ladder: raises at solve
+        dict(_MIXED, operator="pallas"),  # the engine ladder (no callback)
         dict(_MIXED, operator="pallas", preconditioner="mg:2"),
     ],
 )
 def test_unported_options_raise(kwargs):
-    """The sharded fused engine is the one mesh route still to port:
-    ``operator='fused'`` with a mesh, and the mixed ladder on 'pallas' with
-    the multigrid and no callback, raise naming its ROADMAP item (the
-    native CSR engine is the other unported option,
-    tests/test_torch_secondary.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 14c"):
-        port.DirichletSolver(nx=16, ny=16, device="cpu", mesh=make_solver_mesh(1),
-                             **kwargs).solve()
+    """The mesh routes of the sharded fused engine, which raised before it
+    was ported (ROADMAP item 14c), now run: ``operator='fused'`` with a
+    mesh (MSG CG, PCG) and the engine ladder (``fused``/``pallas`` with
+    ``mg`` and ``mixed``, no callback) on a 1-rank mesh converge with the
+    single-device facade's stop reason, counts and solution (the mixed
+    routes against the single-device ``stencil`` ladder, their only
+    single-device form; the layouts coincide at 16², so bit for bit)."""
+    got = port.DirichletSolver(nx=16, ny=16, device="cpu", mesh=make_solver_mesh(1),
+                               **kwargs).solve()
+    single = dict(kwargs, operator="stencil") if kwargs.get("precision") else kwargs
+    ref = port.DirichletSolver(nx=16, ny=16, device="cpu", **single).solve()
+    assert got.converged
+    assert (got.stop_reason, got.iterations, got.outer_iterations) == (
+        ref.stop_reason, ref.iterations, ref.outer_iterations)
+    np.testing.assert_array_equal(got.solution, ref.solution)
 
 
 def test_invalid_options_raise_value_error():

@@ -2,7 +2,7 @@
 2D (A1–A8), their custom-mask instantiations (C1–C3, K1/K2/K2-pcg and A8
 with the int8 mask operand), 3D (S7, D3, U3, J3, R3), the in-place and
 pipelined stencils (C4, C5), which must equal A1 bit for bit at scale 1,
-and the mesh block kernels (D1–D4), whose stitched blocks must equal the
+and the mesh block kernels (D1–D6), whose stitched blocks must equal the
 single-device kernels bit for bit; S7 equals its plain version bit for bit.
 
 Marked ``cuda``: they need an NVIDIA GPU and nvcc, and skip elsewhere (the
@@ -373,3 +373,68 @@ def test_mesh_block_kernels_match_single_device(gen, mesh_shape):
     assert {k: v for k, v in _build.launches.items() if v} == {
         "stencil_block": n, "k_down_block": n, "k_up_block": n, "stencil": 1, "k_down": 1,
         "k_up": 1, "stencil3d_block": 4, "stencil3d": 1}
+
+
+@pytest.mark.parametrize("mesh_shape", [(2, 2), (4, 2)])
+@pytest.mark.parametrize("pcg", [False, True])
+def test_engine_block_kernels_match_single_device(gen, mesh_shape, pcg):
+    """D5 and D6 (MSG or PCG, with and without u) on every block of a
+    partition of the 1024² Г grid, each block's halos cut from the global
+    fields as the engine's exchange delivers them: each launch within
+    tolerance of its plain version, and the stitched side rows, x', r' and
+    z_k bit-equal to K1 and K2 / K2-pcg on the whole canvas at every node,
+    edges included; the summed partials within 64 eps32 of their terms."""
+    from iterative_solvers_tpu_torch.parallel import cg_fused_sharded as S
+
+    dom = Domain2D(nx=1024, ny=1024)
+    meshes = _virtual(mesh_shape)
+    ops = [ShardedPallasStencilOperator.from_domain(dom, m) for m in meshes]
+    (hp, wp), by = ops[0].padded_shape, ops[0].block_rows
+    lay = PaddedStencilOperator(1024, 1024, ops[0].coeffs, (1025, 1025), (hp, wp), by, "gamma")
+    mask = lay.mask_spec.build("cuda")
+    x, r, z, w, u = (torch.where(mask, torch.randn((hp, wp), device="cuda", generator=gen), 0.0)
+                     for _ in range(5))
+    beta = torch.tensor(0.37, device="cuda")
+    scal = torch.tensor([-1.3e-4, 0.37], device="cuda")
+    d = w if pcg else r
+    side_ref, rz_ref, azz_ref, _ = cg_fused.k1(d, z, beta, lay)
+    _build.reset_counts()
+    sides, rz, azz, outs = [], 0.0, 0.0, {False: [], True: []}
+    for op in ops:
+        db, zb, up, dn, left, right = S.halos_from_global(op, d, z)
+        got = S.k1_block(db, zb, beta, up, dn, left, right, op)
+        ref = S.k1_block_plain(db, zb, beta, up, dn, left, right, op)
+        _close(got[0], ref[0])
+        sides.append(got[0])
+        rz, azz = rz + float(got[1].double().sum()), azz + float(got[2].double().sum())
+        (h, wd), (r0, c0) = op.block_shape, op.origin
+        cut = [f[r0:r0 + h, c0:c0 + wd].contiguous() for f in (x, r, z, w, u)]
+        for with_u in (False, True):
+            ub = cut[4] if with_u else None
+            if pcg:
+                got2 = S.k2_pcg_block(*cut[:4], got[0], left, right, scal, op, ub)
+                ref2 = S.k2_pcg_block_plain(*cut[:4], got[0], left, right, scal, op, ub)
+            else:
+                got2 = S.k2_block(*cut[:3], got[0], left, right, scal, op, ub)
+                ref2 = S.k2_block_plain(*cut[:3], got[0], left, right, scal, op, ub)
+            for a, b in zip(got2[:3], ref2[:3]):
+                _close(a, b)
+            outs[with_u].append(got2)
+    assert torch.equal(_stitch(meshes, sides), side_ref)
+    dz = (d * (d + beta * z)).double().abs().sum()
+    assert abs(rz - float(rz_ref.double().sum())) <= 64 * EPS32 * float(dz)
+    assert abs(azz - float(azz_ref.double().sum())) <= 64 * EPS32 * abs(float(azz_ref.sum()))
+    for with_u in (False, True):
+        uu = u if with_u else None
+        ref_all = (cg_fused.k2_pcg(x, r, z, w, side_ref, scal, lay, u=uu) if pcg
+                   else cg_fused.k2(x, r, z, side_ref, scal, lay, u=uu))
+        for i in range(3):
+            assert torch.equal(_stitch(meshes, [o[i] for o in outs[with_u]]), ref_all[i])
+        r2 = sum(float(o[3].double().sum()) for o in outs[with_u])
+        assert abs(r2 - float(ref_all[3].double().sum())) <= 64 * EPS32 * r2
+        for i in (4, 5) if with_u else (4,):
+            assert max(float(o[i].max()) for o in outs[with_u]) == float(ref_all[i].max())
+    n = len(meshes)
+    k2 = "k2_pcg" if pcg else "k2"
+    assert {k: v for k, v in _build.launches.items() if v} == {
+        "k1_block": n, f"{k2}_block": 2 * n, k2: 2}

@@ -60,6 +60,7 @@ from iterative_solvers_tpu_torch.parallel.halo_pallas import (
     block_stencil_plain,
 )
 from iterative_solvers_tpu_torch.parallel.mg_sharded import ShardedFusedMultigrid
+from iterative_solvers_tpu_torch.solvers.stopping import StopReason
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 MESHES = [(2, 2), (4, 1), (1, 4), (2, 1, 2)]
@@ -297,8 +298,8 @@ def test_run_world_deadline_and_failures():
 
 
 def test_facade_mesh_validation():
-    """The JAX facade's mesh rules and messages; the sharded fused engine
-    (ROADMAP item 14c) raises NotImplementedError."""
+    """The JAX facade's mesh rules and messages; the sharded fused engine's
+    routes (ROADMAP item 14c) run."""
     mesh, jm = make_solver_mesh(1), j_mesh(4, (2, 2), devices=jax.devices()[:4])
     custom = dict(nx=16, ny=16, shape="custom", inside_fn=lambda x, y: x > 0)
     for Solver, D2, D3, m, dev in ((DirichletSolver, Domain2D, Domain3D, mesh, dict(device="cpu")),
@@ -311,11 +312,12 @@ def test_facade_mesh_validation():
             Solver(nx=16, ny=16, precision="mixed", outer="ff", mesh=m, **dev)
         with pytest.raises(ValueError, match="requires operator='stencil'"):
             Solver(nx=16, ny=16, operator="sparse", mesh=m, **dev)
-    with pytest.raises(NotImplementedError, match="item 14c"):
-        DirichletSolver(nx=16, ny=16, operator="fused", mesh=mesh, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14c"):
-        DirichletSolver(nx=64, ny=64, operator="pallas", preconditioner="mg", precision="mixed",
+    # the sharded fused engine's routes (item 14c, once NotImplementedError) run
+    r = DirichletSolver(nx=16, ny=16, operator="fused", mesh=mesh, device="cpu").solve()
+    assert r.converged and r.stop_reason == StopReason.PRECISION
+    r = DirichletSolver(nx=64, ny=64, operator="pallas", preconditioner="mg", precision="mixed",
                         mesh=mesh, device="cpu").solve()
+    assert r.converged and r.outer_iterations >= 1
 
 
 @pytest.mark.parametrize("case", ["two nodes", "one node", "nccl short of cards", "no env"])

@@ -139,14 +139,17 @@ def test_csr_assembly_and_spmv_match_jax(name):
 
 
 def test_unported_assembly_and_mesh_raise():
-    """The native CSR engine (item 15) and the mesh's sharded fused
-    engine (item 14c) raise naming their ROADMAP items."""
+    """The native CSR engine (item 15) raises naming its ROADMAP item; the
+    mesh's sharded fused engine (item 14c, which raised before it was
+    ported) runs and takes the single-device fused engine's count."""
     with pytest.raises(NotImplementedError, match="item 15"):
         sparse.assemble_csr(Domain2D(nx=8, ny=8), backend="native")
     with pytest.raises(ValueError):
         sparse.assemble_csr(Domain2D(nx=8, ny=8), backend="bogus")
-    with pytest.raises(NotImplementedError, match="item 14c"):
-        DirichletSolver(nx=8, ny=8, operator="fused", mesh=make_solver_mesh(1), device="cpu")
+    r = DirichletSolver(nx=8, ny=8, operator="fused", mesh=make_solver_mesh(1),
+                        device="cpu").solve()
+    ref = DirichletSolver(nx=8, ny=8, operator="fused", device="cpu").solve()
+    assert r.converged and (r.stop_reason, r.iterations) == (ref.stop_reason, ref.iterations)
 
 
 @pytest.mark.parametrize("name", ["gamma", "rect", "3d", "gamma_wide"])
@@ -387,6 +390,83 @@ def test_xla_f32_field_dot_is_a_sequential_fma_chain():
     for u, v in zip(a.ravel(), b.ravel()):
         acc = fma_f32(float(u), torch.tensor([v]), torch.from_numpy(acc)).numpy()
     assert acc[0] == ref
+
+
+def _xla_vectorised_sum(p, lanes):
+    """XLA's CPU code for a reduce over all dims of a fused elementwise
+    product on a (17, 17, 17) f32 field (its LLVM IR): the loops are
+    interchanged so that a ``lanes``-wide vector accumulator runs over dim 1
+    in whole vectors, dim 2 innermost; the accumulator starts each dim-0
+    slab as (running sum, -0, ...), is reduced by halving at the slab's
+    end, and the remaining dim-1 rows are added one by one. Every add is
+    one f32 rounding."""
+    f = np.float32
+    n1 = p.shape[1] // lanes * lanes
+    acc = f(0)
+    for i in range(p.shape[0]):
+        v = np.zeros(lanes, np.float32)
+        v[0] = acc
+        for jb in range(0, n1, lanes):
+            for k in range(p.shape[2]):
+                v = (v + p[i, jb:jb + lanes, k]).astype(np.float32)
+        while len(v) > 1:
+            v = (v[:len(v) // 2] + v[len(v) // 2:]).astype(np.float32)
+        acc = f(v[0])
+        for j in range(n1, p.shape[1]):
+            for k in range(p.shape[2]):
+                acc = f(acc + p[i, j, k])
+    return acc
+
+
+def test_3d_jacobi_first_alpha_is_xla_reduction_order():
+    """Where the 3D Jacobi ladders' counts part (ROADMAP Queue 3): the first
+    inner iteration at 16³, both packages on the same f32 fields. M r and
+    the operator output A z are bit-equal, α₀ = (r, z)/(A z, z) is not. JAX's
+    (A z, z) is XLA's dot: the sequential row-major fma chain (the test
+    above). JAX's (r, z) is not: its CG init fuses z = r · (1/diag) into the
+    reduction, which XLA emits as an interchanged, vectorised loop whose sum
+    is reassociated (``_xla_vectorised_sum``; the vector width is the host
+    LLVM's choice, 8 lanes on AVX2/AVX-512 hosts). Those two orders give
+    JAX's α₀ bit for bit; the port's pairwise sums give another last bit."""
+    from iterative_solvers_tpu.solvers import cg as jcg
+    from iterative_solvers_tpu_torch.solvers.cg import _cg_init, cg_iteration
+
+    jd, pd = JDomain3D(nx=16, ny=16, nz=16), Domain3D(nx=16, ny=16, nz=16)
+    jA, pA = JStencil.from_domain(jd), StencilOperator.from_domain(pd)
+    jM = jprecond.make_preconditioner("jacobi", jA, jd)
+    pM = precond.make_preconditioner("jacobi", pA, pd, device="cpu")
+    r = np.asarray(JProblem.manufactured(jd).rhs_field(jnp.float64)).astype(np.float32)
+    js = jcg._cg_init(jA, jM, jnp.asarray(r), None, None)
+    z, j_rz = np.asarray(js.z), np.float32(js.rz)
+    ps = _cg_init(pA, pM, torch.from_numpy(r), None, None)
+    np.testing.assert_array_equal(ps.z.numpy(), z)
+    az = np.asarray(jax.jit(jA)(jnp.asarray(z)))
+    np.testing.assert_array_equal(pA(torch.from_numpy(z)).numpy(), az)
+    j_azz = np.float32(jax.jit(lambda a, b: jnp.sum(a * b))(jnp.asarray(az), jnp.asarray(z)))
+    j_alpha = j_rz / j_azz
+    p_alpha = np.float32(ps.rz) / np.float32(torch.sum(torch.from_numpy(az * z)))
+    assert j_alpha != p_alpha
+    # each package's first step is x1 = α₀ z with its own α₀
+    stop = dict(eps_precision=-1, eps_residual=-1)
+    jx1 = np.asarray(jcg._cg_chunk(jA, jM, JStop(**stop), "msg", js, None, 1).x)
+    np.testing.assert_array_equal(jx1, j_alpha * z)
+    px1 = cg_iteration(pA, pM, StopConfig(**stop), ps, None).x.numpy()
+    np.testing.assert_array_equal(px1, p_alpha * z)
+
+    def chain(a, b):  # XLA's dot: acc = fma(a_i, b_i, acc), row-major
+        acc = torch.zeros(1)
+        for u, v in zip(a.ravel(), b.ravel()):
+            if u * v != 0:  # fma(0, v, acc) == acc
+                acc = fma_f32(float(u), torch.tensor([v]), acc)
+        return np.float32(acc.item())
+
+    azz = chain(az, z)
+    assert azz == j_azz
+    assert chain(r, z) != j_rz  # the fused init reduction is not the chain
+    p = (r * z).astype(np.float32)
+    rz = [_xla_vectorised_sum(p, lanes) for lanes in (8, 16, 4)]
+    assert j_rz in rz
+    assert j_rz / azz == j_alpha
 
 
 @pytest.mark.parametrize("n", [8, 12, 16])
