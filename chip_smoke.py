@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port once on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --legs DIR   # only the 2D V-cycle legs, of the port in DIR
 
 Phases, each printing its own lines; any failure exits non-zero before the
 final ``ok`` line:
@@ -10,19 +11,28 @@ final ``ok`` line:
 2. build: compile the hand-written kernels from ``iterative_solvers_tpu_torch/csrc``
    (one nvcc per source, all started together);
 3. kernels: each kernel against its plain torch version on the card, at a
-   small gamma grid, a ragged rect grid, path B's 1024² layout and the
-   8192² level-0 layout (2D); the custom-mask instantiations on the notched
-   disk at 64² (32-row bands), 1024² and the 8192² level-0 layout; and at
+   small gamma grid, a ragged rect grid, path B's 1024² layout (timed) and
+   the 8192² level-0 layout (2D); the custom-mask instantiations on the
+   notched disk at 64² (32-row bands), 1024² (timed) and the 8192² level-0
+   layout; and at
    16³, the ragged 32³, the unequal box 16 × 24 × 8 and the 512³ level-0
    layout (3D; D3 and U3 also on each coarser fused level's layout), with
-   the max abs difference, the tolerance and CUDA-event timings of the
-   kernel, its plain version and, for the stencils, one ``F.conv2d`` /
-   ``F.conv3d``; S7 bit-equal to its plain version; the mesh block
+   the max abs difference, the tolerance and the device times (back-to-back
+   calls between CUDA events) of the kernel, its plain version and, for the
+   stencils, one ``F.conv2d`` / ``F.conv3d``, and the kernel's time as one
+   call between two events (which adds the host's launch); the V-cycle legs K_down and
+   K_up (C2, C3 on the disk) at every fused level of path A and of the
+   disk (8192 … 512), against their plain versions, each beside its bound
+   and its plain version, with the level's whole leg cost (device time of
+   the V-cycle from the level minus that from its child, CUDA graphs);
+   S7 bit-equal to its plain version; the mesh block
    kernels D1, D3, D4 on a virtual (4, 2) partition of the 8192² level-0
    grid and D2 on a (2, 1, 2) split of 512³, each block with its halos cut
    from the global field, against its plain version, stitched against
    A1, A5, A6, S7 (bit-equal away from block edges, edges within f32
-   round-off), and timed on the 1x1 block; the sharded fused engine's D5
+   round-off; D3 through the mesh's lane restriction and child mask, D4
+   fed the lane prolongation of A6's coarse correction), and timed on the
+   1x1 block; the sharded fused engine's D5
    and D6 (MSG and PCG, with and without u) on the same (4, 2) partition,
    each against its plain version, the stitched side rows, x', r' and z_k
    against K1, K2 and K2-pcg bit for bit at every node, the summed
@@ -200,8 +210,11 @@ def log(*a):
     print(*a, flush=True)
 
 
-def cuda_ms(fn, reps=15):
-    """Median of per-call CUDA-event times after two warm-up calls."""
+def one_call_ms(fn, reps=15):
+    """Median CUDA-event time of one call of ``fn`` between two events, after
+    two warm-up calls. It also counts the card's wait for the host to issue
+    the launch; kernel rows keep it as ``one_call_ms`` beside their device
+    time, since this is how kernel times were taken before ``device_ms``."""
     import torch
 
     for _ in range(2):
@@ -215,6 +228,55 @@ def cuda_ms(fn, reps=15):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_ms(fn, reps=15):
+    """Device time of one call of ``fn`` (a kernel, its plain version, a
+    library call): two warm-up calls, then three runs of ``reps`` calls back
+    to back between two CUDA events; the median run over ``reps``. Back to
+    back, the card does not wait between calls for the host to issue the
+    next launch, a wait that one call between two events adds to it."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    runs = []
+    for _ in range(3):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        runs.append(a.elapsed_time(b) / reps)
+    return statistics.median(runs)
+
+
+def kernel_times(kern, plain, plain_reps=15):
+    """A kernel row's times: the kernel's device time (``ms``, the one every
+    row compares with its bound), the same kernel as one call between two
+    events (``one_call_ms``) and its plain version's device time."""
+    return {"ms": device_ms(kern), "one_call_ms": one_call_ms(kern),
+            "plain_ms": device_ms(plain, reps=plain_reps)}
+
+
+def graph_ms(fn, reps=15):
+    """Device time of ``fn``: captured once in a CUDA graph after two
+    warm-up calls, the median CUDA-event time of its replays, so the host's
+    launch stream (which keeps the card idle between small launches) is
+    not in it."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return one_call_ms(graph.replay, reps)
 
 
 def nbytes(ts):
@@ -280,7 +342,9 @@ def check_kernels(dom, gen, label, timed, block_rows=None):
     if custom:  # the TPU custom kernels' contract: a pre-masked level RHS
         b = torch.where(kl.mask_spec.build("cuda"), b, 0.0)
     xj = field(kl.padded_shape, masked=False)
-    ec = torch.randn(kl.padded_shape[0] // 2, kl.padded_shape[1], device="cuda", generator=gen)
+    # the legs' coarse field lives on the child's input layout
+    ec = torch.randn(kl.coarse_shape, device="cuda", generator=gen)
+    cm8 = kl.child_mask8.int8("cuda") if custom else None
     side = cg_fused.k1_plain(w, z, beta, lay)[0]
     side_r = cg_fused.k1_plain(r, z, beta, lay)[0]
     bm = torch.where(kl.mask_spec.build("cuda"), b, 0.0)
@@ -307,7 +371,7 @@ def check_kernels(dom, gen, label, timed, block_rows=None):
                    lambda: cg_fused.k2_pcg_plain(x, r, z, w, side, scal, lay),
                    ("field", "field", "field", "sum", "max"), (x, r, z, w, side, m8)),
         "k_down": (lambda: (kl.down(b),), lambda: (kl.down_plain(b),), ("field",),
-                   (b, m8_level)),
+                   (b, m8_level, cm8)),
         "k_up": (lambda: kl.up(b, ec, with_dot=True), lambda: kl.up_plain(b, ec, with_dot=True),
                  ("field", "sum"), (b, ec, m8_level)),
         "k_jacobi": (lambda: (kl.jacobi(xj, b),), lambda: (kl.jacobi_plain(xj, b),),
@@ -344,8 +408,8 @@ def check_kernels(dom, gen, label, timed, block_rows=None):
         rec = {"max_abs_err": err, "bytes": nbytes(ins) + nbytes(got),
                "nodes": lay.padded_shape[0] * lay.padded_shape[1], "library_ms": None}
         line = f"kernel {name:17s} @ {label}: max_abs_err {err:.3e} tol {tol:.3e}"
-        if timed:
-            rec["ms"], rec["plain_ms"] = cuda_ms(kern), cuda_ms(plain)
+        if timed and base not in ("k_down", "k_up"):  # the legs: check_legs times them
+            rec.update(kernel_times(kern, plain))
             line += f"  kernel {rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f} ms"
             if base == "stencil":
                 # yardstick: one cuDNN convolution with the 5-point cross
@@ -353,7 +417,7 @@ def check_kernels(dom, gen, label, timed, block_rows=None):
                 wt = torch.tensor([[0.0, cy, 0.0], [cx, cd, cx], [0.0, cy, 0.0]],
                                   device="cuda").view(1, 1, 3, 3)
                 xin = x.view(1, 1, *x.shape)
-                rec["library_ms"] = cuda_ms(lambda: F.conv2d(xin, wt, padding=1))
+                rec["library_ms"] = device_ms(lambda: F.conv2d(xin, wt, padding=1))
                 line += f"  conv2d {rec['library_ms']:.4f} ms"
         log(line)
         out[name] = rec
@@ -419,7 +483,7 @@ def check_kernels_3d(dims, gen, label, timed):
         line = f"kernel {name:12s} @ {label}: max_abs_err {err:.3e} tol {tol:.3e}"
         del got, ref
         if timed:
-            rec["ms"], rec["plain_ms"] = cuda_ms(kern), cuda_ms(plain, reps=5)
+            rec.update(kernel_times(kern, plain, 5))
             line += f"  kernel {rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f} ms"
             if name == "stencil3d":
                 # yardstick: one cuDNN convolution with the 7-point cross
@@ -429,7 +493,7 @@ def check_kernels_3d(dims, gen, label, timed):
                 wt[0, 0, 1, 0, 1] = wt[0, 0, 1, 2, 1] = cy
                 wt[0, 0, 0, 1, 1] = wt[0, 0, 2, 1, 1] = cz
                 xin = x.view(1, 1, *shape)
-                rec["library_ms"] = cuda_ms(lambda: F.conv3d(xin, wt, padding=1))
+                rec["library_ms"] = device_ms(lambda: F.conv3d(xin, wt, padding=1))
                 line += f"  conv3d {rec['library_ms']:.4f} ms"
             torch.cuda.empty_cache()
         log(line)
@@ -452,6 +516,111 @@ def check_kernels_3d(dims, gen, label, timed):
             err, tol = compare(f"{name} @ {where}", got, ref, ("field",))
             log(f"kernel {name:12s} @ {where}: max_abs_err {err:.3e} tol {tol:.3e}")
     return out
+
+
+def leg_costs(M, gen):
+    """Per fused 2D level li of ``M``: the device time (:func:`graph_ms`)
+    of the V-cycle from li on the level's padded layout minus that of the
+    V-cycle from li + 1 on the child's input layout (its padded canvas when
+    fused, else its grid). The difference is the level's whole leg: its two
+    kernels and whatever runs between them and the child's own legs (the
+    lane transfers, masks, pads and crops where a design has them). Uses
+    only ``M.levels``, ``M.domains``, ``M._vcycle`` and the levels' padded
+    shapes and masks, so it times any version of the V-cycle alike."""
+    import torch
+
+    out = {}
+    for li, lev in enumerate(M.levels[:-1]):
+        k = getattr(lev, "kernels", None)
+        if k is None or len(k.padded_shape) != 2:
+            continue
+        b = torch.where(k.mask_spec.build("cuda"),
+                        torch.randn(k.padded_shape, device="cuda", generator=gen), 0.0)
+        child = M.levels[li + 1]
+        cshape = (child.kernels.padded_shape if hasattr(child, "kernels")
+                  else M.domains[li + 1].grid_shape)
+        bc = torch.randn(cshape, device="cuda", generator=gen)
+        t_li = graph_ms(lambda: M._vcycle(li, b))
+        t_child = graph_ms(lambda: M._vcycle(li + 1, bc))
+        out[li] = (t_li - t_child, t_li, t_child)
+        del b, bc
+    return out
+
+
+def check_legs(dom, gen, label):
+    """K_down and K_up (with the dot, as level 0 runs in the PCG) at every
+    fused level of the solver's own hierarchy on ``dom``: each against its
+    plain version (fields within 64 eps32 · max|plain|, the dot within 64
+    eps32 of the sum of its terms' magnitudes), timed (:func:`kernel_times`)
+    beside its bound (each input read once, the int8 masks included, each
+    output written once), then the level's whole leg cost
+    (:func:`leg_costs`). Logs one line per level and returns {level:
+    {"k_down": row, "k_up": row, ...}}, rows as :func:`check_kernels`'.
+    Holds for any version of the legs' contract (K_up takes a field shaped
+    as K_down's output; a level's int8 masks count where it has them), so
+    ``--legs`` can time an earlier checkout's legs alike."""
+    import torch
+
+    from iterative_solvers_tpu_torch.solvers.multigrid import MultigridPreconditioner
+
+    M = MultigridPreconditioner.from_domain(dom, device="cuda")
+    recs = {}
+    for li, lev in enumerate(M.levels):
+        k = getattr(lev, "kernels", None)
+        if k is None:
+            continue
+        b = torch.where(k.mask_spec.build("cuda"),
+                        torch.randn(k.padded_shape, device="cuda", generator=gen), 0.0)
+        coarse = tuple(k.down(b).shape)
+        ec = torch.randn(coarse, device="cuda", generator=gen)
+        m8 = [m.int8("cuda") for m in (k.mask8, getattr(k, "child_mask8", None))
+              if m is not None]
+        tiles = (k.down_tile_rows(b.device), k.up_tile_rows(b.device)) if hasattr(
+            k, "down_tile_rows") else None
+        rec = {"shape": k.padded_shape, "coarse": coarse, "tj": tiles}
+        where = f"{label} level {li} {k.padded_shape} -> {coarse}"
+        for name, kern, plain, kinds, ins in (
+                ("k_down", lambda: (k.down(b),), lambda: (k.down_plain(b),), ("field",),
+                 (b, *m8)),
+                ("k_up", lambda: k.up(b, ec, with_dot=True),
+                 lambda: k.up_plain(b, ec, with_dot=True), ("field", "sum"), (b, ec, *m8[:1]))):
+            got, ref = kern(), plain()
+            torch.cuda.synchronize()
+            sc = {1: float((b * ref[0]).abs().double().sum())} if name == "k_up" else None
+            err, tol = compare(f"{name} @ {where}", got, ref, kinds, sc)
+            nb = nbytes(ins) + nbytes(got[:1])
+            rec[name] = {"max_abs_err": err, "tol": tol, "bytes": nb,
+                         "nodes": k.padded_shape[0] * k.padded_shape[1], "library_ms": None,
+                         "bound_ms": nb / HBM_BYTES_PER_S * 1e3, **kernel_times(kern, plain, 5)}
+            del got, ref
+        recs[li] = rec
+        del b, ec
+    for li, (leg, t_li, t_child) in leg_costs(M, gen).items():
+        recs[li]["leg_ms"] = leg
+        r = recs[li]
+        log(f"leg {label} level {li} {r['shape']} -> {r['coarse']} (TJ {r['tj']}): " + "  ".join(
+            f"{n} {r[n]['ms']:.4f} ms (one call {r[n]['one_call_ms']:.4f}; bound "
+            f"{r[n]['bound_ms']:.4f}, {100 * r[n]['bound_ms'] / r[n]['ms']:.0f} %; plain "
+            f"{r[n]['plain_ms']:.4f}; max_abs_err {r[n]['max_abs_err']:.3e} tol "
+            f"{r[n]['tol']:.3e})" for n in ("k_down", "k_up"))
+            + f"  leg {leg:.4f} ms (V-cycle from here {t_li:.4f} - from the child {t_child:.4f})")
+    del M
+    torch.cuda.empty_cache()
+    return recs
+
+
+def legs_only(gen) -> int:
+    """``--legs DIR``: :func:`check_legs` on path A's and the disk's
+    hierarchies at 8192² for the port in DIR, then one JSON line
+    {label: {level: record}}."""
+    from iterative_solvers_tpu_torch.core.domain import Domain2D, notched_disk
+
+    out = {}
+    for label, dom in (("gamma", Domain2D(nx=N, ny=N)),
+                       ("disk", Domain2D(nx=N, ny=N, shape="custom", inside_fn=notched_disk))):
+        out[label] = check_legs(dom, gen, f"{label} {N}^2")
+    log(json.dumps({"legs": out}))
+    return 0
 
 
 def solve_64_agrees(label, run):
@@ -901,22 +1070,22 @@ def check_pipelined(dom, gen, label, timed, block_rows=None):
         line = f"kernel {name:24s} @ {label}: max_abs_err {err:.3e} tol {tol:.3e}"
         if timed:
             xk, xp = ones.clone(), ones.clone()
-            rec["ms"], rec["plain_ms"] = cuda_ms(lambda: kern(xk)), cuda_ms(lambda: plain(xp))
+            rec.update(kernel_times(lambda: kern(xk), lambda: plain(xp)))
             cd, cx, cy = lay.coeffs
             wt = torch.tensor([[0.0, cy, 0.0], [cx, cd, cx], [0.0, cy, 0.0]],
                               device="cuda").view(1, 1, 3, 3)
-            rec["library_ms"] = cuda_ms(lambda: F.conv2d(ones.view(1, 1, hp, wp), wt, padding=1))
+            xin = ones.view(1, 1, hp, wp)
+            rec["library_ms"] = device_ms(lambda: F.conv2d(xin, wt, padding=1))
             line += (f"  kernel {rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f} ms  conv2d "
                      f"{rec['library_ms']:.4f} ms")
         log(line)
         out[name] = rec
     if timed:  # the other C5 forms and A1, for the record
         xk = ones.clone()
-        log(f"C5{sfx} @ {label}: lookahead 4 in place "
-            f"{cuda_ms(lambda: sp.stencil_apply_pipelined(xk, lay, lookahead=4, scale=scale)):.4f}"
-            f" ms, lookahead 2 out of place "
-            f"{cuda_ms(lambda: sp.stencil_apply_pipelined(ones, lay, in_place=False)):.4f} ms; "
-            f"A1 {cuda_ms(lambda: lay(ones)):.4f} ms")
+        c5_4 = one_call_ms(lambda: sp.stencil_apply_pipelined(xk, lay, lookahead=4, scale=scale))
+        c5_2 = one_call_ms(lambda: sp.stencil_apply_pipelined(ones, lay, in_place=False))
+        log(f"C5{sfx} @ {label}: lookahead 4 in place {c5_4:.4f} ms, lookahead 2 out of place "
+            f"{c5_2:.4f} ms; A1 {one_call_ms(lambda: lay(ones)):.4f} ms")
     return out
 
 
@@ -1173,7 +1342,12 @@ def check_mesh_kernels(gen):
     import torch.nn.functional as F
 
     from iterative_solvers_tpu_torch import Domain2D, Domain3D
-    from iterative_solvers_tpu_torch.kernels.mg_fused import FusedLevelKernels
+    from iterative_solvers_tpu_torch.core.domain import MaskSpec
+    from iterative_solvers_tpu_torch.kernels.mg_fused import (
+        FusedLevelKernels,
+        lane_prolong,
+        lane_restrict,
+    )
     from iterative_solvers_tpu_torch.kernels.stencil3d_layout import Padded3DStencilOperator
     from iterative_solvers_tpu_torch.kernels.stencil_layout import PaddedStencilOperator
     from iterative_solvers_tpu_torch.parallel import (
@@ -1186,6 +1360,7 @@ def check_mesh_kernels(gen):
         block_stencil_plain,
     )
     from iterative_solvers_tpu_torch.parallel.mg_sharded import ShardedFusedMultigrid
+    from iterative_solvers_tpu_torch.solvers.multigrid import fused_block_rows
 
     worst = {k: 0.0 for k in ("stencil_block", "k_down_block", "k_up_block", "stencil3d_block")}
 
@@ -1203,7 +1378,14 @@ def check_mesh_kernels(gen):
     levs = [ShardedFusedMultigrid.from_operator(ops[0], dom, device="cuda").levels[0]] * len(ops)
     (hp, wp), by = ops[0].padded_shape, ops[0].block_rows
     x = torch.randn((hp, wp), device="cuda", generator=gen)
-    ec = torch.randn((hp // 2, wp), device="cuda", generator=gen)
+    # A6 reads the coarse correction on the child's padded canvas (path A's
+    # 4096 level: 4160 x 4224); the blocks read its lane prolongation, as the
+    # mesh forms it between its legs
+    single = FusedLevelKernels(N, N, levs[0].coeffs, levs[0].cs, "gamma", (hp, wp), by,
+                               child_shape=fused_block_rows(N // 2 + 1, N // 2 + 1)[1:])
+    ec = torch.randn(single.coarse_shape, device="cuda", generator=gen)
+    ch = N // 2 + 1
+    ecl = F.pad(lane_prolong(ec[:ch], N // 2, wp), (0, 0, 0, hp // 2 - ch))
     parts = {"stencil_block": [], "k_down_block": [], "k_up_block": []}
     for op, lev in zip(ops, levs):
         h = op.halos_from_global(x, op.origin)
@@ -1213,7 +1395,7 @@ def check_mesh_kernels(gen):
         dh = lev.down_halos_from_global(x, op.origin)
         rr = lev.down_block(*dh, op.origin)
         check("k_down_block @ (4,2)", (rr,), (lev.down_plain(*dh, op.origin),), ("field",))
-        uh = lev.up_halos_from_global(x, ec, op.origin)
+        uh = lev.up_halos_from_global(x, ecl, op.origin)
         got = lev.up_block(*uh, op.origin, with_dot=True)
         ref = lev.up_plain(*uh, op.origin, with_dot=True)
         bm = torch.where(lev.spec(op.origin).build("cuda"), uh[0], 0.0)
@@ -1223,16 +1405,23 @@ def check_mesh_kernels(gen):
         parts["k_down_block"].append(rr)
         parts["k_up_block"].append(got[0])
         del h, dh, uh, got, ref, bm
-    lev0 = levs[0]
     blk = ops[0].block_shape
-    single = FusedLevelKernels(N, N, lev0.coeffs, lev0.cs, "gamma", (hp, wp), by)
     lay = PaddedStencilOperator(N, N, ops[0].coeffs, dom.grid_shape, (hp, wp), by, "gamma")
     _stitched_agree("D1 vs A1 @ 8192^2 (4,2)", _stitch(meshes, parts["stencil_block"]), lay(x), blk)
-    _stitched_agree("D3 vs A5 @ 8192^2 (4,2)", _stitch(meshes, parts["k_down_block"]),
-                    single.down(x), (blk[0] // 2, blk[1]))
+    # D3's stitch through the lane restriction and child mask the mesh runs
+    # between its legs (mg_sharded.py's _vc) against A5's coarse field, on
+    # the rows and columns both layouts have (zero beyond the child grid)
+    rc = lane_restrict(_stitch(meshes, parts["k_down_block"]), N, levs[0].cw_pad)
+    rc = torch.where(MaskSpec("gamma", N // 2, N // 2, tuple(rc.shape)).build("cuda"), rc, 0.0)
+    down = single.down(x)
+    rows, cols = min(rc.shape[0], down.shape[0]), min(rc.shape[1], down.shape[1])
+    if rc[rows:].any() or rc[:, cols:].any() or down[rows:].any() or down[:, cols:].any():
+        raise AssertionError("D3 vs A5: a coarse value beyond the child grid")
+    _stitched_agree("D3 + lanes vs A5 @ 8192^2 (4,2)", rc[:rows, :cols].contiguous(),
+                    down[:rows, :cols].contiguous(), (blk[0] // 2, blk[1] // 2))
     _stitched_agree("D4 vs A6 @ 8192^2 (4,2)", _stitch(meshes, parts["k_up_block"]),
                     single.up(x, ec), blk)
-    del parts, x, ec, single, lay
+    del parts, x, ec, ecl, single, lay, rc, down
     torch.cuda.empty_cache()
 
     box = Domain3D(N3, N3, N3)
@@ -1284,7 +1473,7 @@ def check_mesh_kernels(gen):
             sc = {1: float((bm * ref[0]).abs().double().sum())}
         err, tol = check(f"{name} @ 8192^2 1x1", got, ref, kinds, sc)
         rec = {"max_abs_err": worst[name], "bytes": nbytes(ins) + nbytes(got), "nodes": nodes,
-               "library_ms": None, "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain, reps=5)}
+               "library_ms": None, **kernel_times(kern, plain, 5)}
         line = (f"kernel {name:17s} @ 8192^2 1x1: max_abs_err {err:.3e} tol {tol:.3e}  "
                 f"kernel {rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f} ms")
         if name == "stencil_block":
@@ -1292,7 +1481,7 @@ def check_mesh_kernels(gen):
             wt = torch.tensor([[0.0, cy, 0.0], [cx, cd, cx], [0.0, cy, 0.0]],
                               device="cuda").view(1, 1, 3, 3)
             xin = xb.view(1, 1, *xb.shape)
-            rec["library_ms"] = cuda_ms(lambda: F.conv2d(xin, wt, padding=1))
+            rec["library_ms"] = device_ms(lambda: F.conv2d(xin, wt, padding=1))
             line += f"  conv2d {rec['library_ms']:.4f} ms"
         log(line)
         out[name] = rec
@@ -1311,14 +1500,14 @@ def check_mesh_kernels(gen):
     rec = {"max_abs_err": worst["stencil3d_block"], "nodes": n_in,
            # interior reads (the mask is algebraic), whole-canvas write, halos
            "bytes": 4 * n_in + nbytes(got) + nbytes(h31[1:]),
-           "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain, reps=3)}
+           **kernel_times(kern, plain, 3)}
     cd, cx, cy, cz = op31.coeffs
     wt = torch.zeros((1, 1, 3, 3, 3), device="cuda")
     wt[0, 0, 1, 1] = torch.tensor([cx, cd, cx])
     wt[0, 0, 1, 0, 1] = wt[0, 0, 1, 2, 1] = cy
     wt[0, 0, 0, 1, 1] = wt[0, 0, 2, 1, 1] = cz
     xin = x31.view(1, 1, *x31.shape)
-    rec["library_ms"] = cuda_ms(lambda: F.conv3d(xin, wt, padding=1))
+    rec["library_ms"] = device_ms(lambda: F.conv3d(xin, wt, padding=1))
     log(f"kernel stencil3d_block   @ 512^3 1x1: max_abs_err {err:.3e} tol {tol:.3e}  kernel "
         f"{rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f} ms  conv3d {rec['library_ms']:.4f} ms")
     out["stencil3d_block"] = rec
@@ -1494,8 +1683,8 @@ def check_engine_kernels(gen):
         got, ref = kern(), plain()
         err, tol = check(f"{name} @ 8192^2 1x1", got, ref, kinds, sc)
         rec = {"max_abs_err": worst[name], "bytes": nbytes(ins) + nbytes(got), "nodes": nodes,
-               "library_ms": None, "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain, reps=5),
-               "single_ms": cuda_ms(single)}
+               "library_ms": None, **kernel_times(kern, plain, 5),
+               "single_ms": device_ms(single)}
         log(f"kernel {name:17s} @ 8192^2 1x1: max_abs_err {err:.3e} tol {tol:.3e}  kernel "
             f"{rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f} ms  ({single_name} in this call "
             f"{rec['single_ms']:.4f} ms)")
@@ -1660,8 +1849,8 @@ def vcycle_ratio():
     op = ShardedPallasStencilOperator.from_domain(dom, make_solver_mesh(1))
     M2 = ShardedFusedMultigrid.from_operator(op, dom, device="cuda")
     a2 = torch.ones(op.padded_shape, device="cuda")
-    t1, t2, t2b, t1b = (cuda_ms(lambda: M1(a1), reps=10), cuda_ms(lambda: M2(a2), reps=10),
-                        cuda_ms(lambda: M2(a2), reps=10), cuda_ms(lambda: M1(a1), reps=10))
+    t1, t2, t2b, t1b = (one_call_ms(lambda: M(a), reps=10)
+                        for M, a in ((M1, a1), (M2, a2), (M2, a2), (M1, a1)))
     single, shard = (t1 + t1b) / 2, (t2 + t2b) / 2
     log(f"shard {N}^2: fused V-cycle single-device {single:.3f} ms ({t1:.3f}/{t1b:.3f}), "
         f"shard-fused on a 1x1 mesh ({len(M2.levels)} fused levels) {shard:.3f} ms "
@@ -1862,16 +2051,24 @@ def mesh_facade_3d(n=MESH_N3):
     return launches
 
 
-def main() -> int:
+def main(argv) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description="Drive the port once on one NVIDIA GPU.")
+    ap.add_argument("--legs", metavar="DIR",
+                    help="only check and time the 2D V-cycle legs of the port in the "
+                         "checkout DIR (this one or an earlier commit's)")
+    args = ap.parse_args(argv)
+    root = os.path.abspath(args.legs) if args.legs else REPO
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
-    if not os.path.isdir(os.path.join(REPO, "iterative_solvers_tpu_torch")):
+    if not os.path.isdir(os.path.join(root, "iterative_solvers_tpu_torch")):
         print("chip_smoke: the iterative_solvers_tpu_torch package is missing", file=sys.stderr)
         return 1
-    sys.path.insert(0, REPO)
+    sys.path.insert(0, root)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1897,14 +2094,20 @@ def main() -> int:
 
     # 3. kernels against their plain versions
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if args.legs:
+        return legs_only(gen)
     # 16-row bands: several bands, and their halos, even on small grids
     check_kernels(Domain2D(nx=64, ny=64), gen, "gamma 64^2", timed=False, block_rows=16)
     check_kernels(Domain2D(nx=40, ny=50, shape="rect"), gen, "rect 40x50", timed=False,
                   block_rows=16)
-    # path B's own layout (256-row bands)
-    check_kernels(Domain2D(nx=1024, ny=1024), gen, "1024^2 path B", timed=False)
+    # path B's own layout (256-row bands), timed: path B launches K1 and K2
+    # at this shape
+    check_kernels(Domain2D(nx=1024, ny=1024), gen, "1024^2 path B", timed=True)
     stats = check_kernels(Domain2D(nx=N, ny=N), gen, "8192^2 level 0", timed=True)
     torch.cuda.empty_cache()
+    # the V-cycle legs at every fused level of path A (8192 … 512); level 0
+    # gives A5's and A6's rows
+    stats.update(check_legs(Domain2D(nx=N, ny=N), gen, f"{N}^2")[0])
     # the custom-mask instantiations on the notched disk: 32-row bands, path
     # C-B's 1024² layout, the 8192² level-0 layout (its host masks are built
     # once here and reused by path C)
@@ -1912,11 +2115,13 @@ def main() -> int:
     disk = Domain2D(nx=N, ny=N, shape="custom", inside_fn=notched_disk)
     log(f"custom {N}^2 host masks: {disk.num_unknowns} unknowns, "
         f"{time.perf_counter() - t0:.3f} s")
-    for n, by in ((64, 32), (1024, None)):
+    for n, by in ((64, 32), (1024, None)):  # path C-B's own layout timed
         check_kernels(Domain2D(nx=n, ny=n, shape="custom", inside_fn=notched_disk), gen,
-                      f"custom {n}^2", timed=False, block_rows=by)
+                      f"custom {n}^2", timed=n == 1024, block_rows=by)
     stats.update(check_kernels(disk, gen, f"custom {N}^2 level 0", timed=True))
     torch.cuda.empty_cache()
+    legs = check_legs(disk, gen, f"custom {N}^2")[0]
+    stats.update({"k_down_custom": legs["k_down"], "k_up_custom": legs["k_up"]})
     for dims in ((16, 16, 16), (32, 32, 32), (16, 24, 8)):
         check_kernels_3d(dims, gen, "x".join(map(str, dims)), timed=False)
     stats.update(check_kernels_3d((N3, N3, N3), gen, f"{N3}^3 level 0", timed=True))
@@ -2039,7 +2244,8 @@ def main() -> int:
         kernels.append({
             "name": k, "route": "cuda", "source": src, "replaces": rep,
             "launches": launches[path].get(k, 0), "max_abs_err": s["max_abs_err"],
-            "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": max(t_bytes, t_ops),
+            "ms": s["ms"], "one_call_ms": s["one_call_ms"], "plain_ms": s["plain_ms"],
+            "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": s["library_ms"], "path": path,
         })
@@ -2052,4 +2258,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

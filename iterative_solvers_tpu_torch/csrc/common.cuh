@@ -48,13 +48,82 @@ __device__ __forceinline__ float stencil5(const Geom& g, float c, float l, float
   return g.cd * c + g.cx * (l + r) + g.cy * (u + d);
 }
 
-// The column sweeps of the 2D stencil (A1) and the V-cycle legs (A5, A6),
-// shared with their mesh-block forms (csrc/halo_pallas.cu, mg_sharded.cu)
-// so that a block and the single-device canvas take the same arithmetic at
-// every node. One thread owns column c and walks rows row0 .. row0 + by - 1
-// (indices local to the field it writes, row stride ld); the caller says
-// where values come from: in(i, cc) is the interior test of a node, X / B
-// return a masked value (0 off the interior), XC the corrected iterate.
+// The per-node arithmetic of the V-cycle legs: one helper per step, each
+// rounded as its plain torch version rounds (every product and sum on its
+// own, no contraction), so that a node's value does not depend on which
+// kernel computed it: the tiles of A5/A6 (csrc/mg_fused.cu), the column
+// sweeps of their mesh blocks D3/D4 (csrc/mg_sharded.cu) and the plain
+// versions agree bit for bit.
+
+// K_down's residual b - A x of the pre-smoothed iterate x = cs * b at an
+// interior node, from the masked level RHS at the node (c), its row
+// neighbours (l, r) and its column neighbours (u, d).
+__device__ __forceinline__ float down_residual(const Geom& g, float cs, float c, float l,
+                                               float r, float u, float d) {
+  const float xc = __fmul_rn(cs, c);
+  const float sx = __fadd_rn(__fmul_rn(cs, l), __fmul_rn(cs, r));
+  const float sy = __fadd_rn(__fmul_rn(cs, u), __fmul_rn(cs, d));
+  const float ax =
+      __fadd_rn(__fadd_rn(__fmul_rn(g.cd, xc), __fmul_rn(g.cx, sx)), __fmul_rn(g.cy, sy));
+  return __fsub_rn(c, ax);
+}
+
+// The [1,2,1]/4 row restriction of the residuals at fine rows 2J-1, 2J, 2J+1.
+__device__ __forceinline__ float restrict_rows(float below, float center, float upper) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(0.25f, below), __fmul_rn(0.5f, center)),
+                   __fmul_rn(0.25f, upper));
+}
+
+// The [1,2,1]/4 lane restriction of fine columns 2C-1, 2C, 2C+1, in the
+// order of kernels/mg_fused.py lane_restrict: 0.25 (lo + hi) + 0.5 mid.
+__device__ __forceinline__ float restrict_lanes(float lo, float mid, float hi) {
+  return __fadd_rn(__fmul_rn(0.25f, __fadd_rn(lo, hi)), __fmul_rn(0.5f, mid));
+}
+
+// Linear interpolation at an odd fine index, lanes and rows alike.
+__device__ __forceinline__ float midpoint(float a, float b) {
+  return __fmul_rn(0.5f, __fadd_rn(a, b));
+}
+
+// K_up's corrected iterate cs * b + p at an interior node, p the prolonged
+// coarse correction there.
+__device__ __forceinline__ float corrected_at(float cs, float b, float p) {
+  return __fadd_rn(__fmul_rn(cs, b), p);
+}
+
+// The row prolongation at fine row i (a global index: its parity picks the
+// rule; ec(J) is the lane-prolonged coarse correction at global coarse row
+// J of the node's column), then the corrected iterate.
+template <class EC>
+__device__ __forceinline__ float corrected(float cs, int i, float b, const EC& ec) {
+  const float p = (i & 1) ? midpoint(ec((i - 1) / 2), ec((i + 1) / 2)) : ec(i / 2);
+  return corrected_at(cs, b, p);
+}
+
+// K_up's post-smoothing sweep at an interior node: the corrected iterate at
+// the node (c) and its neighbours (zero off the interior), the level RHS bm.
+__device__ __forceinline__ float up_smooth(const Geom& g, float cs, float c, float l, float r,
+                                           float u, float d, float bm) {
+  const float ax = __fadd_rn(__fadd_rn(__fmul_rn(g.cd, c), __fmul_rn(g.cx, __fadd_rn(l, r))),
+                             __fmul_rn(g.cy, __fadd_rn(u, d)));
+  return __fadd_rn(c, __fmul_rn(cs, __fsub_rn(bm, ax)));
+}
+
+// The interior columns lo < c < hi of row r on a gamma/rect level (none off
+// rows 1 .. ny - 1): the predicate of interior<false> as one span per row.
+__device__ __forceinline__ int2 interior_span(const Geom& g, int r) {
+  if (r <= 0 || r >= g.ny) return make_int2(0, 0);
+  return make_int2((g.gamma && r <= g.ny / 2) ? g.nx / 2 : 0, g.nx);
+}
+
+// The column sweeps of the 2D stencil (A1) and of the V-cycle legs' mesh
+// blocks (D3, D4), shared with the block forms (csrc/halo_pallas.cu,
+// mg_sharded.cu) so that a block and the single-device canvas take the
+// same arithmetic at every node. One thread owns column c and walks rows
+// row0 .. row0 + by - 1 (indices local to the field it writes, row stride
+// ld); the caller says where values come from: in(i, cc) is the interior
+// test of a node, X / B return a masked value (0 off the interior), XC the
+// corrected iterate.
 
 // y = A x on one column (A1).
 template <class In, class X>
@@ -74,7 +143,7 @@ __device__ __forceinline__ void stencil_column(const Geom& g, const In& in, cons
   }
 }
 
-// K_down on one column (A5): the residual of the pre-smoothed iterate
+// K_down on one column (D3): the residual of the pre-smoothed iterate
 // x = cs * B at fine rows row0 - 1 .. row0 + by - 1, row-restricted [1,2,1]/4
 // into coarse rows row0 / 2 .. row0 / 2 + by / 2 - 1 (row0 even).
 template <class In, class B>
@@ -83,31 +152,19 @@ __device__ __forceinline__ void k_down_column(const Geom& g, const In& in, const
                                               int by) {
   auto R = [&](int i) -> float {
     if (!in(i, c)) return 0.f;
-    const float bc = b(i, c);
-    const float ax = g.cd * (cs * bc) + g.cx * (cs * b(i, c - 1) + cs * b(i, c + 1)) +
-                     g.cy * (cs * b(i - 1, c) + cs * b(i + 1, c));
-    return bc - ax;
+    return down_residual(g, cs, b(i, c), b(i, c - 1), b(i, c + 1), b(i - 1, c), b(i + 1, c));
   };
   float below = R(row0 - 1);
   for (int j = 0; j < by / 2; ++j) {
     const int J = row0 / 2 + j;
     const float center = R(2 * J);
     const float upper = R(2 * J + 1);
-    rr[(size_t)J * ld + c] = 0.25f * below + 0.5f * center + 0.25f * upper;
+    rr[(size_t)J * ld + c] = restrict_rows(below, center, upper);
     below = upper;
   }
 }
 
-// K_up's corrected iterate cs * b + P ec at a node of fine row i (a global
-// index: its parity picks the prolongation; ec(J) is the coarse correction
-// at global coarse row J of the node's column).
-template <class EC>
-__device__ __forceinline__ float corrected(float cs, int i, float b, const EC& ec) {
-  const float p = (i & 1) ? 0.5f * (ec((i - 1) / 2) + ec((i + 1) / 2)) : ec(i / 2);
-  return cs * b + p;
-}
-
-// K_up on one column (A6): one post-smoothing sweep of the corrected
+// K_up on one column (D4): one post-smoothing sweep of the corrected
 // iterate XC; b(i, c) is the level RHS at an interior node. Returns the
 // column's share of (b, out).
 template <class In, class XC, class B>
@@ -123,8 +180,7 @@ __device__ __forceinline__ float k_up_column(const Geom& g, const In& in, const 
     float o = 0.f;
     if (in(i, c)) {
       const float bm = b(i, c);
-      const float ax = g.cd * cur + g.cx * (xc(i, c - 1) + xc(i, c + 1)) + g.cy * (prev + next);
-      o = cur + cs * (bm - ax);
+      o = up_smooth(g, cs, cur, xc(i, c - 1), xc(i, c + 1), prev, next, bm);
       s_dot += bm * o;
     }
     out[(size_t)i * ld + c] = o;

@@ -5,15 +5,17 @@
 // _make_k_down_block / _k_down_call (D3); ist_k_up_block replaces
 // _make_k_up_block / _k_up_call (D4).
 //
-// Each runs its single-device leg's column sweep (ist::k_down_column, A5;
-// ist::k_up_column with ist::corrected, A6) on a block whose global origin
-// (roff, coff; roff even) offsets the mask and the row parity, with the
-// exchanged neighbour rows and columns as operands, so every node takes
-// the single-device expression and stitched blocks equal A5 / A6 bit for
-// bit. The TPU kernels zero the wrapped lane and correct the edge columns
-// afterwards (edge strips, and a dot partial without the edge lanes); here
-// the edge columns read their neighbours directly and the dot partial
-// covers the whole block.
+// Each runs a column sweep (ist::k_down_column; ist::k_up_column with
+// ist::corrected) on a block whose global origin (roff, coff; roff even)
+// offsets the mask and the row parity, with the exchanged neighbour rows
+// and columns as operands. The sweeps call the per-node helpers that A5's
+// and A6's tiles call (csrc/common.cuh), so every node takes the
+// single-device expression: stitched blocks, through the lane transfers
+// the mesh runs between its legs, equal A5 / A6 bit for bit. The TPU
+// kernels zero the wrapped lane and correct the edge columns afterwards
+// (edge strips, and a dot partial without the edge lanes); here the edge
+// columns read their neighbours directly and the dot partial covers the
+// whole block.
 //
 // Halo operands, raw values (every read is masked at its global node):
 // - D3 reads b at rows -2 .. Hb (two rows above the block, one below) and,
@@ -26,8 +28,9 @@
 //   corrected iterate at the neighbour column is formed here, by the same
 //   expression as inside the block.
 //
-// What bounds them on an H100: A5's and A6's memory-bound sweeps, 6 and 10
-// B/node; the halo operands add O(Hb + Wb) reads per block.
+// What bounds them on an H100: memory, 6 and 10 B/node (the row-restricted
+// residual out, the lane-prolonged correction in); the halo operands add
+// O(Hb + Wb) reads per block.
 #include "common.cuh"
 
 using ist::Geom;

@@ -88,15 +88,22 @@ def multigrid_from_state(
                                      plain[i]))
             continue
         cd, cy, cx = plain[i].coeffs
+        custom = lv["shape"] == "custom"
+        child = levels[i + 1]
+        if "padded_shape" in child:  # a fused child: its padded canvas
+            child_shape = tuple(int(s) for s in child["padded_shape"])
+            child_mask8 = ArrayMask(np.asarray(child["mask8"]) != 0) if custom else None
+        else:  # a plain child: its grid
+            child_shape = plain[i + 1].mask_spec.shape
+            child_mask8 = plain[i + 1].mask_spec if custom else None
         kernels = FusedLevelKernels(
             nx=nx, ny=ny, coeffs=(cd, cx, cy), cs=plain[i].omega_over_diag,
             mask_mode=lv["shape"], padded_shape=tuple(int(s) for s in lv["padded_shape"]),
             block_rows=int(lv["block_rows"]),
-            mask8=ArrayMask(np.asarray(lv["mask8"]) != 0) if lv["shape"] == "custom" else None,
+            mask8=ArrayMask(np.asarray(lv["mask8"]) != 0) if custom else None,
+            child_shape=child_shape, child_mask8=child_mask8,
         )
-        child = plain[i + 1].mask_spec
-        out.append(_FusedLevel(kernels, ny + 1, nx + 1, child.shape[0], child.shape[1],
-                               nx, child, plain[i]))
+        out.append(_FusedLevel(kernels, ny + 1, nx + 1, plain[i]))
     return MultigridPreconditioner(
         levels=tuple(out), coarse_solve=_CoarseSolveDense(coarse_idx, coarse_a_inv),
         nu_pre=nu, nu_post=nu,

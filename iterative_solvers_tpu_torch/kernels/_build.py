@@ -44,8 +44,10 @@ _SIGNATURES = {
     "ist_k1": [_P] * 7 + [_I] * 6 + [_F] * 3 + [_P],
     "ist_k2": [_P] * 12 + [_I] * 6 + [_F] * 3 + [_P],
     "ist_k2_pcg": [_P] * 13 + [_I] * 6 + [_F] * 3 + [_P],
-    "ist_k_down": [_P] * 2 + [_I] * 6 + [_F] * 4 + [_P],
-    "ist_k_up": [_P] * 4 + [_I] * 7 + [_F] * 4 + [_P],
+    # the V-cycle legs: (..., tile rows, coarse layout), K_up the coarse
+    # row stride and row count
+    "ist_k_down": [_P] * 2 + [_I] * 8 + [_F] * 4 + [_P],
+    "ist_k_up": [_P] * 4 + [_I] * 8 + [_F] * 4 + [_P],
     "ist_k_jacobi": [_P] * 3 + [_I] * 6 + [_F] * 4 + [_P],
     "ist_stencil": [_P] * 2 + [_I] * 6 + [_F] * 3 + [_P],
     "ist_k_resid_ff": [_P] * 6 + [_I] * 9 + [_F] * 10 + [_P],
@@ -54,8 +56,8 @@ _SIGNATURES = {
     "ist_k1_custom": [_P] * 8 + [_I] * 5 + [_F] * 3 + [_P],
     "ist_k2_custom": [_P] * 13 + [_I] * 5 + [_F] * 3 + [_P],
     "ist_k2_pcg_custom": [_P] * 14 + [_I] * 5 + [_F] * 3 + [_P],
-    "ist_k_down_custom": [_P] * 3 + [_I] * 5 + [_F] * 4 + [_P],
-    "ist_k_up_custom": [_P] * 5 + [_I] * 6 + [_F] * 4 + [_P],
+    "ist_k_down_custom": [_P] * 4 + [_I] * 7 + [_F] * 4 + [_P],  # child mask first
+    "ist_k_up_custom": [_P] * 5 + [_I] * 7 + [_F] * 4 + [_P],
     "ist_stencil_custom": [_P] * 3 + [_I] * 5 + [_F] * 3 + [_P],
     "ist_k_resid_ff_custom": [_P] * 7 + [_I] * 8 + [_F] * 10 + [_P],
     # 3D (csrc/zmarch3d.cuh geometry: nx, ny, nz, d, hp, wp, bz)

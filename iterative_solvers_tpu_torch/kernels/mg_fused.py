@@ -1,17 +1,21 @@
 """Fused V-cycle legs of the multigrid fine levels (counterpart of iterative_solvers_tpu/kernels/mg_fused.py).
 
 - **K_down** (:meth:`FusedLevelKernels.down`, CUDA ``csrc/mg_fused.cu``):
-  pre-smoothing from zero (x = (ω/d)·b, never stored), the residual, and the
-  [1,2,1]/4 row restriction, written as the ``(hp/2, wp)`` intermediate.
-- **K_up** (:meth:`FusedLevelKernels.up`): row prolongation of the
-  lane-prolonged coarse correction, the corrected iterate, one
-  post-smoothing sweep; ``with_dot`` also returns (b, out), the PCG's rz.
+  pre-smoothing from zero (x = (ω/d)·b, never stored), the residual, the
+  [1,2,1]/4 row and lane restrictions and the child's interior mask,
+  written onto the child's input layout (``child_shape``: its padded
+  canvas when the child is a fused level, else its grid).
+- **K_up** (:meth:`FusedLevelKernels.up`): the child's correction as the
+  child returns it (on ``child_shape``), prolonged along lanes then rows,
+  the corrected iterate, one post-smoothing sweep; ``with_dot`` also
+  returns (b, out), the PCG's rz.
 - **K_jacobi** (:meth:`FusedLevelKernels.jacobi`): one weighted-Jacobi sweep
   ``x + (ω/d)(b − A x)`` with masked reads and output — the FMG warm
   start's fine-level polish.
 
-A custom level (``mask8``, its padded interior) runs K_down and K_up as
-their ``*_custom`` instantiations, which replace the JAX package's
+A custom level (``mask8``, its padded interior; ``child_mask8``, the
+child's interior on ``child_shape``) runs K_down and K_up as their
+``*_custom`` instantiations, which replace the JAX package's
 ``_make_k_down_custom`` (C2) and ``_make_k_up_custom`` (C3): the int8 mask
 is read where the gamma/rect kernels evaluate the predicate. The JAX bodies
 trust the level RHS to be pre-masked (it is a masked restriction) and mask
@@ -19,14 +23,16 @@ by float multiplies; the port masks every read, which agrees on such input.
 K_jacobi raises on a custom level, as the JAX package's does: its FMG
 polishes custom levels with plain level ops.
 
-The lane (column) half of each transfer runs in plain torch as strided
-slices (:func:`lane_restrict`, :func:`lane_prolong`), P = 2 Rᵀ exactly.
-The JAX package's banded-matmul forms of these transfers exist only for the
-TPU's matrix unit and are not ported.
+The JAX package runs the lane (column) half of each transfer outside its
+kernels, as banded MXU matmuls (``lane_restrict_mm``/``lane_prolong_mm``),
+because Mosaic has no stride-2 lanes; here the legs do it. The plain torch
+forms :func:`lane_restrict` and :func:`lane_prolong` (P = 2 Rᵀ exactly)
+stay for the plain legs, the mesh (``parallel/mg_sharded.py``) and the FMG.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -42,11 +48,28 @@ from iterative_solvers_tpu_torch.kernels.stencil_layout import (
     kernel_name,
 )
 
+TILE_COLS = 64  # K_down's coarse columns per tile (K_up: TW fine columns)
+
 
 def _stencil(x, cd, cx, cy):
     """Unmasked 5-point combination with zero outside the canvas."""
     p = F.pad(x, (1, 1, 1, 1))
     return cd * x + cx * (p[1:-1, :-2] + p[1:-1, 2:]) + cy * (p[:-2, 1:-1] + p[2:, 1:-1])
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def tile_rows(rows: int, col_tiles: int, fine_rows_per_row: int, largest: int, device) -> int:
+    """The legs' coarse rows per tile, TJ in (16, 8, 4) up to ``largest``:
+    the largest that still puts two blocks on every SM of ``device``, else 4."""
+    want = 2 * _sm_count(torch.cuda.current_device() if device.index is None else device.index)
+    for tj in (16, 8):
+        if tj <= largest and -(-rows // (fine_rows_per_row * tj)) * col_tiles >= want:
+            return tj
+    return 4
 
 
 @dataclass(frozen=True, eq=False)
@@ -60,7 +83,27 @@ class FusedLevelKernels:
     mask_mode: str
     padded_shape: Tuple[int, int]  # (hp, wp), hp % by == 0, wp % 128 == 0
     block_rows: int  # 32 at least on a custom level
+    # the child's input layout: its padded canvas when it is a fused level,
+    # else its grid (ny/2 + 1, nx/2 + 1)
+    child_shape: Tuple[int, int]
     mask8: Optional[ArrayMask] = None  # custom: the padded interior
+    child_mask8: Optional[ArrayMask] = None  # custom: the child's interior there
+
+    def __post_init__(self):
+        ch, cw = self.ny // 2 + 1, self.nx // 2 + 1
+        ho, wo = self.coarse_shape
+        if ho < ch or wo < cw:
+            raise ValueError(f"child_shape {(ho, wo)} is smaller than the child grid {(ch, cw)}")
+        if (self.mask8 is None) != (self.child_mask8 is None):
+            raise ValueError("a custom level needs mask8 and child_mask8, others neither")
+        if self.child_mask8 is not None and self.child_mask8.shape != (ho, wo):
+            raise ValueError(f"child_mask8: expected shape {(ho, wo)}, "
+                             f"got {self.child_mask8.shape}")
+
+    @property
+    def coarse_shape(self) -> Tuple[int, int]:
+        """The layout of the coarse field K_down writes and K_up reads."""
+        return tuple(self.child_shape)
 
     @property
     def mask_spec(self):
@@ -68,10 +111,29 @@ class FusedLevelKernels:
             return self.mask8
         return MaskSpec(self.mask_mode, self.nx, self.ny, tuple(self.padded_shape))
 
-    def _geom(self, launcher: str, device):
+    @property
+    def child_spec(self):
+        """The child's interior on :attr:`coarse_shape`."""
+        if self.child_mask8 is not None:
+            return self.child_mask8
+        return MaskSpec(self.mask_mode, self.nx // 2, self.ny // 2, self.coarse_shape)
+
+    def _geom(self, launcher: str, device, rows: Optional[int] = None):
         hp, wp = self.padded_shape
         return kernel_geometry(launcher, self.nx, self.ny, self.mask_mode, hp, wp,
-                               self.block_rows, self.mask8, device)
+                               rows or self.block_rows, self.mask8, device)
+
+    # the tallest tiles, measured on an H100 at 8192² and 4096² (PERF.md
+    # §6): K_down stages through registers, whose count caps the blocks
+    # per SM of its masked form above TJ 4; K_up's two staged tiles cap
+    # its blocks above TJ 8
+    def down_tile_rows(self, device) -> int:
+        ho, wo = self.coarse_shape
+        return tile_rows(ho, -(-wo // TILE_COLS), 1, 16 if self.mask8 is None else 4, device)
+
+    def up_tile_rows(self, device) -> int:
+        hp, wp = self.padded_shape
+        return tile_rows(hp, wp // TW, 2, 8, device)
 
     # --- K_down ---------------------------------------------------------------
 
@@ -82,31 +144,37 @@ class FusedLevelKernels:
         bm = torch.where(m, b, 0.0)
         R = torch.where(m, bm - _stencil(self.cs * bm, cd, cx, cy), 0.0)
         Rp = F.pad(R, (0, 0, 1, 0))  # row -1 is never interior
-        return 0.25 * Rp[0:-1:2] + 0.5 * Rp[1::2] + 0.25 * Rp[2::2]
+        rr = 0.25 * Rp[0:-1:2] + 0.5 * Rp[1::2] + 0.25 * Rp[2::2]
+        ch, cw = self.ny // 2 + 1, self.nx // 2 + 1
+        ho, wo = self.coarse_shape
+        rc = F.pad(lane_restrict(rr[:ch], self.nx, cw), (0, wo - cw, 0, ho - ch))
+        return torch.where(self.child_spec.build(b.device), rc, 0.0)
 
     def down(self, b: torch.Tensor) -> torch.Tensor:
-        """Row-restricted residual of the pre-smoothed iterate, (hp/2, wp)."""
+        """The restricted residual of the pre-smoothed iterate, masked by the
+        child's interior, on :attr:`coarse_shape`."""
         check_field("b", b, self.padded_shape)
         if b.device.type == "cpu":
             return self.down_plain(b)
-        hp, wp = self.padded_shape
-        rr = torch.empty((hp // 2, wp), dtype=b.dtype, device=b.device)
-        name, geom = self._geom("ist_k_down", b.device)
-        _build.launch(name, _build.ptr(b), _build.ptr(rr), *geom, *self.coeffs, self.cs)
-        return rr
+        ho, wo = self.coarse_shape
+        out = torch.empty((ho, wo), dtype=b.dtype, device=b.device)
+        name, geom = self._geom("ist_k_down", b.device, self.down_tile_rows(b.device))
+        cmask = () if self.mask8 is None else (_build.ptr(self.child_mask8.int8(b.device)),)
+        _build.launch(name, _build.ptr(b), _build.ptr(out), *cmask, *geom, ho, wo,
+                      *self.coeffs, self.cs)
+        return out
 
     # --- K_up -----------------------------------------------------------------
 
-    def up_plain(self, b, ec_lanes, with_dot=False):
+    def up_plain(self, b, ec, with_dot=False):
         _build.note_plain(kernel_name("k_up", self.mask8), b)
         cd, cx, cy = self.coeffs
         hp, wp = self.padded_shape
         ch = self.ny // 2 + 1
         m = self.mask_spec.build(b.device)
-        ec = ec_lanes.clone()
-        ec[ch:] = 0.0  # rows outside the coarse grid
-        nxt = torch.cat([ec[1:], torch.zeros_like(ec[:1])])
-        p = torch.stack([ec, 0.5 * (ec + nxt)], dim=1).reshape(hp, wp)
+        ecl = F.pad(lane_prolong(ec[:ch], self.nx // 2, wp), (0, 0, 0, hp // 2 - ch))
+        nxt = torch.cat([ecl[1:], torch.zeros_like(ecl[:1])])
+        p = torch.stack([ecl, 0.5 * (ecl + nxt)], dim=1).reshape(hp, wp)
         bm = torch.where(m, b, 0.0)
         xc = torch.where(m, self.cs * b + p, 0.0)
         R = torch.where(m, bm - _stencil(xc, cd, cx, cy), 0.0)
@@ -116,31 +184,31 @@ class FusedLevelKernels:
             return out, torch.sum((bm * out).view(g, -1).sum(1))
         return out
 
-    def up(self, b: torch.Tensor, ec_lanes: torch.Tensor, with_dot: bool = False):
-        """Post-smoothed corrected iterate; ``ec_lanes`` is the lane-prolonged
-        coarse correction on this level's (hp/2, wp) row layout. With
-        ``with_dot`` returns ``(out, (b, out))``."""
+    def up(self, b: torch.Tensor, ec: torch.Tensor, with_dot: bool = False):
+        """Post-smoothed corrected iterate; ``ec`` is the child's correction
+        on :attr:`coarse_shape`. With ``with_dot`` returns ``(out, (b, out))``
+        (the block partials summed by one ``torch.sum``)."""
         hp, wp = self.padded_shape
         check_field("b", b, self.padded_shape)
-        check_field("ec_lanes", ec_lanes, (hp // 2, wp))
-        if b.device != ec_lanes.device:
-            raise ValueError("b and ec_lanes must be on one device")
+        check_field("ec", ec, self.coarse_shape)
+        if b.device != ec.device:
+            raise ValueError("b and ec must be on one device")
         if b.device.type == "cpu":
-            return self.up_plain(b, ec_lanes, with_dot)
+            return self.up_plain(b, ec, with_dot)
         out = torch.empty_like(b)
+        tj = self.up_tile_rows(b.device)
         dot_p = (
-            torch.empty((hp // self.block_rows, wp // TW), dtype=b.dtype, device=b.device)
+            torch.empty((-(-hp // (2 * tj)), wp // TW), dtype=b.dtype, device=b.device)
             if with_dot else None
         )
-        name, geom = self._geom("ist_k_up", b.device)
+        name, geom = self._geom("ist_k_up", b.device, tj)
         _build.launch(
-            name, _build.ptr(b), _build.ptr(ec_lanes), _build.ptr(out), _build.ptr(dot_p),
-            *geom, self.ny // 2 + 1, *self.coeffs, self.cs,
+            name, _build.ptr(b), _build.ptr(ec), _build.ptr(out), _build.ptr(dot_p),
+            *geom, self.coarse_shape[1], self.ny // 2 + 1, *self.coeffs, self.cs,
         )
         if with_dot:
             return out, torch.sum(dot_p)
         return out
-
 
     # --- K_jacobi -------------------------------------------------------------
 

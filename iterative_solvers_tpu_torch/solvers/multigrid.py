@@ -6,9 +6,12 @@ restriction and linear prolongation with R = Pᵀ/2^ndim, and an exact
 dense-inverse coarse solve (above ``dense_coarse_limit`` coarsest unknowns,
 a fixed-degree Chebyshev one) — a symmetric linear operator, hence PCG-safe.
 Fine levels of V(1,1) cycles run the fused down/up kernels on their padded
-layouts (kernels/mg_fused.py in 2D; kernels/mg_fused3d.py in 3D, whose y/x
-transfers are stride-2 torch ops here, not the JAX package's banded
-matmuls); the other levels, and any f64 field, take the plain torch leg.
+layouts (kernels/mg_fused.py in 2D, whose legs also do the lane half of
+each transfer and read and write the child's field on the child's own
+input layout, so nothing runs between two fused levels' kernels;
+kernels/mg_fused3d.py in 3D, whose y/x transfers are stride-2 torch ops
+here, not the JAX package's banded matmuls); the other levels, and any f64
+field, take the plain torch leg.
 
 The FMG warm start (:meth:`MultigridPreconditioner.fmg_stepwise`) walks the
 hierarchy from the exact coarsest solve upwards: BC-aware prolongation of
@@ -37,11 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from iterative_solvers_tpu_torch.core.domain import Domain3D, MaskSpec, resolve_device
-from iterative_solvers_tpu_torch.kernels.mg_fused import (
-    FusedLevelKernels,
-    lane_prolong,
-    lane_restrict,
-)
+from iterative_solvers_tpu_torch.kernels.mg_fused import FusedLevelKernels, lane_prolong
 from iterative_solvers_tpu_torch.kernels.mg_fused3d import FusedLevelKernels3D
 from iterative_solvers_tpu_torch.kernels.stencil_layout import round_up
 
@@ -224,22 +223,19 @@ class _CoarseSolveChebyshev:
 
 
 class _FusedLevel:
-    """Fine level running the fused down/up kernels on its padded layout."""
+    """Fine level running the fused down/up kernels on its padded layout;
+    the kernels read and write the child's field on the child's own input
+    layout (``kernels.coarse_shape``)."""
 
-    def __init__(self, kernels: FusedLevelKernels, h, w, ch, cw, nx,
-                 child_mask_spec: MaskSpec, jnp_level: _Level):
+    def __init__(self, kernels: FusedLevelKernels, h, w, jnp_level: _Level):
         self.kernels = kernels
-        self.h, self.w, self.ch, self.cw, self.nx = h, w, ch, cw, nx
-        self.child_mask_spec = child_mask_spec
-        self._child_mask = _MaskCache(child_mask_spec)
+        self.h, self.w = h, w
+        self.ch, self.cw = kernels.ny // 2 + 1, kernels.nx // 2 + 1
         self.jnp_level = jnp_level  # plain leg for non-f32 fields
 
     @property
     def grid_shape(self):
         return (self.h, self.w)
-
-    def child_interior(self, device) -> torch.Tensor:
-        return self._child_mask.on(device)
 
     def pad_in(self, f: torch.Tensor) -> torch.Tensor:
         hp, wp = self.kernels.padded_shape
@@ -376,27 +372,41 @@ class MultigridPreconditioner:
         def make_level(d):
             return _Level(d.mask_spec, (d.coeff_diag, *_axis_coeffs(d)), omega / d.coeff_diag)
 
+        def fuses(i):
+            d = domains[i]
+            is3d = isinstance(d, Domain3D)
+            return (fuse and nu_pre == 1 and i < len(domains) - 1
+                    and d.ny + 1 >= (fuse_min_extent // 4 if is3d else fuse_min_extent))
+
+        # each 2D fused level's layout: (block_rows, padded shape, padded
+        # custom interior); a fused child's is where its parent's legs write
+        layouts = {}
+        for i, d in enumerate(domains):
+            if fuses(i) and not isinstance(d, Domain3D):
+                custom = d.shape == "custom"
+                by, hp, wp = fused_block_rows(*d.grid_shape, 32 if custom else 16)
+                layouts[i] = (by, (hp, wp), d.mask_spec.padded((hp, wp)) if custom else None)
         levels = []
         for i, d in enumerate(domains):
-            fusible = fuse and nu_pre == 1 and i < len(domains) - 1
-            is3d = isinstance(d, Domain3D)
-            if not (fusible and d.ny + 1 >= (fuse_min_extent // 4 if is3d else fuse_min_extent)):
+            if not fuses(i):
                 levels.append(make_level(d))
                 continue
             c = domains[i + 1]
-            if is3d:
+            if isinstance(d, Domain3D):
                 levels.append(_make_fused_3d(d, c, omega, make_level(d)))
                 continue
-            h, w = d.grid_shape
-            custom = d.shape == "custom"
-            by, hp, wp = fused_block_rows(h, w, 32 if custom else 16)
+            by, padded, mask8 = layouts[i]
+            if i + 1 in layouts:
+                child_shape, child_mask8 = layouts[i + 1][1:]
+            else:
+                child_shape = c.grid_shape
+                child_mask8 = c.mask_spec.padded(child_shape) if mask8 is not None else None
             k = FusedLevelKernels(
                 nx=d.nx, ny=d.ny, coeffs=(d.coeff_diag, d.coeff_x, d.coeff_y),
-                cs=omega / d.coeff_diag, mask_mode=d.shape, padded_shape=(hp, wp),
-                block_rows=by, mask8=d.mask_spec.padded((hp, wp)) if custom else None,
+                cs=omega / d.coeff_diag, mask_mode=d.shape, padded_shape=padded,
+                block_rows=by, mask8=mask8, child_shape=child_shape, child_mask8=child_mask8,
             )
-            levels.append(_FusedLevel(k, h, w, c.grid_shape[0], c.grid_shape[1], d.nx,
-                                      c.mask_spec, make_level(d)))
+            levels.append(_FusedLevel(k, *d.grid_shape, make_level(d)))
         if coarsest.num_unknowns <= dense_coarse_limit:
             idx, A = _assemble_dense(coarsest)
             coarse = _CoarseSolveDense(idx, np.linalg.inv(A))
@@ -418,14 +428,10 @@ class MultigridPreconditioner:
         return lev.kernels.up(bp, lev.prolong_yx(ec))
 
     def _fused_leg(self, li: int, lev: _FusedLevel, bp: torch.Tensor, with_dot: bool):
-        """K_down, lane restriction, the coarser cycle, lane prolongation, K_up."""
-        hp, wp = lev.kernels.padded_shape
-        rr = lev.kernels.down(bp)
-        rc = lane_restrict(rr[: lev.ch], lev.nx, lev.cw)
-        rc = torch.where(lev.child_interior(rc.device), rc, 0.0)
-        ec = self._vcycle(li + 1, rc)
-        ecl = F.pad(lane_prolong(ec, lev.nx // 2, wp), (0, 0, 0, hp // 2 - lev.ch))
-        return lev.kernels.up(bp, ecl, with_dot=with_dot)
+        """K_down onto the child's input layout, the coarser cycle (which
+        returns its correction on that layout), K_up: no op in between."""
+        ec = self._vcycle(li + 1, lev.kernels.down(bp))
+        return lev.kernels.up(bp, ec, with_dot=with_dot)
 
     def _vcycle(self, li: int, b: torch.Tensor) -> torch.Tensor:
         if li == len(self.levels) - 1:

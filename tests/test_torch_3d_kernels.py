@@ -22,6 +22,7 @@ Tolerances:
 import dataclasses
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -136,7 +137,7 @@ def test_vcycle_matches_jax_fused(dims):
     jd, _ = _doms(dims)
     rng = np.random.default_rng(8)
     r = np.where(jd.interior, rng.standard_normal(jd.grid_shape), 0.0).astype(np.float32)
-    ref = np.asarray(Mj(jnp.asarray(r)))
+    ref = np.asarray(jax.jit(Mj)(jnp.asarray(r)))  # one compiled program
     got = Mt(_t(r)).numpy()
     np.testing.assert_allclose(got, ref, rtol=1e-5, atol=2e-6 * np.abs(ref).max())
     # padded pass-through: the level-0 layout in, the level-0 layout out
@@ -155,7 +156,7 @@ def test_vcycle_f64_fields_take_the_plain_legs():
     Mj = JMG.from_domain(jd, fuse=False)
     _, Mt = _levels((16, 24, 8))
     r = np.where(jd.interior, np.random.default_rng(1).standard_normal(jd.grid_shape), 0.0)
-    ref = np.asarray(Mj(jnp.asarray(r)))
+    ref = np.asarray(jax.jit(Mj)(jnp.asarray(r)))
     got = Mt(_t(r))
     assert got.dtype == torch.float64
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-12, atol=1e-14 * np.abs(ref).max())

@@ -19,13 +19,18 @@ import math
 
 import pytest
 import torch
+import torch.nn.functional as F
 
 from iterative_solvers_tpu_torch import Domain2D, Domain3D
 from iterative_solvers_tpu_torch.core.domain import notched_disk
 from iterative_solvers_tpu_torch.kernels import _build, cg_fused, resid_ff
 from iterative_solvers_tpu_torch.kernels import stencil_pipelined as sp
 from iterative_solvers_tpu_torch.kernels.stencil3d_layout import Padded3DStencilOperator
-from iterative_solvers_tpu_torch.kernels.mg_fused import FusedLevelKernels
+from iterative_solvers_tpu_torch.kernels.mg_fused import (
+    FusedLevelKernels,
+    lane_prolong,
+    lane_restrict,
+)
 from iterative_solvers_tpu_torch.kernels.stencil_layout import PaddedStencilOperator
 from iterative_solvers_tpu_torch.ops import stencil as stencil_ops
 from iterative_solvers_tpu_torch.ops.ddf32 import split_f64
@@ -94,13 +99,36 @@ def test_k_down_k_up_match_plain(gen, shape, nx, ny):
     k = M.levels[0].kernels
     hp, wp = k.padded_shape
     b = torch.randn((hp, wp), device="cuda", generator=gen)
-    ec = torch.randn((hp // 2, wp), device="cuda", generator=gen)
+    ec = torch.randn(k.coarse_shape, device="cuda", generator=gen)
     _close(k.down(b), k.down_plain(b))
     _close(k.up(b, ec), k.up_plain(b, ec))
     (o, dot), (o_ref, dot_ref) = k.up(b, ec, with_dot=True), k.up_plain(b, ec, with_dot=True)
     _close(o, o_ref)
     bm = torch.where(k.mask_spec.build("cuda"), b, 0.0)
     assert abs(float(dot) - float(dot_ref)) <= 64 * EPS32 * float((bm * o_ref).abs().sum())
+
+
+@pytest.mark.parametrize("shape", ["gamma", "custom"])
+def test_legs_match_plain_at_every_fused_level(gen, shape):
+    """K_down and K_up (C2, C3 on the notched disk) at every fused level of
+    the 8192² default solve (8192 … 512), each writing or reading the coarse
+    field on its child's layout (the 512 level's child is a plain grid),
+    with and without the dot."""
+    fn = notched_disk if shape == "custom" else None
+    M = MultigridPreconditioner.from_domain(Domain2D(nx=8192, ny=8192, shape=shape,
+                                                     inside_fn=fn), device="cuda")
+    fused = [lev.kernels for lev in M.levels if hasattr(lev, "kernels")]
+    assert [k.nx for k in fused] == [8192, 4096, 2048, 1024, 512]
+    assert fused[-1].coarse_shape == (257, 257)
+    for k in fused:
+        mk = k.mask_spec.build("cuda")
+        b = torch.where(mk, torch.randn(k.padded_shape, device="cuda", generator=gen), 0.0)
+        ec = torch.randn(k.coarse_shape, device="cuda", generator=gen)
+        _close(k.down(b), k.down_plain(b))
+        _close(k.up(b, ec), k.up_plain(b, ec))
+        (o, dot), (o_ref, dot_ref) = k.up(b, ec, with_dot=True), k.up_plain(b, ec, with_dot=True)
+        _close(o, o_ref)
+        assert abs(float(dot) - float(dot_ref)) <= 64 * EPS32 * float((b * o_ref).abs().sum())
 
 
 @pytest.mark.parametrize("shape,nx,ny", SHAPES)
@@ -179,7 +207,7 @@ def test_custom_kernels_match_plain(gen, n, by):
             _sum_close(got[3], ref[3], float(ref[3].sum()))
     mk = k.mask_spec.build("cuda")
     b = torch.where(mk, torch.randn(k.padded_shape, device="cuda", generator=gen), 0.0)
-    ec = torch.randn((k.padded_shape[0] // 2, k.padded_shape[1]), device="cuda", generator=gen)
+    ec = torch.randn(k.coarse_shape, device="cuda", generator=gen)
     _close(k.down(b), k.down_plain(b))
     _close(k.up(b, ec), k.up_plain(b, ec))
     (o, dot), (o_ref, dot_ref) = k.up(b, ec, with_dot=True), k.up_plain(b, ec, with_dot=True)
@@ -325,7 +353,9 @@ def test_mesh_block_kernels_match_single_device(gen, mesh_shape):
     a (2, 1, 2) split of 32³), each block's halos cut from the global field
     as the ring exchange delivers them: each launch within tolerance of its
     plain version, and the stitched blocks bit-equal to the single-device
-    kernels (A1, A5, A6, S7) at every node, edges included."""
+    kernels (A1, A5, A6, S7) at every node, edges included: D3's through the
+    lane restriction and child mask that the mesh applies between its legs,
+    D4's fed the lane prolongation of A6's coarse correction."""
     dom = Domain2D(nx=1024, ny=1024)
     meshes = _virtual(mesh_shape)
     ops = [ShardedPallasStencilOperator.from_domain(dom, m) for m in meshes]
@@ -334,7 +364,10 @@ def test_mesh_block_kernels_match_single_device(gen, mesh_shape):
                                                 device="cuda").levels[0]] * len(ops)
     (hp, wp), by = ops[0].padded_shape, ops[0].block_rows
     x = torch.randn((hp, wp), device="cuda", generator=gen)
-    ec = torch.randn((hp // 2, wp), device="cuda", generator=gen)
+    # the single-device legs take the child's grid (513, 513); the blocks
+    # its lane prolongation, as the mesh forms it between its legs
+    ec = torch.randn((513, 513), device="cuda", generator=gen)
+    ecl = F.pad(lane_prolong(ec, 512, wp), (0, 0, 0, hp // 2 - 513))
     _build.reset_counts()
     outs = {"D1": [], "D3": [], "D4": []}
     for op, lev in zip(ops, levs):
@@ -344,7 +377,7 @@ def test_mesh_block_kernels_match_single_device(gen, mesh_shape):
         dh = lev.down_halos_from_global(x, op.origin)
         outs["D3"].append(lev.down_block(*dh, op.origin))
         _close(outs["D3"][-1], lev.down_plain(*dh, op.origin))
-        uh = lev.up_halos_from_global(x, ec, op.origin)
+        uh = lev.up_halos_from_global(x, ecl, op.origin)
         o, part = lev.up_block(*uh, op.origin, with_dot=True)
         o_ref, part_ref = lev.up_plain(*uh, op.origin, with_dot=True)
         _close(o, o_ref)
@@ -352,10 +385,15 @@ def test_mesh_block_kernels_match_single_device(gen, mesh_shape):
             (uh[0] * o_ref).abs().sum())
         outs["D4"].append(o)
     lev = levs[0]
-    single = FusedLevelKernels(1024, 1024, lev.coeffs, lev.cs, "gamma", (hp, wp), by)
+    single = FusedLevelKernels(1024, 1024, lev.coeffs, lev.cs, "gamma", (hp, wp), by,
+                               (513, 513))
     lay = PaddedStencilOperator(1024, 1024, ops[0].coeffs, (1025, 1025), (hp, wp), by, "gamma")
     assert torch.equal(_stitch(meshes, outs["D1"]), lay(x))
-    assert torch.equal(_stitch(meshes, outs["D3"]), single.down(x))
+    # D3's stitch through the mesh's lane restriction and child mask: A5's
+    # coarse field
+    rc = lane_restrict(_stitch(meshes, outs["D3"])[:513], 1024, 513)
+    rc = torch.where(single.child_spec.build("cuda"), rc, 0.0)
+    assert torch.equal(rc, single.down(x))
     assert torch.equal(_stitch(meshes, outs["D4"]), single.up(x, ec))
     box = Domain3D(32, 32, 32)
     meshes3 = _virtual((2, 1, 2))

@@ -1,5 +1,6 @@
 """CPU parity of the port's kernel modules (plain versions of K1, K2-pcg,
-K_down, K_up, the lane transfers and the V-cycle) against the JAX package's
+K_down, K_up with the lane transfers folded in, the lane transfers and the
+V-cycle) against the JAX package's
 Pallas kernels in interpret mode, with state carried across by
 ``iterative_solvers_tpu_torch.interop``.
 
@@ -10,6 +11,7 @@ outputs chain ~10 f32 sweeps and a coarse solve, so 1e-5 · max|ref|."""
 
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -171,18 +173,34 @@ def test_hierarchy_from_domain_matches_jax(shape, nx, ny):
 @pytest.mark.parametrize("shape,nx,ny", SHAPES)
 @pytest.mark.parametrize("with_dot", [False, True])
 def test_k_down_k_up_plain_match_pallas(shape, nx, ny, with_dot):
+    """The legs take and give the coarse field on the child's input layout
+    (the lane transfers and the child mask folded in): JAX's K_down and K_up
+    composed as its V-cycle composes them, with lane_restrict_mm /
+    lane_prolong_mm and the child mask. The banded matmuls sum in another
+    order: 1e-6 · max|ref|, as for every element field here."""
     _, M = _jax_mg(shape, nx, ny)
-    jk = M.levels[0].kernels
+    jlev = M.levels[0]
+    jk = jlev.kernels
     pk = _carry_mg(M).levels[0].kernels
     hp, wp = jk.padded_shape
+    ch, cw = jlev.ch, jlev.cw
     rng = np.random.default_rng(13)
     b = rng.standard_normal((hp, wp)).astype(np.float32)  # unmasked: the kernels mask b
     if shape == "custom":
         b *= pk.mask_spec.build_host()  # the JAX custom kernels trust b's halo rows
-    ec = rng.standard_normal((hp // 2, wp)).astype(np.float32)
-    _close(pk.down(_t(b)), jk.down(jnp.asarray(b)))
-    ref = jk.up(jnp.asarray(b), jnp.asarray(ec), with_dot=with_dot)
-    got = pk.up(_t(b), _t(ec), with_dot=with_dot)
+    rc = jmg.lane_restrict_mm(jk.down(jnp.asarray(b))[:ch], nx, cw)
+    got = pk.down(_t(b))
+    child = M.levels[1]
+    assert pk.coarse_shape == (child.kernels.padded_shape if hasattr(child, "kernels")
+                               else (ch, cw)) == tuple(got.shape)
+    _close(got[:ch, :cw], jnp.where(jlev.child_interior, rc, 0.0))
+    assert not got[ch:].any() and not got[:, cw:].any()  # the child's padding
+    ec = rng.standard_normal((ch, cw)).astype(np.float32)
+    ecl = jnp.pad(jmg.lane_prolong_mm(jnp.asarray(ec), nx // 2, wp), ((0, hp // 2 - ch), (0, 0)))
+    ref = jk.up(jnp.asarray(b), ecl, with_dot=with_dot)
+    ecp = torch.zeros(pk.coarse_shape)
+    ecp[:ch, :cw] = _t(ec)
+    got = pk.up(_t(b), ecp, with_dot=with_dot)
     if with_dot:
         (ref, ref_dot), (got, got_dot) = ref, got
         np.testing.assert_allclose(got_dot.item(), float(ref_dot), rtol=1e-5)
@@ -217,16 +235,19 @@ def test_lane_transfers(nx):
 
 @pytest.mark.parametrize("shape,nx,ny", SHAPES)
 def test_vcycle_and_call_with_dot_match_jax(shape, nx, ny):
+    # the port's fused levels run the legs with the lane transfers folded in,
+    # JAX's its kernels with lane_restrict_mm / lane_prolong_mm between them
     jd, M = _jax_mg(shape, nx, ny)
     P = _carry_mg(M)
     rng = np.random.default_rng(15)
     r = (rng.standard_normal(jd.grid_shape) * np.asarray(jd.interior)).astype(np.float32)
-    _close(P(_t(r)), M(jnp.asarray(r)), frac=1e-5)
+    jM = jax.jit(M)  # one compiled program per input type, not op-by-op dispatch
+    _close(P(_t(r)), jM(jnp.asarray(r)), frac=1e-5)
     # padded pass-through: the fused fine level's own layout, dot fused in K_up
     hp, wp = M.levels[0].kernels.padded_shape
     rp = np.zeros((hp, wp), np.float32)
     rp[: r.shape[0], : r.shape[1]] = r
-    z_ref, dot_ref = M.call_with_dot(jnp.asarray(rp))
+    z_ref, dot_ref = jax.jit(M.call_with_dot)(jnp.asarray(rp))
     z, dot = P.call_with_dot(_t(rp))
     _close(z, z_ref, frac=1e-5)
     np.testing.assert_allclose(dot.item(), float(dot_ref), rtol=1e-5)
@@ -237,7 +258,7 @@ def test_vcycle_and_call_with_dot_match_jax(shape, nx, ny):
     assert abs(s1 - s2) <= 2e-5 * abs(s1)
     # f64 fields take the plain leg of every level
     r64 = _t(r.astype(np.float64))
-    _close(P(r64), M(jnp.asarray(r64)), frac=1e-12)
+    _close(P(r64), jM(jnp.asarray(r64)), frac=1e-12)
 
 
 @pytest.mark.parametrize("shape,nx,ny", SHAPES)

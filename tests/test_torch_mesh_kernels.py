@@ -25,6 +25,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 from jax.sharding import Mesh
 
 from iterative_solvers_tpu.api import DirichletSolver as JSolver
@@ -44,7 +45,11 @@ from iterative_solvers_tpu.parallel.mg_sharded import _k_down_call, _k_up_call
 from _torch_mesh_cases import BOX, raising_rank, sleeping_rank
 from iterative_solvers_tpu_torch import DirichletSolver, Domain2D, Domain3D
 from iterative_solvers_tpu_torch.interop import block_from_global, global_from_blocks
-from iterative_solvers_tpu_torch.kernels.mg_fused import FusedLevelKernels
+from iterative_solvers_tpu_torch.kernels.mg_fused import (
+    FusedLevelKernels,
+    lane_prolong,
+    lane_restrict,
+)
 from iterative_solvers_tpu_torch.kernels.stencil3d_layout import Padded3DStencilOperator
 from iterative_solvers_tpu_torch.kernels.stencil_layout import PaddedStencilOperator
 from iterative_solvers_tpu_torch.parallel import (
@@ -274,14 +279,20 @@ def test_stitched_blocks_equal_single_device(leg):
     lev = ShardedFusedMultigrid.from_operator(ops[0], dom, fuse_min_extent=33,
                                               device="cpu").levels[0]
     levs = [lev] * len(ops)
-    single = FusedLevelKernels(64, 64, lev.coeffs, lev.cs, "gamma", (hp, wp), 16)
+    # the single-device legs fold in the lane transfers and the child mask
+    # that the mesh runs between its block legs: the same ops on the stitch
+    single = FusedLevelKernels(64, 64, lev.coeffs, lev.cs, "gamma", (hp, wp), 16, (33, 33))
+    ch, cw = single.coarse_shape
     if leg == "D3":
         got = _stitch([lv.down_plain(*lv.down_halos_from_global(x, op.origin), op.origin)
                        for lv, op in zip(levs, ops)], meshes)
+        got = lane_restrict(got[:ch], 64, cw)
+        got = torch.where(single.child_spec.build(), got, 0.0)
         np.testing.assert_array_equal(got.numpy(), single.down_plain(x).numpy())
         return
-    ec = torch.randn((hp // 2, wp), generator=g)
-    got = _stitch([lv.up_plain(*lv.up_halos_from_global(x, ec, op.origin), op.origin)
+    ec = torch.randn((ch, cw), generator=g)
+    ecl = F.pad(lane_prolong(ec, 32, wp), (0, 0, 0, hp // 2 - ch))
+    got = _stitch([lv.up_plain(*lv.up_halos_from_global(x, ecl, op.origin), op.origin)
                    for lv, op in zip(levs, ops)], meshes)
     np.testing.assert_array_equal(got.numpy(), single.up_plain(x, ec).numpy())
 
