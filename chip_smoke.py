@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --legs DIR   # only the 2D V-cycle legs, of the port in DIR
+    python3 chip_smoke.py --cg DIR     # only the fused CG kernels K1/K2, of the port in DIR
 
 Phases, each printing its own lines; any failure exits non-zero before the
 final ``ok`` line:
@@ -20,7 +21,11 @@ final ``ok`` line:
    the max abs difference, the tolerance and the device times (back-to-back
    calls between CUDA events) of the kernel, its plain version and, for the
    stencils, one ``F.conv2d`` / ``F.conv3d``, and the kernel's time as one
-   call between two events (which adds the host's launch); the V-cycle legs K_down and
+   call between two events (which adds the host's launch); at the 1024²
+   layouts of paths B and C-B also on the graph timer (20 calls captured in
+   one CUDA graph, the replay over 20), the time those rows compare with
+   their bound, since their kernels are shorter than the host needs to
+   issue one call; the V-cycle legs K_down and
    K_up (C2, C3 on the disk) at every fused level of path A and of the
    disk (8192 … 512), against their plain versions, each beside its bound
    and its plain version, with the level's whole leg cost (device time of
@@ -36,7 +41,8 @@ final ``ok`` line:
    and D6 (MSG and PCG, with and without u) on the same (4, 2) partition,
    each against its plain version, the stitched side rows, x', r' and z_k
    against K1, K2 and K2-pcg bit for bit at every node, the summed
-   partials within f32 round-off, each timed on the 1x1 block beside K1,
+   partials within f32 round-off, each timed on the 1x1 block of 8192² and
+   of 1024² (path "mesh fused B"'s, also on the graph timer) beside K1,
    K2 and K2-pcg;
 4. solves, each main path run with the launch counts set to 0 just before
    it and read just after:
@@ -95,7 +101,13 @@ final ``ok`` line:
      to its stop with its true relative residual;
    - the 3D facade with a mesh (``pallas``, ``mg``, ``mixed``; D2 and the
      plain V-cycle) at 512³ on a 1x1 mesh;
-5. one JSON line with every kernel's numbers, the card line, then ``ok``.
+5. one JSON line with every kernel's numbers (a kernel that a counted path
+   launches at 1024² while its row is timed at 8192² also carries, under
+   ``at_path``, that path's launches and its times and bound at 1024²), the
+   card line, then ``ok``.
+
+Paths B, C-B and "mesh fused B" must converge within 1 % of the iteration
+counts they had before the K1/K2 tiles (``CG_COUNTS``).
 
 Imports nothing of JAX. Needs one card; fails without one.
 """
@@ -112,6 +124,7 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 N = 8192
+NB = 1024  # paths B, C-B and "mesh fused B"
 EPS32 = 1.1920929e-07
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM data sheet, f32 outside the tensor cores
@@ -203,6 +216,15 @@ PATH_KERNELS = {
     "mesh fused B": ("k1_block", "k2_block"),
     "mesh fused mg": ("k1_block", "k2_pcg_block", "k_down_block", "k_up_block"),
 }
+# the kernels that a counted path launches at NB² (paths B's and C-B's
+# 1280 x 1152 layout, the mesh block's 1152 x 1152) while their row's time
+# is taken at 8192²: each row also carries its time and bound at NB²
+# (``at_path``), so launches x gap reads from one line
+AT_NB = {"k1": "B", "k2": "B", "stencil": "B", "k1_custom": "C-B", "k2_custom": "C-B",
+         "stencil_custom": "C-B", "k1_block": "mesh fused B", "k2_block": "mesh fused B"}
+# the live runs' iteration counts to rel 1e-6 before the K1/K2 tiles: a
+# count may move only through the partials' summation order, within 1 %
+CG_COUNTS = {"B": 2055, "C-B": 1703, "mesh fused B": 2055}
 N3 = 512
 
 
@@ -260,11 +282,14 @@ def kernel_times(kern, plain, plain_reps=15):
             "plain_ms": device_ms(plain, reps=plain_reps)}
 
 
-def graph_ms(fn, reps=15):
-    """Device time of ``fn``: captured once in a CUDA graph after two
-    warm-up calls, the median CUDA-event time of its replays, so the host's
-    launch stream (which keeps the card idle between small launches) is
-    not in it."""
+def graph_ms(fn, reps=15, calls=1):
+    """Device time of one call of ``fn``: ``calls`` calls captured in one
+    CUDA graph after two warm-up calls, the median CUDA-event time of its
+    replays over ``calls``, so the host's launch stream (which keeps the
+    card idle between small launches) is not in it. With ``calls`` = 20 it
+    is the timer of kernels shorter than the host's ~0.02–0.03 ms to issue
+    one wrapper call, where :func:`device_ms`'s back-to-back calls would
+    time the host."""
     import torch
 
     side = torch.cuda.Stream()
@@ -275,8 +300,21 @@ def graph_ms(fn, reps=15):
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        fn()
-    return one_call_ms(graph.replay, reps)
+        for _ in range(calls):
+            fn()
+    return one_call_ms(graph.replay, reps) / calls
+
+
+GRAPH_CALLS = 20  # kernel launches per graph of the short-kernel timer
+
+
+def bound_ms(s, ops):
+    """(bound ms, bound_by) of a kernel row ``s`` (its bytes and nodes) at
+    ``ops`` f32 operations per node: the larger of bytes over the memory
+    rate and operations over the f32 rate."""
+    t_bytes = s["bytes"] / HBM_BYTES_PER_S * 1e3
+    t_ops = ops * s["nodes"] / F32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def nbytes(ts):
@@ -309,12 +347,15 @@ def compare(name, outs, refs, kinds, scales=None):
     return worst, worst_tol
 
 
-def check_kernels(dom, gen, label, timed, block_rows=None):
-    """Each kernel against its plain version on one layout (the solver's own,
-    or ``block_rows``-row bands); returns {name: dict of max_abs_err, ms,
-    plain_ms, library_ms, bytes, nodes}. On a custom domain these are the
-    ``*_custom`` instantiations (no Jacobi kernel), every input pre-masked,
-    and the int8 mask counts among the bytes."""
+def check_kernels(dom, gen, label, timed, block_rows=None, only=None, short=False):
+    """Each kernel (of ``only``, else all) against its plain version on one
+    layout (the solver's own, or ``block_rows``-row bands); returns {name:
+    dict of max_abs_err, ms, plain_ms, library_ms, bytes, nodes, shape}.
+    On a custom domain these are the ``*_custom`` instantiations (no Jacobi
+    kernel), every input pre-masked, and the int8 mask counts among the
+    bytes. ``short`` (a layout whose kernels are shorter than the host's
+    issue time) adds ``graph_ms`` (:func:`graph_ms`, ``GRAPH_CALLS`` calls
+    in one graph), the time such a row compares with its bound."""
     import torch
     import torch.nn.functional as F
 
@@ -383,6 +424,8 @@ def check_kernels(dom, gen, label, timed, block_rows=None):
     }
     if custom:
         del cases["k_jacobi"]  # no custom Jacobi kernel, as on the TPU
+    if only is not None:
+        cases = {k: v for k, v in cases.items() if k in only}
     # the true-solution variants of K2 and K2-pcg (the ‖x − u‖∞ partials)
     extra = {
         "k2+u": (lambda: cg_fused.k2(x, r, z, side_r, scal, lay, u=u),
@@ -393,7 +436,14 @@ def check_kernels(dom, gen, label, timed, block_rows=None):
                      ("field", "field", "field", "sum", "max", "max")),
     }
     sfx = "_custom" if custom else ""
+    # K1's and K2's (tile rows, blocks) on this layout (none before the tiles)
+    grid = getattr(cg_fused, "tile_grid", None)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    tiles = {k: grid("k1" if k == "k1" else "k2", lay.padded_shape, lay.block_rows, sms)
+             if grid else None for k in ("k1", "k2", "k2_pcg")}
     for name, (kern, plain, kinds) in extra.items():
+        if name.removesuffix("+u") not in cases:
+            continue
         got, ref = kern(), plain()
         torch.cuda.synchronize()
         err, tol = compare(f"{name}{sfx} @ {label}", got, ref, kinds)
@@ -406,11 +456,20 @@ def check_kernels(dom, gen, label, timed, block_rows=None):
         sc = scales[base](ref) if base in scales else None
         err, tol = compare(f"{name} @ {label}", got, ref, kinds, sc)
         rec = {"max_abs_err": err, "bytes": nbytes(ins) + nbytes(got),
-               "nodes": lay.padded_shape[0] * lay.padded_shape[1], "library_ms": None}
+               "nodes": lay.padded_shape[0] * lay.padded_shape[1], "library_ms": None,
+               "shape": list(lay.padded_shape)}
         line = f"kernel {name:17s} @ {label}: max_abs_err {err:.3e} tol {tol:.3e}"
+        if base in tiles:
+            rec["tiles"] = tiles[base]
+            line += f" (tile rows, blocks {tiles[base]}; bands {lay.block_rows})"
         if timed and base not in ("k_down", "k_up"):  # the legs: check_legs times them
             rec.update(kernel_times(kern, plain))
             line += f"  kernel {rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f} ms"
+            if short and base in ("k1", "k2", "k2_pcg", "stencil"):  # the NB² paths' kernels
+                rec["graph_ms"] = graph_ms(kern, reps=5, calls=GRAPH_CALLS)
+                line += (f"  graph {rec['graph_ms']:.4f} ms  one call "
+                         f"{rec['one_call_ms']:.4f} ms  bound "
+                         f"{rec['bytes'] / HBM_BYTES_PER_S * 1e3:.4f} ms")
             if base == "stencil":
                 # yardstick: one cuDNN convolution with the 5-point cross
                 cd, cx, cy = lay.coeffs
@@ -621,6 +680,33 @@ def legs_only(gen) -> int:
         out[label] = check_legs(dom, gen, f"{label} {N}^2")
     log(json.dumps({"legs": out}))
     return 0
+
+
+def cg_only(gen) -> int:
+    """``--cg DIR``: K1, K2 and K2-pcg (gamma and custom: the six
+    instantiations) of the port in DIR against their plain versions and
+    timed, at path B's and C-B's NB² layouts (also on the graph timer) and
+    the 8192² level-0 layouts; then one JSON line {label: {name: record}}."""
+    from iterative_solvers_tpu_torch.core.domain import Domain2D, notched_disk
+
+    out = {}
+    for n in (NB, N):
+        for label, dom in ((f"{n}^2", Domain2D(nx=n, ny=n)),
+                           (f"custom {n}^2", Domain2D(nx=n, ny=n, shape="custom",
+                                                      inside_fn=notched_disk))):
+            out[label] = check_kernels(dom, gen, label, timed=True, only=("k1", "k2", "k2_pcg"),
+                                       short=n == NB)
+    log(json.dumps({"cg": out}))
+    return 0
+
+
+def check_count(path, iterations):
+    """A live CG run's count within 1 % of ``CG_COUNTS[path]``."""
+    want = CG_COUNTS[path]
+    log(f"path {path} count {iterations} against {want} before the K1/K2 tiles "
+        f"({100 * (iterations - want) / want:+.2f} %)")
+    if abs(iterations - want) > 0.01 * want:
+        raise AssertionError(f"path {path}: {iterations} iterations, more than 1 % from {want}")
 
 
 def solve_64_agrees(label, run):
@@ -976,7 +1062,7 @@ def custom_paths(disk):
                                  f"rel {rel:.3e}")
         del solver, res
         torch.cuda.empty_cache()
-    nb = 1024
+    nb = NB
     solver = DirichletSolver(domain=Domain2D(nx=nb, ny=nb, shape="custom", inside_fn=notched_disk),
                              operator="fused", device="cuda", stop=rel6)
     res, wall, launches["C-B"] = timed_solve(solver, "C-B")
@@ -986,6 +1072,7 @@ def custom_paths(disk):
         f"{res.elapsed_s:.4f} s wall {wall:.3f} s")
     if not (res.converged and res.stop_reason.name == "RELATIVE_RESIDUAL" and rel < 1e-3):
         raise AssertionError(f"path C-B failed: converged={res.converged} rel={rel:.3e}")
+    check_count("C-B", res.iterations)
     del solver, res
     torch.cuda.empty_cache()
     plain_cg_ms_per_iter(disk, f"{N}^2 custom")
@@ -1617,16 +1704,11 @@ def check_engine_kernels(gen):
     and K2-pcg (``_check_engine_partition``) on the (4, 2) partition of
     8192², the 1x1 block of 1024² (the layout of path "mesh fused B"'s live
     run) and the (2, 2) partition of 2048² (the 4-rank world's). Then each
-    against its plain version on the 1x1 block of 8192² (path "mesh
-    engine"'s layout, which is K1's and K2's there), and timed there beside
-    K1, K2 and K2-pcg. Returns {name: stats}."""
+    timed on the 1x1 block of 8192² (path "mesh engine"'s layout, which is
+    K1's and K2's there) and of 1024² ("mesh fused B"'s), beside K1, K2 and
+    K2-pcg (:func:`_time_engine_1x1`). Returns ({name: stats} at 8192²,
+    the same at 1024²)."""
     import torch
-
-    from iterative_solvers_tpu_torch import Domain2D
-    from iterative_solvers_tpu_torch.kernels import cg_fused
-    from iterative_solvers_tpu_torch.kernels.stencil_layout import PaddedStencilOperator
-    from iterative_solvers_tpu_torch.parallel import ShardedPallasStencilOperator, make_solver_mesh
-    from iterative_solvers_tpu_torch.parallel import cg_fused_sharded as S
 
     names = ("k1_block", "k2_block", "k2_pcg_block")
     worst = dict.fromkeys(names, 0.0)
@@ -1643,16 +1725,32 @@ def check_engine_kernels(gen):
 
     beta = torch.tensor(0.37, device="cuda")
     scal = torch.tensor([-1.3e-4, 0.37], device="cuda")
-    for n, shape in ((N, (4, 2)), (1024, (1, 1)), (MESH_N, (2, 2))):
+    for n, shape in ((N, (4, 2)), (NB, (1, 1)), (MESH_N, (2, 2))):
         _check_engine_partition(n, shape, gen, check, dot_scale, beta, scal)
+    out = _time_engine_1x1(N, gen, check, dot_scale, beta, scal, worst)
+    out_nb = _time_engine_1x1(NB, gen, check, dot_scale, beta, scal, worst, short=True)
+    return out, out_nb
 
-    # timings on the 1x1 block (the whole canvas, self-halos) beside K1 / K2
-    dom = Domain2D(nx=N, ny=N)
+
+def _time_engine_1x1(n, gen, check, dot_scale, beta, scal, worst, short=False):
+    """D5, D6 and D6-pcg on the 1x1 block of the n² Г grid (the whole
+    canvas, self-halos), each against its plain version and timed beside
+    K1, K2 and K2-pcg on the block's layout (``short``: also on the graph
+    timer, :func:`graph_ms`). Returns {name: stats}."""
+    import torch
+
+    from iterative_solvers_tpu_torch import Domain2D
+    from iterative_solvers_tpu_torch.kernels import cg_fused
+    from iterative_solvers_tpu_torch.kernels.stencil_layout import PaddedStencilOperator
+    from iterative_solvers_tpu_torch.parallel import ShardedPallasStencilOperator, make_solver_mesh
+    from iterative_solvers_tpu_torch.parallel import cg_fused_sharded as S
+
+    dom = Domain2D(nx=n, ny=n)
     op1 = ShardedPallasStencilOperator.from_domain(dom, make_solver_mesh(1))
-    lay1 = PaddedStencilOperator.from_domain(dom)
-    if (lay1.padded_shape, lay1.block_rows) != (op1.padded_shape, op1.block_rows):
-        raise AssertionError(f"8192^2: 1x1 block layout {op1.padded_shape}/{op1.block_rows} "
-                             f"!= single-device {lay1.padded_shape}/{lay1.block_rows}")
+    # K1 / K2 on the block's layout (at 8192² the single-device one; at
+    # 1024² the mesh's 1152 x 1152 canvas of 128-row bands, not path B's)
+    lay1 = PaddedStencilOperator(n, n, op1.coeffs, dom.grid_shape, op1.padded_shape,
+                                 op1.block_rows, "gamma")
     mask = lay1.mask_spec.build("cuda")
     x, r, z, w, u = (torch.where(mask, torch.randn(lay1.padded_shape, device="cuda",
                                                    generator=gen), 0.0) for _ in range(5))
@@ -1681,13 +1779,20 @@ def check_engine_kernels(gen):
     out = {}
     for name, (kern, plain, kinds, ins, sc, single_name, single) in cases.items():
         got, ref = kern(), plain()
-        err, tol = check(f"{name} @ 8192^2 1x1", got, ref, kinds, sc)
+        err, tol = check(f"{name} @ {n}^2 1x1", got, ref, kinds, sc)
         rec = {"max_abs_err": worst[name], "bytes": nbytes(ins) + nbytes(got), "nodes": nodes,
-               "library_ms": None, **kernel_times(kern, plain, 5),
-               "single_ms": device_ms(single)}
-        log(f"kernel {name:17s} @ 8192^2 1x1: max_abs_err {err:.3e} tol {tol:.3e}  kernel "
-            f"{rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f} ms  ({single_name} in this call "
-            f"{rec['single_ms']:.4f} ms)")
+               "library_ms": None, "shape": list(op1.padded_shape),
+               **kernel_times(kern, plain, 5), "single_ms": device_ms(single)}
+        line = (f"kernel {name:17s} @ {n}^2 1x1: max_abs_err {err:.3e} tol {tol:.3e}  kernel "
+                f"{rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f} ms  ({single_name} in this "
+                f"call {rec['single_ms']:.4f} ms)")
+        if short:
+            rec["graph_ms"] = graph_ms(kern, reps=5, calls=GRAPH_CALLS)
+            rec["single_graph_ms"] = graph_ms(single, reps=5, calls=GRAPH_CALLS)
+            line += (f"  graph {rec['graph_ms']:.4f} ms ({single_name} "
+                     f"{rec['single_graph_ms']:.4f})  one call {rec['one_call_ms']:.4f} ms  "
+                     f"bound {rec['bytes'] / HBM_BYTES_PER_S * 1e3:.4f} ms")
+        log(line)
         out[name] = rec
         del got, ref
     del x, r, z, w, u, hr, hw
@@ -1805,7 +1910,7 @@ def mesh_engine_path(path_a_f64, fast_path):
     return launches
 
 
-def mesh_fused_b(path_b_iterations, nb=1024):
+def mesh_fused_b(path_b_iterations, nb=NB):
     """Path "mesh fused B": ``operator="fused"`` with a 1x1 mesh, the sharded
     fused engine's MSG CG (D5, D6): its ms/iteration at 8192² beside K1 +
     K2's, and a live run at nb² to rel 1e-6 beside path B's count."""
@@ -1828,6 +1933,7 @@ def mesh_fused_b(path_b_iterations, nb=1024):
         f"true_rel {rel:.3e} solve {res.elapsed_s:.4f} s wall {wall:.3f} s")
     if not (res.converged and res.stop_reason.name == "RELATIVE_RESIDUAL" and rel < 1e-3):
         raise AssertionError(f"mesh fused B failed: converged={res.converged} rel={rel:.3e}")
+    check_count("mesh fused B", res.iterations)
     del solver, res
     torch.cuda.empty_cache()
     return launches
@@ -2060,8 +2166,12 @@ def main(argv) -> int:
     ap.add_argument("--legs", metavar="DIR",
                     help="only check and time the 2D V-cycle legs of the port in the "
                          "checkout DIR (this one or an earlier commit's)")
+    ap.add_argument("--cg", metavar="DIR",
+                    help="only check and time the fused CG kernels K1, K2 and K2-pcg of the "
+                         "port in the checkout DIR (this one or an earlier commit's)")
     args = ap.parse_args(argv)
-    root = os.path.abspath(args.legs) if args.legs else REPO
+    other = args.legs or args.cg
+    root = os.path.abspath(other) if other else REPO
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
@@ -2096,13 +2206,15 @@ def main(argv) -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     if args.legs:
         return legs_only(gen)
+    if args.cg:
+        return cg_only(gen)
     # 16-row bands: several bands, and their halos, even on small grids
     check_kernels(Domain2D(nx=64, ny=64), gen, "gamma 64^2", timed=False, block_rows=16)
     check_kernels(Domain2D(nx=40, ny=50, shape="rect"), gen, "rect 40x50", timed=False,
                   block_rows=16)
-    # path B's own layout (256-row bands), timed: path B launches K1 and K2
-    # at this shape
-    check_kernels(Domain2D(nx=1024, ny=1024), gen, "1024^2 path B", timed=True)
+    # path B's own layout (256-row bands), timed on the graph timer too:
+    # path B launches K1, K2 and the stencil at this shape
+    at_nb = check_kernels(Domain2D(nx=NB, ny=NB), gen, f"{NB}^2 path B", timed=True, short=True)
     stats = check_kernels(Domain2D(nx=N, ny=N), gen, "8192^2 level 0", timed=True)
     torch.cuda.empty_cache()
     # the V-cycle legs at every fused level of path A (8192 … 512); level 0
@@ -2115,9 +2227,10 @@ def main(argv) -> int:
     disk = Domain2D(nx=N, ny=N, shape="custom", inside_fn=notched_disk)
     log(f"custom {N}^2 host masks: {disk.num_unknowns} unknowns, "
         f"{time.perf_counter() - t0:.3f} s")
-    for n, by in ((64, 32), (1024, None)):  # path C-B's own layout timed
-        check_kernels(Domain2D(nx=n, ny=n, shape="custom", inside_fn=notched_disk), gen,
-                      f"custom {n}^2", timed=n == 1024, block_rows=by)
+    for n, by in ((64, 32), (NB, None)):  # path C-B's own layout timed
+        at_nb.update(check_kernels(Domain2D(nx=n, ny=n, shape="custom", inside_fn=notched_disk),
+                                   gen, f"custom {n}^2", timed=n == NB, short=n == NB,
+                                   block_rows=by))
     stats.update(check_kernels(disk, gen, f"custom {N}^2 level 0", timed=True))
     torch.cuda.empty_cache()
     legs = check_legs(disk, gen, f"custom {N}^2")[0]
@@ -2130,7 +2243,9 @@ def main(argv) -> int:
     stats.update(check_mesh_kernels(gen))
     torch.cuda.empty_cache()
     # the sharded fused engine's kernels D5, D6: the same, against K1 / K2
-    stats.update(check_engine_kernels(gen))
+    engine, engine_nb = check_engine_kernels(gen)
+    stats.update(engine)
+    at_nb.update(engine_nb)
     torch.cuda.empty_cache()
     # C4 and C5: the gamma 64² (16-row panels) and 1024² layouts, the nnz
     # chain's 8192² layout (256-row panels), the custom 64² and 8192² ones
@@ -2186,7 +2301,7 @@ def main(argv) -> int:
     del solver, res
     torch.cuda.empty_cache()
     # path B: plain f32 CG on the fused engine (f32 bounds its true residual)
-    nb = 1024
+    nb = NB
     solver = DirichletSolver(nx=nb, ny=nb, operator="fused", device="cuda", stop=rel6)
     res, wall, launches["B"] = timed_solve(solver, "B")
     rel = true_rel(solver, res)
@@ -2195,6 +2310,7 @@ def main(argv) -> int:
         f"wall {wall:.3f} s")
     if not (res.converged and res.stop_reason.name == "RELATIVE_RESIDUAL" and rel < 1e-3):
         raise AssertionError(f"path B failed: converged={res.converged} rel={rel:.3e}")
+    check_count("B", res.iterations)
     res_b_iterations = res.iterations
     del solver, res
     torch.cuda.empty_cache()
@@ -2239,16 +2355,21 @@ def main(argv) -> int:
     kernels = []
     for k, (src, rep, ops, path) in KERNELS.items():
         s = stats[k]
-        t_bytes = s["bytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = ops * s["nodes"] / F32_OPS_PER_S * 1e3
-        kernels.append({
+        bound, bound_by = bound_ms(s, ops)
+        row = {
             "name": k, "route": "cuda", "source": src, "replaces": rep,
             "launches": launches[path].get(k, 0), "max_abs_err": s["max_abs_err"],
             "ms": s["ms"], "one_call_ms": s["one_call_ms"], "plain_ms": s["plain_ms"],
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": s["library_ms"], "path": path,
-        })
+            "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": s["library_ms"], "path": path, "shape": s.get("shape"),
+        }
+        if k in AT_NB:  # the time and bound where the NB² path launches it
+            p, sn = AT_NB[k], at_nb[k]
+            row["at_path"] = {
+                "path": p, "shape": sn["shape"], "launches": launches[p].get(k, 0),
+                "graph_ms": sn["graph_ms"], "ms": sn["ms"], "one_call_ms": sn["one_call_ms"],
+                "bound_ms": bound_ms(sn, ops)[0]}
+        kernels.append(row)
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -5,13 +5,15 @@
 // _make_k1_block / _k1_call (D5); ist_k2_block and ist_k2_pcg_block replace
 // _make_k2_block / _k2_call (D6, pcg=False / True).
 //
-// Each runs its single-device kernel's column sweep (ist::k1_column, A2;
-// ist::k2_column, A3/A4) on a block whose global origin (roff, coff)
-// offsets the mask, with the neighbour rows and columns of the direction's
-// ingredients d (r for MSG CG, w = M r for PCG) and z_prev as operands:
+// Each runs a column sweep (ist::k1_column, ist::k2_column) with its
+// single-device kernel's per-node arithmetic (K1, A2; K2, A3/A4: the
+// rounding helpers of common.cuh) on a block whose global origin (roff,
+// coff) offsets the mask, with the neighbour rows and columns of the
+// direction's ingredients d (r for MSG CG, w = M r for PCG) and z_prev as
+// operands:
 // up / dn (2, Wb) hold rows -1 and Hb of d (row 0) and z_prev (row 1),
 // left / right (2, Hb) columns -1 and Wb. A thread forms z_k = d + beta *
-// z_prev at a neighbour node by the same expression as the block that owns
+// z_prev at a neighbour node by the same helper as the block that owns
 // the node, so every node of a block, edge or not, takes the single-device
 // kernel's arithmetic and the stitched blocks equal K1 / K2 / K2-pcg bit for
 // bit; the partials cover the whole block. The TPU kernels zero the wrapped
@@ -74,7 +76,7 @@ __device__ __forceinline__ float zk_at(const float* __restrict__ d, const float*
     dv = d[k];
     zv = zp[k];
   }
-  return dv + beta * zv;
+  return ist::direction(dv, beta, zv);
 }
 
 // z_k at a node inside the block: the reads of a thread off the block's
@@ -83,7 +85,7 @@ __device__ __forceinline__ float z_inside(const float* __restrict__ d,
                                           const float* __restrict__ zp, const Block& b,
                                           float beta, int i, int cc) {
   const size_t k = (size_t)i * b.wb + cc;
-  return d[k] + beta * zp[k];
+  return ist::direction(d[k], beta, zp[k]);
 }
 
 __global__ void k1_block_kernel(const float* __restrict__ d, const float* __restrict__ zp,

@@ -1,13 +1,14 @@
 // Shared pieces of the fused CG and multigrid kernels.
 //
 // Layout: every field is a row-major f32 canvas (hp, wp) with wp % 128 == 0
-// and hp a multiple of the band height `by`. A block owns TW consecutive
-// columns of one band of rows; each thread owns one column and walks the
-// band's rows, so the grid is (wp / TW, hp / by). The interior mask is the
-// algebraic gamma/rect predicate on global indices (no mask is read), and
-// column neighbours c-1 / c+1 are bound-checked: the TPU kernels used a
-// wrapping lane roll there, which gives the same result because the wrapped
-// column is never interior and holds 0.
+// and hp a multiple of the band height `by`. In the column sweeps below a
+// block owns TW consecutive columns of one band of rows; each thread owns
+// one column and walks the band's rows, so the grid is (wp / TW, hp / by).
+// The tiled kernels (K1/K2, the V-cycle legs) cut their own tiles. The
+// interior mask is the algebraic gamma/rect predicate on global indices (no
+// mask is read), and column neighbours c-1 / c+1 are bound-checked: the TPU
+// kernels used a wrapping lane roll there, which gives the same result
+// because the wrapped column is never interior and holds 0.
 //
 // Custom domains: each kernel is a template on kMask. The kMask = false
 // instantiation is the gamma/rect kernel as it was; kMask = true reads the
@@ -48,24 +49,60 @@ __device__ __forceinline__ float stencil5(const Geom& g, float c, float l, float
   return g.cd * c + g.cx * (l + r) + g.cy * (u + d);
 }
 
-// The per-node arithmetic of the V-cycle legs: one helper per step, each
-// rounded as its plain torch version rounds (every product and sum on its
-// own, no contraction), so that a node's value does not depend on which
-// kernel computed it: the tiles of A5/A6 (csrc/mg_fused.cu), the column
-// sweeps of their mesh blocks D3/D4 (csrc/mg_sharded.cu) and the plain
-// versions agree bit for bit.
+// Asynchronous global -> shared copies (cp.async): bytes in flight hold no
+// registers, and a source size of 0 fills the destination with zeros.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The per-node arithmetic of the fused CG iteration and of the V-cycle
+// legs: one helper per step, each rounded as its plain torch version
+// rounds (every product and sum on its own, no contraction), so that a
+// node's value does not depend on which kernel computed it: the tiles of
+// K1/K2 (csrc/cg_fused.cu) and A5/A6 (csrc/mg_fused.cu), the column sweeps
+// of their mesh blocks D5/D6 (csrc/cg_fused_sharded.cu) and D3/D4
+// (csrc/mg_sharded.cu) and the plain versions agree bit for bit.
+
+// The 5-point stencil (cd c + cx (l + r)) + cy (u + d) at an interior node.
+__device__ __forceinline__ float stencil_rn(const Geom& g, float c, float l, float r, float u,
+                                            float d) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(g.cd, c), __fmul_rn(g.cx, __fadd_rn(l, r))),
+                   __fmul_rn(g.cy, __fadd_rn(u, d)));
+}
+
+// The CG direction z_k = d + beta z_prev (d = r for MSG CG, w = M r for PCG).
+__device__ __forceinline__ float direction(float d, float beta, float z) {
+  return __fadd_rn(d, __fmul_rn(beta, z));
+}
+
+// K2's updates x' = x + alpha z_k and r' = r - alpha A z_k.
+__device__ __forceinline__ float x_update(float x, float alpha, float z) {
+  return __fadd_rn(x, __fmul_rn(alpha, z));
+}
+
+__device__ __forceinline__ float r_update(float r, float alpha, float az) {
+  return __fsub_rn(r, __fmul_rn(alpha, az));
+}
 
 // K_down's residual b - A x of the pre-smoothed iterate x = cs * b at an
 // interior node, from the masked level RHS at the node (c), its row
 // neighbours (l, r) and its column neighbours (u, d).
 __device__ __forceinline__ float down_residual(const Geom& g, float cs, float c, float l,
                                                float r, float u, float d) {
-  const float xc = __fmul_rn(cs, c);
-  const float sx = __fadd_rn(__fmul_rn(cs, l), __fmul_rn(cs, r));
-  const float sy = __fadd_rn(__fmul_rn(cs, u), __fmul_rn(cs, d));
-  const float ax =
-      __fadd_rn(__fadd_rn(__fmul_rn(g.cd, xc), __fmul_rn(g.cx, sx)), __fmul_rn(g.cy, sy));
-  return __fsub_rn(c, ax);
+  return __fsub_rn(c, stencil_rn(g, __fmul_rn(cs, c), __fmul_rn(cs, l), __fmul_rn(cs, r),
+                                 __fmul_rn(cs, u), __fmul_rn(cs, d)));
 }
 
 // The [1,2,1]/4 row restriction of the residuals at fine rows 2J-1, 2J, 2J+1.
@@ -104,9 +141,7 @@ __device__ __forceinline__ float corrected(float cs, int i, float b, const EC& e
 // the node (c) and its neighbours (zero off the interior), the level RHS bm.
 __device__ __forceinline__ float up_smooth(const Geom& g, float cs, float c, float l, float r,
                                            float u, float d, float bm) {
-  const float ax = __fadd_rn(__fadd_rn(__fmul_rn(g.cd, c), __fmul_rn(g.cx, __fadd_rn(l, r))),
-                             __fmul_rn(g.cy, __fadd_rn(u, d)));
-  return __fadd_rn(c, __fmul_rn(cs, __fsub_rn(bm, ax)));
+  return __fadd_rn(c, __fmul_rn(cs, __fsub_rn(bm, stencil_rn(g, c, l, r, u, d))));
 }
 
 // The interior columns lo < c < hi of row r on a gamma/rect level (none off
@@ -190,14 +225,14 @@ __device__ __forceinline__ float k_up_column(const Geom& g, const In& in, const 
   return s_dot;
 }
 
-// The column sweeps of the fused CG iteration (A2, A3/A4), shared with
-// their mesh-block forms (csrc/cg_fused_sharded.cu) in the same way. zk(i,
-// cc) is the direction z_k = d + beta * z_prev at a node, formed by the
-// caller as that one expression (nvcc contracts it into fmaf(beta, z, d))
-// and 0 off the canvas; band-internal and column neighbours are read raw,
-// the band's halo rows masked by their own row.
+// The column sweeps of the fused CG iteration's mesh blocks D5/D6
+// (csrc/cg_fused_sharded.cu), which take K1's and K2's per-node arithmetic
+// (csrc/cg_fused.cu tiles them instead). zk(i, cc) is the direction z_k =
+// direction(d, beta, z_prev) at a node, 0 off the canvas; band-internal and
+// column neighbours are read raw, the band's halo rows masked by their own
+// row.
 
-// K1 on one column (A2): the band's z_k halo rows (returned through up /
+// K1 on one column (D5): the band's z_k halo rows (returned through up /
 // dn; zh(i, cc) reads them) and the column's shares of (d, z_k), (A z_k,
 // z_k) and max |z_k|.
 template <class In, class ZK, class ZH, class D>
@@ -211,7 +246,7 @@ __device__ __forceinline__ void k1_column(const Geom& g, const In& in, const ZK&
     const int r = row0 + k;
     const float next = (k + 1 < by) ? zk(r + 1, c) : dn;
     float az = 0.f;
-    if (in(r, c)) az = g.cd * cur + g.cx * (zk(r, c - 1) + zk(r, c + 1)) + g.cy * (prev + next);
+    if (in(r, c)) az = stencil_rn(g, cur, zk(r, c - 1), zk(r, c + 1), prev, next);
     s_rz += d(r, c) * cur;
     s_azz += az * cur;
     s_max = fmaxf(s_max, fabsf(cur));
@@ -220,7 +255,7 @@ __device__ __forceinline__ void k1_column(const Geom& g, const In& in, const ZK&
   }
 }
 
-// K2 / K2-pcg on one column (A3, A4): x' = x + alpha z_k, r' = r - alpha
+// K2 / K2-pcg on one column (D6): x' = x + alpha z_k, r' = r - alpha
 // A z_k and z_k written at rows row0 .. row0 + by - 1 (row stride ld), the
 // band's halo rows up / dn from K1's side buffer; the column's shares of
 // |r'|^2, max |r'| and, with u, max |x' - u|.
@@ -240,16 +275,15 @@ __device__ __forceinline__ void k2_column(const Geom& g, const In& in, const ZK&
     const size_t i = (size_t)rr * ld + c;
     const float next = (k + 1 < by) ? zk(rr + 1, c) : dn;
     float az = 0.f;
-    if (in(rr, c))
-      az = g.cd * cur + g.cx * (zk(rr, c - 1) + zk(rr, c + 1)) + g.cy * (prev + next);
-    const float xn = x[i] + alpha * cur;
-    const float rn = r[i] - alpha * az;
+    if (in(rr, c)) az = stencil_rn(g, cur, zk(rr, c - 1), zk(rr, c + 1), prev, next);
+    const float xn = x_update(x[i], alpha, cur);
+    const float rn = r_update(r[i], alpha, az);
     xo[i] = xn;
     ro[i] = rn;
     zo[i] = cur;
     s_r2 += rn * rn;
     s_max = fmaxf(s_max, fabsf(rn));
-    if (u != nullptr) s_err = fmaxf(s_err, fabsf(xn - u[i]));
+    if (u != nullptr) s_err = fmaxf(s_err, fabsf(__fsub_rn(xn, u[i])));
     prev = cur;
     cur = next;
   }

@@ -63,24 +63,6 @@ constexpr int kFW = 136;       // staged fine columns: F0 - 4 .. F0 + 131 (34 fl
 constexpr int kXW = 130;       // fine columns F0 - 1 .. F0 + 128 of the computed tiles
 constexpr int kEW = 72;        // staged coarse columns: C0 - 4 .. C0 + 67 (18 float4)
 
-// Asynchronous global -> shared copies (cp.async): bytes in flight hold no
-// registers, and a source size of 0 fills the destination with zeros.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
-               "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
 // K_up's staging: issue the copies of NR rows r0 .. r0 + NR - 1 and fine
 // columns f0 .. f0 + kFW - 1 (f0 % 4 == 0) of the level field src into s
 // (row stride kFW), zero off the canvas; a custom level (kMask) also
@@ -95,8 +77,8 @@ __device__ __forceinline__ void stage_fine(const Geom& g, const float* __restric
     const int r = r0 + rl, c = f0 + cl;
     const bool ok = r >= 0 && r < g.hp && c >= 0 && c < g.wp;
     const size_t o = ok ? (size_t)r * g.wp + c : 0;
-    cp_async16(s + rl * kFW + cl, src + o, ok);
-    if (kMask) cp_async4(sm + rl * kFW + cl, g.mask + o, ok);
+    ist::cp_async16(s + rl * kFW + cl, src + o, ok);
+    if (kMask) ist::cp_async4(sm + rl * kFW + cl, g.mask + o, ok);
   }
 }
 
@@ -240,7 +222,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int q = t; q < NE * kQ; q += kThreads) {
       const int J = J0 - 1 + q / kQ, C = C0 - 4 + (q % kQ) * 4;
       const bool ok = J >= 0 && J < ch && C >= 0 && C < ldc;
-      cp_async16(se + (q / kQ) * kEW + (q % kQ) * 4, ec + (ok ? (size_t)J * ldc + C : 0), ok);
+      ist::cp_async16(se + (q / kQ) * kEW + (q % kQ) * 4, ec + (ok ? (size_t)J * ldc + C : 0), ok);
     }
   } else {  // a plain child's grid (ch, cw)
     for (int q = t; q < NE * kEW; q += kThreads) {
@@ -248,7 +230,7 @@ __global__ void __launch_bounds__(kThreads)
       se[q] = (J >= 0 && J < ch && C >= 0 && C < ldc) ? __ldg(ec + (size_t)J * ldc + C) : 0.f;
     }
   }
-  cp_async_wait_all();
+  ist::cp_async_wait_all();
   __syncthreads();
   // the lane-prolonged correction at staged coarse row k, fine column f
   // (f >= -1): even columns copy, odd ones average; zero past column nx

@@ -18,6 +18,7 @@ show that its main path went through the kernels.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -41,9 +42,10 @@ plain_on_cuda: Counter = Counter()
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argument types of every launcher; the trailing pointer is the CUDA stream
 _SIGNATURES = {
-    "ist_k1": [_P] * 7 + [_I] * 6 + [_F] * 3 + [_P],
-    "ist_k2": [_P] * 12 + [_I] * 6 + [_F] * 3 + [_P],
-    "ist_k2_pcg": [_P] * 13 + [_I] * 6 + [_F] * 3 + [_P],
+    # fused CG: (..., band rows, tile rows, cd, cx, cy)
+    "ist_k1": [_P] * 7 + [_I] * 7 + [_F] * 3 + [_P],
+    "ist_k2": [_P] * 12 + [_I] * 7 + [_F] * 3 + [_P],
+    "ist_k2_pcg": [_P] * 13 + [_I] * 7 + [_F] * 3 + [_P],
     # the V-cycle legs: (..., tile rows, coarse layout), K_up the coarse
     # row stride and row count
     "ist_k_down": [_P] * 2 + [_I] * 8 + [_F] * 4 + [_P],
@@ -53,9 +55,9 @@ _SIGNATURES = {
     "ist_k_resid_ff": [_P] * 6 + [_I] * 9 + [_F] * 10 + [_P],
     # custom domains: the int8 mask pointer in the gamma flag's place,
     # (..., mask, nx, ny, hp, wp, by, ...)
-    "ist_k1_custom": [_P] * 8 + [_I] * 5 + [_F] * 3 + [_P],
-    "ist_k2_custom": [_P] * 13 + [_I] * 5 + [_F] * 3 + [_P],
-    "ist_k2_pcg_custom": [_P] * 14 + [_I] * 5 + [_F] * 3 + [_P],
+    "ist_k1_custom": [_P] * 8 + [_I] * 6 + [_F] * 3 + [_P],
+    "ist_k2_custom": [_P] * 13 + [_I] * 6 + [_F] * 3 + [_P],
+    "ist_k2_pcg_custom": [_P] * 14 + [_I] * 6 + [_F] * 3 + [_P],
     "ist_k_down_custom": [_P] * 4 + [_I] * 7 + [_F] * 4 + [_P],  # child mask first
     "ist_k_up_custom": [_P] * 5 + [_I] * 7 + [_F] * 4 + [_P],
     "ist_stencil_custom": [_P] * 3 + [_I] * 5 + [_F] * 3 + [_P],
@@ -172,6 +174,16 @@ def launch(name: str, *args) -> None:
     if code != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {code}")
     launches[name.removeprefix("ist_")] += 1
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """The number of SMs of CUDA ``device`` (the current one if it has no index)."""
+    return _sm_count(torch.cuda.current_device() if device.index is None else device.index)
 
 
 def ptr(t: Optional[torch.Tensor]):

@@ -1,7 +1,7 @@
 """Fused two-kernel CG/PCG iteration (counterpart of iterative_solvers_tpu/kernels/cg_fused.py).
 
 - **K1** (:func:`k1`, CUDA ``csrc/cg_fused.cu``): forms ``z_k = d + β·z_prev``
-  and ``A z_k`` in registers and emits per-block partials of (d, z_k),
+  and ``A z_k`` on chip and emits per-block partials of (d, z_k),
   (A z_k, z_k), ‖z_k‖∞, plus each band's two z_k halo rows into a side buffer
   ``(g, 2, wp)``. Read-only on the fields; Az is never stored.
 - **K2** (:func:`k2`, plain MSG CG) and **K2-pcg** (:func:`k2_pcg`): recompute
@@ -16,9 +16,12 @@ package's fused-chunk stop rules.
 
 Each wrapper launches its kernel on a CUDA tensor and runs its plain torch
 version (``*_plain``, the same arithmetic on the whole canvas at once) on a
-CPU tensor; any other device raises. Partial sums are reduced afterwards in
-a fixed order with ``torch.sum``/``torch.amax`` — no float atomics, so a
-trajectory repeats bit for bit.
+CPU tensor; any other device raises. The kernels cut the canvas into
+tiles of :func:`tile_grid` rows (a divisor of the band height
+``block_rows``, which stays the JAX package's) by 128 columns and emit one
+partial per CUDA block; the plain versions emit one per band. Partial
+sums are reduced afterwards in a fixed order with ``torch.sum``/
+``torch.amax`` — no float atomics, so a trajectory repeats bit for bit.
 
 On a custom layout (``op.mask8`` set) the kernels are the ``*_custom``
 instantiations, which read the int8 mask where the others evaluate the
@@ -49,6 +52,27 @@ from iterative_solvers_tpu_torch.solvers.cg import CGOptions, CGResult, CGState,
 from iterative_solvers_tpu_torch.solvers.stopping import StopConfig, StopReason
 
 TW = 128  # columns per CUDA block (csrc/common.cuh)
+K1_TILE_ROWS = (32, 16, 8)  # K1's tile rows instantiated in csrc/cg_fused.cu
+K2_TILE_ROWS = 8  # K2's and K2-pcg's
+BLOCKS_PER_SM = 4  # K1's rule: the tallest tile that still gives this many blocks per SM
+
+
+def tile_grid(kernel: str, padded_shape, block_rows: int, sm_count: int):
+    """``(tile rows TJ, CUDA blocks)`` of K1 (``kernel="k1"``) or K2 / K2-pcg
+    (``"k2"``) on a layout, for a card of ``sm_count`` SMs. A block owns a
+    tile of TJ rows by ``TW`` columns, TJ a divisor of the band height
+    ``block_rows``, and emits one partial. K2 always takes ``K2_TILE_ROWS``;
+    K1, whose 8 B/node make the tile's two halo rows dear, the tallest of
+    ``K1_TILE_ROWS`` that dividing ``block_rows`` still gives
+    ``BLOCKS_PER_SM`` blocks per SM, else the shortest that divides it (a
+    grid too small to fill the card)."""
+    hp, wp = padded_shape
+    fits = [tj for tj in (K1_TILE_ROWS if kernel == "k1" else (K2_TILE_ROWS,))
+            if block_rows % tj == 0]
+    if not fits:
+        raise ValueError(f"block_rows {block_rows}: K1/K2 need a multiple of {K2_TILE_ROWS}")
+    tj = next((t for t in fits if (hp // t) * (wp // TW) >= BLOCKS_PER_SM * sm_count), fits[-1])
+    return tj, (hp // tj) * (wp // TW)
 
 
 def _scalar(name: str, t: torch.Tensor, device) -> None:
@@ -78,9 +102,13 @@ def stencil_banded(zk, up_rows, dn_rows, mask, coeffs, by, left=None, right=None
 
 
 def _geometry(launcher: str, op: PaddedStencilOperator, device):
+    """(launcher name, geometry arguments with the tile rows, partials per field)."""
     hp, wp = op.padded_shape
-    return kernel_geometry(launcher, op.nx, op.ny, op.mask_mode, hp, wp, op.block_rows,
-                           op.mask8, device)
+    tj, blocks = tile_grid("k1" if launcher == "ist_k1" else "k2", op.padded_shape,
+                           op.block_rows, _build.sm_count(device))
+    name, geom = kernel_geometry(launcher, op.nx, op.ny, op.mask_mode, hp, wp, op.block_rows,
+                                 op.mask8, device)
+    return name, geom + (tj,), blocks
 
 
 def k1_plain(d, zp, beta, op: PaddedStencilOperator):
@@ -111,13 +139,11 @@ def k1(d, zp, beta, op: PaddedStencilOperator):
     if d.device.type == "cpu":
         return k1_plain(d, zp, beta, op)
     hp, wp = shape
-    by = op.block_rows
-    g = hp // by
-    side = torch.empty((g, 2, wp), dtype=d.dtype, device=d.device)
-    parts = torch.empty((3, g, wp // TW), dtype=d.dtype, device=d.device)
+    side = torch.empty((hp // op.block_rows, 2, wp), dtype=d.dtype, device=d.device)
     beta = beta.contiguous()
     p = _build.ptr
-    name, geom = _geometry("ist_k1", op, d.device)
+    name, geom, n_parts = _geometry("ist_k1", op, d.device)
+    parts = torch.empty((3, n_parts), dtype=d.dtype, device=d.device)
     _build.launch(
         name, p(d), p(zp), p(beta), p(side), p(parts[0]), p(parts[1]), p(parts[2]),
         *geom, *op.coeffs,
@@ -161,9 +187,7 @@ def _k2_launch(name, x, r, zp, w, side, scal, u, op: PaddedStencilOperator):
             if t.device != x.device:
                 raise ValueError(f"{fname}: expected a tensor on {x.device}")
     hp, wp = shape
-    by = op.block_rows
-    g = hp // by
-    check_field("side", side, (g, 2, wp))
+    check_field("side", side, (hp // op.block_rows, 2, wp))
     if scal.dtype != torch.float32 or scal.shape != (2,) or scal.device != x.device:
         raise TypeError("scal: expected float32 [alpha, beta] on the fields' device")
     if x.device.type == "cpu":
@@ -171,10 +195,10 @@ def _k2_launch(name, x, r, zp, w, side, scal, u, op: PaddedStencilOperator):
             return k2_plain(x, r, zp, side, scal, op, u)
         return k2_pcg_plain(x, r, zp, w, side, scal, op, u)
     xo, ro, zo = (torch.empty_like(x) for _ in range(3))
-    parts = torch.empty((3, g, wp // TW), dtype=x.dtype, device=x.device)
     p = _build.ptr
     dirs = (p(x), p(r), p(zp)) + (() if w is None else (p(w),))
-    name, geom = _geometry(name, op, x.device)
+    name, geom, n_parts = _geometry(name, op, x.device)
+    parts = torch.empty((3, n_parts), dtype=x.dtype, device=x.device)
     _build.launch(
         name, *dirs, p(side), p(scal.contiguous()), p(u), p(xo), p(ro), p(zo),
         p(parts[0]), p(parts[1]), p(parts[2]), *geom, *op.coeffs,

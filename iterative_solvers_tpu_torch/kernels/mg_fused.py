@@ -32,7 +32,6 @@ stay for the plain legs, the mesh (``parallel/mg_sharded.py``) and the FMG.
 
 from __future__ import annotations
 
-import functools
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -57,15 +56,10 @@ def _stencil(x, cd, cx, cy):
     return cd * x + cx * (p[1:-1, :-2] + p[1:-1, 2:]) + cy * (p[:-2, 1:-1] + p[2:, 1:-1])
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def tile_rows(rows: int, col_tiles: int, fine_rows_per_row: int, largest: int, device) -> int:
     """The legs' coarse rows per tile, TJ in (16, 8, 4) up to ``largest``:
     the largest that still puts two blocks on every SM of ``device``, else 4."""
-    want = 2 * _sm_count(torch.cuda.current_device() if device.index is None else device.index)
+    want = 2 * _build.sm_count(device)
     for tj in (16, 8):
         if tj <= largest and -(-rows // (fine_rows_per_row * tj)) * col_tiles >= want:
             return tj

@@ -2,21 +2,24 @@
 solve of each main path, after a warm-up solve.
 
     python -m iterative_solvers_tpu_torch.profile_paths [--n 8192] [--nb 1024] [--n3 512]
-        [--ns 128] [--paths A,f64,B,3D,C,S] [--out DIR]
+        [--ns 128] [--paths A,f64,B,3D,C,C-B,S] [--out DIR]
 
 Paths: A, the default solve (FMG warm start, double-f32 outer) at ``n``²;
 the cold f64-outer solve at ``n``²; B, plain f32 CG on the fused engine
 (``operator='fused'``) at ``nb``²; 3D, the box at ``n3``³ (FMG warm start,
 double-f32 outer, ``device_refined_solve`` on the padded 7-point operator,
 as the JAX package's bench runs it); C, the default solve (double-f32
-outer) on the custom-mask notched disk at ``n``². For each it prints the facade's
+outer) on the custom-mask notched disk at ``n``²; C-B, plain f32 CG on the
+fused engine on the notched disk at ``nb``². For each it prints the facade's
 ``solve()`` wall time, then profiles the solver core alone (the refinement,
 or the CG solve, on fields assembled beforehand): its time without and with
 the profiler, the device-busy time (the union of the device events'
 intervals), the idle share of the profiled window, the device time of the
 port's own kernels against all other device ops (torch glue), and the
-device ops with the most self time; with ``--out``, also a Chrome trace per
-path. For the 3D path it then times the refinement's parts with CUDA
+device ops with the most self time (on the CG paths B and C-B also the core
+time and the device-busy time per iteration: the first well above the
+second means the host loop sets the pace); with ``--out``, also a Chrome
+trace per path. For the 3D path it then times the refinement's parts with CUDA
 events: one inner PCG iteration, the V-cycle in it, level 0's kernels and
 its y/x transfers, the 7-point apply, the FMG warm start. S is not
 profiled but timed: the 3D ``operator="stencil"`` route's plain f32
@@ -203,6 +206,9 @@ def profile_path(name: str, solver: DirichletSolver, out_dir=None) -> None:
           f"events: idle share {100 * (1 - busy / window):.1f} %")
     print(f"   device time: the port's kernels {own / 1e3:.3f} ms, other device kernels "
           f"and copies (torch glue) {other / 1e3:.3f} ms")
+    if solver.precision != "mixed":  # a CG loop: which side sets its pace
+        print(f"   per iteration: core {1e3 * t_core / res.iterations:.4f} ms, device busy "
+              f"{busy / 1e3 / res.iterations:.4f} ms")
     print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=18), flush=True)
     if out_dir:
         prof.export_chrome_trace(os.path.join(out_dir, f"trace_{name}.json"))
@@ -217,7 +223,7 @@ def main(argv=None) -> int:
     ap.add_argument("--n3", type=int, default=512)
     ap.add_argument("--ns", type=int, default=128)
     ap.add_argument("--paths", default="A,f64,B,3D,C",
-                    help="comma-separated subset of A,f64,B,3D,C,S")
+                    help="comma-separated subset of A,f64,B,3D,C,C-B,S")
     ap.add_argument("--out", default=None, help="directory for Chrome traces")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -239,6 +245,9 @@ def main(argv=None) -> int:
         "C": lambda: DirichletSolver(
             domain=Domain2D(args.n, args.n, shape="custom", inside_fn=notched_disk), outer="ff",
             **mixed),
+        "C-B": lambda: DirichletSolver(
+            domain=Domain2D(args.nb, args.nb, shape="custom", inside_fn=notched_disk),
+            operator="fused", device="cuda", stop=rel6),
     }
     for name in args.paths.split(","):
         if name == "S":

@@ -156,6 +156,47 @@ def test_k2_and_u_variants_match_plain(gen, shape, nx, ny):
                 assert abs(float(g.max()) - float(e.max())) <= 64 * EPS32 * float(e.max())
 
 
+@pytest.mark.parametrize("nx,by,tiles", [
+    (64, 16, (8, 8)),      # 16-row bands of two 8-row tiles: tile edges inside a band
+    (64, 8, (8, 8)),       # 8-row bands: every band is one tile
+    (1024, None, (16, 8)),  # path B's layout: 256-row bands of 16- and 8-row tiles
+])
+def test_k1_k2_tiles_match_plain(gen, nx, by, tiles):
+    """K1, K2 and K2-pcg (with and without u) on their CUDA tiles against
+    the plain versions, where a tile edge falls inside a band and where a
+    band is one tile; K1's side rows bit-equal to ``k1_plain``'s."""
+    lay = PaddedStencilOperator.from_domain(Domain2D(nx=nx, ny=nx), block_rows=by)
+    sms = _build.sm_count(torch.device("cuda"))
+    assert tuple(cg_fused.tile_grid(k, lay.padded_shape, lay.block_rows, sms)[0]
+                 for k in ("k1", "k2")) == tiles
+    m = lay.mask_spec.build("cuda")
+    x, r, z, w, u = (torch.where(m, torch.randn(lay.padded_shape, device="cuda", generator=gen),
+                                 0.0) for _ in range(5))
+    beta = torch.tensor(0.37, device="cuda")
+    scal = torch.tensor([-2.0e-4, 0.37], device="cuda")
+    sides = {}
+    for name, d in (("r", r), ("w", w)):
+        got, ref = cg_fused.k1(d, z, beta, lay), cg_fused.k1_plain(d, z, beta, lay)
+        assert torch.equal(got[0], ref[0])
+        _sum_close(got[1], ref[1], float((d * (d + beta * z)).abs().sum()))
+        _sum_close(got[2], ref[2], abs(float(ref[2].sum())))
+        assert float(got[3].max()) == float(ref[3].max())
+        sides[name] = got[0]
+    for uu in (None, u):
+        for got, ref in (
+            (cg_fused.k2(x, r, z, sides["r"], scal, lay, u=uu),
+             cg_fused.k2_plain(x, r, z, sides["r"], scal, lay, u=uu)),
+            (cg_fused.k2_pcg(x, r, z, w, sides["w"], scal, lay, u=uu),
+             cg_fused.k2_pcg_plain(x, r, z, w, sides["w"], scal, lay, u=uu)),
+        ):
+            assert len(got) == len(ref) == (5 if uu is None else 6)
+            for g, e in zip(got[:3], ref[:3]):
+                _close(g, e)
+            _sum_close(got[3], ref[3], float(ref[3].sum()))
+            for g, e in zip(got[4:], ref[4:]):
+                assert abs(float(g.max()) - float(e.max())) <= 64 * EPS32 * float(e.max())
+
+
 @pytest.mark.parametrize("shape,nx,ny", SHAPES)
 def test_stencil_jacobi_resid_ff_match_plain(gen, shape, nx, ny):
     dom = Domain2D(nx=nx, ny=ny, shape=shape)
