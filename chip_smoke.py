@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --legs DIR   # only the 2D V-cycle legs, of the port in DIR
-    python3 chip_smoke.py --cg DIR     # only the fused CG kernels K1/K2, of the port in DIR
+    python3 chip_smoke.py --cg DIR     # only the fused CG kernels K1/K2 and D5/D6 of the port in DIR
 
 Phases, each printing its own lines; any failure exits non-zero before the
 final ``ok`` line:
@@ -136,9 +136,9 @@ MASK_NOTE = "iterative_solvers_tpu/ops/ddf32.py:134"  # jnp residual_ff on a cus
 # operations per node (per interior node in 3D) counted from its formula,
 # the main path whose run gives its launch count)
 KERNELS = {
-    "k1": (PKG + "cg_fused.cu", TPU + "cg_fused.py:89", 14, "A"),
-    "k2": (PKG + "cg_fused.cu", TPU + "cg_fused.py:133", 16, "B"),
-    "k2_pcg": (PKG + "cg_fused.cu", TPU + "cg_fused.py:177", 16, "A"),
+    "k1": (PKG + "cg_tiles.cuh", TPU + "cg_fused.py:89", 14, "A"),
+    "k2": (PKG + "cg_tiles.cuh", TPU + "cg_fused.py:133", 16, "B"),
+    "k2_pcg": (PKG + "cg_tiles.cuh", TPU + "cg_fused.py:177", 16, "A"),
     "k_down": (PKG + "mg_fused.cu", TPU + "mg_fused.py:65", 22, "A"),
     "k_up": (PKG + "mg_fused.cu", TPU + "mg_fused.py:183", 26, "A"),
     "k_jacobi": (PKG + "mg_fused.cu", TPU + "mg_fused.py:238", 10, "A"),
@@ -158,9 +158,9 @@ KERNELS = {
     # the custom-mask instantiations (int8 mask operand): C1–C3, the
     # custom=True bodies of A2–A4, and A8 where JAX runs the jnp residual
     "stencil_custom": (PKG + "stencil.cu", TPU + "stencil_pallas.py:60", 7, "C-B"),
-    "k1_custom": (PKG + "cg_fused.cu", TPU + "cg_fused.py:89", 14, "C"),
-    "k2_custom": (PKG + "cg_fused.cu", TPU + "cg_fused.py:133", 16, "C-B"),
-    "k2_pcg_custom": (PKG + "cg_fused.cu", TPU + "cg_fused.py:177", 16, "C"),
+    "k1_custom": (PKG + "cg_tiles.cuh", TPU + "cg_fused.py:89", 14, "C"),
+    "k2_custom": (PKG + "cg_tiles.cuh", TPU + "cg_fused.py:133", 16, "C-B"),
+    "k2_pcg_custom": (PKG + "cg_tiles.cuh", TPU + "cg_fused.py:177", 16, "C"),
     "k_down_custom": (PKG + "mg_fused.cu", TPU + "mg_fused.py:109", 22, "C"),
     "k_up_custom": (PKG + "mg_fused.cu", TPU + "mg_fused.py:140", 26, "C"),
     "k_resid_ff_custom": (PKG + "resid_ff.cu", MASK_NOTE, 70, "C"),
@@ -178,10 +178,10 @@ KERNELS = {
     "k_up_block": (PKG + "mg_sharded.cu", PAR + "mg_sharded.py:257", 26, "mesh a"),
     # the sharded fused engine (D5, D6): launches from the engine ladder and
     # the engine's MSG CG, each at full width on a 1x1 mesh
-    "k1_block": (PKG + "cg_fused_sharded.cu", PAR + "cg_fused_sharded.py:68", 14, "mesh engine"),
-    "k2_block": (PKG + "cg_fused_sharded.cu", PAR + "cg_fused_sharded.py:108", 16,
+    "k1_block": (PKG + "cg_tiles.cuh", PAR + "cg_fused_sharded.py:68", 14, "mesh engine"),
+    "k2_block": (PKG + "cg_tiles.cuh", PAR + "cg_fused_sharded.py:108", 16,
                  "mesh fused B"),
-    "k2_pcg_block": (PKG + "cg_fused_sharded.cu", PAR + "cg_fused_sharded.py:108", 16,
+    "k2_pcg_block": (PKG + "cg_tiles.cuh", PAR + "cg_fused_sharded.py:108", 16,
                      "mesh engine"),
 }
 PATH_KERNELS = {
@@ -686,7 +686,11 @@ def cg_only(gen) -> int:
     """``--cg DIR``: K1, K2 and K2-pcg (gamma and custom: the six
     instantiations) of the port in DIR against their plain versions and
     timed, at path B's and C-B's NB² layouts (also on the graph timer) and
-    the 8192² level-0 layouts; then one JSON line {label: {name: record}}."""
+    the 8192² level-0 layouts; then its mesh blocks D5, D6 and D6-pcg on
+    the 1x1 block of NB² (graph timer) and of 8192² (device and one-call
+    timers), each against its plain version and beside K1, K2 and K2-pcg
+    on the block's layout (:func:`_time_engine_1x1`); then one JSON line
+    {label: {name: record}}."""
     from iterative_solvers_tpu_torch.core.domain import Domain2D, notched_disk
 
     out = {}
@@ -696,6 +700,9 @@ def cg_only(gen) -> int:
                                                       inside_fn=notched_disk))):
             out[label] = check_kernels(dom, gen, label, timed=True, only=("k1", "k2", "k2_pcg"),
                                        short=n == NB)
+    ctx = _engine_checks()
+    for n in (NB, N):
+        out[f"block {n}^2 1x1"] = _time_engine_1x1(n, gen, *ctx, short=n == NB)
     log(json.dumps({"cg": out}))
     return 0
 
@@ -1708,10 +1715,22 @@ def check_engine_kernels(gen):
     K1's and K2's there) and of 1024² ("mesh fused B"'s), beside K1, K2 and
     K2-pcg (:func:`_time_engine_1x1`). Returns ({name: stats} at 8192²,
     the same at 1024²)."""
+    ctx = _engine_checks()
+    for n, shape in ((N, (4, 2)), (NB, (1, 1)), (MESH_N, (2, 2))):
+        _check_engine_partition(n, shape, gen, *ctx[:4])
+    out = _time_engine_1x1(N, gen, *ctx)
+    out_nb = _time_engine_1x1(NB, gen, *ctx, short=True)
+    return out, out_nb
+
+
+def _engine_checks():
+    """(check, dot_scale, beta, scal, worst) of the D5/D6 checks: ``check``
+    compares a launch with its plain version (:func:`compare`) and keeps
+    each kernel's worst field error in ``worst``; ``dot_scale`` the sum of
+    |terms| of (d, z_k); β and [α, β] as the engine passes them."""
     import torch
 
-    names = ("k1_block", "k2_block", "k2_pcg_block")
-    worst = dict.fromkeys(names, 0.0)
+    worst = dict.fromkeys(("k1_block", "k2_block", "k2_pcg_block"), 0.0)
 
     def check(name, got, ref, kinds, scales=None):
         torch.cuda.synchronize()
@@ -1725,11 +1744,7 @@ def check_engine_kernels(gen):
 
     beta = torch.tensor(0.37, device="cuda")
     scal = torch.tensor([-1.3e-4, 0.37], device="cuda")
-    for n, shape in ((N, (4, 2)), (NB, (1, 1)), (MESH_N, (2, 2))):
-        _check_engine_partition(n, shape, gen, check, dot_scale, beta, scal)
-    out = _time_engine_1x1(N, gen, check, dot_scale, beta, scal, worst)
-    out_nb = _time_engine_1x1(NB, gen, check, dot_scale, beta, scal, worst, short=True)
-    return out, out_nb
+    return check, dot_scale, beta, scal, worst
 
 
 def _time_engine_1x1(n, gen, check, dot_scale, beta, scal, worst, short=False):
@@ -2167,8 +2182,9 @@ def main(argv) -> int:
                     help="only check and time the 2D V-cycle legs of the port in the "
                          "checkout DIR (this one or an earlier commit's)")
     ap.add_argument("--cg", metavar="DIR",
-                    help="only check and time the fused CG kernels K1, K2 and K2-pcg of the "
-                         "port in the checkout DIR (this one or an earlier commit's)")
+                    help="only check and time the fused CG kernels K1, K2 and K2-pcg and "
+                         "their mesh blocks D5, D6 and D6-pcg of the port in the checkout DIR "
+                         "(this one or an earlier commit's)")
     args = ap.parse_args(argv)
     other = args.legs or args.cg
     root = os.path.abspath(other) if other else REPO

@@ -1,14 +1,16 @@
 // Shared pieces of the fused CG and multigrid kernels.
 //
 // Layout: every field is a row-major f32 canvas (hp, wp) with wp % 128 == 0
-// and hp a multiple of the band height `by`. In the column sweeps below a
-// block owns TW consecutive columns of one band of rows; each thread owns
-// one column and walks the band's rows, so the grid is (wp / TW, hp / by).
-// The tiled kernels (K1/K2, the V-cycle legs) cut their own tiles. The
-// interior mask is the algebraic gamma/rect predicate on global indices (no
-// mask is read), and column neighbours c-1 / c+1 are bound-checked: the TPU
-// kernels used a wrapping lane roll there, which gives the same result
-// because the wrapped column is never interior and holds 0.
+// and hp a multiple of the band height `by`. In the column sweeps below (A1
+// and the mesh blocks D1, D3, D4) a block owns TW consecutive columns of
+// one band of rows; each thread owns one column and walks the band's rows,
+// so the grid is (wp / TW, hp / by). The tiled kernels (K1/K2 and their
+// mesh blocks D5/D6 in cg_tiles.cuh, the V-cycle legs) cut their own
+// tiles. The interior mask is the algebraic gamma/rect predicate on global
+// indices (no mask is read), and column neighbours c-1 / c+1 are
+// bound-checked: the TPU kernels used a wrapping lane roll there, which
+// gives the same result because the wrapped column is never interior and
+// holds 0.
 //
 // Custom domains: each kernel is a template on kMask. The kMask = false
 // instantiation is the gamma/rect kernel as it was; kMask = true reads the
@@ -71,8 +73,8 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // legs: one helper per step, each rounded as its plain torch version
 // rounds (every product and sum on its own, no contraction), so that a
 // node's value does not depend on which kernel computed it: the tiles of
-// K1/K2 (csrc/cg_fused.cu) and A5/A6 (csrc/mg_fused.cu), the column sweeps
-// of their mesh blocks D5/D6 (csrc/cg_fused_sharded.cu) and D3/D4
+// K1/K2 and their mesh blocks D5/D6 (csrc/cg_tiles.cuh), A5/A6
+// (csrc/mg_fused.cu), the column sweeps of the mesh blocks D3/D4
 // (csrc/mg_sharded.cu) and the plain versions agree bit for bit.
 
 // The 5-point stencil (cd c + cx (l + r)) + cy (u + d) at an interior node.
@@ -223,70 +225,6 @@ __device__ __forceinline__ float k_up_column(const Geom& g, const In& in, const 
     cur = next;
   }
   return s_dot;
-}
-
-// The column sweeps of the fused CG iteration's mesh blocks D5/D6
-// (csrc/cg_fused_sharded.cu), which take K1's and K2's per-node arithmetic
-// (csrc/cg_fused.cu tiles them instead). zk(i, cc) is the direction z_k =
-// direction(d, beta, z_prev) at a node, 0 off the canvas; band-internal and
-// column neighbours are read raw, the band's halo rows masked by their own
-// row.
-
-// K1 on one column (D5): the band's z_k halo rows (returned through up /
-// dn; zh(i, cc) reads them) and the column's shares of (d, z_k), (A z_k,
-// z_k) and max |z_k|.
-template <class In, class ZK, class ZH, class D>
-__device__ __forceinline__ void k1_column(const Geom& g, const In& in, const ZK& zk, const ZH& zh,
-                                          const D& d, int c, int row0, int by, float& up,
-                                          float& dn, float& s_rz, float& s_azz, float& s_max) {
-  up = in(row0 - 1, c) ? zh(row0 - 1, c) : 0.f;
-  dn = in(row0 + by, c) ? zh(row0 + by, c) : 0.f;
-  float prev = up, cur = zk(row0, c);
-  for (int k = 0; k < by; ++k) {
-    const int r = row0 + k;
-    const float next = (k + 1 < by) ? zk(r + 1, c) : dn;
-    float az = 0.f;
-    if (in(r, c)) az = stencil_rn(g, cur, zk(r, c - 1), zk(r, c + 1), prev, next);
-    s_rz += d(r, c) * cur;
-    s_azz += az * cur;
-    s_max = fmaxf(s_max, fabsf(cur));
-    prev = cur;
-    cur = next;
-  }
-}
-
-// K2 / K2-pcg on one column (D6): x' = x + alpha z_k, r' = r - alpha
-// A z_k and z_k written at rows row0 .. row0 + by - 1 (row stride ld), the
-// band's halo rows up / dn from K1's side buffer; the column's shares of
-// |r'|^2, max |r'| and, with u, max |x' - u|.
-template <class In, class ZK>
-__device__ __forceinline__ void k2_column(const Geom& g, const In& in, const ZK& zk,
-                                          const float* __restrict__ x,
-                                          const float* __restrict__ r,
-                                          const float* __restrict__ u, float* __restrict__ xo,
-                                          float* __restrict__ ro, float* __restrict__ zo, int ld,
-                                          int c, int row0, int by, float up, float dn,
-                                          float alpha, float& s_r2, float& s_max,
-                                          float& s_err) {
-  float prev = up;
-  float cur = zk(row0, c);
-  for (int k = 0; k < by; ++k) {
-    const int rr = row0 + k;
-    const size_t i = (size_t)rr * ld + c;
-    const float next = (k + 1 < by) ? zk(rr + 1, c) : dn;
-    float az = 0.f;
-    if (in(rr, c)) az = stencil_rn(g, cur, zk(rr, c - 1), zk(rr, c + 1), prev, next);
-    const float xn = x_update(x[i], alpha, cur);
-    const float rn = r_update(r[i], alpha, az);
-    xo[i] = xn;
-    ro[i] = rn;
-    zo[i] = cur;
-    s_r2 += rn * rn;
-    s_max = fmaxf(s_max, fabsf(rn));
-    if (u != nullptr) s_err = fmaxf(s_err, fabsf(__fsub_rn(xn, u[i])));
-    prev = cur;
-    cur = next;
-  }
 }
 
 // Sum (or max) over the TW threads of a block; the result is valid in

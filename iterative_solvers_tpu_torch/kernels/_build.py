@@ -80,10 +80,11 @@ _SIGNATURES = {
     "ist_stencil3d_block": [_P] * 6 + [_I] * 9 + [_F] * 4 + [_P],
     "ist_k_down_block": [_P] * 6 + [_I] * 8 + [_F] * 4 + [_P],
     "ist_k_up_block": [_P] * 12 + [_I] * 9 + [_F] * 4 + [_P],
-    # fused CG on mesh blocks (D5, D6): (..., roff, coff, canvas width, cd, cx, cy)
-    "ist_k1_block": [_P] * 11 + [_I] * 9 + [_F] * 3 + [_P],
-    "ist_k2_block": [_P] * 14 + [_I] * 9 + [_F] * 3 + [_P],
-    "ist_k2_pcg_block": [_P] * 15 + [_I] * 9 + [_F] * 3 + [_P],
+    # fused CG on mesh blocks (D5, D6): (..., band rows, tile rows, roff,
+    # coff, canvas width, cd, cx, cy)
+    "ist_k1_block": [_P] * 11 + [_I] * 10 + [_F] * 3 + [_P],
+    "ist_k2_block": [_P] * 14 + [_I] * 10 + [_F] * 3 + [_P],
+    "ist_k2_pcg_block": [_P] * 15 + [_I] * 10 + [_F] * 3 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

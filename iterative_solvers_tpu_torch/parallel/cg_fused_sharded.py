@@ -13,11 +13,14 @@ runs on each rank's block of the sharded operator's padded layout:
   r − α A z_k and z_k into fresh buffers, partials of ‖r‖², ‖r‖∞ and, with a
   true solution, ‖x − u‖∞.
 
-One exchange per iteration serves both kernels: the edge rows and columns
-of d (r for MSG CG, w = M r for PCG) and z_prev, packed into four ring
-messages. Each kernel forms z_k at a neighbour node from those raw values
-by the expression the owning block uses, and reads its neighbour columns
-as operands, so every node takes the single-device arithmetic: stitched
+Each kernel is its single-device tile kernel (``csrc/cg_tiles.cuh``) on
+the block as a canvas of its own, tiled by ``kernels.cg_fused.tile_grid``
+on the block's shape, with one partial per tile (the plain versions: per
+band). One exchange per iteration serves both kernels: the edge rows and
+columns of d (r for MSG CG, w = M r for PCG) and z_prev, packed into four
+ring messages. The tiles at the block's edges form z_k at a neighbour
+node from those raw values by the expression the owning block uses, zero
+off the canvas, so every node takes the single-device arithmetic: stitched
 blocks equal K1 / K2 / K2-pcg bit for bit, edges included, and the
 partials cover the whole block. The JAX package zeroes the wrapped lane in
 its kernels and adds the edge-column terms at the jit level
@@ -42,11 +45,11 @@ import torch
 
 from iterative_solvers_tpu_torch.kernels import _build
 from iterative_solvers_tpu_torch.kernels.cg_fused import (
-    TW,
     FusedCGEngine,
     _scalar,
     run_fused_solve,
     stencil_banded,
+    tile_grid,
 )
 from iterative_solvers_tpu_torch.kernels.stencil_layout import check_field
 from iterative_solvers_tpu_torch.parallel.halo_pallas import ShardedPallasStencilOperator
@@ -119,10 +122,13 @@ def k2_pcg_block_plain(x, r, zp, w, side, left, right, scal, op, u=None):
     return _k2_block_plain("k2_pcg_block", x, r, zp, w, side, left, right, scal, u, op)
 
 
-def _geometry(op: ShardedPallasStencilOperator):
+def _geometry(kernel: str, op: ShardedPallasStencilOperator, device):
+    """(geometry arguments with the tile rows, partials per field) of D5
+    (``kernel="k1"``) or D6 (``"k2"``): K1's or K2's tiles on the block."""
     (hb, wb), (r0, c0) = op.block_shape, op.origin
-    return (op.nx, op.ny, int(op.mask_mode == "gamma"), hb, wb, op.block_rows, r0, c0,
-            op.padded_shape[1])
+    tj, blocks = tile_grid(kernel, op.block_shape, op.block_rows, _build.sm_count(device))
+    return (op.nx, op.ny, int(op.mask_mode == "gamma"), hb, wb, op.block_rows, tj, r0, c0,
+            op.padded_shape[1]), blocks
 
 
 def _check_halos(x, op, **halos):
@@ -132,6 +138,15 @@ def _check_halos(x, op, **halos):
         check_field(name, t, shapes[name])
         if t.device != x.device:
             raise ValueError(f"{name}: on {t.device}, the block on {x.device}")
+
+
+def check_aligned(**ts) -> None:
+    """The tiles read every operand in 16-byte pieces: raise on a tensor
+    whose storage does not start on a 16-byte boundary (a view at an odd
+    offset; ``.clone()`` it first)."""
+    for name, t in ts.items():
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name}: the kernels need 16-byte aligned storage")
 
 
 def k1_block(d, zp, beta, up, dn, left, right, op: ShardedPallasStencilOperator):
@@ -146,14 +161,15 @@ def k1_block(d, zp, beta, up, dn, left, right, op: ShardedPallasStencilOperator)
     _check_halos(d, op, up=up, dn=dn, left=left, right=right)
     if d.device.type == "cpu":
         return k1_block_plain(d, zp, beta, up, dn, left, right, op)
+    check_aligned(d=d, z_prev=zp, up=up, dn=dn, left=left, right=right)
     hb, wb = op.block_shape
-    g = hb // op.block_rows
-    side = torch.empty((g, 2, wb), dtype=d.dtype, device=d.device)
-    parts = torch.empty((3, g, wb // TW), dtype=d.dtype, device=d.device)
+    side = torch.empty((hb // op.block_rows, 2, wb), dtype=d.dtype, device=d.device)
+    geom, blocks = _geometry("k1", op, d.device)
+    parts = torch.empty((3, blocks), dtype=d.dtype, device=d.device)
     p = _build.ptr
     _build.launch(
         "ist_k1_block", p(d), p(zp), p(beta.contiguous()), p(up), p(dn), p(left), p(right),
-        p(side), p(parts[0]), p(parts[1]), p(parts[2]), *_geometry(op), *op.coeffs,
+        p(side), p(parts[0]), p(parts[1]), p(parts[2]), *geom, *op.coeffs,
     )
     return side, parts[0], parts[1], parts[2]
 
@@ -177,13 +193,15 @@ def _k2_block(name, x, r, zp, w, side, left, right, scal, u, op):
         if w is None:
             return k2_block_plain(x, r, zp, side, left, right, scal, op, u)
         return k2_pcg_block_plain(x, r, zp, w, side, left, right, scal, op, u)
+    check_aligned(x=x, r=r, z_prev=zp, w=w, u=u, side=side, left=left, right=right)
     xo, ro, zo = (torch.empty_like(x) for _ in range(3))
-    parts = torch.empty((3, g, wb // TW), dtype=x.dtype, device=x.device)
+    geom, blocks = _geometry("k2", op, x.device)
+    parts = torch.empty((3, blocks), dtype=x.dtype, device=x.device)
     p = _build.ptr
     dirs = (p(x), p(r), p(zp)) + (() if w is None else (p(w),))
     _build.launch(
         name, *dirs, p(left), p(right), p(side), p(scal.contiguous()), p(u), p(xo), p(ro),
-        p(zo), p(parts[0]), p(parts[1]), p(parts[2]), *_geometry(op), *op.coeffs,
+        p(zo), p(parts[0]), p(parts[1]), p(parts[2]), *geom, *op.coeffs,
     )
     out = (xo, ro, zo, parts[0], parts[1])
     return out + ((parts[2],) if u is not None else ())

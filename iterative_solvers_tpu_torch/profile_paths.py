@@ -2,7 +2,7 @@
 solve of each main path, after a warm-up solve.
 
     python -m iterative_solvers_tpu_torch.profile_paths [--n 8192] [--nb 1024] [--n3 512]
-        [--ns 128] [--paths A,f64,B,3D,C,C-B,S] [--out DIR]
+        [--ns 128] [--paths A,f64,B,3D,C,C-B,mesh-B,S] [--out DIR]
 
 Paths: A, the default solve (FMG warm start, double-f32 outer) at ``n``²;
 the cold f64-outer solve at ``n``²; B, plain f32 CG on the fused engine
@@ -10,15 +10,18 @@ the cold f64-outer solve at ``n``²; B, plain f32 CG on the fused engine
 double-f32 outer, ``device_refined_solve`` on the padded 7-point operator,
 as the JAX package's bench runs it); C, the default solve (double-f32
 outer) on the custom-mask notched disk at ``n``²; C-B, plain f32 CG on the
-fused engine on the notched disk at ``nb``². For each it prints the facade's
-``solve()`` wall time, then profiles the solver core alone (the refinement,
-or the CG solve, on fields assembled beforehand): its time without and with
-the profiler, the device-busy time (the union of the device events'
-intervals), the idle share of the profiled window, the device time of the
-port's own kernels against all other device ops (torch glue), and the
-device ops with the most self time (on the CG paths B and C-B also the core
-time and the device-busy time per iteration: the first well above the
-second means the host loop sets the pace); with ``--out``, also a Chrome
+fused engine on the notched disk at ``nb``²; mesh-B ("mesh fused B"), path
+B on a 1x1 mesh (``operator='fused'``, ``mesh=make_solver_mesh(1)``: the
+sharded fused engine's D5 and D6 on the mesh's own layout) at ``nb``². For
+each it prints the facade's ``solve()`` wall time, then profiles the solver
+core alone (the refinement, or the CG solve, on fields assembled
+beforehand): its time without and with the profiler, the device-busy time
+(the union of the device events' intervals), the idle share of the
+profiled window, the device time of the port's own kernels against all
+other device ops (torch glue), and the device ops with the most self time
+(on the CG paths B, C-B and mesh-B also the core time and the device-busy
+time per iteration: the first well above the second means the host loop
+sets the pace); with ``--out``, also a Chrome
 trace per path. For the 3D path it then times the refinement's parts with CUDA
 events: one inner PCG iteration, the V-cycle in it, level 0's kernels and
 its y/x transfers, the 7-point apply, the FMG warm start. S is not
@@ -42,6 +45,8 @@ from iterative_solvers_tpu_torch.api import DirichletSolver
 from iterative_solvers_tpu_torch.core.domain import Domain2D, Domain3D, notched_disk
 from iterative_solvers_tpu_torch.kernels.cg_fused import fused_cg_solve
 from iterative_solvers_tpu_torch.ops.stencil import StencilOperator
+from iterative_solvers_tpu_torch.parallel import make_solver_mesh
+from iterative_solvers_tpu_torch.parallel.cg_fused_sharded import sharded_fused_cg_solve
 from iterative_solvers_tpu_torch.solvers.cg import CGOptions, cg_solve
 from iterative_solvers_tpu_torch.solvers.precond import JacobiPreconditioner
 from iterative_solvers_tpu_torch.solvers.refine import (
@@ -54,8 +59,10 @@ from iterative_solvers_tpu_torch.solvers.refine import (
 from iterative_solvers_tpu_torch.solvers.stopping import StopConfig
 
 # the port's hand-written kernels (csrc/*.cu), as the profiler names them
+# (the mesh blocks' column sweeps as *_block_kernel)
 _OWN_KERNEL = re.compile(
-    r"(?<![A-Za-z_])(k1|k2|k_down3?d?|k_up3?d?|k_jacobi3?d?|stencil3?d?|k_resid_ff3?d?)_kernel"
+    r"(?<![A-Za-z_])(k1|k2|k_down3?d?|k_up3?d?|k_jacobi3?d?|stencil3?d?|k_resid_ff3?d?)"
+    r"(_block)?_kernel"
 )
 
 
@@ -190,9 +197,10 @@ def profile_path(name: str, solver: DirichletSolver, out_dir=None) -> None:
             return fused_refined_solve(pop, Mp, b, u_true=u, stop=solver.stop,
                                        fmg=solver.fmg_cycles, ff=solver.outer_kind == "ff")
     else:
+        solve = fused_cg_solve if solver.mesh is None else sharded_fused_cg_solve
+
         def core():
-            return fused_cg_solve(pop, b, u_true=u,
-                                  options=CGOptions(stop=solver.stop, preconditioner=Mp))
+            return solve(pop, b, u_true=u, options=CGOptions(stop=solver.stop, preconditioner=Mp))
     res, t_core = _timed(core)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, t_prof = _timed(core)
@@ -223,7 +231,7 @@ def main(argv=None) -> int:
     ap.add_argument("--n3", type=int, default=512)
     ap.add_argument("--ns", type=int, default=128)
     ap.add_argument("--paths", default="A,f64,B,3D,C",
-                    help="comma-separated subset of A,f64,B,3D,C,C-B,S")
+                    help="comma-separated subset of A,f64,B,3D,C,C-B,mesh-B,S")
     ap.add_argument("--out", default=None, help="directory for Chrome traces")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -248,6 +256,8 @@ def main(argv=None) -> int:
         "C-B": lambda: DirichletSolver(
             domain=Domain2D(args.nb, args.nb, shape="custom", inside_fn=notched_disk),
             operator="fused", device="cuda", stop=rel6),
+        "mesh-B": lambda: DirichletSolver(nx=args.nb, ny=args.nb, operator="fused",
+                                          mesh=make_solver_mesh(1), device="cuda", stop=rel6),
     }
     for name in args.paths.split(","):
         if name == "S":

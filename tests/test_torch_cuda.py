@@ -454,15 +454,17 @@ def test_mesh_block_kernels_match_single_device(gen, mesh_shape):
         "k_up": 1, "stencil3d_block": 4, "stencil3d": 1}
 
 
-@pytest.mark.parametrize("mesh_shape", [(2, 2), (4, 2)])
+@pytest.mark.parametrize("mesh_shape", [(1, 1), (2, 2), (4, 2)])
 @pytest.mark.parametrize("pcg", [False, True])
 def test_engine_block_kernels_match_single_device(gen, mesh_shape, pcg):
     """D5 and D6 (MSG or PCG, with and without u) on every block of a
     partition of the 1024² Г grid, each block's halos cut from the global
-    fields as the engine's exchange delivers them: each launch within
-    tolerance of its plain version, and the stitched side rows, x', r' and
-    z_k bit-equal to K1 and K2 / K2-pcg on the whole canvas at every node,
-    edges included; the summed partials within 64 eps32 of their terms."""
+    fields as the engine's exchange delivers them (on (1, 1) the ring hands
+    the block its own last row and column): each launch within tolerance of
+    its plain version, one partial per tile of ``tile_grid``, and the
+    stitched side rows, x', r' and z_k bit-equal to K1 and K2 / K2-pcg on
+    the whole canvas at every node, edges included; the summed partials
+    within 64 eps32 of their terms."""
     from iterative_solvers_tpu_torch.parallel import cg_fused_sharded as S
 
     dom = Domain2D(nx=1024, ny=1024)
@@ -484,6 +486,9 @@ def test_engine_block_kernels_match_single_device(gen, mesh_shape, pcg):
         got = S.k1_block(db, zb, beta, up, dn, left, right, op)
         ref = S.k1_block_plain(db, zb, beta, up, dn, left, right, op)
         _close(got[0], ref[0])
+        tiles = {k: cg_fused.tile_grid(k, op.block_shape, by, _build.sm_count(x.device))[1]
+                 for k in ("k1", "k2")}
+        assert all(p.shape == (tiles["k1"],) for p in got[1:])
         sides.append(got[0])
         rz, azz = rz + float(got[1].double().sum()), azz + float(got[2].double().sum())
         (h, wd), (r0, c0) = op.block_shape, op.origin
@@ -498,6 +503,7 @@ def test_engine_block_kernels_match_single_device(gen, mesh_shape, pcg):
                 ref2 = S.k2_block_plain(*cut[:3], got[0], left, right, scal, op, ub)
             for a, b in zip(got2[:3], ref2[:3]):
                 _close(a, b)
+            assert all(p.shape == (tiles["k2"],) for p in got2[3:])
             outs[with_u].append(got2)
     assert torch.equal(_stitch(meshes, sides), side_ref)
     dz = (d * (d + beta * z)).double().abs().sum()
