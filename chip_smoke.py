@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --legs DIR   # only the 2D V-cycle legs, of the port in DIR
     python3 chip_smoke.py --cg DIR     # only the fused CG kernels K1/K2 and D5/D6 of the port in DIR
+    python3 chip_smoke.py --stencil DIR  # only C4/C5, A1 and the nnz chain of the port in DIR
 
 Phases, each printing its own lines; any failure exits non-zero before the
 final ``ok`` line:
@@ -86,8 +87,11 @@ final ``ok`` line:
      kernel at 512³: ms per iteration and iterations to rel 1e-6;
    - the in-place and pipelined stencils (C4, C5): bit-equal to A1 at scale
      1 on gamma 64² (16-row panels), 1024², the 8192² ``nnz`` layout (256-row
-     panels, 8448 × 8320) and the custom 64² and 8192² layouts, with random
-     and all-ones input, in x's storage, within their side buffer's memory;
+     panels, 8448 × 8320), 8192² at ``auto_block_rows`` (8256 × 8320, ranges
+     of 63 rows across 64-row panels; timed too) and the custom 64² and
+     8192² layouts, with random and all-ones input, in x's storage, within
+     their side buffer's memory (two rows a range, at most 1/16 of the
+     field);
      ``bench.py``'s ``nnz`` chain at 8192² for A1, C4 and C5 (ms per apply
      as a two-point difference, Gnnz/s), and a short chain on the notched
      disk;
@@ -196,6 +200,7 @@ PATH_KERNELS = {
     "C f64": ("k1_custom", "k2_pcg_custom", "k_down_custom", "k_up_custom"),
     "C-B": ("k1_custom", "k2_custom", "stencil_custom"),
     "nnz A1": ("stencil",),
+    "nnz A1 custom": ("stencil_custom",),  # C1: ``--stencil``'s chain on the disk
     "nnz C4": ("stencil_inplace",),
     "nnz C5": ("stencil_pipelined",),
     "nnz C4 custom": ("stencil_inplace_custom",),
@@ -317,6 +322,19 @@ def bound_ms(s, ops):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def conv2d_ms(lay, x):
+    """Device time of one cuDNN convolution with the 5-point cross of
+    ``lay`` on the field ``x``: the 2D stencils' library yardstick."""
+    import torch
+    import torch.nn.functional as F
+
+    cd, cx, cy = lay.coeffs
+    wt = torch.tensor([[0.0, cy, 0.0], [cx, cd, cx], [0.0, cy, 0.0]],
+                      device="cuda").view(1, 1, 3, 3)
+    xin = x.view(1, 1, *x.shape)
+    return device_ms(lambda: F.conv2d(xin, wt, padding=1))
+
+
 def nbytes(ts):
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
@@ -357,7 +375,6 @@ def check_kernels(dom, gen, label, timed, block_rows=None, only=None, short=Fals
     issue time) adds ``graph_ms`` (:func:`graph_ms`, ``GRAPH_CALLS`` calls
     in one graph), the time such a row compares with its bound."""
     import torch
-    import torch.nn.functional as F
 
     from iterative_solvers_tpu_torch.kernels import cg_fused, resid_ff
     from iterative_solvers_tpu_torch.kernels.stencil_layout import PaddedStencilOperator
@@ -471,12 +488,7 @@ def check_kernels(dom, gen, label, timed, block_rows=None, only=None, short=Fals
                          f"{rec['one_call_ms']:.4f} ms  bound "
                          f"{rec['bytes'] / HBM_BYTES_PER_S * 1e3:.4f} ms")
             if base == "stencil":
-                # yardstick: one cuDNN convolution with the 5-point cross
-                cd, cx, cy = lay.coeffs
-                wt = torch.tensor([[0.0, cy, 0.0], [cx, cd, cx], [0.0, cy, 0.0]],
-                                  device="cuda").view(1, 1, 3, 3)
-                xin = x.view(1, 1, *x.shape)
-                rec["library_ms"] = device_ms(lambda: F.conv2d(xin, wt, padding=1))
+                rec["library_ms"] = conv2d_ms(lay, x)
                 line += f"  conv2d {rec['library_ms']:.4f} ms"
         log(line)
         out[name] = rec
@@ -1091,13 +1103,15 @@ def check_pipelined(dom, gen, label, timed, block_rows=None):
     """C4 and C5 on one layout, random and all-ones unmasked input: C4 at
     scale 1 and C5 (in place and not, lookahead 2 and 4) bit-equal to A1,
     the in-place results in x's storage, an in-place call's peak memory
-    within its side buffer plus 1 MiB; then both against their plain
-    versions with the chain's scale 7e-6 (64 eps32 · max|plain|). Returns
-    {name: dict of max_abs_err, ms, plain_ms, library_ms, bytes, nodes}:
-    timed on the all-ones canvas, as the chain runs."""
+    within its side buffer (two rows for each of ``plan_ranges``' ranges)
+    plus 1 MiB, the side buffer within 1/16 of the field; then both against
+    their plain versions with the chain's scale 7e-6 (64 eps32 ·
+    max|plain|). Returns {name: dict of max_abs_err, ms, plain_ms,
+    library_ms, bytes, nodes}: timed on the all-ones canvas, as the chain
+    runs."""
     import torch
-    import torch.nn.functional as F
 
+    from iterative_solvers_tpu_torch.kernels import _build
     from iterative_solvers_tpu_torch.kernels import stencil_pipelined as sp
     from iterative_solvers_tpu_torch.kernels.stencil_layout import PaddedStencilOperator
 
@@ -1105,6 +1119,10 @@ def check_pipelined(dom, gen, label, timed, block_rows=None):
     sfx = "_custom" if lay.mask8 is not None else ""
     hp, wp = lay.padded_shape
     scale = 7e-6
+    rows, ranges = sp.plan_ranges(hp, _build.sm_count(torch.device("cuda")))
+    side = ranges * 2 * wp * 4
+    if side > hp * wp * 4 // 16:
+        raise AssertionError(f"C4/C5{sfx} @ {label}: side buffer {side} B above 1/16 of the field")
 
     def peak_growth(fn, x):
         torch.cuda.synchronize()
@@ -1120,14 +1138,10 @@ def check_pipelined(dom, gen, label, timed, block_rows=None):
         a1 = lay(x)
         xc = x.clone()
         y, grow4 = peak_growth(lambda t: sp.stencil_apply_inplace(t, lay), xc)
-        side4 = (hp // lay.block_rows) * 2 * wp * 4
         if y.data_ptr() != xc.data_ptr():
             raise AssertionError(f"stencil_inplace{sfx} @ {label}: result not in x's storage")
         if not torch.equal(y, a1):
             raise AssertionError(f"stencil_inplace{sfx} @ {label} {kind}: differs from A1")
-        if grow4 > side4 + 2**20:
-            raise AssertionError(f"stencil_inplace{sfx} @ {label}: peak grew {grow4} B, side "
-                                 f"buffer {side4} B")
         grow5 = 0
         for lookahead in (2, 4):
             for in_place in (True, False):
@@ -1139,11 +1153,13 @@ def check_pipelined(dom, gen, label, timed, block_rows=None):
                                          f"{in_place} lookahead {lookahead}: differs from A1")
                 if in_place:
                     grow5 = max(grow5, grow)
-        if grow5 > 2 * 132 * 2 * wp * 4 + 2**20:
-            raise AssertionError(f"stencil_pipelined{sfx} @ {label}: peak grew {grow5} B")
+        if max(grow4, grow5) > side + 2**20:
+            raise AssertionError(f"C4/C5{sfx} @ {label}: in-place peak grew {grow4} / {grow5} B, "
+                                 f"side buffer {side} B")
         log(f"kernel C4/C5{sfx} @ {label} {kind}: bit-equal to A1 (C5 in place and not, "
-            f"lookahead 2 and 4), in x's storage; in-place peak +{grow4} B (C4, side "
-            f"{side4} B), +{grow5} B (C5)")
+            f"lookahead 2 and 4), in x's storage; {ranges} ranges of {rows} rows "
+            f"({lay.block_rows}-row panels); in-place peak +{grow4} B (C4), +{grow5} B (C5), "
+            f"side buffer {side} B ({side / (hp * wp * 4):.4f} of the field)")
         del x, xc, y, a1
     x = torch.randn(lay.padded_shape, device="cuda", generator=gen)
     ones = torch.ones(lay.padded_shape, device="cuda")
@@ -1160,27 +1176,101 @@ def check_pipelined(dom, gen, label, timed, block_rows=None):
         torch.cuda.synchronize()
         err, tol = compare(f"{name} @ {label}", (got,), (ref,), ("field",))
         rec = {"max_abs_err": err, "bytes": hp * wp * (9 if sfx else 8), "nodes": hp * wp,
-               "library_ms": None}
+               "library_ms": None, "shape": [hp, wp]}
         line = f"kernel {name:24s} @ {label}: max_abs_err {err:.3e} tol {tol:.3e}"
         if timed:
             xk, xp = ones.clone(), ones.clone()
             rec.update(kernel_times(lambda: kern(xk), lambda: plain(xp)))
-            cd, cx, cy = lay.coeffs
-            wt = torch.tensor([[0.0, cy, 0.0], [cx, cd, cx], [0.0, cy, 0.0]],
-                              device="cuda").view(1, 1, 3, 3)
-            xin = ones.view(1, 1, hp, wp)
-            rec["library_ms"] = device_ms(lambda: F.conv2d(xin, wt, padding=1))
-            line += (f"  kernel {rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f} ms  conv2d "
-                     f"{rec['library_ms']:.4f} ms")
+            rec["library_ms"] = conv2d_ms(lay, ones)
+            line += (f"  kernel {rec['ms']:.4f} ms (one call {rec['one_call_ms']:.4f}; bound "
+                     f"{rec['bytes'] / HBM_BYTES_PER_S * 1e3:.4f})  plain "
+                     f"{rec['plain_ms']:.4f} ms  conv2d {rec['library_ms']:.4f} ms")
         log(line)
         out[name] = rec
     if timed:  # the other C5 forms and A1, for the record
         xk = ones.clone()
-        c5_4 = one_call_ms(lambda: sp.stencil_apply_pipelined(xk, lay, lookahead=4, scale=scale))
-        c5_2 = one_call_ms(lambda: sp.stencil_apply_pipelined(ones, lay, in_place=False))
+        c5_4 = device_ms(lambda: sp.stencil_apply_pipelined(xk, lay, lookahead=4, scale=scale))
+        c5_2 = device_ms(lambda: sp.stencil_apply_pipelined(ones, lay, in_place=False))
         log(f"C5{sfx} @ {label}: lookahead 4 in place {c5_4:.4f} ms, lookahead 2 out of place "
-            f"{c5_2:.4f} ms; A1 {one_call_ms(lambda: lay(ones)):.4f} ms")
+            f"{c5_2:.4f} ms; A1 {device_ms(lambda: lay(ones)):.4f} ms (device timer)")
     return out
+
+
+def time_stencils(dom, block_rows, label, gen):
+    """``--stencil``'s record of one layout: C4 and C5 (in place and out of
+    place, lookahead 2 and 4), each bit-equal to A1 at scale 1 on a random
+    field, then timed with the chain's scale on the all-ones canvas (device
+    and one-call timers), A1, one ``F.conv2d`` and one copy of the field
+    (``Tensor.copy_``: what a plain 8 B/node stream reaches) on the same
+    canvas, then :func:`nnz_chain` for A1, C4 and C5. Uses only the
+    wrappers' public functions, so an earlier checkout is timed alike."""
+    import torch
+
+    from iterative_solvers_tpu_torch.kernels import stencil_pipelined as sp
+    from iterative_solvers_tpu_torch.kernels.stencil_layout import PaddedStencilOperator
+
+    lay = PaddedStencilOperator.from_domain(dom, block_rows=block_rows)
+    hp, wp = lay.padded_shape
+    custom = lay.mask8 is not None
+    scale = 7e-6
+    forms = {
+        "C4": lambda t, s: sp.stencil_apply_inplace(t, lay, s),
+        "C5 in place la2": lambda t, s: sp.stencil_apply_pipelined(t, lay, lookahead=2, scale=s),
+        "C5 in place la4": lambda t, s: sp.stencil_apply_pipelined(t, lay, lookahead=4, scale=s),
+        "C5 out la2": lambda t, s: sp.stencil_apply_pipelined(t, lay, in_place=False,
+                                                              lookahead=2, scale=s),
+        "C5 out la4": lambda t, s: sp.stencil_apply_pipelined(t, lay, in_place=False,
+                                                              lookahead=4, scale=s),
+    }
+    x = torch.randn(lay.padded_shape, device="cuda", generator=gen)
+    a1 = lay(x)
+    for name, fn in forms.items():
+        if not torch.equal(fn(x.clone(), 1.0), a1):
+            raise AssertionError(f"{name} @ {label}: differs from A1")
+    del x, a1
+    ones = torch.ones(lay.padded_shape, device="cuda")
+    rec = {"shape": [hp, wp], "block_rows": lay.block_rows,
+           "bound_ms": (9 if custom else 8) * hp * wp / HBM_BYTES_PER_S * 1e3}
+    for name, fn in forms.items():
+        xk = ones.clone()
+        rec[name] = {"ms": device_ms(lambda: fn(xk, scale)),
+                     "one_call_ms": one_call_ms(lambda: fn(xk, scale))}
+        del xk
+    rec["A1"] = {"ms": device_ms(lambda: lay(ones)), "one_call_ms": one_call_ms(lambda: lay(ones))}
+    rec["conv2d"] = {"ms": conv2d_ms(lay, ones)}
+    # yardstick: one copy of the field, the same 8 B/node read-and-write stream
+    yb = torch.empty_like(ones)
+    rec["copy"] = {"ms": device_ms(lambda: yb.copy_(ones))}
+    log(f"stencil {label} {lay.padded_shape} ({lay.block_rows}-row panels; bound "
+        f"{rec['bound_ms']:.4f} ms): " + "  ".join(
+            f"{n} {r['ms']:.4f} ms" + (f" (one call {r['one_call_ms']:.4f}, "
+                                       f"{100 * rec['bound_ms'] / r['ms']:.0f} %)"
+                                       if "one_call_ms" in r else "")
+            for n, r in rec.items() if isinstance(r, dict)))
+    del ones, yb
+    sfx = " custom" if custom else ""
+    rec["chain"] = nnz_chain(dom, block_rows, label, (
+        (f"nnz A1{sfx}", "stencil", None), (f"nnz C4{sfx}", "inplace", None),
+        (f"nnz C5{sfx}", "pipelined", None)))
+    torch.cuda.empty_cache()
+    return rec
+
+
+def stencil_only(gen) -> int:
+    """``--stencil DIR``: :func:`time_stencils` for the port in DIR at 8192²
+    and on the notched disk at 8192², each on the 256-row panels of
+    ``bench.py``'s ``nnz`` layout and at ``auto_block_rows``; then one JSON
+    line {label: record}."""
+    from iterative_solvers_tpu_torch.core.domain import Domain2D, notched_disk
+
+    out = {}
+    for name, dom in (("", Domain2D(nx=N, ny=N)),
+                      ("custom ", Domain2D(nx=N, ny=N, shape="custom", inside_fn=notched_disk))):
+        for by in (256, None):
+            label = f"{name}{N}^2 {by or 'auto'}"
+            out[label] = time_stencils(dom, by, label, gen)
+    log(json.dumps({"stencil": out}))
+    return 0
 
 
 def nnz_chain(dom, block_rows, label, kernels):
@@ -1196,7 +1286,8 @@ def nnz_chain(dom, block_rows, label, kernels):
     Longer chains overflow: at 8192² the scale times the spectral radius of
     A is ~3.8e3, so the boundary modes reach f32's limit within ~11 applies
     and the timed chains, the bench's too, run on inf and NaN (at full
-    speed: the card has no slow path for them). Returns {path: launches}."""
+    speed: the card has no slow path for them). Returns {path: {launches,
+    ms_per_apply, gnnz_s}} (the rates None for a counted chain alone)."""
     import torch
 
     from iterative_solvers_tpu_torch.kernels import _build
@@ -1219,10 +1310,11 @@ def nnz_chain(dom, block_rows, label, kernels):
     log(f"nnz {label}: layout {lay.padded_shape}, {lay.block_rows}-row panels, nnz {nnz}; "
         f"bound 8 B/node {bound:.4f} ms ({nnz / bound * 1e3 / 1e9:.1f} Gnnz/s; bench.py's "
         f"roofline counts 9 B/node: {9 * hp * wp / HBM_BYTES_PER_S * 1e3:.4f} ms)")
-    launches, sums = {}, {}
+    out, sums = {}, {}
     for path, kernel, k in kernels:
         run(kernel, 2)  # warm
         sums[path] = run(kernel, 4)[1]
+        out[path] = {"ms_per_apply": None, "gnnz_s": None}
         if k is None:
             per_est = max(run(kernel, 8)[0] / 8, 1e-7)
             k = max(8, int(0.15 / per_est))
@@ -1232,19 +1324,20 @@ def nnz_chain(dom, block_rows, label, kernels):
             log(f"nnz {label} {kernel}: {per * 1e3:.4f} ms/apply, {nnz / per / 1e9:.1f} Gnnz/s "
                 f"(k {k} / {4 * k}: {t_lo:.4f} / {t_hi:.4f} s), {bound / (per * 1e3):.1%} of "
                 f"the 8 B/node bound")
+            out[path] = {"ms_per_apply": per * 1e3, "gnnz_s": nnz / per / 1e9}
         _build.reset_counts()
         t, total = run(kernel, k)
-        launches[path], plain = dict(_build.launches), dict(_build.plain_on_cuda)
+        launches, plain = dict(_build.launches), dict(_build.plain_on_cuda)
+        out[path]["launches"] = launches
         want = PATH_KERNELS[path][0]
         log(f"nnz {label} {kernel} counted chain: k {k} sum {total:.6e} {t:.4f} s launches "
-            f"{launches[path]} plain_on_cuda {plain}")
-        if launches[path].get(want, 0) != k or plain:
-            raise AssertionError(f"nnz {label} {kernel}: launches {launches[path]}, plain "
-                                 f"{plain}")
+            f"{launches} plain_on_cuda {plain}")
+        if launches.get(want, 0) != k or plain:
+            raise AssertionError(f"nnz {label} {kernel}: launches {launches}, plain {plain}")
     if len(set(sums.values())) != 1 or not all(abs(v) < float("inf") for v in sums.values()):
         raise AssertionError(f"nnz {label}: the 4-apply chains disagree or overflow: {sums}")
     log(f"nnz {label}: 4-apply chain sums bit-equal across kernels: {sums}")
-    return launches
+    return out
 
 
 def precond_race(n):
@@ -2185,8 +2278,12 @@ def main(argv) -> int:
                     help="only check and time the fused CG kernels K1, K2 and K2-pcg and "
                          "their mesh blocks D5, D6 and D6-pcg of the port in the checkout DIR "
                          "(this one or an earlier commit's)")
+    ap.add_argument("--stencil", metavar="DIR",
+                    help="only check and time the in-place and pipelined stencils C4 and C5, "
+                         "A1, conv2d and the nnz chain of the port in the checkout DIR (this "
+                         "one or an earlier commit's)")
     args = ap.parse_args(argv)
-    other = args.legs or args.cg
+    other = args.legs or args.cg or args.stencil
     root = os.path.abspath(other) if other else REPO
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2224,6 +2321,8 @@ def main(argv) -> int:
         return legs_only(gen)
     if args.cg:
         return cg_only(gen)
+    if args.stencil:
+        return stencil_only(gen)
     # 16-row bands: several bands, and their halos, even on small grids
     check_kernels(Domain2D(nx=64, ny=64), gen, "gamma 64^2", timed=False, block_rows=16)
     check_kernels(Domain2D(nx=40, ny=50, shape="rect"), gen, "rect 40x50", timed=False,
@@ -2269,6 +2368,11 @@ def main(argv) -> int:
     check_pipelined(Domain2D(nx=1024, ny=1024), gen, "1024^2", timed=False)
     stats.update(check_pipelined(Domain2D(nx=N, ny=N), gen, f"{N}^2 nnz", timed=True,
                                  block_rows=256))
+    # the same grid at auto_block_rows (64-row panels, 8256 rows): ranges
+    # that are not panel multiples, each kernel timed beside the nnz layout
+    for name, rec in check_pipelined(Domain2D(nx=N, ny=N), gen, f"{N}^2 auto",
+                                     timed=True).items():
+        stats[name]["auto"] = {k: rec[k] for k in ("shape", "ms", "one_call_ms")}
     check_pipelined(Domain2D(nx=64, ny=64, shape="custom", inside_fn=notched_disk), gen,
                     "custom 64^2", timed=False, block_rows=32)
     stats.update(check_pipelined(disk, gen, f"custom {N}^2 nnz", timed=True, block_rows=256))
@@ -2335,11 +2439,13 @@ def main(argv) -> int:
     # the custom-mask domain: paths C and C-B
     launches.update(custom_paths(disk))
     # bench.py's nnz chain: A1, C4 and C5 at 8192², and C4/C5 on the disk
-    launches.update(nnz_chain(Domain2D(nx=N, ny=N), 256, f"{N}^2", (
-        ("nnz A1", "stencil", None), ("nnz C4", "inplace", None),
-        ("nnz C5", "pipelined", None))))
-    launches.update(nnz_chain(disk, 256, f"custom {N}^2", (
-        ("nnz C4 custom", "inplace", 8), ("nnz C5 custom", "pipelined", 8))))
+    for dom, label, paths in (
+            (Domain2D(nx=N, ny=N), f"{N}^2", (("nnz A1", "stencil", None),
+                                              ("nnz C4", "inplace", None),
+                                              ("nnz C5", "pipelined", None))),
+            (disk, f"custom {N}^2", (("nnz C4 custom", "inplace", 8),
+                                     ("nnz C5 custom", "pipelined", 8)))):
+        launches.update({p: r["launches"] for p, r in nnz_chain(dom, 256, label, paths).items()})
     del disk
     torch.cuda.empty_cache()
     # bench.py's precond (4096²) and csr (1024²) races, the facade's paths
@@ -2379,6 +2485,8 @@ def main(argv) -> int:
             "bound_ms": bound, "bound_by": bound_by,
             "library_ms": s["library_ms"], "path": path, "shape": s.get("shape"),
         }
+        if "auto" in s:  # C4/C5 at auto_block_rows
+            row["at_auto_block_rows"] = s["auto"]
         if k in AT_NB:  # the time and bound where the NB² path launches it
             p, sn = AT_NB[k], at_nb[k]
             row["at_path"] = {

@@ -1,235 +1,334 @@
 // The 5-point stencil written in place over its input (C4), and streamed
-// through a ring of shared-memory row stages filled by cp.async (C5).
+// in place or out of place with a chosen depth of copies in flight (C5):
+// one streaming body for both.
 //
 // Replaces iterative_solvers_tpu/kernels/stencil_pipelined.py:
-//   _make_inplace_kernel (C4)   -> stencil_inplace_kernel<kMask>
-//   _make_pipelined_kernel (C5) -> stencil_pipelined_kernel<kMask, L>
+//   _make_inplace_kernel (C4)   -> stencil_stream_kernel<kMask, G>, depth set by the width
+//   _make_pipelined_kernel (C5) -> stencil_stream_kernel<kMask, G>, depth = lookahead
 // kMask = true reads a custom layout's int8 interior (the *_custom
 // launchers), as C1 does; both mask every read and the output, as the TPU
 // kernels do, so an unmasked input (the nnz chain's all-ones canvas) is fine.
 //
 // What bounds them on an H100: one f32 read and one f32 write per node,
-// 8 B/node (9 with the int8 mask); the staged halo rows add 2 rows per panel.
+// 8 B/node (9 with the int8 mask); the side rows add 2 rows per range.
 //
-// In place, CUDA blocks run in no fixed order, so a block may read nothing
-// that another block writes, and a thread nothing that another thread of
-// its block may already have overwritten:
-// - every block owns whole full-width panels, so there are no column edges
-//   between blocks; the two rows just outside its rows (the only rows it
-//   reads and others write) come from a side buffer staged before the
-//   launch, as the TPU kernel's side operand is;
-// - inside a block, row i is copied into shared memory before anyone
-//   writes row i - 1, and the stencil reads rows only from shared memory,
-//   so a global row is written only after its last global read.
+// The grid follows the card, not the TPU's panel height: each block owns a
+// contiguous range of `rows` full-width rows (the wrapper's planner gives
+// one range per SM), so no two blocks share a column edge. A block streams
+// its rows through a ring of `stages` = depth + 2 full-row stages in shared
+// memory: rows i and i + 1 resident, rows i + 2 .. i + 1 + depth in flight
+// while row i is computed. Each row arrives by one bulk copy (the TMA's
+// 1-D form, `cp.async.bulk`) that one thread issues and that completes on
+// the stage's mbarrier, so no register or instruction of the other threads
+// is spent on loads. A thread owns G float4 column groups q = tid + k T and
+// keeps row i - 1 of them in registers: when row i + 1 lands it masks its
+// groups of that row and writes them back to the stage (so the row's
+// horizontal neighbours are masked when it becomes row i), takes row i's
+// horizontal neighbours from the lanes beside it (shuffles; the warp's two
+// ends from the stage) and stores row i of the output as 16-byte stores
+// from registers. The int8 mask (kMask) is read once per node, a step ahead
+// into registers. G (1..5, the fewest groups a row of at most 1024 threads
+// needs) is a template argument, so the per-group state stays in registers.
 //
-// C4: one block per panel of `by` rows. A ring of three shared rows holds
-// rows i - 1, i, i + 1; each step loads row i + 1 (one coalesced pass with
-// no global stores, so its loads overlap), synchronises, and writes row i
-// from shared memory. Shared memory: 3 rows of wp floats (99.8 KB at
-// wp = 8320), above 48 KB by opt-in.
-//
-// C5: each block walks a contiguous range of panels through a ring of
-// L + 2 row stages: rows i - 1 .. i + 1 resident, i + 2 .. i + L in flight
-// as cp.async groups (16-byte copies, one commit group per row, waited with
-// cp.async.wait_group L - 1). The TPU kernel's stages were panels and its
-// write-back ring (n_out) kept stores in flight; here stores leave from
-// registers, so there is no write-back ring. An optional scale folds into
-// the epilogue, as in C4 (the TPU kernel has none; the SpMV chain needs it). In place, the rows bordering
-// each block's range come from the side buffer; inside the range, row i is
-// written only after its copy completed, and every copy in flight is of a
-// row below i + 1. Out of place (y != x) no row is staged.
+// In place, CUDA blocks run in no fixed order, so a block reads nothing
+// that another block writes, and nothing of its own after writing it:
+// - the two rows just outside a block's range (the only rows it reads that
+//   others write) come from a side buffer that stage_side_kernel fills
+//   before the stencil's launch, on the same stream, as the TPU kernel's
+//   side operand is staged;
+// - inside a block, global row i is written at step i, after its copy into
+//   the ring completed (it was row i + 1 at step i - 1), and every copy in
+//   flight is of a row below i + 1, so a row is written only after its one
+//   global read.
+// Out of place (y != x) the rows bordering a range are read from x itself.
+// The TPU kernel's stages were panels and its write-back ring (n_out) kept
+// stores in flight; here stores leave from registers. An optional scale
+// multiplies the stencil's result (the TPU kernel has none; the SpMV chain
+// needs it), after the expression that A1 evaluates, so at scale 1 both
+// kernels equal A1 bit for bit.
 #include "common.cuh"
 
 using ist::Geom;
 
 namespace {
 
-constexpr int kThreads = 1024;
+constexpr int kMaxThreads = 1024;
+constexpr int kMaxGroups = 5;  // float4 groups a thread: wp <= 4 * kMaxThreads * kMaxGroups
+constexpr int kMaxStages = 6;  // depth <= 4 (MAX_LOOKAHEAD in the wrapper)
 
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)) : "memory");
 }
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+// the barriers' initialisation, visible to the bulk copies that complete on them
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
 
-// Row i of the output from the shared rows prev (i - 1), cur (i) and next
-// (i + 1); every thread writes its columns c = tid, tid + blockDim, ...
-// kRaw: the rows hold the input as copied, so every read is masked here
-// (C5); otherwise they were masked as they were loaded (C4).
-template <bool kMask, bool kRaw>
-__device__ __forceinline__ void write_row(const Geom& g, int i, const float* prev,
-                                          const float* cur, const float* next, float scale,
-                                          float* out) {
-  const int wp = g.wp;
-  auto at = [&](const float* row, int r, int c) -> float {
-    if (c < 0 || c >= wp) return 0.f;
-    return !kRaw || ist::interior<kMask>(g, r, c) ? row[c] : 0.f;
-  };
-  for (int c = threadIdx.x; c < wp; c += blockDim.x) {
-    float o = 0.f;
-    if (ist::interior<kMask>(g, i, c))
-      o = ist::stencil5(g, cur[c], at(cur, i, c - 1), at(cur, i, c + 1), at(prev, i - 1, c),
-                        at(next, i + 1, c)) * scale;
-    out[(size_t)i * wp + c] = o;
-  }
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
 }
 
+// the one arrival of a phase that also waits for `bytes` of copies
+__device__ __forceinline__ void mbar_arrive_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const unsigned a = smem_addr(bar);
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// `bytes` (a multiple of 16, both ends 16-byte aligned) from global to shared memory
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// order this thread's generic writes to shared memory before later bulk copies into it
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// kMask: the int8 mask's four bytes at row r, columns c .. c + 3 (0 off the
+// canvas), one 4-byte load; the caller turns it into bits when it needs them
+__device__ __forceinline__ unsigned mask_word(const Geom& g, int r, int c) {
+  if (r < 0 || r >= g.hp) return 0u;
+  return __ldg(reinterpret_cast<const unsigned*>(g.mask + (size_t)r * g.wp + c));
+}
+
+__device__ __forceinline__ unsigned word_bits(unsigned w) {
+  return (unsigned)((w & 0xffu) != 0) | (unsigned)((w & 0xff00u) != 0) << 1 |
+         (unsigned)((w & 0xff0000u) != 0) << 2 | (unsigned)((w & 0xff000000u) != 0) << 3;
+}
+
+// bit k: node (r, c + k) is interior
 template <bool kMask>
-__global__ void __launch_bounds__(kThreads)
-    stencil_inplace_kernel(float* __restrict__ x, const float* __restrict__ side, Geom g, int by,
-                           float scale) {
-  extern __shared__ __align__(16) float ring3[];  // 3 rows of wp floats
-  const int wp = g.wp;
-  const int row0 = blockIdx.x * by;
-  const float* up = side + (size_t)blockIdx.x * 2 * wp;  // row0 - 1, staged
-  const float* dn = up + wp;                             // row0 + by, staged
-  for (int c = threadIdx.x; c < wp; c += blockDim.x) {
-    ring3[c] = ist::interior<kMask>(g, row0 - 1, c) ? up[c] : 0.f;
-    ring3[wp + c] = ist::interior<kMask>(g, row0, c) ? x[(size_t)row0 * wp + c] : 0.f;
-  }
-  for (int k = 0; k < by; ++k) {
-    const int i = row0 + k;
-    // slot k % 3 holds row i - 1, (k + 1) % 3 row i, (k + 2) % 3 receives i + 1
-    const float* prev = ring3 + (k % 3) * wp;
-    const float* cur = ring3 + ((k + 1) % 3) * wp;
-    float* next = ring3 + ((k + 2) % 3) * wp;
-    const float* src = k + 1 < by ? x + (size_t)(i + 1) * wp : dn;
-    // the slot being filled held row i - 2, last read before the previous
-    // step's barrier (its columns by their owners only)
-    for (int c = threadIdx.x; c < wp; c += blockDim.x)
-      next[c] = ist::interior<kMask>(g, i + 1, c) ? src[c] : 0.f;
-    __syncthreads();
-    write_row<kMask, false>(g, i, prev, cur, next, scale, x);
+__device__ __forceinline__ unsigned interior4(const Geom& g, int r, int c) {
+  if constexpr (kMask) {
+    return word_bits(mask_word(g, r, c));
+  } else {
+    const int2 s = ist::interior_span(g, r);
+    unsigned b = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) b |= (unsigned)(c + k > s.x && c + k < s.y) << k;
+    return b;
   }
 }
 
-template <bool kMask, int L>
-__global__ void __launch_bounds__(kThreads)
-    stencil_pipelined_kernel(const float* x, float* y, const float* side, Geom g,
-                             int rows_per_block, float scale) {
-  constexpr int S = L + 2;  // ring stages
-  extern __shared__ __align__(16) float stages[];  // S rows of wp floats
-  const int wp = g.wp, hp = g.hp;
-  const int r0 = blockIdx.x * rows_per_block;
-  const int r1 = min(r0 + rows_per_block, hp);
-  const float* up = side ? side + (size_t)blockIdx.x * 2 * wp : nullptr;
-  // issue the copy of row j (t = j - r0 + 1) into its stage, then commit a
-  // group (empty for rows off the canvas or past r1: those are masked, or
-  // never read); every thread commits once per row, so the group counts
-  // agree across threads
-  auto fetch = [&](int j) {
-    const int t = j - r0 + 1;
-    if (j >= 0 && j < hp && j <= r1) {
-      const float* src = x + (size_t)j * wp;
-      if (up && j == r0 - 1) src = up;
-      if (up && j == r1) src = up + wp;
-      float* dst = stages + (t % S) * wp;
-      for (int q = threadIdx.x; q < wp / 4; q += blockDim.x) cp_async16(dst + 4 * q, src + 4 * q);
+__device__ __forceinline__ float4 masked(float4 v, unsigned b) {
+  return make_float4(b & 1 ? v.x : 0.f, b & 2 ? v.y : 0.f, b & 4 ? v.z : 0.f,
+                     b & 8 ? v.w : 0.f);
+}
+
+template <bool kMask, int G>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+    stencil_stream_kernel(const float* x, float* y, const float* side, Geom g, int rows,
+                          int stages, float scale) {
+  extern __shared__ __align__(128) float4 ring[];  // `stages` rows of wp / 4 float4
+  __shared__ uint64_t full[kMaxStages];
+  const int wp = g.wp, hp = g.hp, nq = wp / 4, T = blockDim.x, tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int r0 = blockIdx.x * rows, r1 = min(r0 + rows, hp);
+  const float* up = side ? side + (size_t)blockIdx.x * 2 * wp : nullptr;  // rows r0 - 1, r1
+  const unsigned row_bytes = (unsigned)wp * 4u;
+  // row j (r0 - 1 <= j <= r1) takes stage t % stages, t = j - r0 + 1, and
+  // completes the (t / stages)-th phase of that stage's barrier
+  auto slot = [&](int j) { return (j - r0 + 1) % stages; };
+  auto stage = [&](int j) { return ring + (size_t)slot(j) * nq; };
+  auto wait_row = [&](int j) { mbar_wait(&full[slot(j)], (unsigned)((j - r0 + 1) / stages) & 1u); };
+  auto fetch = [&](int j) {  // thread 0: the copy of row j (an arrival alone off the canvas)
+    if (j > r1) return;
+    uint64_t* bar = &full[slot(j)];
+    if (j < 0 || j >= hp) {
+      mbar_arrive(bar);
+      return;
     }
-    cp_async_commit();
+    const float* src = x + (size_t)j * wp;
+    if (up && j == r0 - 1) src = up;
+    if (up && j == r1) src = up + wp;
+    mbar_arrive_expect(bar, row_bytes);
+    bulk_load(stage(j), src, row_bytes, bar);
   };
-  for (int j = r0 - 1; j < r0 + L; ++j) fetch(j);  // rows r0 - 1 .. r0 + L - 1
-  for (int i = r0; i < r1; ++i) {
-    const int t = i - r0 + 1;
-    // the stage of row i + L held row i - 2, last read before the barrier
-    // that closed the previous step
-    fetch(i + L);
-    cp_async_wait<L - 1>();  // this thread's copies of rows <= i + 1 landed
-    __syncthreads();         // ... and every thread's
-    const float* prev = stages + ((t - 1) % S) * wp;
-    const float* cur = stages + (t % S) * wp;
-    const float* next = stages + ((t + 1) % S) * wp;
-    // masked reads: rows off the canvas (never copied) are never interior
-    write_row<kMask, true>(g, i, prev, cur, next, scale, y);
-    __syncthreads();  // every read of this step's stages before the next copies
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) mbar_init(&full[s]);
+    mbar_init_fence();
   }
-  cp_async_wait<0>();
+  __syncthreads();
+  if (tid == 0)
+    for (int j = r0 - 1; j < r0 - 1 + stages; ++j) fetch(j);
+
+  // Thread tid owns the float4 groups q = tid + k T, k < G. T and nq are
+  // multiples of 32, so a warp's 32 lanes hold 32 consecutive groups or none.
+  float4 prev[G];    // row i - 1 of this thread's groups, masked
+  unsigned mc[G];    // interior bits of row i
+  unsigned mw[G];    // kMask: the mask word of row i + 1, loaded a step ahead
+  wait_row(r0 - 1);
+  wait_row(r0);
+  {
+    const float4* sp = stage(r0 - 1);
+    float4* sc = stage(r0);
+#pragma unroll
+    for (int k = 0; k < G; ++k) {
+      const int q = tid + k * T;
+      if (q < nq) {
+        prev[k] = masked(sp[q], interior4<kMask>(g, r0 - 1, 4 * q));
+        mc[k] = interior4<kMask>(g, r0, 4 * q);
+        sc[q] = masked(sc[q], mc[k]);
+        if constexpr (kMask) mw[k] = mask_word(g, r0 + 1, 4 * q);
+      }
+    }
+  }
+  fence_proxy_async();
+  __syncthreads();
+  if (tid == 0) fetch(r0 - 1 + stages);  // into the stage of row r0 - 1
+
+  for (int i = r0; i < r1; ++i) {
+    wait_row(i + 1);
+    const float4* cur4 = stage(i);
+    const float* cur = reinterpret_cast<const float*>(cur4);
+    float4* nxt4 = stage(i + 1);
+#pragma unroll
+    for (int k = 0; k < G; ++k) {
+      const int q = tid + k * T;
+      if (q < nq) {  // the whole warp or none of it
+        const int c = 4 * q;
+        unsigned mn;
+        if constexpr (kMask) {
+          mn = word_bits(mw[k]);
+          mw[k] = mask_word(g, i + 2, c);
+        } else {
+          mn = interior4<false>(g, i + 1, c);
+        }
+        const float4 nv = masked(nxt4[q], mn);
+        nxt4[q] = nv;  // row i + 1 masked, for its horizontal neighbours at step i + 1
+        const float4 cv = cur4[q];
+        // the horizontal neighbours from the lanes beside, the warp's ends from the stage
+        float l = __shfl_up_sync(0xffffffffu, cv.w, 1);
+        float r = __shfl_down_sync(0xffffffffu, cv.x, 1);
+        if (lane == 0) l = c > 0 ? cur[c - 1] : 0.f;
+        if (lane == 31) r = c + 4 < wp ? cur[c + 4] : 0.f;
+        const float4 pv = prev[k];
+        const unsigned m = mc[k];
+        float4 o;
+        o.x = m & 1 ? ist::stencil5(g, cv.x, l, cv.y, pv.x, nv.x) * scale : 0.f;
+        o.y = m & 2 ? ist::stencil5(g, cv.y, cv.x, cv.z, pv.y, nv.y) * scale : 0.f;
+        o.z = m & 4 ? ist::stencil5(g, cv.z, cv.y, cv.w, pv.z, nv.z) * scale : 0.f;
+        o.w = m & 8 ? ist::stencil5(g, cv.w, cv.z, r, pv.w, nv.w) * scale : 0.f;
+        reinterpret_cast<float4*>(y)[(size_t)i * nq + q] = o;
+        prev[k] = cv;
+        mc[k] = mn;
+      }
+    }
+    // every read of row i's stage and every write-back of row i + 1 before
+    // the stage of row i takes its next copy
+    fence_proxy_async();
+    __syncthreads();
+    if (tid == 0) fetch(i + stages);
+  }
 }
 
-int set_smem(const void* fn, size_t bytes) {
-  return (int)cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+// side[k] = the rows k rows - 1 and (k + 1) rows of x, zeros off the canvas
+// (stage_rows in the wrapper is its plain version); one block a row.
+__global__ void stage_side_kernel(const float* __restrict__ x, float* __restrict__ side, int hp,
+                                  int wp, int rows) {
+  const int k = blockIdx.x, e = blockIdx.y;
+  const int j = e == 0 ? k * rows - 1 : (k + 1) * rows;
+  const float4* src = reinterpret_cast<const float4*>(x + (size_t)j * wp);
+  float4* dst = reinterpret_cast<float4*>(side + ((size_t)k * 2 + e) * wp);
+  const bool on = j >= 0 && j < hp;
+  for (int q = threadIdx.x; q < wp / 4; q += blockDim.x)
+    dst[q] = on ? src[q] : make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
-template <bool kMask>
-int launch_inplace(float* x, const float* side, const Geom& g, int by, float scale,
-                   cudaStream_t stream) {
-  const size_t smem = 3 * (size_t)g.wp * sizeof(float);
-  if (int e = set_smem((const void*)stencil_inplace_kernel<kMask>, smem)) return e;
-  stencil_inplace_kernel<kMask><<<g.hp / by, kThreads, smem, stream>>>(x, side, g, by, scale);
+template <bool kMask, int G>
+int launch_stream_g(const float* x, float* y, const float* side, const Geom& g, int rows,
+                    int stages, float scale, cudaStream_t stream) {
+  const int nq = g.wp / 4;
+  const int threads = ((nq + G - 1) / G + 31) / 32 * 32;  // as few as cover a row in G groups
+  const size_t smem = (size_t)stages * g.wp * sizeof(float);
+  if (int e = (int)cudaFuncSetAttribute((const void*)stencil_stream_kernel<kMask, G>,
+                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem))
+    return e;
+  stencil_stream_kernel<kMask, G><<<(g.hp + rows - 1) / rows, threads, smem, stream>>>(
+      x, y, side, g, rows, stages, scale);
   return (int)cudaGetLastError();
 }
 
-template <bool kMask, int L>
-int launch_pipelined_l(const float* x, float* y, const float* side, const Geom& g,
-                       int rows_per_block, int blocks, float scale, cudaStream_t stream) {
-  const size_t smem = (L + 2) * (size_t)g.wp * sizeof(float);
-  if (int e = set_smem((const void*)stencil_pipelined_kernel<kMask, L>, smem)) return e;
-  stencil_pipelined_kernel<kMask, L>
-      <<<blocks, kThreads, smem, stream>>>(x, y, side, g, rows_per_block, scale);
-  return (int)cudaGetLastError();
-}
-
+// y = scale * A x over `rows`-row ranges with `depth` copies in flight; y ==
+// x in place, side (ranges, 2, wp) then receives the rows bordering each
+// range before the stencil's launch; side == NULL out of place.
 template <bool kMask>
-int launch_pipelined(const float* x, float* y, const float* side, const Geom& g,
-                     int rows_per_block, int lookahead, float scale, cudaStream_t stream) {
-  const int blocks = (g.hp + rows_per_block - 1) / rows_per_block;
-  switch (lookahead) {
-    case 1: return launch_pipelined_l<kMask, 1>(x, y, side, g, rows_per_block, blocks, scale,
-                                                     stream);
-    case 2: return launch_pipelined_l<kMask, 2>(x, y, side, g, rows_per_block, blocks, scale,
-                                                     stream);
-    case 3: return launch_pipelined_l<kMask, 3>(x, y, side, g, rows_per_block, blocks, scale,
-                                                     stream);
-    case 4: return launch_pipelined_l<kMask, 4>(x, y, side, g, rows_per_block, blocks, scale,
-                                                     stream);
-    default: return (int)cudaErrorInvalidValue;
+int launch_stream(const float* x, float* y, float* side, const Geom& g, int rows, int depth,
+                  float scale, cudaStream_t stream) {
+  const int nq = g.wp / 4;
+  const int groups = (nq + kMaxThreads - 1) / kMaxThreads;
+  if (depth < 1 || depth + 2 > kMaxStages || groups > kMaxGroups || rows < 1 || g.wp % 128)
+    return (int)cudaErrorInvalidValue;
+  const int ranges = (g.hp + rows - 1) / rows;
+  if (side) {
+    stage_side_kernel<<<dim3(ranges, 2), 256, 0, stream>>>(x, side, g.hp, g.wp, rows);
+    if (int e = (int)cudaGetLastError()) return e;
+  }
+  const int stages = depth + 2;
+  switch (groups) {
+    case 1: return launch_stream_g<kMask, 1>(x, y, side, g, rows, stages, scale, stream);
+    case 2: return launch_stream_g<kMask, 2>(x, y, side, g, rows, stages, scale, stream);
+    case 3: return launch_stream_g<kMask, 3>(x, y, side, g, rows, stages, scale, stream);
+    case 4: return launch_stream_g<kMask, 4>(x, y, side, g, rows, stages, scale, stream);
+    default: return launch_stream_g<kMask, 5>(x, y, side, g, rows, stages, scale, stream);
   }
 }
 
 }  // namespace
 
-// x (hp, wp) is overwritten with scale * A x; side (hp / by, 2, wp) holds the
-// rows just above and below each panel, staged from x before the launch.
-extern "C" int ist_stencil_inplace(float* x, const float* side, int nx, int ny, int gamma, int hp,
-                                   int wp, int by, float cd, float cx, float cy, float scale,
-                                   cudaStream_t stream) {
+// C4: x (hp, wp) is overwritten with scale * A x; side (ranges, 2, wp) holds
+// the rows just above and below each range of `rows` rows, staged from x
+// before the launch.
+extern "C" int ist_stencil_inplace(float* x, float* side, int nx, int ny, int gamma, int hp,
+                                   int wp, int rows, float cd, float cx, float cy, float scale,
+                                   int depth, cudaStream_t stream) {
   const Geom g{nx, ny, gamma, hp, wp, cd, cx, cy};
-  return launch_inplace<false>(x, side, g, by, scale, stream);
+  return launch_stream<false>(x, x, side, g, rows, depth, scale, stream);
 }
 
-extern "C" int ist_stencil_inplace_custom(float* x, const float* side, const int8_t* mask, int nx,
-                                          int ny, int hp, int wp, int by, float cd, float cx,
-                                          float cy, float scale, cudaStream_t stream) {
+extern "C" int ist_stencil_inplace_custom(float* x, float* side, const int8_t* mask, int nx,
+                                          int ny, int hp, int wp, int rows, float cd, float cx,
+                                          float cy, float scale, int depth, cudaStream_t stream) {
   const Geom g{nx, ny, 0, hp, wp, cd, cx, cy, mask};
-  return launch_inplace<true>(x, side, g, by, scale, stream);
+  return launch_stream<true>(x, x, side, g, rows, depth, scale, stream);
 }
 
-// y = scale * A x; y == x in place, with side (blocks, 2, wp) holding the
-// rows just above and below each block's range; side == NULL out of place.
-// `by` (the panel height) only sizes rows_per_block, a multiple of it.
-extern "C" int ist_stencil_pipelined(const float* x, float* y, const float* side, int nx, int ny,
-                                     int gamma, int hp, int wp, int by, float cd, float cx,
-                                     float cy, float scale, int rows_per_block, int lookahead,
-                                     cudaStream_t stream) {
-  (void)by;
+// C5: y = scale * A x; y == x in place, with side as C4's; side == NULL out
+// of place.
+extern "C" int ist_stencil_pipelined(const float* x, float* y, float* side, int nx, int ny,
+                                     int gamma, int hp, int wp, int rows, float cd, float cx,
+                                     float cy, float scale, int depth, cudaStream_t stream) {
   const Geom g{nx, ny, gamma, hp, wp, cd, cx, cy};
-  return launch_pipelined<false>(x, y, side, g, rows_per_block, lookahead, scale, stream);
+  return launch_stream<false>(x, y, side, g, rows, depth, scale, stream);
 }
 
-extern "C" int ist_stencil_pipelined_custom(const float* x, float* y, const float* side,
+extern "C" int ist_stencil_pipelined_custom(const float* x, float* y, float* side,
                                             const int8_t* mask, int nx, int ny, int hp, int wp,
-                                            int by, float cd, float cx, float cy, float scale,
-                                            int rows_per_block, int lookahead,
-                                            cudaStream_t stream) {
-  (void)by;
+                                            int rows, float cd, float cx, float cy, float scale,
+                                            int depth, cudaStream_t stream) {
   const Geom g{nx, ny, 0, hp, wp, cd, cx, cy, mask};
-  return launch_pipelined<true>(x, y, side, g, rows_per_block, lookahead, scale, stream);
+  return launch_stream<true>(x, y, side, g, rows, depth, scale, stream);
 }

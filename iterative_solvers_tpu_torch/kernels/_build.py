@@ -68,12 +68,12 @@ _SIGNATURES = {
     "ist_k_up3d": [_P] * 3 + [_I] * 8 + [_F] * 5 + [_P],
     "ist_k_jacobi3d": [_P] * 3 + [_I] * 7 + [_F] * 5 + [_P],
     "ist_k_resid_ff3d": [_P] * 6 + [_I] * 11 + [_F] * 14 + [_P],
-    # in-place and pipelined stencils (C4, C5): the 2D geometry, then
-    # (cd, cx, cy, scale) and for C5 (rows_per_block, lookahead)
-    "ist_stencil_inplace": [_P] * 2 + [_I] * 6 + [_F] * 4 + [_P],
-    "ist_stencil_inplace_custom": [_P] * 3 + [_I] * 5 + [_F] * 4 + [_P],
-    "ist_stencil_pipelined": [_P] * 3 + [_I] * 6 + [_F] * 4 + [_I] * 2 + [_P],
-    "ist_stencil_pipelined_custom": [_P] * 4 + [_I] * 5 + [_F] * 4 + [_I] * 2 + [_P],
+    # in-place and pipelined stencils (C4, C5): the 2D geometry with the
+    # rows of a range in the band's place, (cd, cx, cy, scale), the depth
+    "ist_stencil_inplace": [_P] * 2 + [_I] * 6 + [_F] * 4 + [_I] + [_P],
+    "ist_stencil_inplace_custom": [_P] * 3 + [_I] * 5 + [_F] * 4 + [_I] + [_P],
+    "ist_stencil_pipelined": [_P] * 3 + [_I] * 6 + [_F] * 4 + [_I] + [_P],
+    "ist_stencil_pipelined_custom": [_P] * 4 + [_I] * 5 + [_F] * 4 + [_I] + [_P],
     # mesh blocks (D1–D4): the block and its halo operands, the 2D geometry
     # of the block, its global origin (roff, coff), then the coefficients
     "ist_stencil_block": [_P] * 6 + [_I] * 8 + [_F] * 3 + [_P],

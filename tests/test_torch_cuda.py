@@ -306,11 +306,13 @@ def test_wrappers_reject_bad_input(gen):
 
 
 @pytest.mark.parametrize("shape,n,by", [("gamma", 64, 16), ("rect", 40, 16), ("gamma", 1024, None),
-                                        ("custom", 64, 32)])
+                                        ("custom", 64, 32), ("gamma", 8192, None)])
 def test_inplace_pipelined_match_plain_and_a1(gen, shape, n, by):
     """C4 and C5 on an unmasked field: bit-equal to A1 at scale 1, within
     tolerance of their plain versions with the chain's scale; the in-place
-    results in x's own storage; C5 both ways and at lookahead 2 and 4."""
+    results in x's own storage; C5 both ways and at lookahead 2 and 4.
+    8192² at auto_block_rows (8256 rows, 64-row panels): on a card of 132
+    SMs the kernels' ranges of 63 rows end inside panels."""
     fn = notched_disk if shape == "custom" else None
     lay = PaddedStencilOperator.from_domain(Domain2D(nx=n, ny=n, shape=shape, inside_fn=fn),
                                             block_rows=by)

@@ -1,5 +1,6 @@
 """CPU parity of the in-place stencil (C4), the pipelined stencil (C5) and
-the SpMV chain against the JAX package.
+the SpMV chain against the JAX package; the kernels' range planner, the
+side rows they stage, and a plain emulation of their in-place schedule.
 
 On a CPU tensor each wrapper runs its plain torch version; the JAX side runs
 ``pallas_stencil_apply_inplace`` (C4) and ``pallas_stencil_apply`` (A1, the
@@ -14,6 +15,7 @@ carry that per-apply round-off: 64 eps32 · k relative.
 """
 
 import dataclasses
+import random
 
 import jax
 import jax.numpy as jnp
@@ -34,7 +36,7 @@ from iterative_solvers_tpu_torch import Domain2D
 from iterative_solvers_tpu_torch.core.domain import notched_disk
 from iterative_solvers_tpu_torch.kernels import stencil_pipelined as sp
 from iterative_solvers_tpu_torch.kernels.stencil_layout import PaddedStencilOperator
-from iterative_solvers_tpu_torch.ops.stencil import StencilOperator
+from iterative_solvers_tpu_torch.ops.stencil import StencilOperator, stencil_apply
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 EPS32 = float(np.finfo(np.float32).eps)
@@ -160,3 +162,81 @@ def test_inputs_rejected():
             sp.stencil_apply_pipelined(x, lay, **bad)
     with pytest.raises(ValueError):
         sp.spmv_chain(lay, x, 1, kernel="bogus")
+
+
+def _ranges(hp, rows):
+    return [(r0, min(r0 + rows, hp)) for r0 in range(0, hp, rows)]
+
+
+@pytest.mark.parametrize("sm_count", [1, 7, 132])
+@pytest.mark.parametrize("hp", [8, 40, 80, 1056, 1280, 8256, 8448, 16512])
+def test_plan_ranges_cover_every_row_once(hp, sm_count):
+    """The ranges tile the canvas's rows exactly once, at most one per SM,
+    and (at 32 rows or more) keep the side buffer within 1/16 of the field."""
+    rows, n = sp.plan_ranges(hp, sm_count)
+    ranges = _ranges(hp, rows)
+    assert len(ranges) == n <= sm_count
+    assert [i for r0, r1 in ranges for i in range(r0, r1)] == list(range(hp))
+    if hp >= sp.MIN_RANGE_ROWS:
+        assert 2 * n * 16 <= hp
+
+
+@pytest.mark.parametrize("by", [256, 64, None])
+def test_plan_ranges_fill_the_card_whatever_the_panels(by):
+    """At the nnz layout of 8192² (8448 × 8320 on 256- or 64-row panels, and
+    8256 × 8320 at auto_block_rows) an H100's 132 SMs each get a range;
+    the side buffer stays within 1/16 of the 281 MB field."""
+    lay = PaddedStencilOperator.from_domain(Domain2D(nx=8192, ny=8192), block_rows=by)
+    if by == 64:  # the 8448-row canvas cut into 64-row panels
+        lay = dataclasses.replace(
+            PaddedStencilOperator.from_domain(Domain2D(nx=8192, ny=8192), block_rows=256),
+            block_rows=64)
+    hp, wp = lay.padded_shape
+    assert (hp, wp) == ((8256, 8320) if by is None else (8448, 8320))
+    rows, n = sp.plan_ranges(hp, 132)
+    assert n >= 132 and rows * (n - 1) < hp <= rows * n
+    assert n * 2 * wp * 4 <= hp * wp * 4 / 16
+
+
+@pytest.mark.parametrize("hp,rows", [(80, 24), (80, 40), (96, 7), (64, 64), (64, 100)])
+def test_stage_rows_at_any_range_height(hp, rows):
+    """The rows just above and below each range (the last one short where
+    ``rows`` is not a divisor of ``hp``), zeros off the canvas."""
+    x = torch.arange(hp * 128, dtype=torch.float32).view(hp, 128) + 1
+    side = sp.stage_rows(x, rows)
+    ranges = _ranges(hp, rows)
+    assert side.shape == (len(ranges), 2, 128)
+    for k, (r0, r1) in enumerate(ranges):
+        for e, j in enumerate((r0 - 1, r1)):
+            want = x[j] if 0 <= j < hp else torch.zeros(128)
+            assert torch.equal(side[k, e], want)
+
+
+@pytest.mark.parametrize("shape,n,block,sm_count", [
+    ("gamma", 64, 16, 3), ("rect", 20, 8, 132), ("custom", 64, 32, 2), ("gamma", 24, 8, 1)])
+@pytest.mark.parametrize("scale", [1.0, 7e-6])
+def test_inplace_schedule_emulation(shape, n, block, sm_count, scale):
+    """The kernels' in-place schedule in plain torch: the side rows staged
+    first, then the ranges applied in reversed, then shuffled, order over
+    one buffer, each reading only its own rows (still the input's: no other
+    range writes them) and its two side rows; equal to C4's plain version
+    bit for bit, with ranges of ``plan_ranges`` and of 7 and 13 rows (none
+    a panel multiple)."""
+    _, lay = _layouts(shape, n, block)
+    hp, wp = lay.padded_shape
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal((hp, wp)).astype(np.float32))
+    want = sp.inplace_plain(x.clone(), lay, scale)
+    # the interior with one row off the canvas above and below
+    mask = torch.nn.functional.pad(lay.mask_spec.build("cpu"), (0, 0, 1, 1))
+    for rows in (sp.plan_ranges(hp, sm_count)[0], 7, 13):
+        ranges = _ranges(hp, rows)
+        side = sp.stage_rows(x, rows)
+        for order in (list(reversed(range(len(ranges)))),
+                      random.Random(rows).sample(range(len(ranges)), len(ranges))):
+            buf = x.clone()
+            for k in order:
+                r0, r1 = ranges[k]
+                slab = torch.cat([side[k, :1], buf[r0:r1], side[k, 1:]])
+                y = stencil_apply(slab, mask[r0 : r1 + 2], *lay.coeffs)[1:-1]
+                buf[r0:r1] = y * scale if scale != 1.0 else y
+            assert torch.equal(buf, want), (rows, order)
