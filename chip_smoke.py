@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port once on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --legs DIR   # only the 2D V-cycle legs, of the port in DIR
+    python3 chip_smoke.py --legs DIR   # only the V-cycle legs (2D and 3D), of the port in DIR
     python3 chip_smoke.py --cg DIR     # only the fused CG kernels K1/K2 and D5/D6 of the port in DIR
     python3 chip_smoke.py --stencil DIR  # only C4/C5, A1 and the nnz chain of the port in DIR
 
@@ -18,8 +18,9 @@ final ``ok`` line:
    notched disk at 64² (32-row bands), 1024² (timed) and the 8192² level-0
    layout; and at
    16³, the ragged 32³, the unequal box 16 × 24 × 8 and the 512³ level-0
-   layout (3D; D3 and U3 also on each coarser fused level's layout), with
-   the max abs difference, the tolerance and the device times (back-to-back
+   layout (3D; D3 and U3, bit-equal, also on each coarser fused level's
+   layout: at 512³ the route's 257 and 129, whose child is the plain 65³
+   grid), with the max abs difference, the tolerance and the device times (back-to-back
    calls between CUDA events) of the kernel, its plain version and, for the
    stencils, one ``F.conv2d`` / ``F.conv3d``, and the kernel's time as one
    call between two events (which adds the host's launch); at the 1024²
@@ -500,11 +501,15 @@ def check_kernels_3d(dims, gen, label, timed):
     layout of the box ``dims`` (the 7-point operator's own layout too), then
     D3 and U3 on every coarser fused level's layout (untimed); returns
     {name: dict of max_abs_err, ms, plain_ms, library_ms, bytes, nodes} of
-    level 0. ``bytes`` counts what the function must move: the kernels read
-    interior nodes only (the box mask is algebraic and a masked read touches
-    no memory), so each full-depth input counts its interior nodes, ``ec``
-    its dc planes' interior columns, and each output its whole canvas;
-    ``nodes`` (for the operation count) is the interior."""
+    level 0. The hierarchy is the solver's own at 512³ (fused 513, 257 and
+    129, whose child is the plain 65³ grid), else fused down to 16. D3 and
+    U3 must equal their plain versions bit for bit. ``bytes`` counts what
+    the function must move: the kernels read interior nodes only (the box
+    mask is algebraic and a masked read touches no memory), so each
+    full-depth input counts its interior nodes, ``ec`` the child's grid
+    (dc, hc, wc), which U3 prolongs, and each output its whole canvas (D3's
+    the child's layout); ``nodes`` (for the operation count) is the
+    interior."""
     import torch
     import torch.nn.functional as F
 
@@ -516,17 +521,18 @@ def check_kernels_3d(dims, gen, label, timed):
 
     dom = Domain3D(*dims)
     lay = Padded3DStencilOperator.from_domain(dom)
-    M = MultigridPreconditioner.from_domain(dom, fuse=True, fuse_min_extent=16, device="cuda")
+    M = MultigridPreconditioner.from_domain(dom, fuse=True, device="cuda",
+                                            fuse_min_extent=512 if dims[0] >= N3 else 16)
     kl = M.levels[0].kernels
     if kl.padded_shape != lay.padded_shape:
         raise AssertionError(f"{label}: V-cycle layout {kl.padded_shape} != operator's")
     shape = lay.padded_shape
     mask = lay.mask_spec.build("cuda")
     n_in = int(mask.sum())  # interior nodes of one full-depth input
-    n_ec = kl.dc * (dom.ny - 1) * (dom.nx - 1)  # ec's columns under interior nodes
+    n_ec = kl.dc * (dom.ny // 2 + 1) * (dom.nx // 2 + 1)  # the child's grid
     # unmasked inputs: every kernel masks its reads
     x, b, xj = (torch.randn(shape, device="cuda", generator=gen) for _ in range(3))
-    ec = torch.randn((kl.dc,) + shape[1:], device="cuda", generator=gen)
+    ec = torch.randn(kl.child_shape, device="cuda", generator=gen)
     f64 = dict(device="cuda", dtype=torch.float64, generator=gen)
     bh, bl = split_f64(torch.where(mask, torch.randn(shape, **f64), 0.0) * 1e4)
     xh, xl = split_f64(torch.where(mask, torch.randn(shape, **f64), 0.0))
@@ -535,8 +541,9 @@ def check_kernels_3d(dims, gen, label, timed):
     cases = {
         # S7 writes the fmaf chain its plain version emulates: bit-equal
         "stencil3d": (lambda: (lay(x),), lambda: (lay.apply_plain(x),), ("exact",), n_in),
-        "k_down3d": (lambda: (kl.down(b),), lambda: (kl.down_plain(b),), ("field",), n_in),
-        "k_up3d": (lambda: (kl.up(b, ec),), lambda: (kl.up_plain(b, ec),), ("field",),
+        # D3 and U3 round every step as their plain versions do: bit-equal
+        "k_down3d": (lambda: (kl.down(b),), lambda: (kl.down_plain(b),), ("exact",), n_in),
+        "k_up3d": (lambda: (kl.up(b, ec),), lambda: (kl.up_plain(b, ec),), ("exact",),
                    n_in + n_ec),
         "k_jacobi3d": (lambda: (kl.jacobi(xj, b),), lambda: (kl.jacobi_plain(xj, b),),
                        ("field",), 2 * n_in),
@@ -570,40 +577,42 @@ def check_kernels_3d(dims, gen, label, timed):
         log(line)
         out[name] = rec
     del x, b, xj, ec, bh, bl, xh, xl
-    # the coarser fused levels' own layouts and z-chunk tails (at 512³ the
-    # route launches D3 and U3 at 257 and 129 planes too)
+    # the coarser fused levels' own layouts, z-chunk tails and child layouts
+    # (at 512³ the route launches D3 and U3 at 257 and 129 planes too, the
+    # latter onto the plain 65³ grid)
     for i, lev in enumerate(M.levels[1:], start=1):
         if not isinstance(lev, _FusedLevel3D):
             continue
         k = lev.kernels
         bi = torch.randn(k.padded_shape, device="cuda", generator=gen)
-        eci = torch.randn((k.dc,) + k.padded_shape[1:], device="cuda", generator=gen)
+        eci = torch.randn(k.child_shape, device="cuda", generator=gen)
         for name, kern, plain in (("k_down3d", lambda: (k.down(bi),), lambda: (k.down_plain(bi),)),
                                   ("k_up3d", lambda: (k.up(bi, eci),),
                                    lambda: (k.up_plain(bi, eci),))):
             got, ref = kern(), plain()
             torch.cuda.synchronize()
-            where = f"{'x'.join(map(str, dims))} level {i} {k.padded_shape}"
-            err, tol = compare(f"{name} @ {where}", got, ref, ("field",))
+            where = f"{'x'.join(map(str, dims))} level {i} {k.padded_shape} -> {k.child_shape}"
+            err, tol = compare(f"{name} @ {where}", got, ref, ("exact",))
             log(f"kernel {name:12s} @ {where}: max_abs_err {err:.3e} tol {tol:.3e}")
     return out
 
 
 def leg_costs(M, gen):
-    """Per fused 2D level li of ``M``: the device time (:func:`graph_ms`)
-    of the V-cycle from li on the level's padded layout minus that of the
-    V-cycle from li + 1 on the child's input layout (its padded canvas when
-    fused, else its grid). The difference is the level's whole leg: its two
-    kernels and whatever runs between them and the child's own legs (the
-    lane transfers, masks, pads and crops where a design has them). Uses
-    only ``M.levels``, ``M.domains``, ``M._vcycle`` and the levels' padded
-    shapes and masks, so it times any version of the V-cycle alike."""
+    """Per fused level li of ``M`` (2D or 3D): the device time
+    (:func:`graph_ms`) of the V-cycle from li on the level's padded layout
+    minus that of the V-cycle from li + 1 on the child's input layout (its
+    padded canvas when fused, else its grid). The difference is the level's
+    whole leg: its two kernels and whatever runs between them and the
+    child's own legs (the lane or y/x transfers, masks, pads and crops where
+    a design has them). Uses only ``M.levels``, ``M.domains``, ``M._vcycle``
+    and the levels' padded shapes and masks, so it times any version of the
+    V-cycle alike."""
     import torch
 
     out = {}
     for li, lev in enumerate(M.levels[:-1]):
         k = getattr(lev, "kernels", None)
-        if k is None or len(k.padded_shape) != 2:
+        if k is None:
             continue
         b = torch.where(k.mask_spec.build("cuda"),
                         torch.randn(k.padded_shape, device="cuda", generator=gen), 0.0)
@@ -680,16 +689,80 @@ def check_legs(dom, gen, label):
     return recs
 
 
+def check_legs_3d(gen, n=N3):
+    """D3 and U3 at every fused level of the 512³ route's hierarchy, each
+    against its plain version (bit-equal where the legs take the child's
+    layout; an earlier checkout's legs, which wrote the half-depth (dc, hp,
+    wp) field for torch's y/x transfers, within 64 eps32 · max|plain|),
+    timed (:func:`kernel_times`) beside the bound of the y/x-folded legs
+    (b's interior read once, ``ec``'s child grid once, each output written
+    once), then the level's whole leg cost (:func:`leg_costs`). Logs one
+    line per level and returns {level: {"k_down3d": row, "k_up3d": row,
+    ...}}; holds for either contract, so ``--legs`` times an earlier
+    checkout's 3D legs alike."""
+    import torch
+
+    from iterative_solvers_tpu_torch import Domain3D
+    from iterative_solvers_tpu_torch.solvers.multigrid import MultigridPreconditioner
+
+    dom = Domain3D(n, n, n)
+    M = MultigridPreconditioner.from_domain(dom, device="cuda")
+    recs = {}
+    for li, lev in enumerate(M.levels):
+        k = getattr(lev, "kernels", None)
+        if k is None:
+            continue
+        mask = k.mask_spec.build("cuda")
+        b = torch.where(mask, torch.randn(k.padded_shape, device="cuda", generator=gen), 0.0)
+        coarse = tuple(k.down(b).shape)
+        ec = torch.randn(coarse, device="cuda", generator=gen)
+        kind = "exact" if hasattr(k, "child_shape") else "field"
+        child = M.levels[li + 1]
+        n_in = int(mask.sum())
+        n_ec = k.dc * (k.ny // 2 + 1) * (k.nx // 2 + 1)
+        # the child's layout (D3's output when the y/x transfers are folded in)
+        n_out = math.prod(child.kernels.padded_shape if hasattr(child, "kernels")
+                          else M.domains[li + 1].grid_shape)
+        rec = {"shape": k.padded_shape, "coarse": coarse}
+        where = f"3D {n}^3 level {li} {k.padded_shape} -> {coarse}"
+        for name, kern, plain, reads in (
+                ("k_down3d", lambda: (k.down(b),), lambda: (k.down_plain(b),), n_in),
+                ("k_up3d", lambda: (k.up(b, ec),), lambda: (k.up_plain(b, ec),), n_in + n_ec)):
+            got, ref = kern(), plain()
+            torch.cuda.synchronize()
+            err, tol = compare(f"{name} @ {where}", got, ref, (kind,))
+            nb = 4 * reads + (4 * n_out if name == "k_down3d" else nbytes(got))
+            rec[name] = {"max_abs_err": err, "tol": tol, "bytes": nb, "nodes": n_in,
+                         "library_ms": None, "bound_ms": nb / HBM_BYTES_PER_S * 1e3,
+                         **kernel_times(kern, plain, 3)}
+            del got, ref
+        recs[li] = rec
+        del b, ec, mask
+    for li, (leg, t_li, t_child) in leg_costs(M, gen).items():
+        recs[li]["leg_ms"] = leg
+        r = recs[li]
+        log(f"leg 3D {n}^3 level {li} {r['shape']} -> {r['coarse']}: " + "  ".join(
+            f"{nm} {r[nm]['ms']:.4f} ms (one call {r[nm]['one_call_ms']:.4f}; bound "
+            f"{r[nm]['bound_ms']:.4f}, {100 * r[nm]['bound_ms'] / r[nm]['ms']:.0f} %; plain "
+            f"{r[nm]['plain_ms']:.4f}; max_abs_err {r[nm]['max_abs_err']:.3e} tol "
+            f"{r[nm]['tol']:.3e})" for nm in ("k_down3d", "k_up3d"))
+            + f"  leg {leg:.4f} ms (V-cycle from here {t_li:.4f} - from the child {t_child:.4f})")
+    del M
+    torch.cuda.empty_cache()
+    return recs
+
+
 def legs_only(gen) -> int:
     """``--legs DIR``: :func:`check_legs` on path A's and the disk's
-    hierarchies at 8192² for the port in DIR, then one JSON line
-    {label: {level: record}}."""
+    hierarchies at 8192² and :func:`check_legs_3d` on the 512³ route's
+    for the port in DIR, then one JSON line {label: {level: record}}."""
     from iterative_solvers_tpu_torch.core.domain import Domain2D, notched_disk
 
     out = {}
     for label, dom in (("gamma", Domain2D(nx=N, ny=N)),
                        ("disk", Domain2D(nx=N, ny=N, shape="custom", inside_fn=notched_disk))):
         out[label] = check_legs(dom, gen, f"{label} {N}^2")
+    out["3D"] = check_legs_3d(gen)
     log(json.dumps({"legs": out}))
     return 0
 
@@ -2272,8 +2345,8 @@ def main(argv) -> int:
 
     ap = argparse.ArgumentParser(description="Drive the port once on one NVIDIA GPU.")
     ap.add_argument("--legs", metavar="DIR",
-                    help="only check and time the 2D V-cycle legs of the port in the "
-                         "checkout DIR (this one or an earlier commit's)")
+                    help="only check and time the V-cycle legs (2D at 8192², 3D at 512³) "
+                         "of the port in the checkout DIR (this one or an earlier commit's)")
     ap.add_argument("--cg", metavar="DIR",
                     help="only check and time the fused CG kernels K1, K2 and K2-pcg and "
                          "their mesh blocks D5, D6 and D6-pcg of the port in the checkout DIR "

@@ -69,6 +69,17 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// Close the copies issued since the last commit into one group; wait until
+// at most N groups are still in flight (the oldest ones have landed).
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // The per-node arithmetic of the fused CG iteration and of the V-cycle
 // legs: one helper per step, each rounded as its plain torch version
 // rounds (every product and sum on its own, no contraction), so that a

@@ -1,4 +1,5 @@
-// The z-march shared by the 3D kernels (S7, D3, U3, J3, R3).
+// The z-march shared by the 3D kernels (S7, J3, R3), and the per-node
+// arithmetic of the V-cycle legs D3 and U3 (csrc/mg_fused3d.cu).
 //
 // Layout: every volume is a row-major f32 canvas (d, hp, wp), d = nz + 1.
 // A block of TY x TX threads owns a TY-row by TX-column tile of the (y, x)
@@ -62,6 +63,20 @@ __device__ __forceinline__ float apply7(const Coef& k, const Nbr& v) {
   const float u = __fmaf_rn(k.cd, v.c, t);
   const float w = __fmaf_rn(k.cy, __fadd_rn(v.n, v.s), u);
   return __fmaf_rn(k.cz, __fadd_rn(v.zm, v.zp), w);
+}
+
+// The legs' per-node steps (D3, U3), each rounded as its plain torch
+// version rounds (kernels/mg_fused3d.py), so that the legs equal their plain
+// versions bit for bit; the transfers' weights are ist::restrict_rows,
+// ist::restrict_lanes and ist::midpoint (csrc/common.cuh).
+// D3's residual b - A x at an interior node, x = cs * b at each of the seven.
+__device__ __forceinline__ float residual7(const Coef& k, float b, const Nbr& x) {
+  return __fsub_rn(b, apply7(k, x));
+}
+
+// U3's post-smoothing sweep x~ + cs (b - A x~) at an interior node.
+__device__ __forceinline__ float smooth7(const Coef& k, float cs, float b, const Nbr& v) {
+  return __fadd_rn(v.c, __fmul_rn(cs, residual7(k, b, v)));
 }
 
 // One plane's tile of TY x TX values plus a one-cell halo (no corners).

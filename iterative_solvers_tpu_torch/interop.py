@@ -79,13 +79,16 @@ def multigrid_from_state(
         nx, ny = int(lv["nx"]), int(lv["ny"])
         if lv["shape"] == "box":
             cd, cz, cy, cx = plain[i].coeffs
+            child = levels[i + 1]
             kernels3 = FusedLevelKernels3D(
                 nx=nx, ny=ny, nz=int(lv["nz"]), coeffs=(cd, cx, cy, cz),
                 cs=plain[i].omega_over_diag,
                 padded_shape=tuple(int(s) for s in lv["padded_shape"]),
+                # a fused child's padded canvas, else its grid
+                child_shape=tuple(int(s) for s in child["padded_shape"]) if "padded_shape"
+                in child else plain[i + 1].mask_spec.shape,
             )
-            out.append(_FusedLevel3D(kernels3, ny + 1, nx + 1, plain[i + 1].mask_spec,
-                                     plain[i]))
+            out.append(_FusedLevel3D(kernels3, ny + 1, nx + 1, plain[i]))
             continue
         cd, cy, cx = plain[i].coeffs
         custom = lv["shape"] == "custom"

@@ -64,8 +64,9 @@ _SIGNATURES = {
     "ist_k_resid_ff_custom": [_P] * 7 + [_I] * 8 + [_F] * 10 + [_P],
     # 3D (csrc/zmarch3d.cuh geometry: nx, ny, nz, d, hp, wp, bz)
     "ist_stencil3d": [_P] * 2 + [_I] * 7 + [_F] * 4 + [_P],
-    "ist_k_down3d": [_P] * 2 + [_I] * 8 + [_F] * 5 + [_P],
-    "ist_k_up3d": [_P] * 3 + [_I] * 8 + [_F] * 5 + [_P],
+    # the 3D legs: (..., bz, the child's layout dc, ho, wo, ...)
+    "ist_k_down3d": [_P] * 2 + [_I] * 10 + [_F] * 5 + [_P],
+    "ist_k_up3d": [_P] * 3 + [_I] * 10 + [_F] * 5 + [_P],
     "ist_k_jacobi3d": [_P] * 3 + [_I] * 7 + [_F] * 5 + [_P],
     "ist_k_resid_ff3d": [_P] * 6 + [_I] * 11 + [_F] * 14 + [_P],
     # in-place and pipelined stencils (C4, C5): the 2D geometry with the

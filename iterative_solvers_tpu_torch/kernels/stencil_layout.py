@@ -45,6 +45,15 @@ def check_field(name: str, t: torch.Tensor, shape) -> None:
         raise ValueError(f"{name}: unsupported device {t.device}")
 
 
+def check_aligned(**ts) -> None:
+    """Kernels that read every operand in 16-byte pieces (the CG tiles, the
+    3D legs): raise on a tensor whose storage does not start on a 16-byte
+    boundary (a view at an odd offset; ``.clone()`` it first)."""
+    for name, t in ts.items():
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name}: the kernels need 16-byte aligned storage")
+
+
 def round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 

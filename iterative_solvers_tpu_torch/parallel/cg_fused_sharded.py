@@ -51,7 +51,7 @@ from iterative_solvers_tpu_torch.kernels.cg_fused import (
     stencil_banded,
     tile_grid,
 )
-from iterative_solvers_tpu_torch.kernels.stencil_layout import check_field
+from iterative_solvers_tpu_torch.kernels.stencil_layout import check_aligned, check_field
 from iterative_solvers_tpu_torch.parallel.halo_pallas import ShardedPallasStencilOperator
 from iterative_solvers_tpu_torch.parallel.mesh import ring_take
 from iterative_solvers_tpu_torch.solvers.cg import CGOptions, CGResult
@@ -138,15 +138,6 @@ def _check_halos(x, op, **halos):
         check_field(name, t, shapes[name])
         if t.device != x.device:
             raise ValueError(f"{name}: on {t.device}, the block on {x.device}")
-
-
-def check_aligned(**ts) -> None:
-    """The tiles read every operand in 16-byte pieces: raise on a tensor
-    whose storage does not start on a 16-byte boundary (a view at an odd
-    offset; ``.clone()`` it first)."""
-    for name, t in ts.items():
-        if t is not None and t.data_ptr() % 16:
-            raise ValueError(f"{name}: the kernels need 16-byte aligned storage")
 
 
 def k1_block(d, zp, beta, up, dn, left, right, op: ShardedPallasStencilOperator):

@@ -23,8 +23,9 @@ other device ops (torch glue), and the device ops with the most self time
 time per iteration: the first well above the second means the host loop
 sets the pace); with ``--out``, also a Chrome
 trace per path. For the 3D path it then times the refinement's parts with CUDA
-events: one inner PCG iteration, the V-cycle in it, level 0's kernels and
-its y/x transfers, the 7-point apply, the FMG warm start. S is not
+events: one inner PCG iteration, the V-cycle in it, level 0's kernels D3
++ U3 and its whole leg (the V-cycle from level 0 minus that from level
+1), the 7-point apply, the FMG warm start. S is not
 profiled but timed: the 3D ``operator="stencil"`` route's plain f32
 7-point apply and one inner Jacobi PCG iteration on it at ``n3``³ (CUDA
 events), then its mixed Jacobi solve at ``ns``³. Needs a CUDA device.
@@ -124,26 +125,34 @@ def _event_ms(fn, reps=5):
 
 
 def breakdown_3d(solver: DirichletSolver) -> None:
-    """Times of the 3D refinement's parts on the solver's own layout."""
+    """Times of the 3D refinement's parts on the solver's own layout. The
+    level-0 leg is D3 + U3 alone, and whole: the V-cycle from level 0 minus
+    the V-cycle from level 1 on the child's input layout (its padded canvas
+    when fused, else its grid), i.e. the kernels and whatever runs between
+    them and the child. Uses only the legs' call forms, so it times an
+    earlier checkout's V-cycle (y/x transfers in torch) alike."""
     pop, Mp = solver._parts
-    lev = Mp.inner.levels[0]
+    M = Mp.inner
+    k = M.levels[0].kernels
     b = pop.pad(solver.problem.rhs_field(device="cuda"))
     r = b.float()
     never = torch.zeros((), device="cuda")  # eta 0: the inner runs to its cap
 
-    def pcg(k):
-        return lambda: _pcg_inner_solve(pop, Mp, never, r, k)
+    def pcg(n):
+        return lambda: _pcg_inner_solve(pop, Mp, never, r, n)
 
-    rr = lev.kernels.down(r)
-    ec = lev.prolong_yx(lev.restrict_yx(rr))
+    ec = torch.randn(k.down(r).shape, device="cuda")  # U3's input layout
+    child = M.levels[1]
+    rc = torch.randn(child.kernels.padded_shape if hasattr(child, "kernels")
+                     else M.domains[1].grid_shape, device="cuda")
     t = {
         "inner PCG iteration (6 minus 1 iterations, / 5)":
             (_event_ms(pcg(6)) - _event_ms(pcg(1))) / 5,
         "  V-cycle M(r) on the padded layout": _event_ms(lambda: Mp(r)),
-        "    level 0: D3 + U3 kernels": _event_ms(lambda: lev.kernels.up(r, ec))
-        + _event_ms(lambda: lev.kernels.down(r)),
-        "    level 0: y/x restriction + prolongation":
-            _event_ms(lambda: lev.prolong_yx(lev.restrict_yx(rr))),
+        "    level 0: D3 + U3 kernels": _event_ms(lambda: k.up(r, ec))
+        + _event_ms(lambda: k.down(r)),
+        "    level 0: whole leg (from level 0 minus from 1)":
+            _event_ms(lambda: M._vcycle(0, r)) - _event_ms(lambda: M._vcycle(1, rc)),
         "  7-point apply (S7)": _event_ms(lambda: pop(r)),
         "FMG warm start": _event_ms(lambda: _maybe_fmg_x0(Mp, solver.fmg_cycles, b)),
     }

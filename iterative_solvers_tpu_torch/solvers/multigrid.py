@@ -6,12 +6,12 @@ restriction and linear prolongation with R = Pᵀ/2^ndim, and an exact
 dense-inverse coarse solve (above ``dense_coarse_limit`` coarsest unknowns,
 a fixed-degree Chebyshev one) — a symmetric linear operator, hence PCG-safe.
 Fine levels of V(1,1) cycles run the fused down/up kernels on their padded
-layouts (kernels/mg_fused.py in 2D, whose legs also do the lane half of
-each transfer and read and write the child's field on the child's own
-input layout, so nothing runs between two fused levels' kernels;
-kernels/mg_fused3d.py in 3D, whose y/x transfers are stride-2 torch ops
-here, not the JAX package's banded matmuls); the other levels, and any f64
-field, take the plain torch leg.
+layouts (kernels/mg_fused.py in 2D, kernels/mg_fused3d.py in 3D), whose
+legs also do the lane (2D) or y/x (3D) half of each transfer, which the
+JAX package runs outside its kernels, and read and write the child's
+field on the child's own input layout, so nothing runs between two fused
+levels' kernels; the other levels, and any f64 field, take the plain
+torch leg.
 
 The FMG warm start (:meth:`MultigridPreconditioner.fmg_stepwise`) walks the
 hierarchy from the exact coarsest solve upwards: BC-aware prolongation of
@@ -41,7 +41,12 @@ import torch.nn.functional as F
 
 from iterative_solvers_tpu_torch.core.domain import Domain3D, MaskSpec, resolve_device
 from iterative_solvers_tpu_torch.kernels.mg_fused import FusedLevelKernels, lane_prolong
-from iterative_solvers_tpu_torch.kernels.mg_fused3d import FusedLevelKernels3D
+from iterative_solvers_tpu_torch.kernels.mg_fused3d import (
+    FusedLevelKernels3D,
+    prolong_yx,
+    restrict_axis,
+    restrict_yx,
+)
 from iterative_solvers_tpu_torch.kernels.stencil_layout import round_up
 
 F32 = torch.float32
@@ -62,18 +67,6 @@ class _MaskCache:
         return m
 
 
-def _restrict1d(a: torch.Tensor, axis: int) -> torch.Tensor:
-    """Full weighting along one axis: fine extent 2nc+1 -> nc+1, [1,2,1]/4."""
-    nc1 = (a.shape[axis] - 1) // 2 + 1
-    pad = [0, 0] * a.ndim
-    pad[2 * (a.ndim - 1 - axis)] = pad[2 * (a.ndim - 1 - axis) + 1] = 1
-    p = F.pad(a, pad)
-    lo = p.narrow(axis, 0, 2 * nc1 - 1)[(slice(None),) * axis + (slice(None, None, 2),)]
-    mid = p.narrow(axis, 1, 2 * nc1 - 1)[(slice(None),) * axis + (slice(None, None, 2),)]
-    hi = p.narrow(axis, 2, 2 * nc1 - 1)[(slice(None),) * axis + (slice(None, None, 2),)]
-    return 0.25 * (lo + hi) + 0.5 * mid
-
-
 def _prolong1d(a: torch.Tensor, axis: int) -> torch.Tensor:
     """Linear interpolation along one axis: even fine nodes copy, odd ones
     average their two coarse neighbours (R = Pᵀ/2 per axis)."""
@@ -88,7 +81,7 @@ def _prolong1d(a: torch.Tensor, axis: int) -> torch.Tensor:
 
 def restrict_full_weighting(r: torch.Tensor) -> torch.Tensor:
     for ax in range(r.ndim):
-        r = _restrict1d(r, ax)
+        r = restrict_axis(r, ax)
     return r
 
 
@@ -246,23 +239,18 @@ class _FusedLevel:
 
 
 class _FusedLevel3D:
-    """Fine 3D level running the fused z-leg kernels (D3, U3, J3) on its
-    padded layout; the y/x half of each transfer runs here in plain torch."""
+    """Fine 3D level running the fused legs (D3, U3) and the Jacobi sweep
+    (J3) on its padded layout; the legs read and write the child's field on
+    the child's own input layout (``kernels.coarse_shape``)."""
 
-    def __init__(self, kernels: FusedLevelKernels3D, h: int, w: int,
-                 child_mask_spec: MaskSpec, jnp_level: _Level):
+    def __init__(self, kernels: FusedLevelKernels3D, h: int, w: int, jnp_level: _Level):
         self.kernels = kernels
         self.h, self.w = h, w
-        self.child_mask_spec = child_mask_spec
-        self._child_mask = _MaskCache(child_mask_spec)
         self.jnp_level = jnp_level  # plain leg for non-f32 fields
 
     @property
     def grid_shape(self):
         return (self.kernels.padded_shape[0], self.h, self.w)
-
-    def child_interior(self, device) -> torch.Tensor:
-        return self._child_mask.on(device)
 
     def pad_in(self, f: torch.Tensor) -> torch.Tensor:
         _, hp, wp = self.kernels.padded_shape
@@ -272,24 +260,15 @@ class _FusedLevel3D:
         return self.jnp_level.mask(x)
 
     def restrict_yx(self, rr: torch.Tensor) -> torch.Tensor:
-        """(dc, hp, wp) z-restricted residual -> (dc, hc, wc) child field:
-        full weighting along y, then x, on the cropped view (no crop copy)."""
-        return _restrict1d(_restrict1d(rr[:, : self.h, : self.w], 1), 2)
+        """(dc, hp, wp) z-restricted residual -> (dc, hc, wc) child field
+        (the y/x half of D3's restriction, :func:`restrict_yx`)."""
+        return restrict_yx(rr, self.h, self.w)
 
     def prolong_yx(self, ec: torch.Tensor) -> torch.Tensor:
-        """(dc, hc, wc) child correction -> (dc, hp, wp): linear
-        interpolation along y, then x, written by stride-2 slices straight
-        into the zero-padded layout (P = 2 Rᵀ per axis, every weight a power
-        of two)."""
-        dc = ec.shape[0]
+        """(dc, hc, wc) child correction -> (dc, hp, wp) (the y/x half of
+        U3's prolongation, :func:`prolong_yx`)."""
         _, hp, wp = self.kernels.padded_shape
-        t = ec.new_empty((dc, self.h, ec.shape[2]))
-        t[:, 0::2] = ec
-        t[:, 1::2] = 0.5 * (ec[:, :-1] + ec[:, 1:])
-        out = ec.new_zeros((dc, hp, wp))
-        out[:, : self.h, 0 : self.w : 2] = t
-        out[:, : self.h, 1 : self.w : 2] = 0.5 * (t[:, :, :-1] + t[:, :, 1:])
-        return out
+        return prolong_yx(ec, self.h, self.w, hp, wp)
 
 
 def fused_block_rows(h: int, w: int, by_floor: int = 16) -> Tuple[int, int, int]:
@@ -302,16 +281,20 @@ def fused_block_rows(h: int, w: int, by_floor: int = 16) -> Tuple[int, int, int]
     return by, round_up(h, by), wp
 
 
-def _make_fused_3d(d: Domain3D, c: Domain3D, omega: float, plain: _Level) -> _FusedLevel3D:
-    """A fused 3D level on the JAX package's layout: hp = round_up(ny+1, 8),
-    wp = round_up(nx+1, 128), exact depth."""
+def fused_layout_3d(d: Domain3D) -> Tuple[int, int, int]:
+    """A fused 3D level's padded layout, the JAX package's: exact depth,
+    hp = round_up(ny+1, 8), wp = round_up(nx+1, 128)."""
     dz, h, w = d.grid_shape
-    hp, wp = round_up(h, 8), round_up(w, 128)
+    return dz, round_up(h, 8), round_up(w, 128)
+
+
+def _make_fused_3d(d: Domain3D, omega: float, plain: _Level,
+                   child_shape: Tuple[int, int, int]) -> _FusedLevel3D:
     k = FusedLevelKernels3D(
         nx=d.nx, ny=d.ny, nz=d.nz, coeffs=(d.coeff_diag, d.coeff_x, d.coeff_y, d.coeff_z),
-        cs=omega / d.coeff_diag, padded_shape=(dz, hp, wp),
+        cs=omega / d.coeff_diag, padded_shape=fused_layout_3d(d), child_shape=child_shape,
     )
-    return _FusedLevel3D(k, h, w, c.mask_spec, plain)
+    return _FusedLevel3D(k, d.ny + 1, d.nx + 1, plain)
 
 
 @dataclass(frozen=True, eq=False)
@@ -393,7 +376,8 @@ class MultigridPreconditioner:
                 continue
             c = domains[i + 1]
             if isinstance(d, Domain3D):
-                levels.append(_make_fused_3d(d, c, omega, make_level(d)))
+                child = fused_layout_3d(c) if fuses(i + 1) else c.grid_shape
+                levels.append(_make_fused_3d(d, omega, make_level(d), child))
                 continue
             by, padded, mask8 = layouts[i]
             if i + 1 in layouts:
@@ -421,11 +405,10 @@ class MultigridPreconditioner:
         )
 
     def _fused_leg_3d(self, li: int, lev: _FusedLevel3D, bp: torch.Tensor) -> torch.Tensor:
-        """D3, y/x restriction, the coarser cycle, y/x prolongation, U3."""
-        rc = lev.restrict_yx(lev.kernels.down(bp))
-        rc = torch.where(lev.child_interior(rc.device), rc, 0.0)
-        ec = self._vcycle(li + 1, rc)
-        return lev.kernels.up(bp, lev.prolong_yx(ec))
+        """D3 onto the child's input layout, the coarser cycle (which returns
+        its correction on that layout), U3: no op in between."""
+        ec = self._vcycle(li + 1, lev.kernels.down(bp))
+        return lev.kernels.up(bp, ec)
 
     def _fused_leg(self, li: int, lev: _FusedLevel, bp: torch.Tensor, with_dot: bool):
         """K_down onto the child's input layout, the coarser cycle (which

@@ -36,9 +36,12 @@ from iterative_solvers_tpu.kernels.resid_ff import (
 from iterative_solvers_tpu.kernels.stencil3d_pallas import Pallas3DStencilOperator
 from iterative_solvers_tpu.ops.ddf32 import split_f64 as j_split_f64
 from iterative_solvers_tpu.solvers.multigrid import MultigridPreconditioner as JMG
+from iterative_solvers_tpu.solvers.multigrid import _prolong1d as _j_prolong1d
+from iterative_solvers_tpu.solvers.multigrid import _restrict1d as _j_restrict1d
 
 from iterative_solvers_tpu_torch import Domain3D
 from iterative_solvers_tpu_torch.kernels import _build, resid_ff
+from iterative_solvers_tpu_torch.kernels.mg_fused3d import FusedLevelKernels3D
 from iterative_solvers_tpu_torch.kernels.stencil3d_layout import Padded3DStencilOperator
 from iterative_solvers_tpu_torch.ops import ddf32
 from iterative_solvers_tpu_torch.solvers.multigrid import MultigridPreconditioner, _FusedLevel3D
@@ -99,23 +102,95 @@ def test_stencil3d_layout_pad_crop():
                                   np.asarray(pop.mask(pop.pad(jnp.asarray(f)))))
 
 
-@pytest.mark.parametrize("dims", DIMS)
-def test_down_up_legs_match_pallas(dims):
+# (box, level): level 0 of each box, whose child is plain at 16³ and
+# 16 × 24 × 8 and fused at 32³, and level 1 of 32³, whose child is plain
+LEGS = [((16, 16, 16), 0), ((32, 32, 32), 0), ((32, 32, 32), 1), ((16, 24, 8), 0)]
+
+
+def _jax_child_layout(Mj, li, rc):
+    """The child's input layout as the JAX V-cycle hands it the field: its
+    padded canvas when the child is fused, else its grid."""
+    child = Mj.levels[li + 1]
+    return child.pad_in(rc) if hasattr(child, "pad_in") else rc
+
+
+@pytest.mark.parametrize("dims,li", LEGS)
+def test_down_up_legs_match_pallas(dims, li):
+    """D3 and U3 against the JAX legs composed as the JAX V-cycle composes
+    them (iterative_solvers_tpu/solvers/multigrid.py:592-611): the
+    z-restricting kernel, the level's y/x restriction, the child mask and
+    the child's pad; the child's correction cropped, prolonged along y/x
+    and handed to the z-prolonging kernel."""
     Mj, Mt = _levels(dims)
-    jk, tk = Mj.levels[0].kernels, Mt.levels[0].kernels
-    assert isinstance(Mt.levels[0], _FusedLevel3D)
+    jl, tl = Mj.levels[li], Mt.levels[li]
+    jk, tk = jl.kernels, tl.kernels
+    assert isinstance(tl, _FusedLevel3D)
     assert tk.padded_shape == jk.padded_shape
     assert tk.coeffs == tuple(jk.coeffs) and tk.cs == jk.cs
     rng = np.random.default_rng(17)
     b = rng.standard_normal(jk.padded_shape).astype(np.float32)  # unmasked: reads masked
-    ref = np.asarray(jk.down(jnp.asarray(b)))
+    rr = jk.down(jnp.asarray(b))
+    if jl._matmul_transfers:
+        rc = jl.restrict_yx(rr)
+    else:
+        rc = _j_restrict1d(_j_restrict1d(rr[:, : jl.h, : jl.w], 1), 2)
+    rc = jnp.where(jl.child_interior, rc, 0.0)
+    ref = np.asarray(_jax_child_layout(Mj, li, rc))
     got = tk.down(_t(b)).numpy()
-    assert got.shape == ref.shape == (dims[2] // 2 + 1,) + jk.padded_shape[1:]
+    assert got.shape == ref.shape == tk.child_shape
     np.testing.assert_allclose(got, ref, rtol=1e-5, atol=2e-6 * np.abs(ref).max())
-    ec = rng.standard_normal(got.shape).astype(np.float32)
-    ref = np.asarray(jk.up(jnp.asarray(b), jnp.asarray(ec)))
+    ec = rng.standard_normal(tk.child_shape).astype(np.float32)
+    dc, hp, wp = (tk.dc,) + jk.padded_shape[1:]
+    ecg = jnp.asarray(ec[:, : tk.ny // 2 + 1, : tk.nx // 2 + 1])
+    if jl._matmul_transfers:
+        ecl = jl.prolong_yx(ecg)
+    else:
+        ecl = _j_prolong1d(_j_prolong1d(ecg, 1), 2)
+        ecl = jnp.pad(ecl, ((0, 0), (0, hp - jl.h), (0, wp - jl.w)))
+    ref = np.asarray(jk.up(jnp.asarray(b), ecl))
     got = tk.up(_t(b), _t(ec)).numpy()
     np.testing.assert_allclose(got, ref, rtol=1e-5, atol=2e-6 * np.abs(ref).max())
+
+
+def test_fused_leg_3d_runs_no_op_between_kernels(monkeypatch):
+    """A fused 3D leg is D3 → the child's cycle → U3 with no torch op in
+    between, as in 2D: D3's output is the very tensor the child's cycle
+    receives, on the child's padded canvas (so the child pads and crops
+    nothing), and the child's return is the very tensor U3 takes."""
+    _, Mt = _levels((32, 32, 32))
+    seen = []
+    down, up, vcycle = FusedLevelKernels3D.down, FusedLevelKernels3D.up, MultigridPreconditioner._vcycle
+
+    def spy_down(k, b):
+        seen.append(("down", down(k, b)))
+        return seen[-1][1]
+
+    def spy_up(k, b, ec):
+        seen.append(("up", ec))
+        return up(k, b, ec)
+
+    def spy_vcycle(M, li, b):
+        seen.append((f"in {li}", b))
+        out = vcycle(M, li, b)
+        seen.append((f"out {li}", out))
+        return out
+
+    monkeypatch.setattr(FusedLevelKernels3D, "down", spy_down)
+    monkeypatch.setattr(FusedLevelKernels3D, "up", spy_up)
+    monkeypatch.setattr(MultigridPreconditioner, "_vcycle", spy_vcycle)
+    k0, k1 = Mt.levels[0].kernels, Mt.levels[1].kernels
+    r = torch.from_numpy(np.random.default_rng(3).standard_normal(k0.padded_shape)
+                         .astype(np.float32))
+    Mt(r)
+    names = [n for n, _ in seen]
+    assert names == ["in 0", "down", "in 1", "down", "in 2", "out 2", "up", "out 1", "up",
+                     "out 0"]
+    t = dict(zip(names, (v for _, v in seen)))
+    d0, d1 = (v for n, v in seen if n == "down")
+    u0, u1 = (v for n, v in seen if n == "up")  # level 1's up, then level 0's
+    assert d0 is t["in 1"] and tuple(d0.shape) == k0.child_shape == k1.padded_shape
+    assert d1 is t["in 2"] and tuple(d1.shape) == k1.child_shape == Mt.domains[2].grid_shape
+    assert u0 is t["out 2"] and u1 is t["out 1"]
 
 
 def test_legs_body_choice_follows_jax():
@@ -242,7 +317,7 @@ def test_wrappers_count_plain_only_on_cuda_tensors():
     resid_ff.resid_ff(b, b, b, b, lay)
     assert not _build.launches and not _build.plain_on_cuda
     with pytest.raises(ValueError):
-        k.up(b, b)  # ec must be the half-depth layout
+        k.up(b, b)  # ec must be on the child's layout
     with pytest.raises(TypeError):
         k.jacobi(b.double(), b)
     with pytest.raises(ValueError):

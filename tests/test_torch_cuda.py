@@ -3,7 +3,8 @@
 with the int8 mask operand), 3D (S7, D3, U3, J3, R3), the in-place and
 pipelined stencils (C4, C5), which must equal A1 bit for bit at scale 1,
 and the mesh block kernels (D1–D6), whose stitched blocks must equal the
-single-device kernels bit for bit; S7 equals its plain version bit for bit.
+single-device kernels bit for bit; S7, D3 and U3 equal their plain
+versions bit for bit.
 
 Marked ``cuda``: they need an NVIDIA GPU and nvcc, and skip elsewhere (the
 card is looked for inside the fixture, never at import). Run them on a GPU
@@ -268,16 +269,22 @@ def test_custom_kernels_match_plain(gen, n, by):
 
 @pytest.mark.parametrize("dims", BOXES)
 def test_3d_kernels_match_plain(gen, dims):
+    """S7, J3, R3 on level 0; D3 and U3 bit-equal to their plain versions at
+    every fused level, onto a fused child's padded canvas (32³ level 0) and
+    a plain child's grid (the others), with ``ec`` on the child's layout."""
     dom = Domain3D(*dims)
     lay = Padded3DStencilOperator.from_domain(dom)
     x, b, xj = (torch.randn(lay.padded_shape, device="cuda", generator=gen) for _ in range(3))
     _close(lay(x), lay.apply_plain(x))  # unmasked inputs: the kernels mask their reads
-    k = MultigridPreconditioner.from_domain(dom, fuse=True, fuse_min_extent=16,
-                                            device="cuda").levels[0].kernels
+    M = MultigridPreconditioner.from_domain(dom, fuse=True, fuse_min_extent=16, device="cuda")
+    k = M.levels[0].kernels
     assert k.padded_shape == lay.padded_shape
-    ec = torch.randn((k.dc,) + k.padded_shape[1:], device="cuda", generator=gen)
-    _close(k.down(b), k.down_plain(b))
-    _close(k.up(b, ec), k.up_plain(b, ec))
+    for lev in M.levels[:-1]:
+        kl = lev.kernels
+        bl = torch.randn(kl.padded_shape, device="cuda", generator=gen)
+        ec = torch.randn(kl.child_shape, device="cuda", generator=gen)
+        assert torch.equal(kl.down(bl), kl.down_plain(bl))
+        assert torch.equal(kl.up(bl, ec), kl.up_plain(bl, ec))
     _close(k.jacobi(xj, b), k.jacobi_plain(xj, b))
     m = lay.mask_spec.build("cuda")
     f64 = dict(device="cuda", dtype=torch.float64, generator=gen)
