@@ -5,6 +5,7 @@
     python3 chip_smoke.py --legs DIR   # only the V-cycle legs (2D and 3D), of the port in DIR
     python3 chip_smoke.py --cg DIR     # only the fused CG kernels K1/K2 and D5/D6 of the port in DIR
     python3 chip_smoke.py --stencil DIR  # only C4/C5, A1 and the nnz chain of the port in DIR
+    python3 chip_smoke.py --zstream DIR  # only D2 and R3 (S7 the control) of the port in DIR
 
 Phases, each printing its own lines; any failure exits non-zero before the
 final ``ok`` line:
@@ -752,10 +753,51 @@ def check_legs_3d(gen, n=N3):
     return recs
 
 
+def check_mesh_legs(gen, n=N):
+    """The mesh's V-cycle legs D3 and D4 (``k_down_block``, ``k_up_block``
+    with the dot) on the 1x1 block of every shard-fused level of the
+    ``n``² Г grid (8192, 4096, 2048: path "mesh a" launches each three
+    times a level), on the device timer beside the bound (each operand
+    read once, each output written once); level 0 is the layout of the
+    kernels line's D3 and D4 rows."""
+    import torch
+
+    from iterative_solvers_tpu_torch import Domain2D
+    from iterative_solvers_tpu_torch.parallel import ShardedPallasStencilOperator, make_solver_mesh
+    from iterative_solvers_tpu_torch.parallel.mg_sharded import ShardedFusedMultigrid
+
+    dom = Domain2D(nx=n, ny=n)
+    op = ShardedPallasStencilOperator.from_domain(dom, make_solver_mesh(1))
+    M = ShardedFusedMultigrid.from_operator(op, dom, device="cuda")
+    org = (0, 0)
+    recs = {}
+    for li, lev in enumerate(M.levels):
+        hp, wp = lev.padded_shape
+        xb = torch.randn((hp, wp), device="cuda", generator=gen)
+        ecb = torch.randn((hp // 2, wp), device="cuda", generator=gen)
+        dh = lev.down_halos_from_global(xb, org)
+        uh = lev.up_halos_from_global(xb, ecb, org)
+        rec = {"shape": (hp, wp)}
+        for name, fn, ins in (("k_down_block", lambda: (lev.down_block(*dh, org),), dh),
+                              ("k_up_block", lambda: lev.up_block(*uh, org, with_dot=True), uh)):
+            nb = nbytes(ins) + nbytes(fn()[:1])
+            rec[name] = {"ms": device_ms(fn), "bound_ms": nb / HBM_BYTES_PER_S * 1e3}
+        recs[li] = rec
+        log(f"leg mesh {n}^2 1x1 level {li} {(hp, wp)}: " + "  ".join(
+            f"{k} {rec[k]['ms']:.4f} ms (bound {rec[k]['bound_ms']:.4f}, "
+            f"{100 * rec[k]['bound_ms'] / rec[k]['ms']:.0f} %)" for k in ("k_down_block",
+                                                                        "k_up_block")))
+        del xb, ecb, dh, uh
+    del M, op
+    torch.cuda.empty_cache()
+    return recs
+
+
 def legs_only(gen) -> int:
     """``--legs DIR``: :func:`check_legs` on path A's and the disk's
-    hierarchies at 8192² and :func:`check_legs_3d` on the 512³ route's
-    for the port in DIR, then one JSON line {label: {level: record}}."""
+    hierarchies at 8192², :func:`check_legs_3d` on the 512³ route's and
+    :func:`check_mesh_legs` on the 8192² mesh's for the port in DIR, then
+    one JSON line {label: {level: record}}."""
     from iterative_solvers_tpu_torch.core.domain import Domain2D, notched_disk
 
     out = {}
@@ -763,6 +805,7 @@ def legs_only(gen) -> int:
                        ("disk", Domain2D(nx=N, ny=N, shape="custom", inside_fn=notched_disk))):
         out[label] = check_legs(dom, gen, f"{label} {N}^2")
     out["3D"] = check_legs_3d(gen)
+    out["mesh"] = check_mesh_legs(gen)
     log(json.dumps({"legs": out}))
     return 0
 
@@ -1568,11 +1611,11 @@ def _stitch(meshes, parts):
     return torch.cat([torch.cat(r, dim=-1) for r in rows], dim=0)
 
 
-def _stitched_agree(name, got, ref, block):
+def _stitched_agree(name, got, ref, block, exact=False):
     """Stitched blocks against the single-device kernel: nodes away from the
     block edges bit-equal, edge nodes within 64 eps32 · max|ref| (the
-    tolerance of mg_sharded.py:31-34's f32 round-off); logs whether the
-    edges are bit-equal too."""
+    tolerance of mg_sharded.py:31-34's f32 round-off), or bit-equal too when
+    ``exact``; logs whether the edges are bit-equal."""
     import torch
 
     diff = got != ref
@@ -1586,7 +1629,7 @@ def _stitched_agree(name, got, ref, block):
     tol = 64 * EPS32 * float(ref.double().abs().max())
     log(f"stitched {name}: {int(diff.sum())} nodes differ ({inner} away from block edges), "
         f"edge max err {err:.3e} tol {tol:.3e}")
-    if inner or not err <= tol:
+    if inner or not err <= tol or (exact and err != 0.0):
         raise AssertionError(f"stitched {name} differs from the single-device kernel")
 
 
@@ -1699,7 +1742,7 @@ def check_mesh_kernels(gen):
     s7 = Padded3DStencilOperator.from_domain(box)
     d, h3, w3 = s7.padded_shape
     _stitched_agree("D2 vs S7 @ 512^3 (2,1,2)", _stitch(meshes3, parts3)[:d, :h3, :w3],
-                    s7(x3[:d, :h3, :w3].contiguous()), ops3[0].block_shape)
+                    s7(x3[:d, :h3, :w3].contiguous()), ops3[0].block_shape, exact=True)
     del parts3, x3
     torch.cuda.empty_cache()
 
@@ -1774,6 +1817,155 @@ def check_mesh_kernels(gen):
     del x31, h31, got, xin
     torch.cuda.empty_cache()
     return out
+
+
+def _d2_parts(box, split, x):
+    """D2 on every block of ``split`` of ``box``, each block's halos cut
+    from the global field ``x`` as the ring exchange delivers them, each
+    bit-equal to its plain version; returns the stitched field, cropped to
+    S7's canvas, and S7's apply there."""
+    import torch
+
+    from iterative_solvers_tpu_torch.kernels.stencil3d_layout import Padded3DStencilOperator
+    from iterative_solvers_tpu_torch.parallel import ShardedPallas3DStencilOperator
+    from iterative_solvers_tpu_torch.parallel.halo_pallas import block_stencil3d_plain
+
+    meshes = _virtual(split)
+    parts = []
+    for m in meshes:
+        op = ShardedPallas3DStencilOperator.from_domain(box, m)
+        h = op.halos_from_global(x, op.origin)
+        parts.append(op.apply_block(*h))
+        ref = block_stencil3d_plain(*h, op.block_spec(), op.coeffs)
+        torch.cuda.synchronize()
+        if not torch.equal(parts[-1], ref):
+            raise AssertionError(f"D2 block {m.coords} of {split} differs from its plain version")
+        del h, ref
+    s7 = Padded3DStencilOperator.from_domain(box)
+    d, h3, w3 = s7.padded_shape
+    return _stitch(meshes, parts)[:d, :h3, :w3], s7(x[:d, :h3, :w3].contiguous())
+
+
+def _ff_cases(dims, gen):
+    """R3's two coefficient sets on the box ``dims`` (the box's own, and one
+    with the delta term and a y coefficient that is not a power of two),
+    each with its inputs: {label: (layout, xh, xl, bh, bl)}."""
+    import dataclasses
+
+    import torch
+
+    from iterative_solvers_tpu_torch import Domain3D
+    from iterative_solvers_tpu_torch.kernels.stencil3d_layout import Padded3DStencilOperator
+    from iterative_solvers_tpu_torch.ops.ddf32 import split_f64
+
+    lay = Padded3DStencilOperator.from_domain(Domain3D(*dims))
+    cd, cx, cy, cz = lay.coeffs
+    mask = lay.mask_spec.build("cuda")
+    f64 = dict(device="cuda", dtype=torch.float64, generator=gen)
+    bh, bl = split_f64(torch.where(mask, torch.randn(lay.padded_shape, **f64), 0.0) * 1e4)
+    xh, xl = split_f64(torch.randn(lay.padded_shape, **f64))  # unmasked: R3 masks its reads
+    return {"box": (lay, xh, xl, bh, bl),
+            "delta": (dataclasses.replace(lay, coeffs=(cd - 0.37, cx, cy * 1.1, cz)),
+                      xh, xl, bh, bl)}
+
+
+def check_zstream(gen, dims, timed):
+    """The staged z-march's kernels on the box ``dims``: D2 on the 1x1 block
+    and on the splits (1, 1, 2), (2, 1, 1) and (2, 1, 2), each block
+    bit-equal to its plain version and the stitched blocks to S7 at every
+    node; R3 with the box's coefficients (powers of two but at 16 x 24 x 8,
+    no delta term) and with a delta term and a y coefficient that is not a
+    power of two, both words bit-equal to its plain version. ``timed``: D2
+    on the 1x1 block, R3 and S7 (the control: the same sweep without
+    operands, on zmarch3d.cuh) on the device timer and as one call, each
+    beside its bound. Returns {name: record}."""
+    import torch
+
+    from iterative_solvers_tpu_torch import Domain3D
+    from iterative_solvers_tpu_torch.kernels import resid_ff
+    from iterative_solvers_tpu_torch.kernels.stencil3d_layout import Padded3DStencilOperator
+    from iterative_solvers_tpu_torch.ops.ddf32 import coeff_delta, is_pow2
+    from iterative_solvers_tpu_torch.parallel import (
+        ShardedPallas3DStencilOperator,
+        make_solver_mesh,
+    )
+
+    label = "x".join(map(str, dims))
+    box = Domain3D(*dims)
+    out = {}
+    x = torch.randn(ShardedPallas3DStencilOperator.from_domain(
+        box, _virtual((2, 1, 2))[0]).padded_shape, device="cuda", generator=gen)
+    for split in ((1, 1, 1), (1, 1, 2), (2, 1, 1), (2, 1, 2)):
+        op = ShardedPallas3DStencilOperator.from_domain(box, _virtual(split)[0])
+        # every split's canvas is within the (2, 1, 2) split's
+        xs = x[tuple(slice(0, n) for n in op.padded_shape)].contiguous()
+        got, ref = _d2_parts(box, split, xs)
+        diff = int((got != ref).sum())
+        log(f"zstream D2 {label} {split}: blocks bit-equal to plain; stitched vs S7: {diff} "
+            f"nodes differ")
+        if diff:
+            raise AssertionError(f"stitched D2 {label} {split} differs from S7")
+        del got, ref, xs
+    del x
+    torch.cuda.empty_cache()
+    if timed:
+        op = ShardedPallas3DStencilOperator.from_domain(box, make_solver_mesh(1))
+        xb = torch.randn(op.padded_shape, device="cuda", generator=gen)
+        h = op.halos_from_global(xb, (0, 0, 0))
+        n_in = int(op.block_spec().build("cuda").sum())
+        y = op.apply_block(*h)
+        nb = 4 * n_in + nbytes((y,)) + nbytes(h[1:])
+        out["stencil3d_block"] = {"ms": device_ms(lambda: op.apply_block(*h)),
+                                  "one_call_ms": one_call_ms(lambda: op.apply_block(*h)),
+                                  "bound_ms": nb / HBM_BYTES_PER_S * 1e3, "bytes": nb,
+                                  "nodes": n_in, "shape": op.block_shape}
+        del xb, h, y
+        torch.cuda.empty_cache()
+    for name, (lay, xh, xl, bh, bl) in _ff_cases(dims, gen).items():
+        gh, gl = resid_ff.resid_ff(xh, xl, bh, bl, lay)
+        rh, rl = resid_ff.resid_ff_plain(xh, xl, bh, bl, lay)
+        torch.cuda.synchronize()
+        err = max(float((gh.double() - rh.double()).abs().max()),
+                  float((gl.double() - rl.double()).abs().max()))
+        flags = (f"has_delta {int(coeff_delta(lay.coeffs) != 0.0)} pow2 "
+                 f"{[int(is_pow2(c)) for c in lay.coeffs[1:]]}")
+        log(f"zstream R3 {label} {name} ({flags}): max_abs_err {err:.3e} (rh, rl)")
+        if err != 0.0:
+            raise AssertionError(f"R3 {label} {name} differs from its plain version")
+        del rh, rl
+        if timed:
+            n_in = int(lay.mask_spec.build("cuda").sum())
+            nb = 4 * 4 * n_in + nbytes((gh, gl))
+            out[f"k_resid_ff3d {name}"] = {
+                "ms": device_ms(lambda: resid_ff.resid_ff(xh, xl, bh, bl, lay)),
+                "one_call_ms": one_call_ms(lambda: resid_ff.resid_ff(xh, xl, bh, bl, lay)),
+                "bound_ms": nb / HBM_BYTES_PER_S * 1e3, "bytes": nb, "nodes": n_in,
+                "shape": lay.padded_shape, "max_abs_err": err}
+        del gh, gl
+    if timed:
+        s7 = Padded3DStencilOperator.from_domain(box)
+        xs = torch.randn(s7.padded_shape, device="cuda", generator=gen)
+        out["stencil3d (control)"] = {"ms": device_ms(lambda: s7(xs)),
+                                      "one_call_ms": one_call_ms(lambda: s7(xs))}
+        for name, r in out.items():
+            pct = f", bound {r['bound_ms']:.4f} ({100 * r['bound_ms'] / r['ms']:.0f} %)" if (
+                "bound_ms" in r) else ""
+            log(f"zstream time {name} @ {label}: {r['ms']:.4f} ms (one call "
+                f"{r['one_call_ms']:.4f}){pct}")
+        del xs
+    torch.cuda.empty_cache()
+    return out
+
+
+def zstream_only(gen) -> int:
+    """``--zstream DIR``: :func:`check_zstream` for the port in DIR at 16³,
+    32³ and 16 × 24 × 8, then at 512³ timed, then one JSON line."""
+    for dims in ((16, 16, 16), (32, 32, 32), (16, 24, 8)):
+        check_zstream(gen, dims, timed=False)
+    out = check_zstream(gen, (N3, N3, N3), timed=True)
+    log(json.dumps({"zstream": {k: {kk: vv for kk, vv in r.items() if kk != "bytes"}
+                                for k, r in out.items()}}))
+    return 0
 
 
 def _check_engine_partition(n, shape, gen, check, dot_scale, beta, scal):
@@ -2351,12 +2543,16 @@ def main(argv) -> int:
                     help="only check and time the fused CG kernels K1, K2 and K2-pcg and "
                          "their mesh blocks D5, D6 and D6-pcg of the port in the checkout DIR "
                          "(this one or an earlier commit's)")
+    ap.add_argument("--zstream", metavar="DIR",
+                    help="only check and time the staged z-march's kernels D2 and R3 (and S7 "
+                         "as the control) of the port in the checkout DIR (this one or an "
+                         "earlier commit's)")
     ap.add_argument("--stencil", metavar="DIR",
                     help="only check and time the in-place and pipelined stencils C4 and C5, "
                          "A1, conv2d and the nnz chain of the port in the checkout DIR (this "
                          "one or an earlier commit's)")
     args = ap.parse_args(argv)
-    other = args.legs or args.cg or args.stencil
+    other = args.legs or args.cg or args.stencil or args.zstream
     root = os.path.abspath(other) if other else REPO
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2396,6 +2592,8 @@ def main(argv) -> int:
         return cg_only(gen)
     if args.stencil:
         return stencil_only(gen)
+    if args.zstream:
+        return zstream_only(gen)
     # 16-row bands: several bands, and their halos, even on small grids
     check_kernels(Domain2D(nx=64, ny=64), gen, "gamma 64^2", timed=False, block_rows=16)
     check_kernels(Domain2D(nx=40, ny=50, shape="rect"), gen, "rect 40x50", timed=False,
@@ -2427,6 +2625,9 @@ def main(argv) -> int:
         check_kernels_3d(dims, gen, "x".join(map(str, dims)), timed=False)
     stats.update(check_kernels_3d((N3, N3, N3), gen, f"{N3}^3 level 0", timed=True))
     torch.cuda.empty_cache()
+    # the staged z-march's D2 and R3 on every split and coefficient set
+    for dims in ((16, 16, 16), (32, 32, 32), (16, 24, 8)):
+        check_zstream(gen, dims, timed=False)
     # the mesh block kernels D1–D4: virtual partitions, stitched, timed
     stats.update(check_mesh_kernels(gen))
     torch.cuda.empty_cache()

@@ -5,12 +5,14 @@
 // _make_block_kernel / _block_stencil_call (D1); ist_stencil3d_block
 // replaces _make_block_kernel_3d / _block_stencil_call_3d (D2).
 //
-// Each is its single-device kernel run on a block: A1's column sweep
-// (ist::stencil_column) and S7's z-march (ist3::zmarch, ist3::apply7), with
-// three additions. The block's global origin offsets the algebraic mask;
-// the exchanged neighbour rows (D1) or z-planes (D2) are operands; and so
-// are the exchanged neighbour columns, which a thread at the block's edge
-// reads where the single-device kernel reads its neighbour column. (The
+// D1 is its single-device kernel run on a block: A1's column sweep
+// (ist::stencil_column); D2 is S7's arithmetic (ist3::apply7) on the staged
+// z-march of csrc/zstream3d.cuh. Each has three additions. The block's
+// global origin offsets the algebraic mask; the exchanged neighbour rows
+// (D1) or z-planes (D2) are operands; and so are the exchanged neighbour
+// columns, which D1's thread at the block's edge reads where the
+// single-device kernel reads its neighbour column, and D2's tiles at the
+// block's x edge stage where the single-device march stages its own. (The
 // TPU kernels zero the wrapped lane of their lane roll and add the
 // neighbour columns afterwards as edge strips.) So every node of a block,
 // edge or not, takes the single-device expression, and stitched blocks
@@ -20,9 +22,15 @@
 //
 // What bounds them on an H100: A1's and S7's memory-bound sweeps, 8 B/node
 // (one f32 read of x, one f32 write of y); the halo operands add
-// 2 (Wb + Hb) (D1) or 2 (Hp Wb + Dz_b Hp) (D2) reads per block.
+// 2 (Wb + Hb) (D1) or 2 (Hp Wb + Dz_b Hp) (D2) reads per block. D2's
+// design: on S7's z-march (one node a thread, 4-byte loads, each read
+// behind a five-way branch on its source, two barriers a plane) it ran at
+// 24 % of that bound at 512^3 (NVIDIA H100 80GB HBM3, 700 W; PERF.md); the
+// staged march streams 16 bytes a lane from a cp.async ring kLook planes
+// deep, with one barrier a plane, and picks each staged plane's source once
+// per plane (72-73 % there).
 #include "common.cuh"
-#include "zmarch3d.cuh"
+#include "zstream3d.cuh"
 
 using ist::Geom;
 using ist::TW;
@@ -47,27 +55,26 @@ __global__ void stencil_block_kernel(const float* __restrict__ x, const float* _
   ist::stencil_column(g, in, X, y, wb, blockIdx.x * TW + threadIdx.x, blockIdx.y * by, by);
 }
 
-__global__ void stencil3d_block_kernel(const float* __restrict__ x,
-                                       const float* __restrict__ zup,
-                                       const float* __restrict__ zdn,
-                                       const float* __restrict__ left,
-                                       const float* __restrict__ right, float* __restrict__ y,
-                                       ist3::Box g, ist3::Coef k, int zoff, int coff) {
-  // g: the block (d = Dz_b planes, hp rows, wp = Wb columns) with the
-  // global interval counts; interior tests take global z and x
-  auto in = [&](int z, int r, int c) { return g.interior(zoff + z, r, coff + c); };
-  auto X = [&](int z, int r, int c) -> float {
-    if (!in(z, r, c)) return 0.f;
-    if (c < 0) return left[(size_t)z * g.hp + r];
-    if (c >= g.wp) return right[(size_t)z * g.hp + r];
-    if (z < 0) return zup[(size_t)r * g.wp + c];
-    if (z >= g.d) return zdn[(size_t)r * g.wp + c];
-    return x[g.at(z, r, c)];
-  };
-  const int z0 = blockIdx.z * g.bz;
-  ist3::zmarch(z0, min(z0 + g.bz, g.d), X, [&](int z, int r, int c, const ist3::Nbr& v) {
-    if (g.on_canvas(r, c)) y[g.at(z, r, c)] = in(z, r, c) ? ist3::apply7(k, v) : 0.f;
-  });
+// D2: S7's arithmetic on the staged z-march (csrc/zstream3d.cuh). Planes
+// -1 and Dz_b are staged from zup and zdn, the halo columns by the block's
+// x-edge tiles; every read is masked at its node's global position by the
+// copies' zero-fill and the march's column mask, so each node takes S7's
+// fmaf chain on S7's values.
+__global__ void __launch_bounds__(ist3::kZThreads)
+    stencil3d_block_kernel(const float* __restrict__ x, const float* __restrict__ zup,
+                           const float* __restrict__ zdn, const float* __restrict__ left,
+                           const float* __restrict__ right, float* __restrict__ y, ist3::Box g,
+                           ist3::Coef k, int zoff, int coff) {
+  extern __shared__ __align__(16) float smem[];
+  const ist3::ZSource src[1] = {{x, zup, zdn, left, right}};
+  ist3::zstream<1>(g, zoff, coff, src, smem,
+                   [&](int t, int r, int c, const bool (&in)[4], const ist3::Nbr4 (&v)[1]) {
+                     ist3::F4 o;
+#pragma unroll
+                     for (int e = 0; e < 4; ++e)
+                       o.v[e] = in[e] ? ist3::apply7(k, v[0].at(e)) : 0.f;
+                     ist3::st4(y + g.at(t, r, c), o);
+                   });
 }
 
 }  // namespace
@@ -82,13 +89,19 @@ extern "C" int ist_stencil_block(const float* x, const float* up, const float* d
   return (int)cudaGetLastError();
 }
 
+// bz: planes per block (kernels/stencil3d_layout.py: zstream_chunk)
 extern "C" int ist_stencil3d_block(const float* x, const float* zup, const float* zdn,
                                    const float* left, const float* right, float* y, int nx,
                                    int ny, int nz, int dzb, int hp, int wb, int bz, int zoff,
                                    int coff, float cd, float cx, float cy, float cz,
                                    cudaStream_t stream) {
   const ist3::Box g{nx, ny, nz, dzb, hp, wb, bz};
-  stencil3d_block_kernel<<<ist3::grid_dim(g, dzb), ist3::block_dim(), 0, stream>>>(
+  if (!ist3::zstream_fits(g)) return (int)cudaErrorInvalidValue;
+  const size_t smem = ist3::zstream_smem(1);
+  if (int e = (int)cudaFuncSetAttribute((const void*)stencil3d_block_kernel,
+                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem))
+    return e;
+  stencil3d_block_kernel<<<ist3::zstream_grid(g), ist3::kZThreads, smem, stream>>>(
       x, zup, zdn, left, right, y, g, ist3::Coef{cd, cx, cy, cz}, zoff, coff);
   return (int)cudaGetLastError();
 }

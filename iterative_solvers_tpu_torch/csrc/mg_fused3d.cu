@@ -27,11 +27,13 @@
 // 59 % (U3) of that bound: they are held by shared-memory traffic and the
 // latency of each plane's step, not by device memory (PERF.md).
 //
-// The legs' design. A block owns a (y, x) tile and marches z over a chunk
-// of planes; every input plane of the tile, with its halo, is staged into a
-// ring of shared-memory stages by 16-byte cp.async copies issued kLook = 3
-// planes ahead (4 times the same), so each plane's loads are in flight
-// while the planes before it compute. The copies read interior rows and
+// The legs' design: the staged z-march of csrc/zstream3d.cuh (its copies,
+// constants and float4 helpers live there, shared with D2 and R3). A block
+// owns a (y, x) tile and marches z over a chunk of planes; every input plane
+// of the tile, with its halo, is staged into a ring of shared-memory stages
+// by 16-byte cp.async copies issued kLook = 3 planes ahead (4 times the
+// same), so each plane's loads are in flight while the planes before it
+// compute. The copies read interior rows and
 // columns only: rows and planes off the interior are zero-filled, which
 // masks them. A warp owns one row of the tile and each lane four adjacent
 // columns, so shared memory is read and written 16 bytes at a time and the
@@ -56,8 +58,7 @@
 // tile holds no interior node only write zeros. Each step rounds as the
 // plain versions do (csrc/zmarch3d.cuh, csrc/common.cuh), so D3 and U3
 // equal them bit for bit.
-#include "common.cuh"
-#include "zmarch3d.cuh"
+#include "zstream3d.cuh"
 
 using ist3::Box;
 using ist3::Coef;
@@ -65,41 +66,13 @@ using ist3::Nbr;
 
 namespace {
 
-constexpr int kLook = 3;  // planes whose copies are in flight ahead of the one computed
-constexpr int kQ = 34;              // float4 per staged row
-constexpr int kW = 4 * kQ;          // staged row: 4 columns left of the tile, 4 right
-
-// Four consecutive nodes of a row, one thread's share of a shared-memory row.
-struct F4 {
-  float v[4];
-};
-
-__device__ __forceinline__ F4 ld4(const float* p) {
-  const float4 q = *reinterpret_cast<const float4*>(p);
-  return {{q.x, q.y, q.z, q.w}};
-}
-
-__device__ __forceinline__ void st4(float* p, const F4& a) {
-  *reinterpret_cast<float4*>(p) = make_float4(a.v[0], a.v[1], a.v[2], a.v[3]);
-}
-
-// One 16-byte copy a thread per staged plane: row r0 + q / kQ, columns
-// f0 + 4 (q % kQ) .. + 3 of a level field, read only when they hold an
-// interior node (else zero-filled). The offset within a plane is fixed.
-struct PlaneCopy {
-  size_t off;
-  bool ok;  // the row and the four columns hold an interior node
-
-  __device__ PlaneCopy(const Box& g, int q, int r0, int f0) {
-    const int r = r0 + q / kQ, c = f0 + (q % kQ) * 4;
-    ok = r > 0 && r < g.ny && c + 3 > 0 && c < g.nx;
-    off = ok ? (size_t)r * g.wp + c : 0;
-  }
-  __device__ void issue(const Box& g, const float* __restrict__ src, int p, float* dst) const {
-    const bool on = ok && p > 0 && p < g.nz;
-    ist::cp_async16(dst, src + (on ? (size_t)p * g.hp * g.wp + off : 0), on);
-  }
-};
+using ist3::F4;
+using ist3::kLook;
+using ist3::kQ;
+using ist3::kW;
+using ist3::ld4;
+using ist3::PlaneCopy;
+using ist3::st4;
 
 // --- D3 -----------------------------------------------------------------------
 constexpr int kCY = 4;            // coarse rows per tile

@@ -25,7 +25,7 @@
 // plain torch version bit for bit. The library's other kernels keep nvcc's
 // default contraction.
 #include "common.cuh"
-#include "zmarch3d.cuh"
+#include "zstream3d.cuh"
 
 using ist::Geom;
 using ist::TW;
@@ -120,70 +120,73 @@ __global__ void k_resid_ff_kernel(const float* __restrict__ xh, const float* __r
 // R3: the 3D box on the (d, hp, wp) layout. Replaces
 // iterative_solvers_tpu/kernels/resid_ff.py:_make_k_resid_ff_3d (B10, one
 // plane per program) and _make_k_resid_ff_chunked_3d (B11, bz planes per
-// program). It marches z as the other 3D kernels do (csrc/zmarch3d.cuh),
-// with two shared tiles, one for xh and one for xl, and each thread's z - 1,
-// z, z + 1 values of both in registers: each plane of xh and xl is read once
-// per chunk, bh and bl once. 24 B/node, ~90 uncontracted f32 operations per
-// node. Order, as ops/ddf32.residual_ff: axis mains and errors x, y, z; the
-// mains summed exactly x + y, then + z (TwoSum, errors summed in order);
+// program). It runs the staged z-march of csrc/zstream3d.cuh on two rings,
+// xh and xl: each plane of both is staged once per chunk by 16-byte
+// cp.async copies kLook planes ahead, a lane's four nodes take their
+// z - 1, z, z + 1 values from registers and their rows above and below from
+// shared memory; bh and bl are read once, a float4 a lane, and rh and rl
+// written so. 24 B/node, ~90 uncontracted f32 operations per node. Order,
+// as ops/ddf32.residual_ff: axis mains and errors x, y, z; the mains summed
+// exactly x + y, then + z (TwoSum, errors summed in order);
 // corr = ((ex + ey) + ez) + A xl (+ delta xh), A xl as S7 computes it.
-__global__ void k_resid_ff3d_kernel(const float* __restrict__ xh, const float* __restrict__ xl,
-                                    const float* __restrict__ bh, const float* __restrict__ bl,
-                                    float* __restrict__ rh, float* __restrict__ rl, ist3::Box g,
-                                    ist3::Coef k, AxisC ax, AxisC ay, AxisC az, int has_delta,
-                                    float delta) {
-  __shared__ ist3::Tile th, tl;
-  const int z0 = blockIdx.z * g.bz, z1 = min(z0 + g.bz, g.d);
-  const int x0 = blockIdx.x * ist3::TX, y0 = blockIdx.y * ist3::TY;
-  const int c = x0 + threadIdx.x, r = y0 + threadIdx.y;
-  auto H = [&](int z, int i, int j) -> float {
-    return g.interior(z, i, j) ? xh[g.at(z, i, j)] : 0.f;
-  };
-  auto L = [&](int z, int i, int j) -> float {
-    return g.interior(z, i, j) ? xl[g.at(z, i, j)] : 0.f;
-  };
-  float h_zm = H(z0 - 1, r, c), h = H(z0, r, c);
-  float l_zm = L(z0 - 1, r, c), l = L(z0, r, c);
-  for (int z = z0; z < z1; ++z) {
-    const float h_zp = H(z + 1, r, c), l_zp = L(z + 1, r, c);
-    __syncthreads();  // every thread is done with the previous plane's tiles
-    ist3::fill_tile(th, z, y0, x0, h, H);
-    ist3::fill_tile(tl, z, y0, x0, l, L);
-    __syncthreads();
-    if (g.on_canvas(r, c)) {
-      const size_t idx = g.at(z, r, c);
-      float o_h = 0.f, o_l = 0.f;
-      if (g.interior(z, r, c)) {
-        const ist3::Nbr vh = ist3::gather(th, h_zm, h_zp);
-        const ist3::Nbr vl = ist3::gather(tl, l_zm, l_zp);
-        const FF mx = axis_diff2(h, vh.w, vh.e, ax);
-        const FF my = axis_diff2(h, vh.n, vh.s, ay);
-        const FF mz = axis_diff2(h, h_zm, h_zp, az);
-        // plain f32 A xl, in the stencil's order (S7's fmaf chain)
-        const float axl = ist3::apply7(k, vl);
-        float corr = __fadd_rn(__fadd_rn(__fadd_rn(mx.e, my.e), mz.e), axl);
-        if (has_delta) corr = __fadd_rn(corr, __fmul_rn(delta, h));
-        const FF S2 = two_sum(mx.s, my.s);
-        const FF S = two_sum(S2.s, mz.s);
-        const float es = __fadd_rn(S2.e, S.e);
-        const FF t1 = two_sum(bh[idx], -S.s);
-        const float r_lo = __fadd_rn(__fsub_rn(__fsub_rn(bl[idx], es), corr), t1.e);
-        const FF res = two_sum(t1.s, r_lo);
-        o_h = res.s;
-        o_l = res.e;
-      }
-      rh[idx] = o_h;
-      rl[idx] = o_l;
-    }
-    h_zm = h;
-    h = h_zp;
-    l_zm = l;
-    l = l_zp;
+// Four nodes a lane fit two blocks an SM without spills (108 registers);
+// the kernel reaches 73 % of its bound at 512^3, against 42 % on S7's
+// z-march (NVIDIA H100 80GB HBM3, 700 W; PERF.md).
+struct ResidFF3 {
+  AxisC ax, ay, az;
+  ist3::Coef k;
+  int has_delta;
+  float delta;
+
+  // (rh, rl) at an interior node: xh's and xl's values around it, bh and bl
+  __device__ __forceinline__ FF at(const ist3::Nbr& vh, const ist3::Nbr& vl, float bh,
+                                   float bl) const {
+    const float h = vh.c;
+    const FF mx = axis_diff2(h, vh.w, vh.e, ax);
+    const FF my = axis_diff2(h, vh.n, vh.s, ay);
+    const FF mz = axis_diff2(h, vh.zm, vh.zp, az);
+    // plain f32 A xl, in the stencil's order (S7's fmaf chain)
+    const float axl = ist3::apply7(k, vl);
+    float corr = __fadd_rn(__fadd_rn(__fadd_rn(mx.e, my.e), mz.e), axl);
+    if (has_delta) corr = __fadd_rn(corr, __fmul_rn(delta, h));
+    const FF S2 = two_sum(mx.s, my.s);
+    const FF S = two_sum(S2.s, mz.s);
+    const float es = __fadd_rn(S2.e, S.e);
+    const FF t1 = two_sum(bh, -S.s);
+    const float r_lo = __fadd_rn(__fsub_rn(__fsub_rn(bl, es), corr), t1.e);
+    return two_sum(t1.s, r_lo);
   }
+};
+
+__global__ void __launch_bounds__(ist3::kZThreads, 2)
+    k_resid_ff3d_kernel(const float* __restrict__ xh, const float* __restrict__ xl,
+                        const float* __restrict__ bh, const float* __restrict__ bl,
+                        float* __restrict__ rh, float* __restrict__ rl, ist3::Box g,
+                        ResidFF3 f) {
+  extern __shared__ __align__(16) float smem[];
+  const ist3::ZSource src[2] = {{xh}, {xl}};
+  ist3::zstream<2>(g, 0, 0, src, smem,
+                   [&](int t, int r, int c, const bool (&in)[4], const ist3::Nbr4 (&v)[2]) {
+                     const size_t idx = g.at(t, r, c);
+                     ist3::F4 oh{}, ol{};
+                     if (in[0] || in[1] || in[2] || in[3]) {
+                       const ist3::F4 b_h = ist3::ld4(bh + idx), b_l = ist3::ld4(bl + idx);
+#pragma unroll
+                       for (int e = 0; e < 4; ++e)
+                         if (in[e]) {
+                           const FF o = f.at(v[0].at(e), v[1].at(e), b_h.v[e], b_l.v[e]);
+                           oh.v[e] = o.s;
+                           ol.v[e] = o.e;
+                         }
+                     }
+                     ist3::st4(rh + idx, oh);
+                     ist3::st4(rl + idx, ol);
+                   });
 }
 
 }  // namespace
 
+// bz: planes per block (kernels/stencil3d_layout.py: zstream_chunk)
 extern "C" int ist_k_resid_ff3d(const float* xh, const float* xl, const float* bh,
                                 const float* bl, float* rh, float* rl, int nx, int ny, int nz,
                                 int d, int hp, int wp, int bz, int pow2_x, int pow2_y,
@@ -192,11 +195,19 @@ extern "C" int ist_k_resid_ff3d(const float* xh, const float* xl, const float* b
                                 float cy_res, float cz_hi, float cz_lo, float cz_res, float delta,
                                 cudaStream_t stream) {
   const ist3::Box g{nx, ny, nz, d, hp, wp, bz};
-  const AxisC ax{pow2_x, cx, cx_hi, cx_lo, cx_res};
-  const AxisC ay{pow2_y, cy, cy_hi, cy_lo, cy_res};
-  const AxisC az{pow2_z, cz, cz_hi, cz_lo, cz_res};
-  k_resid_ff3d_kernel<<<ist3::grid_dim(g, d), ist3::block_dim(), 0, stream>>>(
-      xh, xl, bh, bl, rh, rl, g, ist3::Coef{cd, cx, cy, cz}, ax, ay, az, has_delta, delta);
+  if (!ist3::zstream_fits(g)) return (int)cudaErrorInvalidValue;
+  const ResidFF3 f{AxisC{pow2_x, cx, cx_hi, cx_lo, cx_res},
+                   AxisC{pow2_y, cy, cy_hi, cy_lo, cy_res},
+                   AxisC{pow2_z, cz, cz_hi, cz_lo, cz_res},
+                   ist3::Coef{cd, cx, cy, cz},
+                   has_delta,
+                   delta};
+  const size_t smem = ist3::zstream_smem(2);
+  if (int e = (int)cudaFuncSetAttribute((const void*)k_resid_ff3d_kernel,
+                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem))
+    return e;
+  k_resid_ff3d_kernel<<<ist3::zstream_grid(g), ist3::kZThreads, smem, stream>>>(
+      xh, xl, bh, bl, rh, rl, g, f);
   return (int)cudaGetLastError();
 }
 

@@ -3,7 +3,8 @@
 :func:`resid_ff` computes ``(rh, rl) = (bh + bl) − A·(xh + xl)`` on the
 padded layout in one pass: the CUDA kernels of ``csrc/resid_ff.cu`` on CUDA
 tensors (A8 on a 2D :class:`PaddedStencilOperator`, R3 on a 3D
-:class:`Padded3DStencilOperator`), their plain version
+:class:`Padded3DStencilOperator`, on the staged z-march of
+``csrc/zstream3d.cuh``, its chunk depth from :func:`zstream_chunk`), their plain version
 (:func:`~iterative_solvers_tpu_torch.ops.ddf32.residual_ff` on the padded
 mask) on CPU tensors. The double-f32 outer loop (solvers/refine.py) takes
 every true residual through it.
@@ -19,8 +20,9 @@ from __future__ import annotations
 import torch
 
 from iterative_solvers_tpu_torch.kernels import _build
-from iterative_solvers_tpu_torch.kernels.stencil3d_layout import box_geometry
+from iterative_solvers_tpu_torch.kernels.stencil3d_layout import zstream_chunk
 from iterative_solvers_tpu_torch.kernels.stencil_layout import (
+    check_aligned,
     check_field,
     kernel_geometry,
     kernel_name,
@@ -51,8 +53,12 @@ def resid_ff(xh, xl, bh, bl, op) -> Pair:
     pow2 = [int(is_pow2(c)) for c in op.coeffs[1:]]
     split_args = [v for s in splits for v in s[1:]]  # (hi, lo, residue) per axis
     if len(op.padded_shape) == 3:
+        # R3 stages xh and xl and reads bh, bl in 16-byte pieces
+        check_aligned(xh=xh, xl=xl, bh=bh, bl=bl)
+        d, hp, wp = op.padded_shape
         _build.launch(
-            "ist_k_resid_ff3d", *ptrs, *box_geometry(op.nx, op.ny, op.nz, op.padded_shape),
+            "ist_k_resid_ff3d", *ptrs, op.nx, op.ny, op.nz, d, hp, wp,
+            zstream_chunk(d, hp, wp, _build.sm_count(xh.device)),
             *pow2, int(delta != 0.0), *op.coeffs, *split_args, delta,
         )
         return rh, rl

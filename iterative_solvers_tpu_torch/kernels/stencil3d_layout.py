@@ -31,6 +31,12 @@ from iterative_solvers_tpu_torch.ops.stencil import mask_nnz, stencil_apply_3d
 
 ZMARCH_TY = 8  # rows per block of the z-march kernels (csrc/zmarch3d.cuh)
 ZMARCH_TX = 32  # columns per block
+# the staged z-march (csrc/zstream3d.cuh: D2, R3): tiles of 8 rows x 128
+# columns, the blocks per SM its planner aims for, its chunks' least and
+# greatest depth
+ZSTREAM_TILE = (8, 128)
+ZSTREAM_BLOCKS_PER_SM = 16
+ZSTREAM_DEPTH = (8, 32)
 
 
 def auto_block_rows_3d(h: int) -> int:
@@ -47,6 +53,29 @@ def zmarch_depth(d: int, hp: int, wp: int) -> int:
     planes stay a small share, at most 64."""
     blocks_yx = -(-hp // ZMARCH_TY) * -(-wp // ZMARCH_TX)
     return max(4, min(64, -(-d * blocks_yx // 2048)))
+
+
+def zstream_chunk(planes: int, hp: int, wp: int, sm_count: int) -> int:
+    """Planes per block of the staged z-march on a ``(planes, hp, wp)``
+    canvas, for a card of ``sm_count`` SMs: chunks of one depth (the last
+    shorter by less than the number of chunks), 8 to 32 deep
+    (``ZSTREAM_DEPTH``), so that the grid of ``(hp / 8) (wp / 128)`` tiles
+    per chunk holds at least ``ZSTREAM_BLOCKS_PER_SM`` blocks on every SM
+    unless the chunks are already 8 planes deep. Each chunk stages two
+    planes more than it writes; at 512³ chunks of 31 planes (17 chunks) ran
+    D2 ~4 % faster than chunks of 57 (9 chunks) on an NVIDIA H100 80GB HBM3
+    at 700 W (``chip_smoke.py --zstream``), hence at most 32."""
+    ty, tx = ZSTREAM_TILE
+    lo, hi = ZSTREAM_DEPTH
+    tiles = -(-hp // ty) * -(-wp // tx)
+    bz = max(lo, min(hi, planes * tiles // (ZSTREAM_BLOCKS_PER_SM * sm_count)))
+    n = -(-planes // bz)
+    return -(-planes // n)
+
+
+def zstream_chunks(planes: int, bz: int):
+    """The ``(z0, z1)`` plane ranges of the staged march's chunks."""
+    return [(z0, min(z0 + bz, planes)) for z0 in range(0, planes, bz)]
 
 
 def box_geometry(nx: int, ny: int, nz: int, padded_shape) -> Tuple[int, ...]:

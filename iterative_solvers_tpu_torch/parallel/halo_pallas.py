@@ -6,7 +6,9 @@
   kernel D1, ``halo_pallas._make_block_kernel`` / ``_block_stencil_call``.
 - :class:`ShardedPallas3DStencilOperator` (the 3D box, z over the row axes,
   x over the column axis, y local) runs ``ist_stencil3d_block``, which
-  replaces D2, ``_make_block_kernel_3d`` / ``_block_stencil_call_3d``.
+  replaces D2, ``_make_block_kernel_3d`` / ``_block_stencil_call_3d``: S7's
+  arithmetic on the staged z-march of ``csrc/zstream3d.cuh``, its chunk
+  depth from ``stencil3d_layout.zstream_chunk``.
 
 Each block kernel is its single-device kernel (A1, S7) with three
 additions: the block's global origin offsets the algebraic mask, the
@@ -39,10 +41,11 @@ from iterative_solvers_tpu_torch.core.domain import MaskSpec, resolve_device
 from iterative_solvers_tpu_torch.kernels import _build
 from iterative_solvers_tpu_torch.kernels.stencil3d_layout import (
     auto_block_rows_3d,
-    zmarch_depth,
+    zstream_chunk,
 )
 from iterative_solvers_tpu_torch.kernels.stencil_layout import (
     auto_block_rows,
+    check_aligned,
     check_field,
     round_up,
 )
@@ -257,10 +260,12 @@ class ShardedPallas3DStencilOperator:
         check_field("x", x, self.block_shape)
         zup, zdn, left, right = (t.contiguous() for t in (zup, zdn, left, right))
         _check_halos(x, (zup, zdn, left, right), ((hp, wb), (hp, wb), (dzb, hp), (dzb, hp)))
+        check_aligned(x=x, zup=zup, zdn=zdn)  # staged in 16-byte pieces
         y = torch.empty_like(x)
         _build.launch(
             "ist_stencil3d_block", *map(_build.ptr, (x, zup, zdn, left, right, y)),
-            self.nx, self.ny, self.nz, dzb, hp, wb, zmarch_depth(dzb, hp, wb),
+            self.nx, self.ny, self.nz, dzb, hp, wb,
+            zstream_chunk(dzb, hp, wb, _build.sm_count(x.device)),
             spec.origin[0], spec.origin[2], *self.coeffs,
         )
         return y

@@ -2,7 +2,7 @@
 solve of each main path, after a warm-up solve.
 
     python -m iterative_solvers_tpu_torch.profile_paths [--n 8192] [--nb 1024] [--n3 512]
-        [--ns 128] [--paths A,f64,B,3D,C,C-B,mesh-B,S] [--out DIR]
+        [--ns 128] [--paths A,f64,B,3D,C,C-B,mesh-B,mesh-3D,S] [--out DIR]
 
 Paths: A, the default solve (FMG warm start, double-f32 outer) at ``n``²;
 the cold f64-outer solve at ``n``²; B, plain f32 CG on the fused engine
@@ -12,7 +12,10 @@ as the JAX package's bench runs it); C, the default solve (double-f32
 outer) on the custom-mask notched disk at ``n``²; C-B, plain f32 CG on the
 fused engine on the notched disk at ``nb``²; mesh-B ("mesh fused B"), path
 B on a 1x1 mesh (``operator='fused'``, ``mesh=make_solver_mesh(1)``: the
-sharded fused engine's D5 and D6 on the mesh's own layout) at ``nb``². For
+sharded fused engine's D5 and D6 on the mesh's own layout) at ``nb``²;
+mesh-3D, the 3D facade with a mesh at ``n3``³ on a 1x1 mesh
+(``operator='pallas'``, ``mg``, ``mixed``: the f64 outer around inners on the
+halo stencil D2, the plain V-cycle on the gathered field). For
 each it prints the facade's ``solve()`` wall time, then profiles the solver
 core alone (the refinement, or the CG solve, on fields assembled
 beforehand): its time without and with the profiler, the device-busy time
@@ -25,7 +28,8 @@ sets the pace); with ``--out``, also a Chrome
 trace per path. For the 3D path it then times the refinement's parts with CUDA
 events: one inner PCG iteration, the V-cycle in it, level 0's kernels D3
 + U3 and its whole leg (the V-cycle from level 0 minus that from level
-1), the 7-point apply, the FMG warm start. S is not
+1), the 7-point apply, the FMG warm start; for mesh-3D, D2 alone and the
+operator's apply (its halo exchange, then D2). S is not
 profiled but timed: the 3D ``operator="stencil"`` route's plain f32
 7-point apply and one inner Jacobi PCG iteration on it at ``n3``³ (CUDA
 events), then its mixed Jacobi solve at ``ns``³. Needs a CUDA device.
@@ -160,6 +164,19 @@ def breakdown_3d(solver: DirichletSolver) -> None:
         print(f"   {name:52s} {ms:9.3f} ms")
 
 
+def breakdown_mesh_3d(solver: DirichletSolver) -> None:
+    """The mesh 3D route's halo stencil, CUDA events: D2 on the block with
+    its halos cut beforehand, and the operator's apply (the halo exchange,
+    then D2)."""
+    pop, _ = solver._parts
+    x = torch.randn(pop.block_shape, device="cuda")
+    halos = pop.halos_from_global(x, pop.origin)
+    t = {"D2 on the block, halos cut beforehand": _event_ms(lambda: pop.apply_block(*halos)),
+         "the operator's apply (halo exchange + D2)": _event_ms(lambda: pop(x))}
+    for name, ms in t.items():
+        print(f"   {name:52s} {ms:9.3f} ms")
+
+
 def stencil_route_3d(n3: int, ns: int, stop: StopConfig) -> None:
     """The 3D ``operator="stencil"`` route: the plain f32 7-point apply
     (``ops/stencil.py``, which also runs the 3D V-cycle's plain coarse
@@ -194,7 +211,14 @@ def profile_path(name: str, solver: DirichletSolver, out_dir=None) -> None:
     pop, Mp = solver._parts
     b = solver.problem.rhs_field(device="cuda")
     u = solver.problem.true_solution_field(device="cuda")
-    if solver.precision == "mixed" and solver.is3d:
+    if solver.precision == "mixed" and solver.mesh is not None:
+        # the facade's mesh route (its f64 outer) on the mesh's own layout
+        A_hi, bs, us = DirichletSolver._hi_operator(pop), pop.shard(b), pop.shard(u)
+
+        def core():
+            return device_refined_solve(A_hi, pop, bs, preconditioner=Mp, u_true=us,
+                                        stop=solver.stop, fmg=solver.fmg_cycles)
+    elif solver.precision == "mixed" and solver.is3d:
         A_hi, bp, up = _padded_hi_operator(pop), pop.pad(b), pop.pad(u)
 
         def core():
@@ -230,7 +254,7 @@ def profile_path(name: str, solver: DirichletSolver, out_dir=None) -> None:
     if out_dir:
         prof.export_chrome_trace(os.path.join(out_dir, f"trace_{name}.json"))
     if solver.is3d:
-        breakdown_3d(solver)
+        (breakdown_mesh_3d if solver.mesh is not None else breakdown_3d)(solver)
 
 
 def main(argv=None) -> int:
@@ -240,7 +264,7 @@ def main(argv=None) -> int:
     ap.add_argument("--n3", type=int, default=512)
     ap.add_argument("--ns", type=int, default=128)
     ap.add_argument("--paths", default="A,f64,B,3D,C",
-                    help="comma-separated subset of A,f64,B,3D,C,C-B,mesh-B,S")
+                    help="comma-separated subset of A,f64,B,3D,C,C-B,mesh-B,mesh-3D,S")
     ap.add_argument("--out", default=None, help="directory for Chrome traces")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -267,6 +291,9 @@ def main(argv=None) -> int:
             operator="fused", device="cuda", stop=rel6),
         "mesh-B": lambda: DirichletSolver(nx=args.nb, ny=args.nb, operator="fused",
                                           mesh=make_solver_mesh(1), device="cuda", stop=rel6),
+        "mesh-3D": lambda: DirichletSolver(domain=Domain3D(args.n3, args.n3, args.n3),
+                                           operator="pallas", mesh=make_solver_mesh(1),
+                                           **mixed),
     }
     for name in args.paths.split(","):
         if name == "S":

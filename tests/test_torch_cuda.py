@@ -4,7 +4,8 @@ with the int8 mask operand), 3D (S7, D3, U3, J3, R3), the in-place and
 pipelined stencils (C4, C5), which must equal A1 bit for bit at scale 1,
 and the mesh block kernels (D1–D6), whose stitched blocks must equal the
 single-device kernels bit for bit; S7, D3 and U3 equal their plain
-versions bit for bit.
+versions bit for bit, and so do the kernels of the staged z-march, D2 and
+R3 (both words of R3's pair), on every split and coefficient set.
 
 Marked ``cuda``: they need an NVIDIA GPU and nvcc, and skip elsewhere (the
 card is looked for inside the fixture, never at import). Run them on a GPU
@@ -16,6 +17,7 @@ their terms' magnitudes. The double-f32 residual kernel runs every operation
 uncontracted in its plain version's order: its high word must be
 bit-equal, its low word within 32 · max|bh| · 2⁻⁴⁸."""
 
+import dataclasses
 import math
 
 import pytest
@@ -532,3 +534,94 @@ def test_engine_block_kernels_match_single_device(gen, mesh_shape, pcg):
     k2 = "k2_pcg" if pcg else "k2"
     assert {k: v for k, v in _build.launches.items() if v} == {
         "k1_block": n, f"{k2}_block": 2 * n, k2: 2}
+
+
+# the staged z-march (csrc/zstream3d.cuh): D2 on mesh splits of the box,
+# R3 with and without the delta term, power-of-two and other coefficients
+SPLITS = [(1, 1, 1), (1, 1, 2), (2, 1, 1), (2, 1, 2)]
+
+
+@pytest.mark.parametrize("dims", [(16, 16, 16), (16, 24, 8)])
+@pytest.mark.parametrize("split", SPLITS)
+def test_d2_blocks_bit_equal_to_plain_and_s7(gen, dims, split):
+    """D2 on every block of a split of the box, its halos cut from the
+    global field as the ring exchange delivers them (on (1, 1, 1) the block
+    wraps onto itself): each block bit-equal to its plain version, the
+    stitched blocks bit-equal to S7 at every node."""
+    box = Domain3D(*dims)
+    meshes = _virtual(split)
+    ops = [ShardedPallas3DStencilOperator.from_domain(box, m) for m in meshes]
+    x = torch.randn(ops[0].padded_shape, device="cuda", generator=gen)
+    _build.reset_counts()
+    parts = []
+    for op in ops:
+        halos = op.halos_from_global(x, op.origin)
+        parts.append(op.apply_block(*halos))
+        assert torch.equal(parts[-1], block_stencil3d_plain(*halos, op.block_spec(), op.coeffs))
+    s7 = Padded3DStencilOperator.from_domain(box)
+    d, h, w = s7.padded_shape
+    assert torch.equal(_stitch(meshes, parts)[:d, :h, :w], s7(x[:d, :h, :w].contiguous()))
+    assert _build.launches["stencil3d_block"] == len(ops)
+
+
+def _ff_layout(dims, coeffs):
+    """The box's layout; ``"delta"``: a diagonal off -2 Σc (the delta term)
+    and a y coefficient that is not a power of two."""
+    lay = Padded3DStencilOperator.from_domain(Domain3D(*dims))
+    if coeffs == "delta":
+        cd, cx, cy, cz = lay.coeffs
+        lay = dataclasses.replace(lay, coeffs=(cd - 0.37, cx, cy * 1.1, cz))
+    return lay
+
+
+@pytest.mark.parametrize("dims", BOXES)
+@pytest.mark.parametrize("coeffs", ["box", "delta"])
+def test_r3_bit_equal_to_plain(gen, dims, coeffs):
+    """R3's pair bit-equal to its plain version, both words, on unmasked
+    x (the kernel masks its reads)."""
+    from iterative_solvers_tpu_torch.ops.ddf32 import coeff_delta, is_pow2
+
+    lay = _ff_layout(dims, coeffs)
+    assert (coeff_delta(lay.coeffs) != 0.0) == (coeffs == "delta")
+    assert all(is_pow2(c) for c in lay.coeffs[1:]) == (coeffs == "box" and dims != (16, 24, 8))
+    m = lay.mask_spec.build("cuda")
+    f64 = dict(device="cuda", dtype=torch.float64, generator=gen)
+    bh, bl = split_f64(torch.where(m, torch.randn(lay.padded_shape, **f64), 0.0) * 1e4)
+    xh, xl = split_f64(torch.randn(lay.padded_shape, **f64))
+    _build.reset_counts()
+    gh, gl = resid_ff.resid_ff(xh, xl, bh, bl, lay)
+    rh, rl = resid_ff.resid_ff_plain(xh, xl, bh, bl, lay)
+    assert torch.equal(gh, rh) and torch.equal(gl, rl)
+    assert _build.launches["k_resid_ff3d"] == 1
+
+
+def test_zstream_launchers_refuse_bad_operands(gen):
+    """D2 and R3 refuse operands off a 16-byte boundary and halos of the
+    wrong shape; their launchers refuse a canvas that is not a whole number
+    of 8 x 128 tiles."""
+    box = Domain3D(16, 16, 16)
+    lay = Padded3DStencilOperator.from_domain(box)
+    f = torch.zeros(lay.padded_shape, device="cuda")
+    odd = torch.zeros(f.numel() + 1, device="cuda")[1:].view(lay.padded_shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        resid_ff.resid_ff(f, odd, f, f, lay)
+    with pytest.raises(ValueError):
+        resid_ff.resid_ff(f, f, f[:, :-8].contiguous(), f, lay)
+    op = ShardedPallas3DStencilOperator.from_domain(box, _virtual((1, 1, 1))[0])
+    x, zup, zdn, left, right = op.halos_from_global(f, (0, 0, 0))
+    xodd = torch.zeros(x.numel() + 1, device="cuda")[1:].view(x.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        op.apply_block(xodd, zup, zdn, left, right)
+    with pytest.raises(ValueError):
+        op.apply_block(x, zup[:-8], zdn, left, right)
+    with pytest.raises(ValueError):
+        op.apply_block(x, zup, zdn, left[:, :-1], right)
+    dzb, hp, wb = op.block_shape
+    y = torch.empty_like(x)
+    ptrs = map(_build.ptr, (x, zup, zdn, left, right, y))
+    with pytest.raises(RuntimeError, match="ist_stencil3d_block"):
+        _build.launch("ist_stencil3d_block", *ptrs, 16, 16, 16, dzb, hp - 4, wb, 8, 0, 0,
+                      *op.coeffs)
+    with pytest.raises(RuntimeError, match="ist_k_resid_ff3d"):
+        _build.launch("ist_k_resid_ff3d", *map(_build.ptr, (f,) * 6), 16, 16, 16, dzb, hp,
+                      wb - 64, 8, 1, 1, 1, 0, *lay.coeffs, *[0.0] * 9, 0.0)

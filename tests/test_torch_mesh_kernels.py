@@ -16,6 +16,8 @@ Tolerances:
 - stitched blocks, f32: each node takes the single-device plain version's
   expression, so the stitched (2, 2) partition (D2: (2, 1, 2)) equals the
   single-device A1 / S7 / K_down / K_up plain version bit for bit.
+- D2's staged z-march replayed in plain torch (tiles, chunks, per-plane
+  sources, halo columns by the edge tiles): bit-equal to its plain version.
 """
 
 import time
@@ -60,6 +62,14 @@ from iterative_solvers_tpu_torch.parallel import (
     padded_grid_shape,
     run_world,
 )
+from iterative_solvers_tpu_torch.kernels.stencil3d_layout import (
+    ZSTREAM_BLOCKS_PER_SM,
+    ZSTREAM_DEPTH,
+    ZSTREAM_TILE,
+    zstream_chunk,
+    zstream_chunks,
+)
+from iterative_solvers_tpu_torch.parallel.halo import apply7
 from iterative_solvers_tpu_torch.parallel.halo_pallas import (
     block_stencil3d_plain,
     block_stencil_plain,
@@ -177,6 +187,94 @@ def test_block_stencil_3d_plain_matches_jax():
     got = block_stencil3d_plain(torch.from_numpy(x), torch.from_numpy(zup),
                                 torch.from_numpy(zdn), zeros, zeros, op.block_spec(), op.coeffs)
     _close(got.numpy(), np.asarray(ref), 1e-13)
+
+
+def _zstream_replay(x, zup, zdn, left, right, spec, coeffs, bz):
+    """D2's schedule (csrc/zstream3d.cuh) in plain torch: per chunk of
+    ``zstream_chunks`` and per 8 x 128 tile, each staged plane p = z0 - 1 ..
+    z1 taken from one source chosen per plane (zup for -1, zdn for Dz_b,
+    else the block), rows y0 - 1 .. y0 + 8 and columns x0 - 1 .. x0 + 128
+    (the kernel stages a float4 beyond each edge; only these columns are
+    read), the block's halo columns staged by the tiles at its x edge
+    only, everything masked at its global position (the copies' zero-fill);
+    then S7's sum on the staged planes, masked by the nodes' interior."""
+    dzb, hp, wb = x.shape
+    zoff, _, coff = spec.origin
+    ty, tx = ZSTREAM_TILE
+
+    def interior(z, r, c):
+        return (z > 0) & (z < spec.nz) & (r > 0) & (r < spec.ny) & (c > 0) & (c < spec.nx)
+
+    y = torch.full_like(x, float("nan"))
+    for z0, z1 in zstream_chunks(dzb, bz):
+        for y0 in range(0, hp, ty):
+            rows = torch.arange(y0 - 1, y0 + ty + 1)
+            for x0 in range(0, wb, tx):
+                cols = torch.arange(x0 - 1, x0 + tx + 1)
+                planes = []
+                for p in range(z0 - 1, z1 + 1):
+                    src = zup if p < 0 else zdn if p >= dzb else x[p]
+                    s = torch.zeros((ty + 2, tx + 2), dtype=x.dtype)
+                    on = (rows >= 0) & (rows < hp)
+                    r = rows.clamp(0, hp - 1)
+                    s[:, 1:-1] = src[r, x0:x0 + tx]
+                    if x0 > 0:
+                        s[:, 0] = src[r, x0 - 1]
+                    elif 0 <= p < dzb:
+                        s[:, 0] = left[p, r]
+                    if x0 + tx < wb:
+                        s[:, -1] = src[r, x0 + tx]
+                    elif 0 <= p < dzb:
+                        s[:, -1] = right[p, r]
+                    m = on[:, None] & interior(torch.tensor(zoff + p), rows[:, None],
+                                                coff + cols[None, :])
+                    planes.append(torch.where(m, s, 0.0))
+                out = apply7(torch.stack(planes), *coeffs)
+                m = interior(zoff + torch.arange(z0, z1)[:, None, None], rows[1:-1, None],
+                             coff + cols[1:-1])
+                y[z0:z1, y0:y0 + ty, x0:x0 + tx] = torch.where(m, out, 0.0)
+    return y
+
+
+@pytest.mark.parametrize("dims,shape,rank,bz", [((16, 16, 16), (2, 1, 2), 3, None),
+                                               ((16, 24, 8), (1, 1, 2), 1, 3),
+                                               ((300, 8, 8), (1, 1, 2), 0, None),
+                                               ((300, 8, 8), (2, 1, 2), 3, 2)])
+def test_d2_zstream_schedule_emulation(dims, shape, rank, bz):
+    """D2's staged z-march, replayed in plain torch on one block with a
+    non-zero origin and raw (unmasked) random halos, equals D2's plain
+    version bit for bit: chunks of the planner's depth (132 SMs) and of 3
+    and 2 planes (a ragged last chunk), blocks one and two tiles wide, with
+    interior halo planes and columns on either side."""
+    op = ShardedPallas3DStencilOperator.from_domain(Domain3D(*dims), _mesh(shape, rank))
+    dzb, hp, wb = op.block_shape
+    rng = np.random.default_rng(9)
+    x, zup, zdn, left, right = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                                for s in ((dzb, hp, wb), (hp, wb), (hp, wb), (dzb, hp),
+                                          (dzb, hp)))
+    spec = op.block_spec()
+    bz = bz or zstream_chunk(dzb, hp, wb, 132)
+    want = block_stencil3d_plain(x, zup, zdn, left, right, spec, op.coeffs)
+    got = _zstream_replay(x, zup, zdn, left, right, spec, op.coeffs, bz)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("planes,hp,wp", [(513, 520, 640), (257, 520, 384), (257, 264, 384),
+                                          (17, 24, 128), (9, 24, 128), (1025, 1032, 1152)])
+@pytest.mark.parametrize("sms", [132, 114])
+def test_zstream_chunk_plan(planes, hp, wp, sms):
+    """The planner's chunks cover every plane once, in chunks of one depth
+    (the last shorter by less than the number of chunks), and the grid holds
+    at least ``ZSTREAM_BLOCKS_PER_SM`` blocks on every SM unless the chunks
+    are at their least depth."""
+    lo, hi = ZSTREAM_DEPTH
+    bz = zstream_chunk(planes, hp, wp, sms)
+    chunks = zstream_chunks(planes, bz)
+    assert [z for z0, z1 in chunks for z in range(z0, z1)] == list(range(planes))
+    assert 1 <= bz <= hi and all(z1 - z0 == bz for z0, z1 in chunks[:-1])
+    assert bz - (chunks[-1][1] - chunks[-1][0]) < len(chunks)
+    tiles = (hp // ZSTREAM_TILE[0]) * (wp // ZSTREAM_TILE[1])
+    assert len(chunks) * tiles >= ZSTREAM_BLOCKS_PER_SM * sms or bz <= lo
 
 
 def _level(kind="gamma"):
