@@ -36,11 +36,13 @@ final ``ok`` line:
    S7 bit-equal to its plain version; the mesh block
    kernels D1, D3, D4 on a virtual (4, 2) partition of the 8192² level-0
    grid and D2 on a (2, 1, 2) split of 512³, each block with its halos cut
-   from the global field, against its plain version, stitched against
-   A1, A5, A6, S7 (bit-equal away from block edges, edges within f32
-   round-off; D3 through the mesh's lane restriction and child mask, D4
-   fed the lane prolongation of A6's coarse correction), and timed on the
-   1x1 block; the sharded fused engine's D5
+   from the global field, against its plain version (D2, D3, D4 bit for
+   bit), stitched against A1, A5, A6, S7 (bit-equal away from block edges,
+   edges within f32 round-off, D2, D3 and D4 bit-equal there too; D3
+   through the mesh's lane restriction and child mask, D4 fed the lane
+   prolongation of A6's coarse correction), and timed on the 1x1 block;
+   D3 and D4 also bit-equal and timed on the 1x1 block of every
+   shard-fused level of 8192² (8192, 4096, 2048); the sharded fused engine's D5
    and D6 (MSG and PCG, with and without u) on the same (4, 2) partition,
    each against its plain version, the stitched side rows, x', r' and z_k
    against K1, K2 and K2-pcg bit for bit at every node, the summed
@@ -757,12 +759,18 @@ def check_mesh_legs(gen, n=N):
     """The mesh's V-cycle legs D3 and D4 (``k_down_block``, ``k_up_block``
     with the dot) on the 1x1 block of every shard-fused level of the
     ``n``² Г grid (8192, 4096, 2048: path "mesh a" launches each three
-    times a level), on the device timer beside the bound (each operand
-    read once, each output written once); level 0 is the layout of the
-    kernels line's D3 and D4 rows."""
+    times a level): each launch against its plain version (the fields bit
+    for bit, the dot within 64 eps32 of the sum of its terms' magnitudes),
+    then on the device timer and on the graph timer (:func:`graph_ms`, 20
+    calls a graph: at 4096² and 2048² the wrapper's host work outlasts the
+    kernel back to back) beside the bound (each operand read once, each
+    output written once); level 0 is the layout of the kernels line's D3
+    and D4 rows. Holds for the column sweeps of earlier checkouts too, so
+    ``--legs`` times them alike."""
     import torch
 
     from iterative_solvers_tpu_torch import Domain2D
+    from iterative_solvers_tpu_torch.kernels import _build
     from iterative_solvers_tpu_torch.parallel import ShardedPallasStencilOperator, make_solver_mesh
     from iterative_solvers_tpu_torch.parallel.mg_sharded import ShardedFusedMultigrid
 
@@ -770,6 +778,7 @@ def check_mesh_legs(gen, n=N):
     op = ShardedPallasStencilOperator.from_domain(dom, make_solver_mesh(1))
     M = ShardedFusedMultigrid.from_operator(op, dom, device="cuda")
     org = (0, 0)
+    sms = _build.sm_count(torch.device("cuda"))
     recs = {}
     for li, lev in enumerate(M.levels):
         hp, wp = lev.padded_shape
@@ -777,17 +786,32 @@ def check_mesh_legs(gen, n=N):
         ecb = torch.randn((hp // 2, wp), device="cuda", generator=gen)
         dh = lev.down_halos_from_global(xb, org)
         uh = lev.up_halos_from_global(xb, ecb, org)
-        rec = {"shape": (hp, wp)}
-        for name, fn, ins in (("k_down_block", lambda: (lev.down_block(*dh, org),), dh),
-                              ("k_up_block", lambda: lev.up_block(*uh, org, with_dot=True), uh)):
-            nb = nbytes(ins) + nbytes(fn()[:1])
-            rec[name] = {"ms": device_ms(fn), "bound_ms": nb / HBM_BYTES_PER_S * 1e3}
+        bm = torch.where(lev.spec(org).build("cuda"), uh[0], 0.0)
+        tj = ((lev.down_tile_rows(sms), lev.up_tile_rows(sms))
+              if hasattr(lev, "down_tile_rows") else None)
+        rec = {"shape": (hp, wp), "tj": tj}
+        where = f"mesh {n}^2 1x1 level {li} {(hp, wp)}"
+        for name, fn, plain, kinds, ins in (
+                ("k_down_block", lambda: (lev.down_block(*dh, org),),
+                 lambda: (lev.down_plain(*dh, org),), ("exact",), dh),
+                ("k_up_block", lambda: lev.up_block(*uh, org, with_dot=True),
+                 lambda: lev.up_plain(*uh, org, with_dot=True), ("exact", "sum"), uh)):
+            got, ref = fn(), plain()
+            torch.cuda.synchronize()
+            sc = {1: float((bm * ref[0]).abs().double().sum())} if name == "k_up_block" else None
+            err, _ = compare(f"{name} @ {where}", got, ref, kinds, sc)
+            nb = nbytes(ins) + nbytes(got[:1])
+            rec[name] = {"max_abs_err": err, "ms": device_ms(fn),
+                         "graph_ms": graph_ms(fn, calls=GRAPH_CALLS),
+                         "bound_ms": nb / HBM_BYTES_PER_S * 1e3}
+            del got, ref
         recs[li] = rec
-        log(f"leg mesh {n}^2 1x1 level {li} {(hp, wp)}: " + "  ".join(
-            f"{k} {rec[k]['ms']:.4f} ms (bound {rec[k]['bound_ms']:.4f}, "
-            f"{100 * rec[k]['bound_ms'] / rec[k]['ms']:.0f} %)" for k in ("k_down_block",
-                                                                        "k_up_block")))
-        del xb, ecb, dh, uh
+        log(f"leg {where} (TJ {tj}): " + "  ".join(
+            f"{k} {rec[k]['ms']:.4f} ms (graph {rec[k]['graph_ms']:.4f}; bound "
+            f"{rec[k]['bound_ms']:.4f}, {100 * rec[k]['bound_ms'] / rec[k]['ms']:.0f} % / "
+            f"{100 * rec[k]['bound_ms'] / rec[k]['graph_ms']:.0f} %; bit-equal to plain)"
+            for k in ("k_down_block", "k_up_block")))
+        del xb, ecb, dh, uh, bm
     del M, op
     torch.cuda.empty_cache()
     return recs
@@ -1697,12 +1721,12 @@ def check_mesh_kernels(gen):
               ("field",))
         dh = lev.down_halos_from_global(x, op.origin)
         rr = lev.down_block(*dh, op.origin)
-        check("k_down_block @ (4,2)", (rr,), (lev.down_plain(*dh, op.origin),), ("field",))
+        check("k_down_block @ (4,2)", (rr,), (lev.down_plain(*dh, op.origin),), ("exact",))
         uh = lev.up_halos_from_global(x, ecl, op.origin)
         got = lev.up_block(*uh, op.origin, with_dot=True)
         ref = lev.up_plain(*uh, op.origin, with_dot=True)
         bm = torch.where(lev.spec(op.origin).build("cuda"), uh[0], 0.0)
-        check("k_up_block @ (4,2)", got, ref, ("field", "sum"),
+        check("k_up_block @ (4,2)", got, ref, ("exact", "sum"),
               {1: float((bm * ref[0]).abs().double().sum())})
         parts["stencil_block"].append(y)
         parts["k_down_block"].append(rr)
@@ -1721,9 +1745,9 @@ def check_mesh_kernels(gen):
     if rc[rows:].any() or rc[:, cols:].any() or down[rows:].any() or down[:, cols:].any():
         raise AssertionError("D3 vs A5: a coarse value beyond the child grid")
     _stitched_agree("D3 + lanes vs A5 @ 8192^2 (4,2)", rc[:rows, :cols].contiguous(),
-                    down[:rows, :cols].contiguous(), (blk[0] // 2, blk[1] // 2))
+                    down[:rows, :cols].contiguous(), (blk[0] // 2, blk[1] // 2), exact=True)
     _stitched_agree("D4 vs A6 @ 8192^2 (4,2)", _stitch(meshes, parts["k_up_block"]),
-                    single.up(x, ec), blk)
+                    single.up(x, ec), blk, exact=True)
     del parts, x, ec, ecl, single, lay, rc, down
     torch.cuda.empty_cache()
 
@@ -1764,9 +1788,9 @@ def check_mesh_kernels(gen):
         "stencil_block": (lambda: (op1.apply_block(*h1),),
                           lambda: (block_stencil_plain(*h1, spec, op1.coeffs),), ("field",), h1),
         "k_down_block": (lambda: (lev1.down_block(*dh1, org),),
-                         lambda: (lev1.down_plain(*dh1, org),), ("field",), dh1),
+                         lambda: (lev1.down_plain(*dh1, org),), ("exact",), dh1),
         "k_up_block": (lambda: lev1.up_block(*uh1, org, with_dot=True),
-                       lambda: lev1.up_plain(*uh1, org, with_dot=True), ("field", "sum"), uh1),
+                       lambda: lev1.up_plain(*uh1, org, with_dot=True), ("exact", "sum"), uh1),
     }
     for name, (kern, plain, kinds, ins) in cases.items():
         got, ref = kern(), plain()
@@ -2631,6 +2655,13 @@ def main(argv) -> int:
     # the mesh block kernels D1–D4: virtual partitions, stitched, timed
     stats.update(check_mesh_kernels(gen))
     torch.cuda.empty_cache()
+    # D3 and D4 bit-equal to their plain versions and timed at every
+    # shard-fused level that path "mesh a" runs (8192², 4096², 2048² on 1x1)
+    for li, rec in check_mesh_legs(gen).items():
+        for k in ("k_down_block", "k_up_block"):
+            stats[k].setdefault("levels", {})[li] = {
+                "shape": rec["shape"], "tj": rec["tj"], "ms": rec[k]["ms"],
+                "graph_ms": rec[k]["graph_ms"], "bound_ms": rec[k]["bound_ms"]}
     # the sharded fused engine's kernels D5, D6: the same, against K1 / K2
     engine, engine_nb = check_engine_kernels(gen)
     stats.update(engine)
@@ -2761,6 +2792,8 @@ def main(argv) -> int:
         }
         if "auto" in s:  # C4/C5 at auto_block_rows
             row["at_auto_block_rows"] = s["auto"]
+        if "levels" in s:  # D3/D4 at each shard-fused level of "mesh a"
+            row["levels"] = s["levels"]
         if k in AT_NB:  # the time and bound where the NB² path launches it
             p, sn = AT_NB[k], at_nb[k]
             row["at_path"] = {

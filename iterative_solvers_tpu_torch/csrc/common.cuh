@@ -1,16 +1,16 @@
 // Shared pieces of the fused CG and multigrid kernels.
 //
 // Layout: every field is a row-major f32 canvas (hp, wp) with wp % 128 == 0
-// and hp a multiple of the band height `by`. In the column sweeps below (A1
-// and the mesh blocks D1, D3, D4) a block owns TW consecutive columns of
-// one band of rows; each thread owns one column and walks the band's rows,
-// so the grid is (wp / TW, hp / by). The tiled kernels (K1/K2 and their
-// mesh blocks D5/D6 in cg_tiles.cuh, the V-cycle legs) cut their own
-// tiles. The interior mask is the algebraic gamma/rect predicate on global
-// indices (no mask is read), and column neighbours c-1 / c+1 are
-// bound-checked: the TPU kernels used a wrapping lane roll there, which
-// gives the same result because the wrapped column is never interior and
-// holds 0.
+// and hp a multiple of the band height `by`. In the column sweep below (A1
+// and its mesh block D1) a block owns TW consecutive columns of one band
+// of rows; each thread owns one column and walks the band's rows, so the
+// grid is (wp / TW, hp / by). The tiled kernels (K1/K2 and their mesh
+// blocks D5/D6 in cg_tiles.cuh, the V-cycle legs and their mesh blocks
+// D3/D4 in mg_tiles.cuh) cut their own tiles. The interior mask is the
+// algebraic gamma/rect predicate on global indices (no mask is read), and
+// column neighbours c-1 / c+1 are bound-checked: the TPU kernels used a
+// wrapping lane roll there, which gives the same result because the
+// wrapped column is never interior and holds 0.
 //
 // Custom domains: each kernel is a template on kMask. The kMask = false
 // instantiation is the gamma/rect kernel as it was; kMask = true reads the
@@ -84,9 +84,9 @@ __device__ __forceinline__ void cp_async_wait() {
 // legs: one helper per step, each rounded as its plain torch version
 // rounds (every product and sum on its own, no contraction), so that a
 // node's value does not depend on which kernel computed it: the tiles of
-// K1/K2 and their mesh blocks D5/D6 (csrc/cg_tiles.cuh), A5/A6
-// (csrc/mg_fused.cu), the column sweeps of the mesh blocks D3/D4
-// (csrc/mg_sharded.cu) and the plain versions agree bit for bit.
+// K1/K2 and their mesh blocks D5/D6 (csrc/cg_tiles.cuh), A5/A6 and their
+// mesh blocks D3/D4 (csrc/mg_tiles.cuh) and the plain versions agree bit
+// for bit.
 
 // The 5-point stencil (cd c + cx (l + r)) + cy (u + d) at an interior node.
 __device__ __forceinline__ float stencil_rn(const Geom& g, float c, float l, float r, float u,
@@ -141,15 +141,6 @@ __device__ __forceinline__ float corrected_at(float cs, float b, float p) {
   return __fadd_rn(__fmul_rn(cs, b), p);
 }
 
-// The row prolongation at fine row i (a global index: its parity picks the
-// rule; ec(J) is the lane-prolonged coarse correction at global coarse row
-// J of the node's column), then the corrected iterate.
-template <class EC>
-__device__ __forceinline__ float corrected(float cs, int i, float b, const EC& ec) {
-  const float p = (i & 1) ? midpoint(ec((i - 1) / 2), ec((i + 1) / 2)) : ec(i / 2);
-  return corrected_at(cs, b, p);
-}
-
 // K_up's post-smoothing sweep at an interior node: the corrected iterate at
 // the node (c) and its neighbours (zero off the interior), the level RHS bm.
 __device__ __forceinline__ float up_smooth(const Geom& g, float cs, float c, float l, float r,
@@ -164,14 +155,12 @@ __device__ __forceinline__ int2 interior_span(const Geom& g, int r) {
   return make_int2((g.gamma && r <= g.ny / 2) ? g.nx / 2 : 0, g.nx);
 }
 
-// The column sweeps of the 2D stencil (A1) and of the V-cycle legs' mesh
-// blocks (D3, D4), shared with the block forms (csrc/halo_pallas.cu,
-// mg_sharded.cu) so that a block and the single-device canvas take the
-// same arithmetic at every node. One thread owns column c and walks rows
-// row0 .. row0 + by - 1 (indices local to the field it writes, row stride
-// ld); the caller says where values come from: in(i, cc) is the interior
-// test of a node, X / B return a masked value (0 off the interior), XC the
-// corrected iterate.
+// The column sweep of the 2D stencil (A1), shared with its mesh block D1
+// (csrc/halo_pallas.cu) so that a block and the single-device canvas take
+// the same arithmetic at every node. One thread owns column c and walks
+// rows row0 .. row0 + by - 1 (indices local to the field it writes, row
+// stride ld); the caller says where values come from: in(i, cc) is the
+// interior test of a node, x returns a masked value (0 off the interior).
 
 // y = A x on one column (A1).
 template <class In, class X>
@@ -189,53 +178,6 @@ __device__ __forceinline__ void stencil_column(const Geom& g, const In& in, cons
     prev = cur;
     cur = next;
   }
-}
-
-// K_down on one column (D3): the residual of the pre-smoothed iterate
-// x = cs * B at fine rows row0 - 1 .. row0 + by - 1, row-restricted [1,2,1]/4
-// into coarse rows row0 / 2 .. row0 / 2 + by / 2 - 1 (row0 even).
-template <class In, class B>
-__device__ __forceinline__ void k_down_column(const Geom& g, const In& in, const B& b, float cs,
-                                              float* __restrict__ rr, int ld, int c, int row0,
-                                              int by) {
-  auto R = [&](int i) -> float {
-    if (!in(i, c)) return 0.f;
-    return down_residual(g, cs, b(i, c), b(i, c - 1), b(i, c + 1), b(i - 1, c), b(i + 1, c));
-  };
-  float below = R(row0 - 1);
-  for (int j = 0; j < by / 2; ++j) {
-    const int J = row0 / 2 + j;
-    const float center = R(2 * J);
-    const float upper = R(2 * J + 1);
-    rr[(size_t)J * ld + c] = restrict_rows(below, center, upper);
-    below = upper;
-  }
-}
-
-// K_up on one column (D4): one post-smoothing sweep of the corrected
-// iterate XC; b(i, c) is the level RHS at an interior node. Returns the
-// column's share of (b, out).
-template <class In, class XC, class B>
-__device__ __forceinline__ float k_up_column(const Geom& g, const In& in, const XC& xc,
-                                             const B& b, float cs, float* __restrict__ out,
-                                             int ld, int c, int row0, int by) {
-  float s_dot = 0.f;
-  float prev = xc(row0 - 1, c);
-  float cur = xc(row0, c);
-  for (int k = 0; k < by; ++k) {
-    const int i = row0 + k;
-    const float next = xc(i + 1, c);
-    float o = 0.f;
-    if (in(i, c)) {
-      const float bm = b(i, c);
-      o = up_smooth(g, cs, cur, xc(i, c - 1), xc(i, c + 1), prev, next, bm);
-      s_dot += bm * o;
-    }
-    out[(size_t)i * ld + c] = o;
-    prev = cur;
-    cur = next;
-  }
-  return s_dot;
 }
 
 // Sum (or max) over the TW threads of a block; the result is valid in

@@ -76,7 +76,8 @@ _SIGNATURES = {
     "ist_stencil_pipelined": [_P] * 3 + [_I] * 6 + [_F] * 4 + [_I] + [_P],
     "ist_stencil_pipelined_custom": [_P] * 4 + [_I] * 5 + [_F] * 4 + [_I] + [_P],
     # mesh blocks (D1–D4): the block and its halo operands, the 2D geometry
-    # of the block, its global origin (roff, coff), then the coefficients
+    # of the block (D3/D4: the tile rows TJ in the band height's place), its
+    # global origin (roff, coff), then the coefficients
     "ist_stencil_block": [_P] * 6 + [_I] * 8 + [_F] * 3 + [_P],
     "ist_stencil3d_block": [_P] * 6 + [_I] * 9 + [_F] * 4 + [_P],
     "ist_k_down_block": [_P] * 6 + [_I] * 8 + [_F] * 4 + [_P],

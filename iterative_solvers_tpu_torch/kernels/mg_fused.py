@@ -56,10 +56,12 @@ def _stencil(x, cd, cx, cy):
     return cd * x + cx * (p[1:-1, :-2] + p[1:-1, 2:]) + cy * (p[:-2, 1:-1] + p[2:, 1:-1])
 
 
-def tile_rows(rows: int, col_tiles: int, fine_rows_per_row: int, largest: int, device) -> int:
+def tile_rows(rows: int, col_tiles: int, fine_rows_per_row: int, largest: int,
+              sm_count: int) -> int:
     """The legs' coarse rows per tile, TJ in (16, 8, 4) up to ``largest``:
-    the largest that still puts two blocks on every SM of ``device``, else 4."""
-    want = 2 * _build.sm_count(device)
+    the largest that still puts two blocks on every SM of a card of
+    ``sm_count`` SMs, else 4 (one device's legs and the mesh blocks')."""
+    want = 2 * sm_count
     for tj in (16, 8):
         if tj <= largest and -(-rows // (fine_rows_per_row * tj)) * col_tiles >= want:
             return tj
@@ -123,11 +125,12 @@ class FusedLevelKernels:
     # its blocks above TJ 8
     def down_tile_rows(self, device) -> int:
         ho, wo = self.coarse_shape
-        return tile_rows(ho, -(-wo // TILE_COLS), 1, 16 if self.mask8 is None else 4, device)
+        return tile_rows(ho, -(-wo // TILE_COLS), 1, 16 if self.mask8 is None else 4,
+                         _build.sm_count(device))
 
     def up_tile_rows(self, device) -> int:
         hp, wp = self.padded_shape
-        return tile_rows(hp, wp // TW, 2, 8, device)
+        return tile_rows(hp, wp // TW, 2, 8, _build.sm_count(device))
 
     # --- K_down ---------------------------------------------------------------
 

@@ -1,22 +1,29 @@
 """Mesh-sharded fused multigrid V-cycle: the sharded fast path's
 preconditioner (counterpart of iterative_solvers_tpu/parallel/mg_sharded.py).
 
-Each fused fine level runs its V-cycle legs per mesh block:
+Each fused fine level runs its V-cycle legs per mesh block, as the
+single-device legs' tiles (``csrc/mg_tiles.cuh``) on the block:
 
-- **K_down** (D3, ``ist_k_down_block`` in ``csrc/mg_sharded.cu``) needs a
-  2-row upper and 1-row lower halo of the level RHS ``b``, then the
-  neighbour columns for the residual rows -1 .. Hb - 1: rows are exchanged
-  first, then the edge columns with the received row -1 in front (the
-  corner rides along, as in the JAX package's corner-carrying exchange).
-- **K_up** (D4, ``ist_k_up_block``) needs 1-row halos of ``b`` and of the
-  coarse correction ``ec``, then the neighbour columns of ``b`` and of
-  ``ec`` (with the received coarse row below: the corner), from which it
-  forms the corrected iterate at the neighbour column itself.
+- **K_down** (D3, ``ist_k_down_block`` in ``csrc/mg_sharded.cu``): tiles of
+  TJ coarse rows x 128 fine columns write the row-restricted residual
+  (Hb/2, Wb). It needs a 2-row upper and 1-row lower halo of the level RHS
+  ``b``, then the neighbour columns for the residual rows -1 .. Hb - 1:
+  rows are exchanged first, then the edge columns with the received row -1
+  in front (the corner rides along, as in the JAX package's
+  corner-carrying exchange).
+- **K_up** (D4, ``ist_k_up_block``): tiles of 2 TJ fine rows x 128 columns
+  need 1-row halos of ``b`` and of the lane-prolonged coarse correction
+  ``ec``, then the neighbour columns of ``b`` and of ``ec`` (with the
+  received coarse row below: the corner), from which they form the
+  corrected iterate at the neighbour column themselves.
 
-Both kernels take their single-device leg's arithmetic at every node
-(``csrc/common.cuh``), so a V-cycle on blocks equals the single-device
-fused V-cycle level by level; the JAX package's blocks differ from its own
-single-device legs by the reassociation of their edge strips.
+The tiles at the block's first and last rows stage the exchanged rows, the
+tiles at its x edges the exchanged columns; D3's last tile may be cut at
+the block's edge, D4's tiles divide the block. Both kernels take their
+single-device leg's arithmetic at every node (``csrc/common.cuh``), so a
+V-cycle on blocks equals the single-device fused V-cycle level by level;
+the JAX package's blocks differ from its own single-device legs by the
+reassociation of their edge strips.
 
 Between fused levels the lane (column) transfers change the padded width
 from ``wp`` to the child's ``cw_pad``. The JAX package runs them, and the
@@ -43,8 +50,8 @@ import torch
 from iterative_solvers_tpu_torch.core.domain import MaskSpec
 from iterative_solvers_tpu_torch.kernels import _build
 from iterative_solvers_tpu_torch.kernels.cg_fused import TW
-from iterative_solvers_tpu_torch.kernels.mg_fused import lane_prolong, lane_restrict
-from iterative_solvers_tpu_torch.kernels.stencil_layout import check_field, round_up
+from iterative_solvers_tpu_torch.kernels.mg_fused import lane_prolong, lane_restrict, tile_rows
+from iterative_solvers_tpu_torch.kernels.stencil_layout import check_aligned, check_field, round_up
 from iterative_solvers_tpu_torch.parallel.halo import apply5
 from iterative_solvers_tpu_torch.parallel.halo_pallas import extended_mask
 from iterative_solvers_tpu_torch.parallel.mesh import SolverMesh, all_sum, ring_take
@@ -76,10 +83,22 @@ class _ShardedFusedLevel:
         return MaskSpec(self.mask_mode, self.nx, self.ny, tuple(self.block_shape),
                         origin=tuple(origin))
 
-    def _geom(self, origin):
+    def _geom(self, origin, tj):
         hb, wb = self.block_shape
-        return (self.nx, self.ny, int(self.mask_mode == "gamma"), hb, wb, self.by,
-                origin[0], origin[1])
+        return (self.nx, self.ny, int(self.mask_mode == "gamma"), hb, wb, tj, origin[0],
+                origin[1])
+
+    # the legs' tile heights (kernels/mg_fused.tile_rows, as one device's
+    # legs pick theirs) on a card of ``sm_count`` SMs: D3 TJ coarse rows
+    # (16, 8 or 4; its last tile may be cut), D4 2 TJ fine rows (TJ 8 or 4,
+    # dividing Hb: Hb % by == 0 and by >= 16 on every shard-fused level)
+    def down_tile_rows(self, sm_count: int) -> int:
+        hb, wb = self.block_shape
+        return tile_rows(hb // 2, wb // TW, 1, 16, sm_count)
+
+    def up_tile_rows(self, sm_count: int) -> int:
+        hb, wb = self.block_shape
+        return tile_rows(hb, wb // TW, 2, 8, sm_count)
 
     # --- D3 -----------------------------------------------------------------------
 
@@ -113,8 +132,10 @@ class _ShardedFusedLevel:
                                ("left", left, (hb + 1,)), ("right", right, (hb + 1,))):
             check_field(name, t, shape)
         rr = torch.empty((hb // 2, wb), dtype=b.dtype, device=b.device)
+        check_aligned(b=b, up2=up2, dn=dn)
+        tj = self.down_tile_rows(_build.sm_count(b.device))
         _build.launch("ist_k_down_block", *map(_build.ptr, (b, up2, dn, left, right, rr)),
-                      *self._geom(origin), *self.coeffs, self.cs)
+                      *self._geom(origin, tj), *self.coeffs, self.cs)
         return rr
 
     def down_halos_from_global(self, b: torch.Tensor, origin):
@@ -214,14 +235,16 @@ class _ShardedFusedLevel:
                 ("ecright", ecright, (hb // 2 + 1,))):
             check_field(name, t, shape)
         out = torch.empty_like(b)
-        dot_p = (torch.empty((hb // self.by, wb // TW), dtype=b.dtype, device=b.device)
-                 if with_dot else None)
-        nx, ny, gamma, hb_, wb_, by, roff, coff = self._geom(origin)
+        tj = self.up_tile_rows(_build.sm_count(b.device))
+        dot_p = (torch.empty((hb // (2 * tj), wb // TW), dtype=b.dtype, device=b.device)
+                 if with_dot else None)  # one partial a tile (they divide Hb)
+        check_aligned(b=b, bup=bup, bdn=bdn, ec=ec, ecup=ecup, ecdn=ecdn)
+        geom = self._geom(origin, tj)
         _build.launch(
             "ist_k_up_block",
             *map(_build.ptr, (b, bup, bdn, bleft, bright, ec, ecup, ecdn, ecleft, ecright, out,
                               dot_p)),
-            nx, ny, gamma, hb_, wb_, by, self.ch, roff, coff, *self.coeffs, self.cs,
+            *geom[:6], self.ch, *geom[6:], *self.coeffs, self.cs,
         )
         if with_dot:
             return out, torch.sum(dot_p)

@@ -2,7 +2,7 @@
 solve of each main path, after a warm-up solve.
 
     python -m iterative_solvers_tpu_torch.profile_paths [--n 8192] [--nb 1024] [--n3 512]
-        [--ns 128] [--paths A,f64,B,3D,C,C-B,mesh-B,mesh-3D,S] [--out DIR]
+        [--ns 128] [--paths A,f64,B,3D,C,C-B,mesh-a,mesh-B,mesh-3D,S] [--out DIR]
 
 Paths: A, the default solve (FMG warm start, double-f32 outer) at ``n``²;
 the cold f64-outer solve at ``n``²; B, plain f32 CG on the fused engine
@@ -10,7 +10,11 @@ the cold f64-outer solve at ``n``²; B, plain f32 CG on the fused engine
 double-f32 outer, ``device_refined_solve`` on the padded 7-point operator,
 as the JAX package's bench runs it); C, the default solve (double-f32
 outer) on the custom-mask notched disk at ``n``²; C-B, plain f32 CG on the
-fused engine on the notched disk at ``nb``²; mesh-B ("mesh fused B"), path
+fused engine on the notched disk at ``nb``²; mesh-a ("mesh a"), the JAX
+package's sharded fast path at ``n``² on a 1x1 mesh (``device_refined_solve``
+on the halo stencil D1 with the shard-fused V-cycle's D3 and D4 and its FMG,
+called directly: no facade route runs it), then D3 and D4 alone on each
+shard-fused level; mesh-B ("mesh fused B"), path
 B on a 1x1 mesh (``operator='fused'``, ``mesh=make_solver_mesh(1)``: the
 sharded fused engine's D5 and D6 on the mesh's own layout) at ``nb``²;
 mesh-3D, the 3D facade with a mesh at ``n3``³ on a 1x1 mesh
@@ -48,10 +52,12 @@ from torch.profiler import ProfilerActivity, profile
 
 from iterative_solvers_tpu_torch.api import DirichletSolver
 from iterative_solvers_tpu_torch.core.domain import Domain2D, Domain3D, notched_disk
+from iterative_solvers_tpu_torch.core.problem import PoissonProblem
 from iterative_solvers_tpu_torch.kernels.cg_fused import fused_cg_solve
 from iterative_solvers_tpu_torch.ops.stencil import StencilOperator
-from iterative_solvers_tpu_torch.parallel import make_solver_mesh
+from iterative_solvers_tpu_torch.parallel import ShardedPallasStencilOperator, make_solver_mesh
 from iterative_solvers_tpu_torch.parallel.cg_fused_sharded import sharded_fused_cg_solve
+from iterative_solvers_tpu_torch.parallel.mg_sharded import ShardedFusedMultigrid
 from iterative_solvers_tpu_torch.solvers.cg import CGOptions, cg_solve
 from iterative_solvers_tpu_torch.solvers.precond import JacobiPreconditioner
 from iterative_solvers_tpu_torch.solvers.refine import (
@@ -64,7 +70,7 @@ from iterative_solvers_tpu_torch.solvers.refine import (
 from iterative_solvers_tpu_torch.solvers.stopping import StopConfig
 
 # the port's hand-written kernels (csrc/*.cu), as the profiler names them
-# (the mesh blocks' column sweeps as *_block_kernel)
+# (the mesh blocks' as *_block_kernel)
 _OWN_KERNEL = re.compile(
     r"(?<![A-Za-z_])(k1|k2|k_down3?d?|k_up3?d?|k_jacobi3?d?|stencil3?d?|k_resid_ff3?d?)"
     r"(_block)?_kernel"
@@ -234,6 +240,18 @@ def profile_path(name: str, solver: DirichletSolver, out_dir=None) -> None:
 
         def core():
             return solve(pop, b, u_true=u, options=CGOptions(stop=solver.stop, preconditioner=Mp))
+    profile_core(name, core, f"facade solve() wall {wall:.3f} s",
+                 per_iteration=solver.precision != "mixed", out_dir=out_dir)
+    if solver.is3d:
+        (breakdown_mesh_3d if solver.mesh is not None else breakdown_3d)(solver)
+
+
+def profile_core(name: str, core, note: str, per_iteration=False, out_dir=None) -> None:
+    """Profile one call of the solver core ``core`` (after one untimed and
+    one timed call): its time without and with the profiler, device busy,
+    idle share, the port's kernels against the glue, the top device ops;
+    ``per_iteration`` (a CG loop) also per iteration, to show which side
+    sets its pace."""
     res, t_core = _timed(core)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, t_prof = _timed(core)
@@ -241,20 +259,48 @@ def profile_path(name: str, solver: DirichletSolver, out_dir=None) -> None:
     own, other = _own_kernel_us(prof)
     window = max(last - first, 1e-9)
     print(f"== path {name}: {res.reason.name} outer {getattr(res, 'outer_iterations', 0)} "
-          f"inner {res.iterations}; facade solve() wall {wall:.3f} s; core {t_core:.4f} s "
-          f"(profiled {t_prof:.4f} s)")
+          f"inner {res.iterations}; {note}; core {t_core:.4f} s (profiled {t_prof:.4f} s)")
     print(f"   device busy {busy / 1e3:.3f} ms over a {window / 1e3:.3f} ms window of device "
           f"events: idle share {100 * (1 - busy / window):.1f} %")
     print(f"   device time: the port's kernels {own / 1e3:.3f} ms, other device kernels "
           f"and copies (torch glue) {other / 1e3:.3f} ms")
-    if solver.precision != "mixed":  # a CG loop: which side sets its pace
+    if per_iteration:
         print(f"   per iteration: core {1e3 * t_core / res.iterations:.4f} ms, device busy "
               f"{busy / 1e3 / res.iterations:.4f} ms")
     print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=18), flush=True)
     if out_dir:
         prof.export_chrome_trace(os.path.join(out_dir, f"trace_{name}.json"))
-    if solver.is3d:
-        (breakdown_mesh_3d if solver.mesh is not None else breakdown_3d)(solver)
+
+
+def profile_mesh_a(n: int, stop: StopConfig, out_dir=None) -> None:
+    """Path "mesh a", the JAX package's sharded fast path, at ``n``² on a
+    1x1 mesh: ``device_refined_solve`` with the f64 halo twin outside and
+    the halo stencil D1 and the shard-fused V-cycle (D3, D4 on every
+    shard-fused level) with its FMG warm start inside, called directly (no
+    facade route runs it). Then D3 and D4 alone on each shard-fused level's
+    block (CUDA events)."""
+    dom = Domain2D(nx=n, ny=n)
+    prob = PoissonProblem.manufactured(dom)
+    pop = ShardedPallasStencilOperator.from_domain(dom, make_solver_mesh(1))
+    M = ShardedFusedMultigrid.from_operator(pop, dom, device="cuda").with_fmg(prob)
+    A_hi = DirichletSolver._hi_operator(pop)
+    b = pop.shard(prob.rhs_field(torch.float64, "cuda"))
+
+    def core():
+        return device_refined_solve(A_hi, pop, b, preconditioner=M, stop=stop, fmg=True)
+
+    core()  # warm-up: allocator pools, coarse inverse, masks, FMG payload
+    profile_core("mesh-a", core, "no facade (the fast path is called directly)",
+                 out_dir=out_dir)
+    for li, lev in enumerate(M.levels):
+        hb, wb = lev.block_shape
+        x = torch.randn((hb, wb), device="cuda")
+        ec = torch.randn((hb // 2, wb), device="cuda")
+        dh = lev.down_halos_from_global(x, (0, 0))
+        uh = lev.up_halos_from_global(x, ec, (0, 0))
+        print(f"   level {li} {(hb, wb)}: D3 {_event_ms(lambda: lev.down_block(*dh, (0, 0))):.4f}"
+              f" ms, D4 with the dot "
+              f"{_event_ms(lambda: lev.up_block(*uh, (0, 0), with_dot=True)):.4f} ms")
 
 
 def main(argv=None) -> int:
@@ -264,7 +310,7 @@ def main(argv=None) -> int:
     ap.add_argument("--n3", type=int, default=512)
     ap.add_argument("--ns", type=int, default=128)
     ap.add_argument("--paths", default="A,f64,B,3D,C",
-                    help="comma-separated subset of A,f64,B,3D,C,C-B,mesh-B,mesh-3D,S")
+                    help="comma-separated subset of A,f64,B,3D,C,C-B,mesh-a,mesh-B,mesh-3D,S")
     ap.add_argument("--out", default=None, help="directory for Chrome traces")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -298,6 +344,8 @@ def main(argv=None) -> int:
     for name in args.paths.split(","):
         if name == "S":
             stencil_route_3d(args.n3, args.ns, rel6)
+        elif name == "mesh-a":
+            profile_mesh_a(args.n, rel6, args.out)
         else:
             profile_path(name, solvers[name](), args.out)
         torch.cuda.empty_cache()

@@ -5,7 +5,8 @@ pipelined stencils (C4, C5), which must equal A1 bit for bit at scale 1,
 and the mesh block kernels (D1–D6), whose stitched blocks must equal the
 single-device kernels bit for bit; S7, D3 and U3 equal their plain
 versions bit for bit, and so do the kernels of the staged z-march, D2 and
-R3 (both words of R3's pair), on every split and coefficient set.
+R3 (both words of R3's pair), on every split and coefficient set, and the
+mesh legs D3 and D4 at each tile height.
 
 Marked ``cuda``: they need an NVIDIA GPU and nvcc, and skip elsewhere (the
 card is looked for inside the fixture, never at import). Run them on a GPU
@@ -625,3 +626,62 @@ def test_zstream_launchers_refuse_bad_operands(gen):
     with pytest.raises(RuntimeError, match="ist_k_resid_ff3d"):
         _build.launch("ist_k_resid_ff3d", *map(_build.ptr, (f,) * 6), 16, 16, 16, dzb, hp,
                       wb - 64, 8, 1, 1, 1, 0, *lay.coeffs, *[0.0] * 9, 0.0)
+
+
+@pytest.mark.parametrize("n,mesh_shape", [(200, (1, 1)), (300, (2, 2))])
+@pytest.mark.parametrize("tj", [4, 8, 16])
+def test_mesh_legs_bit_equal_to_plain_at_each_tile_height(gen, monkeypatch, n, mesh_shape, tj):
+    """D3 and D4 (the leg tiles of csrc/mg_tiles.cuh on a mesh block) on
+    every block of the partition, at each tile height their launchers take
+    (D4: 4 and 8), bit-equal to their plain versions: the 1x1 block of 200²
+    with the ring's own edges as halos (Hb/2 = 104 rows: D3's last tile cut
+    at 16), the (2, 2) blocks of 300² (two column strips each, interior halo
+    rows and columns) with raw random halos; D4's dot within 64 eps32 of
+    the sum of its terms' magnitudes."""
+    dom = Domain2D(nx=n, ny=n)
+    meshes = _virtual(mesh_shape)
+    ops = [ShardedPallasStencilOperator.from_domain(dom, m, block_rows=16) for m in meshes]
+    lev = ShardedFusedMultigrid.from_operator(ops[0], dom, fuse_min_extent=33,
+                                              device="cuda").levels[0]
+    monkeypatch.setattr(type(lev), "down_tile_rows", lambda self, sms: tj)
+    monkeypatch.setattr(type(lev), "up_tile_rows", lambda self, sms: min(tj, 8))
+    hp, wp = lev.padded_shape
+    x = torch.randn((hp, wp), device="cuda", generator=gen)
+    ec = torch.randn((hp // 2, wp), device="cuda", generator=gen)
+    for op in ops:
+        dh = lev.down_halos_from_global(x, op.origin)
+        uh = lev.up_halos_from_global(x, ec, op.origin)
+        if mesh_shape != (1, 1):  # raw halos of any value: every read is masked
+            dh = dh[:1] + tuple(torch.randn(t.shape, device="cuda", generator=gen)
+                                for t in dh[1:])
+            uh = tuple(t if k in (0, 5) else torch.randn(t.shape, device="cuda", generator=gen)
+                       for k, t in enumerate(uh))
+        assert torch.equal(lev.down_block(*dh, op.origin), lev.down_plain(*dh, op.origin))
+        out, part = lev.up_block(*uh, op.origin, with_dot=True)
+        ref, part_ref = lev.up_plain(*uh, op.origin, with_dot=True)
+        assert torch.equal(out, ref)
+        bm = torch.where(lev.spec(op.origin).build("cuda"), uh[0], 0.0)
+        assert abs(float(part) - float(part_ref)) <= 64 * EPS32 * float((bm * ref).abs().sum())
+
+
+def test_mesh_leg_launchers_refuse_bad_operands(gen):
+    """D3 and D4 refuse operands off a 16-byte boundary; D4's launcher
+    refuses a tile height whose tiles do not divide the block."""
+    dom = Domain2D(nx=200, ny=200)
+    op = ShardedPallasStencilOperator.from_domain(dom, _virtual((1, 1))[0], block_rows=16)
+    lev = ShardedFusedMultigrid.from_operator(op, dom, fuse_min_extent=33,
+                                              device="cuda").levels[0]
+    hb, wb = lev.block_shape
+    x = torch.zeros((hb, wb), device="cuda")
+    dh = lev.down_halos_from_global(x, (0, 0))
+    uh = lev.up_halos_from_global(x, torch.zeros((hb // 2, wb), device="cuda"), (0, 0))
+    odd = torch.zeros(x.numel() + 1, device="cuda")[1:].view(hb, wb)
+    with pytest.raises(ValueError, match="16-byte"):
+        lev.down_block(odd, *dh[1:], (0, 0))
+    with pytest.raises(ValueError, match="16-byte"):
+        lev.up_block(odd, *uh[1:], (0, 0))
+    nx, ny, gamma, hb_, wb_, _, roff, coff = lev._geom((0, 0), 8)
+    out = torch.empty_like(x)
+    with pytest.raises(RuntimeError, match="ist_k_up_block"):  # 2 x 16 rows: 208 % 32 != 0
+        _build.launch("ist_k_up_block", *map(_build.ptr, (*uh, out, None)), nx, ny, gamma, hb_,
+                      wb_, 16, lev.ch, roff, coff, *lev.coeffs, lev.cs)

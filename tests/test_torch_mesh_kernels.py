@@ -17,9 +17,12 @@ Tolerances:
   expression, so the stitched (2, 2) partition (D2: (2, 1, 2)) equals the
   single-device A1 / S7 / K_down / K_up plain version bit for bit.
 - D2's staged z-march replayed in plain torch (tiles, chunks, per-plane
-  sources, halo columns by the edge tiles): bit-equal to its plain version.
+  sources, halo columns by the edge tiles): bit-equal to its plain version;
+  so are D3's and D4's leg tiles (per-row sources, halo columns by the edge
+  tiles), D4's summed tile partials within 1e-5 of the sum of |terms|.
 """
 
+import functools
 import time
 
 import jax
@@ -47,6 +50,7 @@ from iterative_solvers_tpu.parallel.mg_sharded import _k_down_call, _k_up_call
 from _torch_mesh_cases import BOX, raising_rank, sleeping_rank
 from iterative_solvers_tpu_torch import DirichletSolver, Domain2D, Domain3D
 from iterative_solvers_tpu_torch.interop import block_from_global, global_from_blocks
+from iterative_solvers_tpu_torch.core.domain import MaskSpec
 from iterative_solvers_tpu_torch.kernels.mg_fused import (
     FusedLevelKernels,
     lane_prolong,
@@ -69,7 +73,7 @@ from iterative_solvers_tpu_torch.kernels.stencil3d_layout import (
     zstream_chunk,
     zstream_chunks,
 )
-from iterative_solvers_tpu_torch.parallel.halo import apply7
+from iterative_solvers_tpu_torch.parallel.halo import apply5, apply7
 from iterative_solvers_tpu_torch.parallel.halo_pallas import (
     block_stencil3d_plain,
     block_stencil_plain,
@@ -275,6 +279,173 @@ def test_zstream_chunk_plan(planes, hp, wp, sms):
     assert bz - (chunks[-1][1] - chunks[-1][0]) < len(chunks)
     tiles = (hp // ZSTREAM_TILE[0]) * (wp // ZSTREAM_TILE[1])
     assert len(chunks) * tiles >= ZSTREAM_BLOCKS_PER_SM * sms or bz <= lo
+
+
+def _leg_tiles(rows, tile):
+    """The row ranges [r0, r1) of a mesh leg's tiles down a block of
+    ``rows`` rows (D3: coarse rows, D4: fine rows), as csrc/mg_tiles.cuh's
+    grid runs them: ``tile`` rows each from row 0, the last cut at the
+    block's edge."""
+    return [(r, min(r + tile, rows)) for r in range(0, rows, tile)]
+
+
+def _leg_stage(rows_of, cols, left, right, r0, nr, x0, wb):
+    """A leg tile's staged rows r0 .. r0 + nr - 1 and columns x0 - 1 .. x0 +
+    128, as csrc/mg_tiles.cuh stages them: each row from the one source
+    ``rows_of(r)`` picks (None: zero), the block's halo column from
+    ``left`` / ``right`` (``cols(r)``: its index there, or None) by the
+    tiles at the block's x edges only."""
+    s = torch.zeros((nr, 130), dtype=left.dtype)
+    for k in range(nr):
+        row = rows_of(r0 + k)
+        if row is not None:
+            s[k, 1:-1] = row[x0:x0 + 128]
+            if x0 > 0:
+                s[k, 0] = row[x0 - 1]
+            if x0 + 128 < wb:
+                s[k, -1] = row[x0 + 128]
+        j = cols(r0 + k)
+        if j is not None and x0 == 0:
+            s[k, 0] = left[j]
+        if j is not None and x0 + 128 == wb:
+            s[k, -1] = right[j]
+    return s
+
+
+def _leg_mask(lev, origin, r0, nr, x0):
+    """The interior of a leg tile's staged rows r0 .. r0 + nr - 1, columns
+    x0 - 1 .. x0 + 128, at their global nodes."""
+    return MaskSpec(lev.mask_mode, lev.nx, lev.ny, (nr, 130),
+                    origin=(origin[0] + r0, origin[1] + x0 - 1)).build()
+
+
+def _d3_replay(lev, origin, tj, b, up2, dn, left, right):
+    """D3's tiles (csrc/mg_tiles.cuh, kBlock) in plain torch: per tile of
+    :func:`_leg_tiles` (TJ coarse rows) and 128-column strip, b's staged rows
+    2 J0 - 2 .. 2 J0 + 2 TJ (rows -2, -1 from ``up2``, row Hb from ``dn``)
+    and halo columns, masked at their global nodes; the residual of cs b,
+    row-restricted; the rows of the block written."""
+    hb, wb = lev.block_shape
+    rr = torch.full((hb // 2, wb), float("nan"), dtype=b.dtype)
+    for J0, J1 in _leg_tiles(hb // 2, tj):
+        r0, nr = 2 * J0 - 2, 2 * tj + 3
+        for x0 in range(0, wb, 128):
+            s = _leg_stage(lambda r: b[r] if 0 <= r < hb else up2[r + 2] if r in (-2, -1)
+                           else dn if r == hb else None,
+                           lambda r: r + 1 if -1 <= r < hb else None, left, right, r0, nr, x0,
+                           wb)
+            m = _leg_mask(lev, origin, r0, nr, x0)
+            s = torch.where(m, s, 0.0)
+            R = torch.where(m[1:-1, 1:-1], s[1:-1, 1:-1] - apply5(lev.cs * s, *lev.coeffs), 0.0)
+            rows = 0.25 * R[0:-1:2] + 0.5 * R[1::2] + 0.25 * R[2::2]
+            rr[J0:J1, x0:x0 + 128] = rows[:J1 - J0]
+    return rr
+
+
+def _d4_replay(lev, origin, tj, b, bup, bdn, bleft, bright, ec, ecup, ecdn, ecleft, ecright):
+    """D4's tiles in plain torch: per tile (2 TJ fine rows, dividing Hb)
+    and strip, b's staged rows i0 - 1 .. i0 + 2 TJ and ec's coarse rows J0
+    - 1 .. J0 + TJ (zero outside the global [0, ch)), each with its halo
+    column; the corrected iterate at every staged node (odd fine rows
+    average two coarse rows), masked; one sweep. Returns (out, the summed
+    tile partials of (b, out))."""
+    (hb, wb), hc, goff = lev.block_shape, lev.block_shape[0] // 2, origin[0] // 2
+    out = torch.full((hb, wb), float("nan"), dtype=b.dtype)
+    dot = 0.0
+    for i0, i1 in _leg_tiles(hb, 2 * tj):
+        assert i1 - i0 == 2 * tj
+        for x0 in range(0, wb, 128):
+            sb = _leg_stage(lambda r: b[r] if 0 <= r < hb else bup if r == -1
+                            else bdn if r == hb else None,
+                            lambda r: r if 0 <= r < hb else None, bleft, bright, i0 - 1,
+                            2 * tj + 2, x0, wb)
+            se = _leg_stage(lambda J: None if not 0 <= goff + J < lev.ch
+                            else ec[J] if 0 <= J < hc else ecup if J == -1
+                            else ecdn if J == hc else None,
+                            lambda J: J if 0 <= J <= hc and 0 <= goff + J < lev.ch else None,
+                            ecleft, ecright, i0 // 2 - 1, tj + 2, x0, wb)
+            p = torch.stack([0.5 * (se[:-1] + se[1:]), se[1:]], dim=1).reshape(2 * tj + 2, 130)
+            m = _leg_mask(lev, origin, i0 - 1, 2 * tj + 2, x0)
+            xc = torch.where(m, lev.cs * sb + p, 0.0)
+            mi = m[1:-1, 1:-1]
+            bm = torch.where(mi, sb[1:-1, 1:-1], 0.0)
+            R = torch.where(mi, bm - apply5(xc, *lev.coeffs), 0.0)
+            o = torch.where(mi, xc[1:-1, 1:-1] + lev.cs * R, 0.0)
+            out[i0:i1, x0:x0 + 128] = o
+            dot += float((bm * o).double().sum())
+    return out, dot
+
+
+@functools.lru_cache(maxsize=None)
+def _leg_level(n, mesh_shape, rank):
+    dom = Domain2D(nx=n, ny=n)
+    op = ShardedPallasStencilOperator.from_domain(dom, _mesh(mesh_shape, rank), block_rows=16)
+    lev = ShardedFusedMultigrid.from_operator(op, dom, fuse_min_extent=33,
+                                              device="cpu").levels[0]
+    return lev, op.origin
+
+
+@pytest.mark.parametrize("case", [(200, (2, 2), 3), (200, (2, 2), 0), (64, (1, 1), 0)])
+@pytest.mark.parametrize("tj", [4, 8, 16])
+def test_d3_d4_leg_tile_schedule_emulation(case, tj):
+    """D3's and D4's leg tiles, replayed in plain torch on one block, equal
+    their plain versions bit for bit: blocks of a (2, 2) partition of 200²
+    (origins (112, 128) and (0, 0): interior halo rows, and halo columns
+    interior on the left or the right) with raw random halos, and the 1x1
+    block of 64², whose halos are its own edges (the ring's), which the
+    global interior test must zero. D3 at TJ 4, 8 and 16 (Hb/2 = 56 rows:
+    a last tile cut at the block's edge at 16), D4 at TJ 4 and 8."""
+    n, mesh_shape, rank = case
+    lev, origin = _leg_level(n, mesh_shape, rank)
+    hb, wb = lev.block_shape
+    g = torch.Generator().manual_seed(11)
+    x = torch.randn(lev.padded_shape, generator=g)
+    ecg = torch.randn((lev.padded_shape[0] // 2, lev.padded_shape[1]), generator=g)
+    dh = lev.down_halos_from_global(x, origin)
+    uh = lev.up_halos_from_global(x, ecg, origin)
+    if mesh_shape != (1, 1):  # raw halos of any value: every read is masked
+        dh = dh[:1] + tuple(torch.randn(t.shape, generator=g) for t in dh[1:])
+        uh = uh[:1] + tuple(torch.randn(t.shape, generator=g) for t in uh[1:5]) + uh[5:6] + \
+            tuple(torch.randn(t.shape, generator=g) for t in uh[6:])
+    assert torch.equal(_d3_replay(lev, origin, tj, *dh), lev.down_plain(*dh, origin))
+    if tj > 8:  # D4's tallest tile is 2 x 8 rows
+        return
+    out, dot = _d4_replay(lev, origin, tj, *uh)
+    ref, part = lev.up_plain(*uh, origin, with_dot=True)
+    assert torch.equal(out, ref)
+    bm = torch.where(lev.spec(origin).build(), uh[0], 0.0)
+    assert abs(dot - float(part)) <= 1e-5 * float((bm * ref).abs().sum())
+
+
+@pytest.mark.parametrize("n,mesh_shape,extent", [(8192, (1, 1), 512), (8192, (4, 2), 512),
+                                                 (2048, (2, 2), 512), (200, (2, 2), 33)])
+def test_leg_tile_plan(n, mesh_shape, extent):
+    """The mesh legs' tiles on every shard-fused level (the sharded fast
+    path's at 8192² on 1x1 and on (4, 2), the 4-rank world's at 2048², the
+    replay's 200² on 16-row bands), on cards of 132 and 114 SMs: D3's tiles (TJ 16, 8 or 4 coarse rows) cover
+    the block's Hb/2 rows once, only the last one cut; D4's (2 TJ fine rows,
+    TJ 8 or 4) divide Hb, as the launcher requires; each leg keeps two
+    blocks on every SM unless at TJ 4; the levels keep the rules the tiles
+    rest on (Hb % by == 0, by >= 16, Wb % 128 == 0)."""
+    dom = Domain2D(nx=n, ny=n)
+    op = ShardedPallasStencilOperator.from_domain(dom, _mesh(mesh_shape),
+                                                  block_rows=16 if n < 512 else None)
+    levels = ShardedFusedMultigrid.from_operator(op, dom, fuse_min_extent=extent,
+                                                 device="cpu").levels
+    assert levels
+    for lev in levels:
+        hb, wb = lev.block_shape
+        assert hb % lev.by == 0 and lev.by >= 16 and wb % 128 == 0
+        for sms in (132, 114):
+            for rows, tile, tj, tiles_ok in (
+                    (hb // 2, lev.down_tile_rows(sms), lev.down_tile_rows(sms), (16, 8, 4)),
+                    (hb, 2 * lev.up_tile_rows(sms), lev.up_tile_rows(sms), (8, 4))):
+                assert tj in tiles_ok
+                tiles = _leg_tiles(rows, tile)
+                assert [r for r0, r1 in tiles for r in range(r0, r1)] == list(range(rows))
+                assert all(r1 - r0 == tile for r0, r1 in tiles[:-1])
+                assert len(tiles) * (wb // 128) >= 2 * sms or tj == 4
+            assert hb % (2 * lev.up_tile_rows(sms)) == 0
 
 
 def _level(kind="gamma"):
