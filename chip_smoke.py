@@ -5,7 +5,7 @@
     python3 chip_smoke.py --legs DIR   # only the V-cycle legs (2D and 3D), of the port in DIR
     python3 chip_smoke.py --cg DIR     # only the fused CG kernels K1/K2 and D5/D6 of the port in DIR
     python3 chip_smoke.py --stencil DIR  # only C4/C5, A1 and the nnz chain of the port in DIR
-    python3 chip_smoke.py --zstream DIR  # only D2 and R3 (S7 the control) of the port in DIR
+    python3 chip_smoke.py --zstream DIR  # only the z-march's S7, J3, D2 and R3 of the port in DIR
 
 Phases, each printing its own lines; any failure exits non-zero before the
 final ``ok`` line:
@@ -19,10 +19,11 @@ final ``ok`` line:
    notched disk at 64² (32-row bands), 1024² (timed) and the 8192² level-0
    layout; and at
    16³, the ragged 32³, the unequal box 16 × 24 × 8 and the 512³ level-0
-   layout (3D; D3 and U3, bit-equal, also on each coarser fused level's
-   layout: at 512³ the route's 257 and 129, whose child is the plain 65³
-   grid), with the max abs difference, the tolerance and the device times (back-to-back
-   calls between CUDA events) of the kernel, its plain version and, for the
+   layout (3D; S7, D3, U3, J3 and R3 bit-equal; D3, U3 and J3 also on each
+   coarser fused level's layout: at 512³ the route's 257 and 129, whose
+   child is the plain 65³ grid), with the max abs difference, the
+   tolerance and the device times (back-to-back calls between CUDA
+   events) of the kernel, its plain version and, for the
    stencils, one ``F.conv2d`` / ``F.conv3d``, and the kernel's time as one
    call between two events (which adds the host's launch); at the 1024²
    layouts of paths B and C-B also on the graph timer (20 calls captured in
@@ -33,7 +34,9 @@ final ``ok`` line:
    disk (8192 … 512), against their plain versions, each beside its bound
    and its plain version, with the level's whole leg cost (device time of
    the V-cycle from the level minus that from its child, CUDA graphs);
-   S7 bit-equal to its plain version; the mesh block
+   the staged z-march's kernels at 16³, 32³ and 16 × 24 × 8, all
+   bit-equal (D2 on four splits, stitched against S7; R3 with two
+   coefficient sets; S7; J3 on every fused level); the mesh block
    kernels D1, D3, D4 on a virtual (4, 2) partition of the 8192² level-0
    grid and D2 on a (2, 1, 2) split of 512³, each block with its halos cut
    from the global field, against its plain version (D2, D3, D4 bit for
@@ -502,11 +505,11 @@ def check_kernels(dom, gen, label, timed, block_rows=None, only=None, short=Fals
 def check_kernels_3d(dims, gen, label, timed):
     """The 3D kernels against their plain versions on the fused level-0
     layout of the box ``dims`` (the 7-point operator's own layout too), then
-    D3 and U3 on every coarser fused level's layout (untimed); returns
+    D3, U3 and J3 on every coarser fused level's layout (untimed); returns
     {name: dict of max_abs_err, ms, plain_ms, library_ms, bytes, nodes} of
     level 0. The hierarchy is the solver's own at 512³ (fused 513, 257 and
-    129, whose child is the plain 65³ grid), else fused down to 16. D3 and
-    U3 must equal their plain versions bit for bit. ``bytes`` counts what
+    129, whose child is the plain 65³ grid), else fused down to 16. S7, D3,
+    U3 and J3 must equal their plain versions bit for bit. ``bytes`` counts what
     the function must move: the kernels read interior nodes only (the box
     mask is algebraic and a masked read touches no memory), so each
     full-depth input counts its interior nodes, ``ec`` the child's grid
@@ -548,8 +551,9 @@ def check_kernels_3d(dims, gen, label, timed):
         "k_down3d": (lambda: (kl.down(b),), lambda: (kl.down_plain(b),), ("exact",), n_in),
         "k_up3d": (lambda: (kl.up(b, ec),), lambda: (kl.up_plain(b, ec),), ("exact",),
                    n_in + n_ec),
+        # J3 writes ist3::smooth7, the plain version's rounding: bit-equal
         "k_jacobi3d": (lambda: (kl.jacobi(xj, b),), lambda: (kl.jacobi_plain(xj, b),),
-                       ("field",), 2 * n_in),
+                       ("exact",), 2 * n_in),
         "k_resid_ff3d": (lambda: resid_ff.resid_ff(xh, xl, bh, bl, lay),
                          lambda: resid_ff.resid_ff_plain(xh, xl, bh, bl, lay),
                          ("exact", "pair"), 4 * n_in),
@@ -587,11 +591,13 @@ def check_kernels_3d(dims, gen, label, timed):
         if not isinstance(lev, _FusedLevel3D):
             continue
         k = lev.kernels
-        bi = torch.randn(k.padded_shape, device="cuda", generator=gen)
+        bi, xi = (torch.randn(k.padded_shape, device="cuda", generator=gen) for _ in range(2))
         eci = torch.randn(k.child_shape, device="cuda", generator=gen)
         for name, kern, plain in (("k_down3d", lambda: (k.down(bi),), lambda: (k.down_plain(bi),)),
                                   ("k_up3d", lambda: (k.up(bi, eci),),
-                                   lambda: (k.up_plain(bi, eci),))):
+                                   lambda: (k.up_plain(bi, eci),)),
+                                  ("k_jacobi3d", lambda: (k.jacobi(xi, bi),),
+                                   lambda: (k.jacobi_plain(xi, bi),))):
             got, ref = kern(), plain()
             torch.cuda.synchronize()
             where = f"{'x'.join(map(str, dims))} level {i} {k.padded_shape} -> {k.child_shape}"
@@ -1893,16 +1899,18 @@ def _ff_cases(dims, gen):
                       xh, xl, bh, bl)}
 
 
-def check_zstream(gen, dims, timed):
+def check_zstream(gen, dims, timed, j3_kind="exact"):
     """The staged z-march's kernels on the box ``dims``: D2 on the 1x1 block
     and on the splits (1, 1, 2), (2, 1, 1) and (2, 1, 2), each block
     bit-equal to its plain version and the stitched blocks to S7 at every
     node; R3 with the box's coefficients (powers of two but at 16 x 24 x 8,
     no delta term) and with a delta term and a y coefficient that is not a
-    power of two, both words bit-equal to its plain version. ``timed``: D2
-    on the 1x1 block, R3 and S7 (the control: the same sweep without
-    operands, on zmarch3d.cuh) on the device timer and as one call, each
-    beside its bound. Returns {name: record}."""
+    power of two, both words bit-equal to its plain version; S7 on the box's
+    layout and J3 on every fused level's (the solver's hierarchy at 512³),
+    S7 bit-equal to its plain version and J3 held to ``j3_kind`` (``compare``;
+    bit-equal on this checkout). ``timed``: D2 on the 1x1 block, R3, S7 and
+    J3 on level 0 on the device timer and as one call, each beside its
+    bound. Returns {name: record}."""
     import torch
 
     from iterative_solvers_tpu_torch import Domain3D
@@ -1913,6 +1921,7 @@ def check_zstream(gen, dims, timed):
         ShardedPallas3DStencilOperator,
         make_solver_mesh,
     )
+    from iterative_solvers_tpu_torch.solvers.multigrid import MultigridPreconditioner, _FusedLevel3D
 
     label = "x".join(map(str, dims))
     box = Domain3D(*dims)
@@ -1966,27 +1975,54 @@ def check_zstream(gen, dims, timed):
                 "bound_ms": nb / HBM_BYTES_PER_S * 1e3, "bytes": nb, "nodes": n_in,
                 "shape": lay.padded_shape, "max_abs_err": err}
         del gh, gl
-    if timed:
-        s7 = Padded3DStencilOperator.from_domain(box)
-        xs = torch.randn(s7.padded_shape, device="cuda", generator=gen)
-        out["stencil3d (control)"] = {"ms": device_ms(lambda: s7(xs)),
-                                      "one_call_ms": one_call_ms(lambda: s7(xs))}
-        for name, r in out.items():
-            pct = f", bound {r['bound_ms']:.4f} ({100 * r['bound_ms'] / r['ms']:.0f} %)" if (
-                "bound_ms" in r) else ""
-            log(f"zstream time {name} @ {label}: {r['ms']:.4f} ms (one call "
-                f"{r['one_call_ms']:.4f}){pct}")
-        del xs
     torch.cuda.empty_cache()
+    # S7 on the box's layout, J3 on every fused level's; each reads x (and
+    # J3 b) at interior nodes and writes its whole canvas
+    s7 = Padded3DStencilOperator.from_domain(box)
+    M = MultigridPreconditioner.from_domain(box, fuse=True, device="cuda",
+                                            fuse_min_extent=512 if dims[0] >= N3 else 16)
+    fused = [lev.kernels for lev in M.levels if isinstance(lev, _FusedLevel3D)]
+    if fused[0].padded_shape != s7.padded_shape:
+        raise AssertionError(f"{label}: J3's layout {fused[0].padded_shape} != S7's")
+    xs = torch.randn(s7.padded_shape, device="cuda", generator=gen)
+    cases = [("stencil3d", s7.padded_shape, s7.mask_spec, 1, "exact",
+              lambda: (s7(xs),), lambda: (s7.apply_plain(xs),))]
+    for i, k in enumerate(fused):
+        xj, bj = (torch.randn(k.padded_shape, device="cuda", generator=gen) for _ in range(2))
+        cases.append((f"k_jacobi3d level {i}", k.padded_shape, k.mask_spec, 2, j3_kind,
+                      lambda k=k, xj=xj, bj=bj: (k.jacobi(xj, bj),),
+                      lambda k=k, xj=xj, bj=bj: (k.jacobi_plain(xj, bj),)))
+    for name, shape, spec, reads, kind, kern, plain in cases:
+        got, ref = kern(), plain()
+        torch.cuda.synchronize()
+        err, tol = compare(f"{name} @ {label}", got, ref, (kind,))
+        diff = int((got[0] != ref[0]).sum())
+        log(f"zstream {name} {label} {shape}: max_abs_err {err:.3e} tol {tol:.3e} "
+            f"({diff} nodes differ)")
+        if timed and name in ("stencil3d", "k_jacobi3d level 0"):
+            n_in = int(spec.build("cuda").sum())
+            nb = 4 * reads * n_in + nbytes(got)
+            out[name.removesuffix(" level 0")] = {
+                "ms": device_ms(kern), "one_call_ms": one_call_ms(kern),
+                "bound_ms": nb / HBM_BYTES_PER_S * 1e3, "bytes": nb, "nodes": n_in,
+                "shape": shape, "max_abs_err": err}
+        del got, ref
+    del cases, xs, M, fused
+    torch.cuda.empty_cache()
+    if timed:
+        for name, r in out.items():
+            log(f"zstream time {name} @ {label}: {r['ms']:.4f} ms (one call "
+                f"{r['one_call_ms']:.4f}), bound {r['bound_ms']:.4f} "
+                f"({100 * r['bound_ms'] / r['ms']:.0f} %)")
     return out
 
 
-def zstream_only(gen) -> int:
+def zstream_only(gen, j3_kind) -> int:
     """``--zstream DIR``: :func:`check_zstream` for the port in DIR at 16³,
     32³ and 16 × 24 × 8, then at 512³ timed, then one JSON line."""
     for dims in ((16, 16, 16), (32, 32, 32), (16, 24, 8)):
-        check_zstream(gen, dims, timed=False)
-    out = check_zstream(gen, (N3, N3, N3), timed=True)
+        check_zstream(gen, dims, timed=False, j3_kind=j3_kind)
+    out = check_zstream(gen, (N3, N3, N3), timed=True, j3_kind=j3_kind)
     log(json.dumps({"zstream": {k: {kk: vv for kk, vv in r.items() if kk != "bytes"}
                                 for k, r in out.items()}}))
     return 0
@@ -2568,9 +2604,8 @@ def main(argv) -> int:
                          "their mesh blocks D5, D6 and D6-pcg of the port in the checkout DIR "
                          "(this one or an earlier commit's)")
     ap.add_argument("--zstream", metavar="DIR",
-                    help="only check and time the staged z-march's kernels D2 and R3 (and S7 "
-                         "as the control) of the port in the checkout DIR (this one or an "
-                         "earlier commit's)")
+                    help="only check and time the staged z-march's kernels S7, J3, D2 and R3 "
+                         "of the port in the checkout DIR (this one or an earlier commit's)")
     ap.add_argument("--stencil", metavar="DIR",
                     help="only check and time the in-place and pipelined stencils C4 and C5, "
                          "A1, conv2d and the nnz chain of the port in the checkout DIR (this "
@@ -2617,7 +2652,9 @@ def main(argv) -> int:
     if args.stencil:
         return stencil_only(gen)
     if args.zstream:
-        return zstream_only(gen)
+        # an earlier checkout's J3 (PR 3's march, whose node update nvcc may
+        # contract into an fmaf) is held to the field tolerance it had
+        return zstream_only(gen, "exact" if root == REPO else "field")
     # 16-row bands: several bands, and their halos, even on small grids
     check_kernels(Domain2D(nx=64, ny=64), gen, "gamma 64^2", timed=False, block_rows=16)
     check_kernels(Domain2D(nx=40, ny=50, shape="rect"), gen, "rect 40x50", timed=False,

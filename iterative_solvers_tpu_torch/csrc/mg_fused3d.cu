@@ -27,15 +27,20 @@
 // 59 % (U3) of that bound: they are held by shared-memory traffic and the
 // latency of each plane's step, not by device memory (PERF.md).
 //
+// J3 is S7's march (csrc/stencil3d.cu) with one more input: x staged in
+// the cp.async ring of ist3::zstream, b read in the emit as one float4 a
+// lane (a node-only input needs no halo, so it is not staged), the output
+// stored as one float4 a lane.
+//
 // The legs' design: the staged z-march of csrc/zstream3d.cuh (its copies,
-// constants and float4 helpers live there, shared with D2 and R3). A block
-// owns a (y, x) tile and marches z over a chunk of planes; every input plane
-// of the tile, with its halo, is staged into a ring of shared-memory stages
-// by 16-byte cp.async copies issued kLook = 3 planes ahead (4 times the
-// same), so each plane's loads are in flight while the planes before it
-// compute. The copies read interior rows and
-// columns only: rows and planes off the interior are zero-filled, which
-// masks them. A warp owns one row of the tile and each lane four adjacent
+// constants and float4 helpers live there, shared with D2, R3, S7 and J3).
+// A block owns a (y, x) tile and marches z over a chunk of planes; every
+// input plane of the tile, with its halo, is staged into a ring of
+// shared-memory stages by 16-byte cp.async copies issued kLook = 3 planes
+// ahead (4 times the same), so each plane's loads are in flight while the
+// planes before it compute. The copies read interior rows and columns
+// only: rows and planes off the interior are zero-filled, which masks
+// them. A warp owns one row of the tile and each lane four adjacent
 // columns, so shared memory is read and written 16 bytes at a time and the
 // west and east neighbours come from the next lanes by shuffles. A thread
 // keeps its nodes' z - 1, z and z + 1 values in registers, so only the
@@ -56,7 +61,7 @@
 // The z-chunk depth is a launch argument (kernels/mg_fused3d.py:
 // leg_chunk), chosen so every level's grid fills the card. Blocks whose
 // tile holds no interior node only write zeros. Each step rounds as the
-// plain versions do (csrc/zmarch3d.cuh, csrc/common.cuh), so D3 and U3
+// plain versions do (csrc/zstream3d.cuh, csrc/common.cuh), so D3 and U3
 // equal them bit for bit.
 #include "zstream3d.cuh"
 
@@ -422,18 +427,27 @@ __global__ void __launch_bounds__(kUThreads)
   }
 }
 
-__global__ void k_jacobi3d_kernel(const float* __restrict__ x, const float* __restrict__ b,
-                                  float* __restrict__ out, Box g, Coef k, float cs) {
-  const int z0 = blockIdx.z * g.bz;
-  auto X = [&](int z, int r, int c) -> float {
-    return g.interior(z, r, c) ? x[g.at(z, r, c)] : 0.f;
-  };
-  ist3::zmarch(z0, min(z0 + g.bz, g.d), X, [&](int t, int r, int c, const Nbr& v) {
-    if (!g.on_canvas(r, c)) return;
-    float o = 0.f;
-    if (g.interior(t, r, c)) o = v.c + cs * (b[g.at(t, r, c)] - ist3::apply7(k, v));
-    out[g.at(t, r, c)] = o;
-  });
+// J3: the plain 7-point march (ist3::zstream) over x; b is read in the
+// emit as one float4 a lane, only where one of the lane's nodes is interior
+// (as R3 reads bh, bl), and each interior node takes ist3::smooth7, the
+// rounding of the plain version.
+__global__ void __launch_bounds__(ist3::kZThreads)
+    k_jacobi3d_kernel(const float* __restrict__ x, const float* __restrict__ b,
+                      float* __restrict__ out, Box g, Coef k, float cs) {
+  extern __shared__ __align__(16) float smem[];
+  const ist3::ZSource src[1] = {{x}};
+  ist3::zstream<1>(g, 0, 0, src, smem,
+                   [&](int t, int r, int c, const bool (&in)[4], const ist3::Nbr4 (&v)[1]) {
+                     const size_t idx = g.at(t, r, c);
+                     F4 o{};
+                     if (in[0] || in[1] || in[2] || in[3]) {
+                       const F4 bv = ld4(b + idx);
+#pragma unroll
+                       for (int e = 0; e < 4; ++e)
+                         if (in[e]) o.v[e] = ist3::smooth7(k, cs, bv.v[e], v[0].at(e));
+                     }
+                     st4(out + idx, o);
+                   });
 }
 
 }  // namespace
@@ -469,11 +483,17 @@ extern "C" int ist_k_up3d(const float* b, const float* ec, float* out, int nx, i
   return (int)cudaGetLastError();
 }
 
+// bz: planes per block (kernels/stencil3d_layout.py: zstream_chunk)
 extern "C" int ist_k_jacobi3d(const float* x, const float* b, float* out, int nx, int ny,
                               int nz, int d, int hp, int wp, int bz, float cd, float cx,
                               float cy, float cz, float cs, cudaStream_t stream) {
   const Box g{nx, ny, nz, d, hp, wp, bz};
-  k_jacobi3d_kernel<<<ist3::grid_dim(g, d), ist3::block_dim(), 0, stream>>>(
+  if (!ist3::zstream_fits(g)) return (int)cudaErrorInvalidValue;
+  const size_t smem = ist3::zstream_smem(1);
+  if (int e = (int)cudaFuncSetAttribute((const void*)k_jacobi3d_kernel,
+                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem))
+    return e;
+  k_jacobi3d_kernel<<<ist3::zstream_grid(g), ist3::kZThreads, smem, stream>>>(
       x, b, out, g, Coef{cd, cx, cy, cz}, cs);
   return (int)cudaGetLastError();
 }

@@ -1,19 +1,24 @@
-// The staged z-march of the 3D V-cycle legs (csrc/mg_fused3d.cu: D3, U3),
-// and its plain 7-point form, which the mesh block stencil D2
-// (csrc/halo_pallas.cu) and the double-f32 residual R3 (csrc/resid_ff.cu)
-// run.
+// The staged z-march of the 3D kernels: the 7-point apply S7
+// (csrc/stencil3d.cu), the FMG's Jacobi sweep J3 and the V-cycle legs D3
+// and U3 (csrc/mg_fused3d.cu), the mesh block stencil D2
+// (csrc/halo_pallas.cu) and the double-f32 residual R3 (csrc/resid_ff.cu).
 //
-// Layout as in csrc/zmarch3d.cuh: a row-major f32 canvas (d, hp, wp). A
-// block owns a (y, x) tile and marches z over a chunk of planes. Every input
-// plane of the tile, with its halo rows and columns, is staged into a ring
-// of shared-memory stages by 16-byte cp.async copies issued kLook planes
-// ahead, so each plane's loads are in flight while the planes before it
-// compute. A copy reads only where its row and one of its four columns are
-// interior; rows, columns and planes off the interior are zero-filled,
-// which masks them. A staged row holds the tile's columns and one float4
-// on either side (kQ float4, kW floats): staged column j is column
-// x0 - 4 + j, so the tile's edge columns x0 - 1 and x0 + 128 are staged
-// columns 3 and 132.
+// Layout: every volume is a row-major f32 canvas (d, hp, wp), d = nz + 1.
+// The interior mask is the algebraic box predicate 0 < z < nz && 0 < y < ny
+// && 0 < x < nx; no mask is read. A block owns a (y, x) tile and marches z
+// over a chunk of planes. Every input plane of the tile, with its halo rows
+// and columns, is staged into a ring of shared-memory stages by 16-byte
+// cp.async copies issued kLook planes ahead, so each plane's loads are in
+// flight while the planes before it compute. A copy reads only where its
+// row and one of its four columns are interior; rows, columns and planes
+// off the interior are zero-filled, which masks them and keeps every read
+// on the canvas. A staged row holds the tile's columns and one float4 on
+// either side (kQ float4, kW floats): staged column j is column x0 - 4 + j,
+// so the tile's edge columns x0 - 1 and x0 + 128 are staged columns 3 and
+// 132. One kernel takes any depth d: there is no divisibility rule and no
+// ragged tail, which is what split every TPU kernel into a per-plane and a
+// z-chunked body. The chunk depth is a launch argument, chosen so the grid
+// fills the card at every level size.
 //
 // The plain 7-point march (zstream): tiles of kZY rows x kZX columns, one
 // warp a tile row, four adjacent columns a lane, so shared memory is read
@@ -31,9 +36,52 @@
 #pragma once
 
 #include "common.cuh"
-#include "zmarch3d.cuh"
 
 namespace ist3 {
+
+struct Box {
+  int nx, ny, nz, d, hp, wp, bz;  // bz: planes per block (z-chunk depth)
+
+  __device__ __forceinline__ size_t at(int z, int y, int x) const {
+    return ((size_t)z * hp + y) * wp + x;
+  }
+};
+
+struct Coef {
+  float cd, cx, cy, cz;
+};
+
+// The seven values around one node: its own and its six neighbours.
+struct Nbr {
+  float c, w, e, n, s, zm, zp;  // n: row y - 1, s: row y + 1, zm: plane z - 1
+};
+
+// cd c + cx (W + E) + cy (N + S) + cz (Zm + Zp) as the chain
+// fma(cz, Zm + Zp, fma(cy, N + S, fma(cd, c, cx (W + E)))): the order the
+// JAX package's XLA evaluates and the plain versions emulate
+// (ops/stencil.py: combine7). Every step is an explicit round-to-nearest
+// intrinsic, so no contraction choice of the compiler changes the bits.
+__device__ __forceinline__ float apply7(const Coef& k, const Nbr& v) {
+  const float t = __fmul_rn(k.cx, __fadd_rn(v.w, v.e));
+  const float u = __fmaf_rn(k.cd, v.c, t);
+  const float w = __fmaf_rn(k.cy, __fadd_rn(v.n, v.s), u);
+  return __fmaf_rn(k.cz, __fadd_rn(v.zm, v.zp), w);
+}
+
+// The per-node steps of D3, U3 and J3, each rounded as its plain torch
+// version rounds (kernels/mg_fused3d.py), so that the kernels equal their
+// plain versions bit for bit; the transfers' weights are ist::restrict_rows,
+// ist::restrict_lanes and ist::midpoint (csrc/common.cuh).
+// D3's residual b - A x at an interior node, x = cs * b at each of the seven.
+__device__ __forceinline__ float residual7(const Coef& k, float b, const Nbr& x) {
+  return __fsub_rn(b, apply7(k, x));
+}
+
+// The weighted-Jacobi step x + cs (b - A x) at an interior node: U3's
+// post-smoothing sweep and J3.
+__device__ __forceinline__ float smooth7(const Coef& k, float cs, float b, const Nbr& v) {
+  return __fadd_rn(v.c, __fmul_rn(cs, residual7(k, b, v)));
+}
 
 constexpr int kLook = 3;     // planes whose copies are in flight ahead of the one read
 constexpr int kQ = 34;       // float4 per staged row

@@ -62,7 +62,7 @@ _SIGNATURES = {
     "ist_k_up_custom": [_P] * 5 + [_I] * 7 + [_F] * 4 + [_P],
     "ist_stencil_custom": [_P] * 3 + [_I] * 5 + [_F] * 3 + [_P],
     "ist_k_resid_ff_custom": [_P] * 7 + [_I] * 8 + [_F] * 10 + [_P],
-    # 3D (csrc/zmarch3d.cuh geometry: nx, ny, nz, d, hp, wp, bz)
+    # 3D (csrc/zstream3d.cuh geometry: nx, ny, nz, d, hp, wp, bz)
     "ist_stencil3d": [_P] * 2 + [_I] * 7 + [_F] * 4 + [_P],
     # the 3D legs: (..., bz, the child's layout dc, ho, wo, ...)
     "ist_k_down3d": [_P] * 2 + [_I] * 10 + [_F] * 5 + [_P],

@@ -10,7 +10,9 @@
   the corrected iterate and one post-smoothing sweep.
 - **J3** (:meth:`FusedLevelKernels3D.jacobi`): one weighted-Jacobi sweep
   ``x + (ω/d)(b − A x)`` with masked reads and output — the FMG warm start's
-  fine-level polish.
+  fine-level polish. It is S7's staged z-march (``csrc/zstream3d.cuh``) with
+  ``b`` read at the node, chunked by
+  :func:`~iterative_solvers_tpu_torch.kernels.stencil3d_layout.zstream_chunk`.
 
 The JAX package splits each leg into a per-plane and a z-chunked Pallas body
 (plus a separate z-restriction pass) to fit VMEM, and runs the y/x half of
@@ -31,7 +33,7 @@ import torch.nn.functional as F
 
 from iterative_solvers_tpu_torch.core.domain import MaskSpec
 from iterative_solvers_tpu_torch.kernels import _build
-from iterative_solvers_tpu_torch.kernels.stencil3d_layout import zmarch_depth
+from iterative_solvers_tpu_torch.kernels.stencil3d_layout import zstream_chunk
 from iterative_solvers_tpu_torch.kernels.stencil_layout import check_aligned, check_field
 from iterative_solvers_tpu_torch.ops.stencil import stencil_apply_3d
 
@@ -121,12 +123,6 @@ class FusedLevelKernels3D:
     def dc(self) -> int:
         return self.nz // 2 + 1
 
-    def _geom(self, planes: int):
-        """(nx, ny, nz, d, hp, wp, bz): ``bz`` planes per block of a launch
-        whose grid covers ``planes`` z-planes (J3)."""
-        d, hp, wp = self.padded_shape
-        return (self.nx, self.ny, self.nz, d, hp, wp, zmarch_depth(planes, hp, wp))
-
     # --- D3 ---------------------------------------------------------------------
 
     def down_plain(self, b: torch.Tensor) -> torch.Tensor:
@@ -209,7 +205,10 @@ class FusedLevelKernels3D:
             raise ValueError("x and b must be on one device")
         if x.device.type == "cpu":
             return self.jacobi_plain(x, b)
+        check_aligned(x=x, b=b)
         out = torch.empty_like(x)
-        _build.launch("ist_k_jacobi3d", _build.ptr(x), _build.ptr(b), _build.ptr(out),
-                      *self._geom(self.padded_shape[0]), *self.coeffs, self.cs)
+        d, hp, wp = self.padded_shape
+        bz = zstream_chunk(d, hp, wp, _build.sm_count(x.device))
+        _build.launch("ist_k_jacobi3d", _build.ptr(x), _build.ptr(b), _build.ptr(out), self.nx,
+                      self.ny, self.nz, d, hp, wp, bz, *self.coeffs, self.cs)
         return out

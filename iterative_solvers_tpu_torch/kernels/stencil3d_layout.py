@@ -3,16 +3,22 @@ iterative_solvers_tpu/kernels/stencil3d_pallas.py).
 
 Volumes live on a ``(D, Hp, Wp)`` canvas, ``D = nz + 1`` exact, ``Wp % 128
 == 0`` and ``Hp`` a multiple of the JAX package's panel height
-(``_auto_block_rows_3d``), so padded fields compare like for like with the
-JAX layout. Padding is never interior, so zero padding is inert. At 512³ the
-layout is (513, 520, 640), the same canvas the fused multigrid level 0 uses,
-so the V-cycle takes the operator's fields with no pad/crop copies.
+(``_auto_block_rows_3d``, itself a multiple of 8), so padded fields compare
+like for like with the JAX layout. Padding is never interior, so zero
+padding is inert. At 512³ the layout is (513, 520, 640), the same canvas the
+fused multigrid level 0 uses, so the V-cycle takes the operator's fields with
+no pad/crop copies.
 
 Calling the operator applies the masked 7-point stencil ``y = A x`` to an
 f32 padded volume: the CUDA kernel ``csrc/stencil3d.cu`` (S7, which
 replaces both TPU kernels ``stencil3d_pallas._make_kernel_3d`` and
 ``_make_kernel_3d_chunked``) on a CUDA tensor, its plain torch version
-:meth:`Padded3DStencilOperator.apply_plain` on a CPU tensor.
+:meth:`Padded3DStencilOperator.apply_plain` on a CPU tensor. S7 runs on the
+staged z-march of ``csrc/zstream3d.cuh``, as every 3D kernel of the port
+does: 8 x 128 tiles (``ZSTREAM_TILE``, so the canvas is whole tiles), each
+block marching z over a chunk of planes whose depth :func:`zstream_chunk`
+picks from the canvas and the card's SM count. A 512³ apply is a memory-bound
+sweep, 8 bytes a node.
 """
 
 from __future__ import annotations
@@ -26,12 +32,14 @@ import torch.nn.functional as F
 
 from iterative_solvers_tpu_torch.core.domain import MaskSpec, resolve_device
 from iterative_solvers_tpu_torch.kernels import _build
-from iterative_solvers_tpu_torch.kernels.stencil_layout import check_field, round_up
+from iterative_solvers_tpu_torch.kernels.stencil_layout import (
+    check_aligned,
+    check_field,
+    round_up,
+)
 from iterative_solvers_tpu_torch.ops.stencil import mask_nnz, stencil_apply_3d
 
-ZMARCH_TY = 8  # rows per block of the z-march kernels (csrc/zmarch3d.cuh)
-ZMARCH_TX = 32  # columns per block
-# the staged z-march (csrc/zstream3d.cuh: D2, R3): tiles of 8 rows x 128
+# the staged z-march (csrc/zstream3d.cuh: S7, J3, D2, R3): tiles of 8 rows x 128
 # columns, the blocks per SM its planner aims for, its chunks' least and
 # greatest depth
 ZSTREAM_TILE = (8, 128)
@@ -44,15 +52,6 @@ def auto_block_rows_3d(h: int) -> int:
     divides round_up(h, 8) and is <= 128."""
     hp = round_up(h, 8)
     return max(by for by in range(8, 129, 8) if hp % by == 0)
-
-
-def zmarch_depth(d: int, hp: int, wp: int) -> int:
-    """Planes per block of the z-march kernels: enough z-chunks that the
-    grid holds ~2048 blocks of ``ZMARCH_TY x ZMARCH_TX`` threads (several
-    waves on 132 SMs), each chunk at least 4 planes deep so the two warm-up
-    planes stay a small share, at most 64."""
-    blocks_yx = -(-hp // ZMARCH_TY) * -(-wp // ZMARCH_TX)
-    return max(4, min(64, -(-d * blocks_yx // 2048)))
 
 
 def zstream_chunk(planes: int, hp: int, wp: int, sm_count: int) -> int:
@@ -76,12 +75,6 @@ def zstream_chunk(planes: int, hp: int, wp: int, sm_count: int) -> int:
 def zstream_chunks(planes: int, bz: int):
     """The ``(z0, z1)`` plane ranges of the staged march's chunks."""
     return [(z0, min(z0 + bz, planes)) for z0 in range(0, planes, bz)]
-
-
-def box_geometry(nx: int, ny: int, nz: int, padded_shape) -> Tuple[int, ...]:
-    """The integer launch arguments every 3D launcher takes first."""
-    d, hp, wp = padded_shape
-    return (nx, ny, nz, d, hp, wp, zmarch_depth(d, hp, wp))
 
 
 @dataclass(frozen=True, eq=False)
@@ -144,11 +137,12 @@ class Padded3DStencilOperator:
         check_field("x", x, self.padded_shape)
         if x.device.type == "cpu":
             return self.apply_plain(x)
+        check_aligned(x=x)  # staged in 16-byte pieces
         y = torch.empty_like(x)
-        _build.launch(
-            "ist_stencil3d", _build.ptr(x), _build.ptr(y),
-            *box_geometry(self.nx, self.ny, self.nz, self.padded_shape), *self.coeffs,
-        )
+        d, hp, wp = self.padded_shape
+        _build.launch("ist_stencil3d", _build.ptr(x), _build.ptr(y), self.nx, self.ny, self.nz,
+                      d, hp, wp, zstream_chunk(d, hp, wp, _build.sm_count(x.device)),
+                      *self.coeffs)
         return y
 
     def nnz(self) -> int:

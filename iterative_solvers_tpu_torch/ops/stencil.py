@@ -69,7 +69,7 @@ def combine7(xm, sx, sy, sz, cd: float, cx: float, cy: float, cz: float) -> torc
     per axis. In f32 in XLA's order, ``fma(cz, sz, fma(cy, sy, fma(cd, xm,
     cx·sx)))``, which the JAX package's CPU runs in its vectorised loop body
     and the 3D kernels write as the same ``fmaf`` chain
-    (``csrc/zmarch3d.cuh: apply7``), so the card and this plain version
+    (``csrc/zstream3d.cuh: apply7``), so the card and this plain version
     agree bit for bit. On the CPU each fma is emulated exactly
     (:func:`fma_f32`); on CUDA it is one ``addcmul`` pass, the cost of the
     plain sum. Other types sum left to right."""

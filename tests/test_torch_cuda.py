@@ -3,10 +3,10 @@
 with the int8 mask operand), 3D (S7, D3, U3, J3, R3), the in-place and
 pipelined stencils (C4, C5), which must equal A1 bit for bit at scale 1,
 and the mesh block kernels (D1–D6), whose stitched blocks must equal the
-single-device kernels bit for bit; S7, D3 and U3 equal their plain
-versions bit for bit, and so do the kernels of the staged z-march, D2 and
-R3 (both words of R3's pair), on every split and coefficient set, and the
-mesh legs D3 and D4 at each tile height.
+single-device kernels bit for bit; D3 and U3 equal their plain versions
+bit for bit, and so do the kernels of the staged z-march, S7, J3 (at every
+fused level), D2 and R3 (both words of R3's pair), on every split and
+coefficient set, and the mesh legs D3 and D4 at each tile height.
 
 Marked ``cuda``: they need an NVIDIA GPU and nvcc, and skip elsewhere (the
 card is looked for inside the fixture, never at import). Run them on a GPU
@@ -48,7 +48,7 @@ from iterative_solvers_tpu_torch.parallel.halo_pallas import (
     block_stencil_plain,
 )
 from iterative_solvers_tpu_torch.parallel.mg_sharded import ShardedFusedMultigrid
-from iterative_solvers_tpu_torch.solvers.multigrid import MultigridPreconditioner
+from iterative_solvers_tpu_torch.solvers.multigrid import MultigridPreconditioner, _FusedLevel3D
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 pytestmark = pytest.mark.cuda
@@ -388,6 +388,22 @@ def test_stencil3d_bit_equal_to_plain(gen, dims):
     assert torch.equal(lay(x), lay.apply_plain(x))
 
 
+@pytest.mark.parametrize("dims", BOXES + [(64, 64, 64)])
+def test_j3_bit_equal_to_plain_at_every_fused_level(gen, dims):
+    """J3 writes ist3::smooth7, x + cs (b - A x) rounded as its plain
+    version rounds: bit for bit on every fused level's layout, unmasked
+    input."""
+    M = MultigridPreconditioner.from_domain(Domain3D(*dims), fuse=True, fuse_min_extent=16,
+                                            device="cuda")
+    levels = [lev.kernels for lev in M.levels if isinstance(lev, _FusedLevel3D)]
+    assert len(levels) >= (3 if dims == (64, 64, 64) else 1)
+    _build.reset_counts()
+    for k in levels:
+        x, b = (torch.randn(k.padded_shape, device="cuda", generator=gen) for _ in range(2))
+        assert torch.equal(k.jacobi(x, b), k.jacobi_plain(x, b))
+    assert _build.launches["k_jacobi3d"] == len(levels)
+
+
 def _virtual(shape):
     """The ranks of a mesh shape, for a block partition run in one process."""
     names = ("slice", "y", "x") if len(shape) == 3 else ("y", "x")
@@ -597,13 +613,26 @@ def test_r3_bit_equal_to_plain(gen, dims, coeffs):
 
 
 def test_zstream_launchers_refuse_bad_operands(gen):
-    """D2 and R3 refuse operands off a 16-byte boundary and halos of the
-    wrong shape; their launchers refuse a canvas that is not a whole number
-    of 8 x 128 tiles."""
+    """S7, J3, D2 and R3 refuse operands off a 16-byte boundary, D2 and R3
+    halos of the wrong shape; their launchers refuse a canvas that is not a
+    whole number of 8 x 128 tiles."""
     box = Domain3D(16, 16, 16)
     lay = Padded3DStencilOperator.from_domain(box)
     f = torch.zeros(lay.padded_shape, device="cuda")
     odd = torch.zeros(f.numel() + 1, device="cuda")[1:].view(lay.padded_shape)
+    k = MultigridPreconditioner.from_domain(box, fuse=True, fuse_min_extent=16,
+                                            device="cuda").levels[0].kernels
+    with pytest.raises(ValueError, match="16-byte"):
+        lay(odd)
+    with pytest.raises(ValueError, match="16-byte"):
+        k.jacobi(f, odd)
+    d, hp, wp = lay.padded_shape
+    with pytest.raises(RuntimeError, match="ist_stencil3d"):
+        _build.launch("ist_stencil3d", _build.ptr(f), _build.ptr(f), 16, 16, 16, d, hp, wp - 64,
+                      8, *lay.coeffs)
+    with pytest.raises(RuntimeError, match="ist_k_jacobi3d"):
+        _build.launch("ist_k_jacobi3d", *map(_build.ptr, (f,) * 3), 16, 16, 16, d, hp - 4, wp,
+                      8, *k.coeffs, k.cs)
     with pytest.raises(ValueError, match="16-byte"):
         resid_ff.resid_ff(f, odd, f, f, lay)
     with pytest.raises(ValueError):

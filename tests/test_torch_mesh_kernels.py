@@ -16,8 +16,9 @@ Tolerances:
 - stitched blocks, f32: each node takes the single-device plain version's
   expression, so the stitched (2, 2) partition (D2: (2, 1, 2)) equals the
   single-device A1 / S7 / K_down / K_up plain version bit for bit.
-- D2's staged z-march replayed in plain torch (tiles, chunks, per-plane
-  sources, halo columns by the edge tiles): bit-equal to its plain version;
+- D2's staged z-march replayed in plain torch (``_torch_zstream``: tiles,
+  chunks, per-plane sources, halo columns by the edge tiles): bit-equal to
+  its plain version;
   so are D3's and D4's leg tiles (per-row sources, halo columns by the edge
   tiles), D4's summed tile partials within 1e-5 of the sum of |terms|.
 """
@@ -48,6 +49,7 @@ from iterative_solvers_tpu.parallel.halo_pallas import (
 from iterative_solvers_tpu.parallel.mg_sharded import _k_down_call, _k_up_call
 
 from _torch_mesh_cases import BOX, raising_rank, sleeping_rank
+from _torch_zstream import zstream_replay
 from iterative_solvers_tpu_torch import DirichletSolver, Domain2D, Domain3D
 from iterative_solvers_tpu_torch.interop import block_from_global, global_from_blocks
 from iterative_solvers_tpu_torch.core.domain import MaskSpec
@@ -73,7 +75,7 @@ from iterative_solvers_tpu_torch.kernels.stencil3d_layout import (
     zstream_chunk,
     zstream_chunks,
 )
-from iterative_solvers_tpu_torch.parallel.halo import apply5, apply7
+from iterative_solvers_tpu_torch.parallel.halo import apply5
 from iterative_solvers_tpu_torch.parallel.halo_pallas import (
     block_stencil3d_plain,
     block_stencil_plain,
@@ -193,53 +195,6 @@ def test_block_stencil_3d_plain_matches_jax():
     _close(got.numpy(), np.asarray(ref), 1e-13)
 
 
-def _zstream_replay(x, zup, zdn, left, right, spec, coeffs, bz):
-    """D2's schedule (csrc/zstream3d.cuh) in plain torch: per chunk of
-    ``zstream_chunks`` and per 8 x 128 tile, each staged plane p = z0 - 1 ..
-    z1 taken from one source chosen per plane (zup for -1, zdn for Dz_b,
-    else the block), rows y0 - 1 .. y0 + 8 and columns x0 - 1 .. x0 + 128
-    (the kernel stages a float4 beyond each edge; only these columns are
-    read), the block's halo columns staged by the tiles at its x edge
-    only, everything masked at its global position (the copies' zero-fill);
-    then S7's sum on the staged planes, masked by the nodes' interior."""
-    dzb, hp, wb = x.shape
-    zoff, _, coff = spec.origin
-    ty, tx = ZSTREAM_TILE
-
-    def interior(z, r, c):
-        return (z > 0) & (z < spec.nz) & (r > 0) & (r < spec.ny) & (c > 0) & (c < spec.nx)
-
-    y = torch.full_like(x, float("nan"))
-    for z0, z1 in zstream_chunks(dzb, bz):
-        for y0 in range(0, hp, ty):
-            rows = torch.arange(y0 - 1, y0 + ty + 1)
-            for x0 in range(0, wb, tx):
-                cols = torch.arange(x0 - 1, x0 + tx + 1)
-                planes = []
-                for p in range(z0 - 1, z1 + 1):
-                    src = zup if p < 0 else zdn if p >= dzb else x[p]
-                    s = torch.zeros((ty + 2, tx + 2), dtype=x.dtype)
-                    on = (rows >= 0) & (rows < hp)
-                    r = rows.clamp(0, hp - 1)
-                    s[:, 1:-1] = src[r, x0:x0 + tx]
-                    if x0 > 0:
-                        s[:, 0] = src[r, x0 - 1]
-                    elif 0 <= p < dzb:
-                        s[:, 0] = left[p, r]
-                    if x0 + tx < wb:
-                        s[:, -1] = src[r, x0 + tx]
-                    elif 0 <= p < dzb:
-                        s[:, -1] = right[p, r]
-                    m = on[:, None] & interior(torch.tensor(zoff + p), rows[:, None],
-                                                coff + cols[None, :])
-                    planes.append(torch.where(m, s, 0.0))
-                out = apply7(torch.stack(planes), *coeffs)
-                m = interior(zoff + torch.arange(z0, z1)[:, None, None], rows[1:-1, None],
-                             coff + cols[1:-1])
-                y[z0:z1, y0:y0 + ty, x0:x0 + tx] = torch.where(m, out, 0.0)
-    return y
-
-
 @pytest.mark.parametrize("dims,shape,rank,bz", [((16, 16, 16), (2, 1, 2), 3, None),
                                                ((16, 24, 8), (1, 1, 2), 1, 3),
                                                ((300, 8, 8), (1, 1, 2), 0, None),
@@ -259,7 +214,7 @@ def test_d2_zstream_schedule_emulation(dims, shape, rank, bz):
     spec = op.block_spec()
     bz = bz or zstream_chunk(dzb, hp, wb, 132)
     want = block_stencil3d_plain(x, zup, zdn, left, right, spec, op.coeffs)
-    got = _zstream_replay(x, zup, zdn, left, right, spec, op.coeffs, bz)
+    got = zstream_replay(x, spec, op.coeffs, bz, halos=(zup, zdn, left, right))
     assert torch.equal(got, want)
 
 
