@@ -4,7 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --legs DIR   # only the V-cycle legs (2D and 3D), of the port in DIR
     python3 chip_smoke.py --cg DIR     # only the fused CG kernels K1/K2 and D5/D6 of the port in DIR
-    python3 chip_smoke.py --stencil DIR  # only C4/C5, A1 and the nnz chain of the port in DIR
+    python3 chip_smoke.py --stencil DIR  # only A1/C1, C4/C5 and the nnz chain of the port in DIR
     python3 chip_smoke.py --zstream DIR  # only the z-march's S7, J3, D2 and R3 of the port in DIR
 
 Phases, each printing its own lines; any failure exits non-zero before the
@@ -15,7 +15,9 @@ final ``ok`` line:
    (one nvcc per source, all started together);
 3. kernels: each kernel against its plain torch version on the card, at a
    small gamma grid, a ragged rect grid, path B's 1024² layout (timed) and
-   the 8192² level-0 layout (2D); the custom-mask instantiations on the
+   the 8192² level-0 layout (2D; A1 and C1 bit-equal on unmasked input),
+   A1 also at the 4096² ``precond`` layout (device timer, the stencil row's
+   ``at_precond``); the custom-mask instantiations on the
    notched disk at 64² (32-row bands), 1024² (timed) and the 8192² level-0
    layout; and at
    16³, the ragged 32³, the unequal box 16 × 24 × 8 and the 512³ level-0
@@ -118,7 +120,9 @@ final ``ok`` line:
    card line, then ``ok``.
 
 Paths B, C-B and "mesh fused B" must converge within 1 % of the iteration
-counts they had before the K1/K2 tiles (``CG_COUNTS``).
+counts they had before the K1/K2 tiles, the ``precond`` races' plain and
+Chebyshev-8 CG and the facade's ``pallas`` Chebyshev-8 within 1 % of theirs
+before A1's tiles (``CG_COUNTS``).
 
 Imports nothing of JAX. Needs one card; fails without one.
 """
@@ -136,6 +140,7 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 N = 8192
 NB = 1024  # paths B, C-B and "mesh fused B"
+PRECOND_N = 4096  # bench.py's precond race and the facade's pallas paths
 EPS32 = 1.1920929e-07
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM data sheet, f32 outside the tensor cores
@@ -234,9 +239,14 @@ PATH_KERNELS = {
 # (``at_path``), so launches x gap reads from one line
 AT_NB = {"k1": "B", "k2": "B", "stencil": "B", "k1_custom": "C-B", "k2_custom": "C-B",
          "stencil_custom": "C-B", "k1_block": "mesh fused B", "k2_block": "mesh fused B"}
+# the counted paths that launch A1 at PRECOND_N² (the stencil row's
+# ``at_precond``)
+PRECOND_PATHS = ("precond plain", "precond cheb8", "facade pallas cheb8", "facade pallas mg")
 # the live runs' iteration counts to rel 1e-6 before the K1/K2 tiles: a
 # count may move only through the partials' summation order, within 1 %
-CG_COUNTS = {"B": 2055, "C-B": 1703, "mesh fused B": 2055}
+CG_COUNTS = {"B": 2055, "C-B": 1703, "mesh fused B": 2055,
+             # plain and Chebyshev-8 CG on A1, counted before A1's tiles
+             "precond plain": 7480, "precond cheb8": 1276, "facade pallas cheb8": 1276}
 N3 = 512
 
 
@@ -378,7 +388,7 @@ def check_kernels(dom, gen, label, timed, block_rows=None, only=None, short=Fals
     dict of max_abs_err, ms, plain_ms, library_ms, bytes, nodes, shape}.
     On a custom domain these are the ``*_custom`` instantiations (no Jacobi
     kernel), every input pre-masked, and the int8 mask counts among the
-    bytes. ``short`` (a layout whose kernels are shorter than the host's
+    bytes; A1 / C1 take their record from :func:`a1_row`. ``short`` (a layout whose kernels are shorter than the host's
     issue time) adds ``graph_ms`` (:func:`graph_ms`, ``GRAPH_CALLS`` calls
     in one graph), the time such a row compares with its bound."""
     import torch
@@ -441,7 +451,6 @@ def check_kernels(dom, gen, label, timed, block_rows=None, only=None, short=Fals
                  ("field", "sum"), (b, ec, m8_level)),
         "k_jacobi": (lambda: (kl.jacobi(xj, b),), lambda: (kl.jacobi_plain(xj, b),),
                      ("field",), (xj, b)),
-        "stencil": (lambda: (lay(x),), lambda: (lay.apply_plain(x),), ("field",), (x, m8)),
         "k_resid_ff": (lambda: resid_ff.resid_ff(xh, xl, bh, bl, lay),
                        lambda: resid_ff.resid_ff_plain(xh, xl, bh, bl, lay),
                        ("exact", "pair"), (xh, xl, bh, bl, m8)),
@@ -450,6 +459,9 @@ def check_kernels(dom, gen, label, timed, block_rows=None, only=None, short=Fals
         del cases["k_jacobi"]  # no custom Jacobi kernel, as on the TPU
     if only is not None:
         cases = {k: v for k, v in cases.items() if k in only}
+    out = {}
+    if only is None or "stencil" in only:  # A1 / C1: their own record (a1_row)
+        out["stencil" + ("_custom" if custom else "")] = a1_row(lay, gen, label, timed, short)
     # the true-solution variants of K2 and K2-pcg (the ‖x − u‖∞ partials)
     extra = {
         "k2+u": (lambda: cg_fused.k2(x, r, z, side_r, scal, lay, u=u),
@@ -472,7 +484,6 @@ def check_kernels(dom, gen, label, timed, block_rows=None, only=None, short=Fals
         torch.cuda.synchronize()
         err, tol = compare(f"{name}{sfx} @ {label}", got, ref, kinds)
         log(f"kernel {name + sfx:17s} @ {label}: max_abs_err {err:.3e} tol {tol:.3e}")
-    out = {}
     for base, (kern, plain, kinds, ins) in cases.items():
         name = base + sfx
         got, ref = kern(), plain()
@@ -489,14 +500,11 @@ def check_kernels(dom, gen, label, timed, block_rows=None, only=None, short=Fals
         if timed and base not in ("k_down", "k_up"):  # the legs: check_legs times them
             rec.update(kernel_times(kern, plain))
             line += f"  kernel {rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f} ms"
-            if short and base in ("k1", "k2", "k2_pcg", "stencil"):  # the NB² paths' kernels
+            if short and base in ("k1", "k2", "k2_pcg"):  # the NB² paths' kernels
                 rec["graph_ms"] = graph_ms(kern, reps=5, calls=GRAPH_CALLS)
                 line += (f"  graph {rec['graph_ms']:.4f} ms  one call "
                          f"{rec['one_call_ms']:.4f} ms  bound "
                          f"{rec['bytes'] / HBM_BYTES_PER_S * 1e3:.4f} ms")
-            if base == "stencil":
-                rec["library_ms"] = conv2d_ms(lay, x)
-                line += f"  conv2d {rec['library_ms']:.4f} ms"
         log(line)
         out[name] = rec
     return out
@@ -868,7 +876,7 @@ def cg_only(gen) -> int:
 def check_count(path, iterations):
     """A live CG run's count within 1 % of ``CG_COUNTS[path]``."""
     want = CG_COUNTS[path]
-    log(f"path {path} count {iterations} against {want} before the K1/K2 tiles "
+    log(f"path {path} count {iterations} against {want} of CG_COUNTS "
         f"({100 * (iterations - want) / want:+.2f} %)")
     if abs(iterations - want) > 0.01 * want:
         raise AssertionError(f"path {path}: {iterations} iterations, more than 1 % from {want}")
@@ -1321,8 +1329,9 @@ def check_pipelined(dom, gen, label, timed, block_rows=None):
         got, ref = kern(x.clone()), plain(x.clone())
         torch.cuda.synchronize()
         err, tol = compare(f"{name} @ {label}", (got,), (ref,), ("field",))
-        rec = {"max_abs_err": err, "bytes": hp * wp * (9 if sfx else 8), "nodes": hp * wp,
-               "library_ms": None, "shape": [hp, wp]}
+        nb, n_in = stencil_bytes(lay)  # the same function as A1's
+        rec = {"max_abs_err": err, "bytes": nb, "nodes": n_in, "library_ms": None,
+               "shape": [hp, wp]}
         line = f"kernel {name:24s} @ {label}: max_abs_err {err:.3e} tol {tol:.3e}"
         if timed:
             xk, xp = ones.clone(), ones.clone()
@@ -1340,6 +1349,90 @@ def check_pipelined(dom, gen, label, timed, block_rows=None):
         log(f"C5{sfx} @ {label}: lookahead 4 in place {c5_4:.4f} ms, lookahead 2 out of place "
             f"{c5_2:.4f} ms; A1 {device_ms(lambda: lay(ones)):.4f} ms (device timer)")
     return out
+
+
+def stencil_bytes(lay):
+    """(bytes, interior nodes) of the masked 5-point function on ``lay``,
+    which A1 / C1 and C4 / C5 compute: x read on the interior only (a read
+    masked off it needs no memory, and A1's tiles issue none), y written
+    over the whole canvas, a custom layout's int8 mask read once."""
+    hp, wp = lay.padded_shape
+    n_in = int(lay.mask_spec.build("cuda").sum())
+    return 4 * n_in + 4 * hp * wp + (hp * wp if lay.mask8 is not None else 0), n_in
+
+
+def a1_row(lay, gen, label, timed, short=False, exact=True):
+    """A1 (C1 on a custom layout) on ``lay``, a kernel row as
+    :func:`check_kernels` returns them: held to its plain version on an
+    unmasked random field (every read is masked: bit for bit with
+    ``exact``, else the field tolerance, for an earlier checkout); with
+    ``timed`` its device, one-call and plain times and one ``F.conv2d``,
+    with ``short`` also the graph timer (what a kernel shorter than the
+    host's issue time holds against its bound). ``bytes``/``bound_ms`` from
+    :func:`stencil_bytes`, ``nodes`` the interior. Uses only the operator's
+    public calls, so an earlier checkout is timed alike."""
+    import torch
+
+    name = "stencil_custom" if lay.mask8 is not None else "stencil"
+    x = torch.randn(lay.padded_shape, device="cuda", generator=gen)
+    kern, plain = (lambda: (lay(x),)), (lambda: (lay.apply_plain(x),))
+    got, ref = kern(), plain()
+    torch.cuda.synchronize()
+    err, tol = compare(f"{name} @ {label}", got, ref, ("exact" if exact else "field",))
+    del got, ref
+    nb, n_in = stencil_bytes(lay)
+    rec = {"max_abs_err": err, "bytes": nb, "nodes": n_in, "library_ms": None,
+           "shape": list(lay.padded_shape), "block_rows": lay.block_rows,
+           "bound_ms": nb / HBM_BYTES_PER_S * 1e3}
+    line = f"kernel {name:17s} @ {label}: max_abs_err {err:.3e} tol {tol:.3e}"
+    if timed:
+        rec.update(kernel_times(kern, plain))
+        rec["library_ms"] = conv2d_ms(lay, x)
+        t, timer = rec["ms"], "device"
+        if short:
+            rec["graph_ms"] = t = graph_ms(kern, reps=5, calls=GRAPH_CALLS)
+            timer = "graph"
+        line += (f"  kernel {rec['ms']:.4f} ms  one call {rec['one_call_ms']:.4f} ms"
+                 + (f"  graph {t:.4f} ms" if short else "")
+                 + f"  plain {rec['plain_ms']:.4f} ms  conv2d {rec['library_ms']:.4f} ms  "
+                 f"bound {rec['bound_ms']:.4f} ms ({100 * rec['bound_ms'] / t:.0f} % on the "
+                 f"{timer} timer; {lay.padded_shape}, {lay.block_rows}-row bands)")
+    log(line)
+    del x
+    return rec
+
+
+def time_d1(gen):
+    """``--stencil``'s D1 (the mesh block stencil, ``ist::stencil_column``)
+    on the 1x1 block of 8192², as :func:`check_mesh_kernels` times it:
+    against its plain version (field tolerance), the device and one-call
+    timers, one ``F.conv2d`` and the bound of D1's ``kernels`` row (the
+    halos' and the output's bytes)."""
+    import torch
+
+    from iterative_solvers_tpu_torch import Domain2D
+    from iterative_solvers_tpu_torch.parallel import ShardedPallasStencilOperator, make_solver_mesh
+    from iterative_solvers_tpu_torch.parallel.halo_pallas import block_stencil_plain
+
+    op1 = ShardedPallasStencilOperator.from_domain(Domain2D(nx=N, ny=N), make_solver_mesh(1))
+    xb = torch.randn(op1.padded_shape, device="cuda", generator=gen)
+    h1 = op1.halos_from_global(xb, (0, 0))
+    kern = lambda: (op1.apply_block(*h1),)  # noqa: E731
+    got = kern()
+    torch.cuda.synchronize()
+    err, tol = compare(f"stencil_block @ {N}^2 1x1", got,
+                       (block_stencil_plain(*h1, op1.block_spec(), op1.coeffs),), ("field",))
+    nb = nbytes(h1) + nbytes(got)
+    rec = {"max_abs_err": err, "bytes": nb, "bound_ms": nb / HBM_BYTES_PER_S * 1e3,
+           "ms": device_ms(kern), "one_call_ms": one_call_ms(kern),
+           "library_ms": conv2d_ms(op1, xb), "shape": list(op1.padded_shape)}
+    log(f"kernel stencil_block @ {N}^2 1x1: max_abs_err {err:.3e} tol {tol:.3e}  kernel "
+        f"{rec['ms']:.4f} ms  one call {rec['one_call_ms']:.4f} ms  conv2d "
+        f"{rec['library_ms']:.4f} ms  bound {rec['bound_ms']:.4f} ms "
+        f"({100 * rec['bound_ms'] / rec['ms']:.0f} %)")
+    del xb, h1, got
+    torch.cuda.empty_cache()
+    return rec
 
 
 def time_stencils(dom, block_rows, label, gen):
@@ -1376,7 +1469,7 @@ def time_stencils(dom, block_rows, label, gen):
     del x, a1
     ones = torch.ones(lay.padded_shape, device="cuda")
     rec = {"shape": [hp, wp], "block_rows": lay.block_rows,
-           "bound_ms": (9 if custom else 8) * hp * wp / HBM_BYTES_PER_S * 1e3}
+           "bound_ms": stencil_bytes(lay)[0] / HBM_BYTES_PER_S * 1e3}
     for name, fn in forms.items():
         xk = ones.clone()
         rec[name] = {"ms": device_ms(lambda: fn(xk, scale)),
@@ -1402,14 +1495,28 @@ def time_stencils(dom, block_rows, label, gen):
     return rec
 
 
-def stencil_only(gen) -> int:
-    """``--stencil DIR``: :func:`time_stencils` for the port in DIR at 8192²
+def stencil_only(gen, exact) -> int:
+    """``--stencil DIR``: for the port in DIR, A1 and C1 where the solver
+    runs them (:func:`a1_row`): at paths B's and C-B's 1024² layouts on the
+    graph timer, A1 at the 4096² ``precond`` layout on the device timer
+    (``exact``: bit-equal to the plain version, else within the field
+    tolerance, for an earlier checkout); D1 on the 1x1 block of 8192²
+    (:func:`time_d1`); then :func:`time_stencils` at 8192²
     and on the notched disk at 8192², each on the 256-row panels of
     ``bench.py``'s ``nnz`` layout and at ``auto_block_rows``; then one JSON
     line {label: record}."""
     from iterative_solvers_tpu_torch.core.domain import Domain2D, notched_disk
+    from iterative_solvers_tpu_torch.kernels.stencil_layout import PaddedStencilOperator
 
     out = {}
+    for label, dom, graph in (
+            (f"{NB}^2 path B", Domain2D(nx=NB, ny=NB), True),
+            (f"custom {NB}^2 C-B", Domain2D(nx=NB, ny=NB, shape="custom",
+                                            inside_fn=notched_disk), True),
+            (f"{PRECOND_N}^2 precond", Domain2D(nx=PRECOND_N, ny=PRECOND_N), False)):
+        out[label] = a1_row(PaddedStencilOperator.from_domain(dom), gen, label, timed=True,
+                            short=graph, exact=exact)
+    out[f"D1 {N}^2 1x1"] = time_d1(gen)
     for name, dom in (("", Domain2D(nx=N, ny=N)),
                       ("custom ", Domain2D(nx=N, ny=N, shape="custom", inside_fn=notched_disk))):
         for by in (256, None):
@@ -1539,6 +1646,8 @@ def precond_race(n):
         if not (res.converged and res.reason.name == "RELATIVE_RESIDUAL") or missing or plain:
             raise AssertionError(f"{path}: reason {res.reason.name}, missing {missing}, "
                                  f"plain {plain}")
+        if path in CG_COUNTS:
+            check_count(path, res.iterations)
     log(f"precond {n}^2: plain / cheb8 {secs['precond plain'] / secs['precond cheb8']:.2f}x, "
         f"plain / mg {secs['precond plain'] / secs['precond mg']:.2f}x")
     return launches
@@ -1595,10 +1704,10 @@ def facade_paths():
         raise AssertionError("facade default: the card and the CPU disagree")
     rel6 = stop_rel6()
     for path, kw, gate in (
-        ("facade pallas cheb8", dict(nx=4096, ny=4096, operator="pallas",
+        ("facade pallas cheb8", dict(nx=PRECOND_N, ny=PRECOND_N, operator="pallas",
                                      preconditioner="chebyshev:8"), 1e-3),
-        ("facade pallas mg", dict(nx=4096, ny=4096, operator="pallas", preconditioner="mg"),
-         1e-3),
+        ("facade pallas mg", dict(nx=PRECOND_N, ny=PRECOND_N, operator="pallas",
+                                  preconditioner="mg"), 1e-3),
         ("facade sparse", dict(nx=1024, ny=1024, operator="sparse"), 1e-6),
         ("facade mixed cheb", dict(nx=2048, ny=2048, precision="mixed",
                                    preconditioner="chebyshev", outer="f64"), 1e-6),
@@ -1613,6 +1722,8 @@ def facade_paths():
             f"true_rel {rel:.3e} solve {res.elapsed_s:.4f} s wall {wall:.3f} s")
         if not (res.converged and res.stop_reason.name == "RELATIVE_RESIDUAL" and rel < gate):
             raise AssertionError(f"{path} failed: reason {res.stop_reason.name} rel {rel:.3e}")
+        if path in CG_COUNTS:
+            check_count(path, res.iterations)
         del solver, res
         torch.cuda.empty_cache()
     return launches
@@ -2607,9 +2718,9 @@ def main(argv) -> int:
                     help="only check and time the staged z-march's kernels S7, J3, D2 and R3 "
                          "of the port in the checkout DIR (this one or an earlier commit's)")
     ap.add_argument("--stencil", metavar="DIR",
-                    help="only check and time the in-place and pipelined stencils C4 and C5, "
-                         "A1, conv2d and the nnz chain of the port in the checkout DIR (this "
-                         "one or an earlier commit's)")
+                    help="only check and time A1 and C1 (1024², 4096², 8192²), the in-place "
+                         "and pipelined stencils C4 and C5, conv2d and the nnz chain of the "
+                         "port in the checkout DIR (this one or an earlier commit's)")
     args = ap.parse_args(argv)
     other = args.legs or args.cg or args.stencil or args.zstream
     root = os.path.abspath(other) if other else REPO
@@ -2636,6 +2747,7 @@ def main(argv) -> int:
     from iterative_solvers_tpu_torch import DirichletSolver
     from iterative_solvers_tpu_torch.core.domain import Domain2D, Domain3D, notched_disk
     from iterative_solvers_tpu_torch.kernels import _build
+    from iterative_solvers_tpu_torch.kernels.stencil_layout import PaddedStencilOperator
     from iterative_solvers_tpu_torch.solvers.refine import fused_refined_solve
 
     t0 = time.perf_counter()
@@ -2650,7 +2762,7 @@ def main(argv) -> int:
     if args.cg:
         return cg_only(gen)
     if args.stencil:
-        return stencil_only(gen)
+        return stencil_only(gen, exact=root == REPO)
     if args.zstream:
         # an earlier checkout's J3 (PR 3's march, whose node update nvcc may
         # contract into an fmaf) is held to the field tolerance it had
@@ -2664,6 +2776,9 @@ def main(argv) -> int:
     at_nb = check_kernels(Domain2D(nx=NB, ny=NB), gen, f"{NB}^2 path B", timed=True, short=True)
     stats = check_kernels(Domain2D(nx=N, ny=N), gen, "8192^2 level 0", timed=True)
     torch.cuda.empty_cache()
+    # A1 where the precond races and the facade's pallas paths launch it
+    at_precond = a1_row(PaddedStencilOperator.from_domain(Domain2D(nx=PRECOND_N, ny=PRECOND_N)),
+                        gen, f"{PRECOND_N}^2 precond", timed=True)
     # the V-cycle legs at every fused level of path A (8192 … 512); level 0
     # gives A5's and A6's rows
     stats.update(check_legs(Domain2D(nx=N, ny=N), gen, f"{N}^2")[0])
@@ -2791,7 +2906,7 @@ def main(argv) -> int:
     del disk
     torch.cuda.empty_cache()
     # bench.py's precond (4096²) and csr (1024²) races, the facade's paths
-    launches.update(precond_race(4096))
+    launches.update(precond_race(PRECOND_N))
     torch.cuda.empty_cache()
     csr_race(1024)
     launches.update(facade_paths())
@@ -2831,6 +2946,12 @@ def main(argv) -> int:
             row["at_auto_block_rows"] = s["auto"]
         if "levels" in s:  # D3/D4 at each shard-fused level of "mesh a"
             row["levels"] = s["levels"]
+        if k == "stencil":  # A1 where the precond paths launch it
+            row["at_precond"] = {
+                "shape": at_precond["shape"], "ms": at_precond["ms"],
+                "one_call_ms": at_precond["one_call_ms"], "plain_ms": at_precond["plain_ms"],
+                "bound_ms": bound_ms(at_precond, ops)[0], "library_ms": at_precond["library_ms"],
+                "launches": {p: launches[p].get(k, 0) for p in PRECOND_PATHS}}
         if k in AT_NB:  # the time and bound where the NB² path launches it
             p, sn = AT_NB[k], at_nb[k]
             row["at_path"] = {

@@ -1,12 +1,12 @@
 // Shared pieces of the fused CG and multigrid kernels.
 //
 // Layout: every field is a row-major f32 canvas (hp, wp) with wp % 128 == 0
-// and hp a multiple of the band height `by`. In the column sweep below (A1
-// and its mesh block D1) a block owns TW consecutive columns of one band
-// of rows; each thread owns one column and walks the band's rows, so the
-// grid is (wp / TW, hp / by). The tiled kernels (K1/K2 and their mesh
-// blocks D5/D6 in cg_tiles.cuh, the V-cycle legs and their mesh blocks
-// D3/D4 in mg_tiles.cuh) cut their own tiles. The interior mask is the
+// and hp a multiple of the band height `by`. In the column sweep below (the
+// mesh block D1) a block owns TW consecutive columns of one band of rows;
+// each thread owns one column and walks the band's rows, so the grid is
+// (wp / TW, hp / by). The tiled kernels (A1 / C1 in stencil.cu, K1/K2 and
+// their mesh blocks D5/D6 in cg_tiles.cuh, the V-cycle legs and their mesh
+// blocks D3/D4 in mg_tiles.cuh) cut their own tiles. The interior mask is the
 // algebraic gamma/rect predicate on global indices (no mask is read), and
 // column neighbours c-1 / c+1 are bound-checked: the TPU kernels used a
 // wrapping lane roll there, which gives the same result because the
@@ -40,15 +40,6 @@ __device__ __forceinline__ bool interior(const Geom& g, int r, int c) {
   bool in = r > 0 && r < g.ny && c > 0 && c < g.nx;
   if (g.gamma) in = in && !(c <= g.nx / 2 && r <= g.ny / 2);
   return in;
-}
-
-// The 5-point stencil on masked values: the centre, its row neighbours
-// (left, right) and its column neighbours (up, down). One expression for
-// every kernel that applies A alone, so they contract it into the same
-// FMAs and agree bit for bit.
-__device__ __forceinline__ float stencil5(const Geom& g, float c, float l, float r, float u,
-                                          float d) {
-  return g.cd * c + g.cx * (l + r) + g.cy * (u + d);
 }
 
 // Asynchronous global -> shared copies (cp.async): bytes in flight hold no
@@ -88,7 +79,11 @@ __device__ __forceinline__ void cp_async_wait() {
 // mesh blocks D3/D4 (csrc/mg_tiles.cuh) and the plain versions agree bit
 // for bit.
 
-// The 5-point stencil (cd c + cx (l + r)) + cy (u + d) at an interior node.
+// The 5-point stencil (cd c + cx (l + r)) + cy (u + d) at an interior node,
+// from masked values: the centre, its row neighbours (left, right) and its
+// column neighbours (up, down). One expression for every kernel that applies
+// A, alone (A1 / C1, C4 / C5, D1) or inside an iteration, so they agree bit
+// for bit with each other and with PaddedStencilOperator.apply_plain.
 __device__ __forceinline__ float stencil_rn(const Geom& g, float c, float l, float r, float u,
                                             float d) {
   return __fadd_rn(__fadd_rn(__fmul_rn(g.cd, c), __fmul_rn(g.cx, __fadd_rn(l, r))),
@@ -155,14 +150,14 @@ __device__ __forceinline__ int2 interior_span(const Geom& g, int r) {
   return make_int2((g.gamma && r <= g.ny / 2) ? g.nx / 2 : 0, g.nx);
 }
 
-// The column sweep of the 2D stencil (A1), shared with its mesh block D1
-// (csrc/halo_pallas.cu) so that a block and the single-device canvas take
-// the same arithmetic at every node. One thread owns column c and walks
-// rows row0 .. row0 + by - 1 (indices local to the field it writes, row
-// stride ld); the caller says where values come from: in(i, cc) is the
-// interior test of a node, x returns a masked value (0 off the interior).
+// The column sweep of the mesh block stencil D1 (csrc/halo_pallas.cu): one
+// thread owns column c and walks rows row0 .. row0 + by - 1 (indices local
+// to the field it writes, row stride ld); the caller says where values come
+// from: in(i, cc) is the interior test of a node, x returns a masked value
+// (0 off the interior). Each node takes A1's expression (stencil_rn), so
+// stitched blocks equal A1's tiles (csrc/stencil.cu) bit for bit.
 
-// y = A x on one column (A1).
+// y = A x on one column (D1).
 template <class In, class X>
 __device__ __forceinline__ void stencil_column(const Geom& g, const In& in, const X& x,
                                                float* __restrict__ y, int ld, int c, int row0,
@@ -173,7 +168,7 @@ __device__ __forceinline__ void stencil_column(const Geom& g, const In& in, cons
     const int i = row0 + k;
     const float next = x(i + 1, c);
     float o = 0.f;
-    if (in(i, c)) o = stencil5(g, cur, x(i, c - 1), x(i, c + 1), prev, next);
+    if (in(i, c)) o = stencil_rn(g, cur, x(i, c - 1), x(i, c + 1), prev, next);
     y[(size_t)i * ld + c] = o;
     prev = cur;
     cur = next;

@@ -5,7 +5,7 @@
 // _make_block_kernel / _block_stencil_call (D1); ist_stencil3d_block
 // replaces _make_block_kernel_3d / _block_stencil_call_3d (D2).
 //
-// D1 is its single-device kernel run on a block: A1's column sweep
+// D1 is A1's arithmetic (ist::stencil_rn) in a column sweep on the block
 // (ist::stencil_column); D2 is S7's arithmetic (ist3::apply7) on the staged
 // z-march of csrc/zstream3d.cuh. Each has three additions. The block's
 // global origin offsets the algebraic mask; the exchanged neighbour rows

@@ -228,10 +228,10 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
         const float4 pv = prev[k];
         const unsigned m = mc[k];
         float4 o;
-        o.x = m & 1 ? ist::stencil5(g, cv.x, l, cv.y, pv.x, nv.x) * scale : 0.f;
-        o.y = m & 2 ? ist::stencil5(g, cv.y, cv.x, cv.z, pv.y, nv.y) * scale : 0.f;
-        o.z = m & 4 ? ist::stencil5(g, cv.z, cv.y, cv.w, pv.z, nv.z) * scale : 0.f;
-        o.w = m & 8 ? ist::stencil5(g, cv.w, cv.z, r, pv.w, nv.w) * scale : 0.f;
+        o.x = m & 1 ? ist::stencil_rn(g, cv.x, l, cv.y, pv.x, nv.x) * scale : 0.f;
+        o.y = m & 2 ? ist::stencil_rn(g, cv.y, cv.x, cv.z, pv.y, nv.y) * scale : 0.f;
+        o.z = m & 4 ? ist::stencil_rn(g, cv.z, cv.y, cv.w, pv.z, nv.z) * scale : 0.f;
+        o.w = m & 8 ? ist::stencil_rn(g, cv.w, cv.z, r, pv.w, nv.w) * scale : 0.f;
         reinterpret_cast<float4*>(y)[(size_t)i * nq + q] = o;
         prev[k] = cv;
         mc[k] = mn;

@@ -51,6 +51,7 @@ _SIGNATURES = {
     "ist_k_down": [_P] * 2 + [_I] * 8 + [_F] * 4 + [_P],
     "ist_k_up": [_P] * 4 + [_I] * 8 + [_F] * 4 + [_P],
     "ist_k_jacobi": [_P] * 3 + [_I] * 6 + [_F] * 4 + [_P],
+    # A1: (x, y, nx, ny, gamma, hp, wp, tile rows, cd, cx, cy)
     "ist_stencil": [_P] * 2 + [_I] * 6 + [_F] * 3 + [_P],
     "ist_k_resid_ff": [_P] * 6 + [_I] * 9 + [_F] * 10 + [_P],
     # custom domains: the int8 mask pointer in the gamma flag's place,

@@ -41,39 +41,20 @@ import torch
 import torch.nn.functional as F
 
 from iterative_solvers_tpu_torch.kernels import _build
-from iterative_solvers_tpu_torch.kernels.stencil_layout import (
+# the tile rule lives with the layout, whose A1 tiles by it too (BLOCKS_PER_SM
+# and TW stay importable from here)
+from iterative_solvers_tpu_torch.kernels.stencil_layout import (  # noqa: F401
+    BLOCKS_PER_SM,
+    TW,
     PaddedStencilOperator,
     check_field,
     kernel_geometry,
     kernel_name,
+    tile_grid,
 )
 from iterative_solvers_tpu_torch.parallel.mesh import all_max, all_sum, mesh_of
 from iterative_solvers_tpu_torch.solvers.cg import CGOptions, CGResult, CGState, cg_solve, stop_reason
 from iterative_solvers_tpu_torch.solvers.stopping import StopConfig, StopReason
-
-TW = 128  # columns per CUDA block (csrc/common.cuh)
-K1_TILE_ROWS = (32, 16, 8)  # K1's tile rows instantiated in csrc/cg_fused.cu
-K2_TILE_ROWS = 8  # K2's and K2-pcg's
-BLOCKS_PER_SM = 4  # K1's rule: the tallest tile that still gives this many blocks per SM
-
-
-def tile_grid(kernel: str, padded_shape, block_rows: int, sm_count: int):
-    """``(tile rows TJ, CUDA blocks)`` of K1 (``kernel="k1"``) or K2 / K2-pcg
-    (``"k2"``) on a layout, for a card of ``sm_count`` SMs. A block owns a
-    tile of TJ rows by ``TW`` columns, TJ a divisor of the band height
-    ``block_rows``, and emits one partial. K2 always takes ``K2_TILE_ROWS``;
-    K1, whose 8 B/node make the tile's two halo rows dear, the tallest of
-    ``K1_TILE_ROWS`` that dividing ``block_rows`` still gives
-    ``BLOCKS_PER_SM`` blocks per SM, else the shortest that divides it (a
-    grid too small to fill the card)."""
-    hp, wp = padded_shape
-    fits = [tj for tj in (K1_TILE_ROWS if kernel == "k1" else (K2_TILE_ROWS,))
-            if block_rows % tj == 0]
-    if not fits:
-        raise ValueError(f"block_rows {block_rows}: K1/K2 need a multiple of {K2_TILE_ROWS}")
-    tj = next((t for t in fits if (hp // t) * (wp // TW) >= BLOCKS_PER_SM * sm_count), fits[-1])
-    return tj, (hp // tj) * (wp // TW)
-
 
 def _scalar(name: str, t: torch.Tensor, device) -> None:
     if t.dtype != torch.float32 or t.device != device:

@@ -10,7 +10,9 @@ Calling the operator applies the masked 5-point stencil ``y = A x`` to an
 f32 padded field: the CUDA kernel ``csrc/stencil.cu`` (which replaces the
 TPU kernel ``stencil_pallas._make_kernel``, and on a custom domain
 ``_make_kernel_custom``) on a CUDA tensor, its plain torch version
-:meth:`PaddedStencilOperator.apply_plain` on a CPU tensor.
+:meth:`PaddedStencilOperator.apply_plain` on a CPU tensor. The kernel tiles
+the canvas as K1 does (:meth:`PaddedStencilOperator.tile_grid`) and equals
+the plain version bit for bit.
 
 A custom domain's layout carries its padded interior as an
 :class:`~iterative_solvers_tpu_torch.core.domain.ArrayMask` (``mask8``), and
@@ -86,6 +88,30 @@ def kernel_geometry(launcher: str, nx: int, ny: int, mask_mode: str, hp: int, wp
     return kernel_name(launcher, mask8), (_build.ptr(mask8.int8(device)), nx, ny, hp, wp, by)
 
 
+TW = 128  # columns per CUDA block (csrc/common.cuh)
+K1_TILE_ROWS = (32, 16, 8)  # K1's and A1's tile rows (csrc/cg_fused.cu, csrc/stencil.cu)
+K2_TILE_ROWS = 8  # K2's and K2-pcg's
+BLOCKS_PER_SM = 4  # K1's rule: the tallest tile that still gives this many blocks per SM
+
+
+def tile_grid(kernel: str, padded_shape, block_rows: int, sm_count: int):
+    """``(tile rows TJ, CUDA blocks)`` of K1 (``kernel="k1"``) or K2 / K2-pcg
+    (``"k2"``) on a layout, for a card of ``sm_count`` SMs. A block owns a
+    tile of TJ rows by ``TW`` columns, TJ a divisor of the band height
+    ``block_rows``, and emits one partial. K2 always takes ``K2_TILE_ROWS``;
+    K1, whose 8 B/node make the tile's two halo rows dear, the tallest of
+    ``K1_TILE_ROWS`` that dividing ``block_rows`` still gives
+    ``BLOCKS_PER_SM`` blocks per SM, else the shortest that divides it (a
+    grid too small to fill the card)."""
+    hp, wp = padded_shape
+    fits = [tj for tj in (K1_TILE_ROWS if kernel == "k1" else (K2_TILE_ROWS,))
+            if block_rows % tj == 0]
+    if not fits:
+        raise ValueError(f"block_rows {block_rows}: K1/K2 need a multiple of {K2_TILE_ROWS}")
+    tj = next((t for t in fits if (hp // t) * (wp // TW) >= BLOCKS_PER_SM * sm_count), fits[-1])
+    return tj, (hp // tj) * (wp // TW)
+
+
 @dataclass(frozen=True, eq=False)
 class PaddedStencilOperator:
     nx: int
@@ -159,15 +185,31 @@ class PaddedStencilOperator:
         y = cd * p[1:-1, 1:-1] + cx * (p[1:-1, :-2] + p[1:-1, 2:]) + cy * (p[:-2, 1:-1] + p[2:, 1:-1])
         return torch.where(m, y, 0.0)
 
+    def tile_grid(self, sm_count: int):
+        """``(tile rows TJ, CUDA blocks)`` of the kernel on this layout for a
+        card of ``sm_count`` SMs: K1's rule (:func:`tile_grid`), a tile of TJ
+        rows by 128 columns a block, TJ the tallest of 32, 16 and 8 that
+        divides the canvas's rows and still puts four blocks on every SM.
+        The tile reads its halo rows from x, so it need not keep to the
+        bands."""
+        hp = self.padded_shape[0]
+        if hp % K1_TILE_ROWS[-1]:
+            raise ValueError(f"padded rows {hp}: the stencil's tiles need a multiple of "
+                             f"{K1_TILE_ROWS[-1]}")
+        return tile_grid("k1", self.padded_shape, hp, sm_count)
+
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         """``y = A x`` on a contiguous f32 field of the padded shape."""
         check_field("x", x, self.padded_shape)
         if x.device.type == "cpu":
             return self.apply_plain(x)
+        check_aligned(x=x)  # staged in 16-byte pieces
         hp, wp = self.padded_shape
         y = torch.empty_like(x)
+        tj, _ = self.tile_grid(_build.sm_count(x.device))
+        # the launchers take the tile rows in the band height's place
         name, geom = kernel_geometry("ist_stencil", self.nx, self.ny, self.mask_mode, hp, wp,
-                                     self.block_rows, self.mask8, x.device)
+                                     tj, self.mask8, x.device)
         _build.launch(name, _build.ptr(x), _build.ptr(y), *geom, *self.coeffs)
         return y
 

@@ -2,7 +2,7 @@
 solve of each main path, after a warm-up solve.
 
     python -m iterative_solvers_tpu_torch.profile_paths [--n 8192] [--nb 1024] [--n3 512]
-        [--ns 128] [--paths A,f64,B,3D,C,C-B,mesh-a,mesh-B,mesh-3D,S] [--out DIR]
+        [--ns 128] [--paths A,f64,B,3D,C,C-B,mesh-a,mesh-B,mesh-3D,S,precond] [--out DIR]
 
 Paths: A, the default solve (FMG warm start, double-f32 outer) at ``n``²;
 the cold f64-outer solve at ``n``²; B, plain f32 CG on the fused engine
@@ -33,7 +33,10 @@ trace per path. For the 3D path it then times the refinement's parts with CUDA
 events: one inner PCG iteration, the V-cycle in it, level 0's kernels D3
 + U3 and its whole leg (the V-cycle from level 0 minus that from level
 1), the 7-point apply, the FMG warm start; for mesh-3D, D2 alone and the
-operator's apply (its halo exchange, then D2). S is not
+operator's apply (its halo exchange, then D2); precond, ``bench.py``'s
+``precond`` race at ``PRECOND_N``² (4096²): plain CG and Chebyshev-8 PCG
+on the padded operator (A1 once an iteration, eight more in each Chebyshev
+apply), each profiled as a CG path, after a 20-iteration warm-up. S is not
 profiled but timed: the 3D ``operator="stencil"`` route's plain f32
 7-point apply and one inner Jacobi PCG iteration on it at ``n3``³ (CUDA
 events), then its mixed Jacobi solve at ``ns``³. Needs a CUDA device.
@@ -54,12 +57,16 @@ from iterative_solvers_tpu_torch.api import DirichletSolver
 from iterative_solvers_tpu_torch.core.domain import Domain2D, Domain3D, notched_disk
 from iterative_solvers_tpu_torch.core.problem import PoissonProblem
 from iterative_solvers_tpu_torch.kernels.cg_fused import fused_cg_solve
+from iterative_solvers_tpu_torch.kernels.stencil_layout import PaddedStencilOperator
 from iterative_solvers_tpu_torch.ops.stencil import StencilOperator
 from iterative_solvers_tpu_torch.parallel import ShardedPallasStencilOperator, make_solver_mesh
 from iterative_solvers_tpu_torch.parallel.cg_fused_sharded import sharded_fused_cg_solve
 from iterative_solvers_tpu_torch.parallel.mg_sharded import ShardedFusedMultigrid
 from iterative_solvers_tpu_torch.solvers.cg import CGOptions, cg_solve
-from iterative_solvers_tpu_torch.solvers.precond import JacobiPreconditioner
+from iterative_solvers_tpu_torch.solvers.precond import (
+    ChebyshevPreconditioner,
+    JacobiPreconditioner,
+)
 from iterative_solvers_tpu_torch.solvers.refine import (
     _maybe_fmg_x0,
     _padded_hi_operator,
@@ -68,6 +75,8 @@ from iterative_solvers_tpu_torch.solvers.refine import (
     fused_refined_solve,
 )
 from iterative_solvers_tpu_torch.solvers.stopping import StopConfig
+
+PRECOND_N = 4096  # bench.py's precond race
 
 # the port's hand-written kernels (csrc/*.cu), as the profiler names them
 # (the mesh blocks' as *_block_kernel)
@@ -303,6 +312,25 @@ def profile_mesh_a(n: int, stop: StopConfig, out_dir=None) -> None:
               f"{_event_ms(lambda: lev.up_block(*uh, (0, 0), with_dot=True)):.4f} ms")
 
 
+def profile_precond(n: int, stop: StopConfig, out_dir=None) -> None:
+    """``bench.py``'s ``precond`` race at ``n``², as ``chip_smoke.py`` runs
+    it: plain CG and Chebyshev-8 PCG (``solvers/cg.cg_solve``) on the padded
+    operator, on the padded f32 right-hand side, to ``stop``; each after a
+    20-iteration warm-up."""
+    dom = Domain2D(nx=n, ny=n)
+    op = PaddedStencilOperator.from_domain(dom)
+    b = op.pad(PoissonProblem.manufactured(dom).rhs_field(torch.float64, "cuda").float())
+    warm = StopConfig(max_iterations=20).disable_all_but_iterations()
+    for name, pc in (("precond-plain", None),
+                     ("precond-cheb8", ChebyshevPreconditioner.from_domain(op, dom, degree=8))):
+        def core(pc=pc, stop=stop):
+            return cg_solve(op, b, options=CGOptions(stop=stop, preconditioner=pc))
+
+        core(stop=warm)
+        profile_core(name, core, f"A1 on {op.padded_shape}, {op.block_rows}-row bands, no facade",
+                     per_iteration=True, out_dir=out_dir)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=8192)
@@ -310,7 +338,8 @@ def main(argv=None) -> int:
     ap.add_argument("--n3", type=int, default=512)
     ap.add_argument("--ns", type=int, default=128)
     ap.add_argument("--paths", default="A,f64,B,3D,C",
-                    help="comma-separated subset of A,f64,B,3D,C,C-B,mesh-a,mesh-B,mesh-3D,S")
+                    help="comma-separated subset of "
+                         "A,f64,B,3D,C,C-B,mesh-a,mesh-B,mesh-3D,S,precond")
     ap.add_argument("--out", default=None, help="directory for Chrome traces")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -346,6 +375,8 @@ def main(argv=None) -> int:
             stencil_route_3d(args.n3, args.ns, rel6)
         elif name == "mesh-a":
             profile_mesh_a(args.n, rel6, args.out)
+        elif name == "precond":
+            profile_precond(PRECOND_N, rel6, args.out)
         else:
             profile_path(name, solvers[name](), args.out)
         torch.cuda.empty_cache()

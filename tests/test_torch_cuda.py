@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain torch versions on the card,
-2D (A1–A8), their custom-mask instantiations (C1–C3, K1/K2/K2-pcg and A8
+2D (A1–A8; A1 and C1 bit for bit on unmasked input on every layout they
+run on), their custom-mask instantiations (C1–C3, K1/K2/K2-pcg and A8
 with the int8 mask operand), 3D (S7, D3, U3, J3, R3), the in-place and
 pipelined stencils (C4, C5), which must equal A1 bit for bit at scale 1,
 and the mesh block kernels (D1–D6), whose stitched blocks must equal the
@@ -206,7 +207,7 @@ def test_stencil_jacobi_resid_ff_match_plain(gen, shape, nx, ny):
     dom = Domain2D(nx=nx, ny=ny, shape=shape)
     lay = PaddedStencilOperator.from_domain(dom, block_rows=16)
     x = torch.randn(lay.padded_shape, device="cuda", generator=gen)  # unmasked: reads masked
-    _close(lay(x), lay.apply_plain(x))
+    assert torch.equal(lay(x), lay.apply_plain(x))
     k = MultigridPreconditioner.from_domain(dom, fuse=True, fuse_min_extent=16,
                                             device="cuda").levels[0].kernels
     xj, b = (torch.randn(k.padded_shape, device="cuda", generator=gen) for _ in range(2))
@@ -219,6 +220,37 @@ def test_stencil_jacobi_resid_ff_match_plain(gen, shape, nx, ny):
     rh, rl = resid_ff.resid_ff_plain(xh, xl, bh, bl, lay)
     assert torch.equal(gh, rh)
     assert float((gl - rl).abs().max()) <= 32 * float(bh.abs().max()) * 2.0**-48
+
+
+# A1 and C1 on the layouts they run on: gamma 64², rect 40 × 50 and the
+# notched disk at 64² (16- and 32-row bands); paths B's and C-B's 1280 ×
+# 1152, the 4096² precond layout, the 8192² level-0 and nnz (256-row)
+# layouts, all of whose tiles (16 or 32 rows on 132 SMs) end inside their
+# bands; gamma 64² at its own 256-row bands (8-row tiles); 12-row bands,
+# which no tile divides (the tiles follow the canvas, not the bands)
+A1_LAYOUTS = [(dict(nx=64, ny=64), 16), (dict(nx=40, ny=50, shape="rect"), 16),
+              (dict(nx=40, ny=40), 12),
+              (dict(nx=64, ny=64, shape="custom", inside_fn=notched_disk), 32),
+              (dict(nx=64, ny=64), None), (dict(nx=1024, ny=1024), None),
+              (dict(nx=1024, ny=1024, shape="custom", inside_fn=notched_disk), None),
+              (dict(nx=4096, ny=4096), None), (dict(nx=8192, ny=8192), None),
+              (dict(nx=8192, ny=8192), 256)]
+
+
+@pytest.mark.parametrize("kw,by", A1_LAYOUTS)
+def test_a1_c1_bit_equal_to_plain(gen, kw, by):
+    """A1 (C1 on the disk) on unmasked random input: every read is masked,
+    every node takes the plain version's rounding order, so the tiles equal
+    ``apply_plain`` bit for bit; one launch, no plain call."""
+    lay = PaddedStencilOperator.from_domain(Domain2D(**kw), block_rows=by)
+    x = torch.randn(lay.padded_shape, device="cuda", generator=gen)
+    tj, blocks = lay.tile_grid(_build.sm_count(x.device))
+    assert lay.padded_shape[0] % tj == 0 and blocks * tj * 128 == x.numel()
+    _build.reset_counts()
+    y = lay(x)
+    assert dict(_build.launches) == {"stencil" if lay.mask8 is None else "stencil_custom": 1}
+    assert not _build.plain_on_cuda
+    assert torch.equal(y, lay.apply_plain(x))
 
 
 @pytest.mark.parametrize("n,by", [(64, 32), (1024, None)])
@@ -235,7 +267,7 @@ def test_custom_kernels_match_plain(gen, n, by):
     x, r, z, w, u = (torch.where(m, torch.randn(lay.padded_shape, device="cuda", generator=gen),
                                  0.0) for _ in range(5))
     _build.reset_counts()
-    _close(lay(x), lay.apply_plain(x))
+    assert torch.equal(lay(x), lay.apply_plain(x))
     beta = torch.tensor(0.37, device="cuda")
     scal = torch.tensor([-2.0e-4, 0.37], device="cuda")
     got, ref = cg_fused.k1(w, z, beta, lay), cg_fused.k1_plain(w, z, beta, lay)
@@ -311,6 +343,8 @@ def test_wrappers_reject_bad_input(gen):
         cg_fused.k1(f.t().contiguous().t(), f, beta, lay)  # non-contiguous
     with pytest.raises(TypeError):
         lay(f.double())
+    with pytest.raises(ValueError, match="16-byte"):  # A1 stages x in 16-byte pieces
+        lay(torch.zeros(f.numel() + 1, device="cuda")[1:].view(lay.padded_shape))
     with pytest.raises(ValueError):
         resid_ff.resid_ff(f, f, f, f.cpu(), lay)  # mixed devices
 
