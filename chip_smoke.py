@@ -63,6 +63,17 @@ final ``ok`` line:
    - path A, the JAX package's default solve, at 8192² through
      ``DirichletSolver`` (FMG, outer='ff'): converged, true f64 relative
      residual < 1e-6, its kernels launched;
+   - the CLI (``cli_phase``): ``solve`` at 8192² through ``cli.main`` in
+     this process (path A's flags, also in a TOML ``--config``, with
+     ``--profile --report --html``): rc 0, converged, true f64 relative
+     residual < 1e-6, path A's kernels launched and none plain, the CLI's
+     phase table and a warm solve's beside it; at 1024² ``solve --save
+     --save-npz --save-matrix`` then ``view --save-npz``: the two npz files
+     bit-equal on every array the text keeps, the native CSR equal to the
+     NumPy builder's and to the dump's; plain f32 CG on A1 at 1024²
+     stopped after its first ``periodic_checkpointer(every_iters=500)``
+     write, reloaded and resumed: the uninterrupted run's count and x bit
+     for bit; each part with its wall time;
    - the mesh: the sharded fast path (``device_refined_solve`` with the
      f64 halo twin, D1 and the shard-fused V-cycle with its FMG) at 8192²
      on a 1x1 mesh beside path A's counts; the engine ladder (the facade's
@@ -2677,6 +2688,217 @@ def four_ranks_one_card(n=MESH_N):
     return launches
 
 
+# the slice's CLI command: the JAX package's default solve at 8192², with
+# the profile, the report and the HTML explorer (its flags also in a TOML)
+CLI_FLAGS = ["--precond", "mg", "--precision", "mixed", "--outer", "ff",
+             "--eps-precision", "-1", "--eps-residual", "-1", "--eps-relative", "1e-6"]
+CLI_TOML = ('precond = "mg"\nprecision = "mixed"\nouter = "ff"\neps_precision = -1.0\n'
+            'eps_residual = -1.0\neps_relative = 1e-6\n')
+# what the sectioned text keeps, so what ``view T.txt --save-npz`` re-saves
+TEXT_KEYS = ("solution", "true_solution", "residual", "error", "x_coords", "y_coords",
+             "iterations", "converged", "stop_reason", "residual_norm", "error_norm", "nx",
+             "ny", "nz", "bounds")
+
+
+def _cli(argv):
+    """``cli.main(argv)`` in this process: (rc, stdout, stderr)."""
+    import contextlib
+    import io
+
+    from iterative_solvers_tpu_torch import cli
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    return rc, out.getvalue(), err.getvalue()
+
+
+def cli_solve(tmp, n=N):
+    """(a) ``solve`` through the CLI at ``n``² with a TOML config, on the
+    card: rc 0, converged in the report, true f64 relative residual < 1e-6
+    (computed on the solver's device from the facade's results), path A's
+    kernels launched and none run plain on CUDA; the CLI's phase table (a
+    cold solve: the route is built) and a second, warm solve's on the same
+    solver. Returns the launches."""
+    import torch
+
+    from iterative_solvers_tpu_torch.api import DirichletSolver
+    from iterative_solvers_tpu_torch.kernels import _build
+    from iterative_solvers_tpu_torch.profiling import Profiler
+
+    cfg = os.path.join(tmp, "solve.toml")
+    with open(cfg, "w") as f:
+        f.write(f"nx = {n}\nny = {n}\n" + CLI_TOML)
+    html = os.path.join(tmp, "solve.html")
+    argv = ["solve", "--config", cfg, "--nx", str(n), "--ny", str(n), *CLI_FLAGS, "--profile",
+            "--report", "--html", html]
+    captured = {}
+    solve = DirichletSolver.solve
+
+    def keep(self, *a, **k):  # the CLI's solver and results, for the checks below
+        captured["solver"] = self
+        captured["res"] = solve(self, *a, **k)
+        return captured["res"]
+
+    torch.cuda.synchronize()
+    _build.reset_counts()
+    DirichletSolver.solve = keep
+    t0 = time.perf_counter()
+    try:
+        rc, out, err = _cli(argv)
+    finally:
+        DirichletSolver.solve = solve
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = dict(_build.launches), dict(_build.plain_on_cuda)
+    log(f"cli {n}^2: python -m iterative_solvers_tpu_torch {' '.join(argv[3:])} "
+        f"(config {os.path.basename(cfg)}): rc {rc} wall {wall:.3f} s "
+        f"(html {os.path.getsize(html) if os.path.exists(html) else 0} bytes)")
+    for line in (err + out).splitlines():
+        log(f"  cli| {line}")
+    log(f"path cli launches {launches} plain_on_cuda {plain}")
+    solver, res = captured["solver"], captured["res"]
+    rel = true_rel(solver, res)
+    log(f"cli {n}^2: converged {res.converged} reason {res.stop_reason.name} outer "
+        f"{res.outer_iterations} inner {res.iterations} true_rel {rel:.3e}")
+    missing = [k for k in PATH_KERNELS["A"] if launches.get(k, 0) <= 0]
+    if rc != 0 or "Converged:               yes" not in out or not rel < 1e-6:
+        raise AssertionError(f"cli solve failed: rc={rc} converged={res.converged} "
+                             f"rel={rel:.3e}")
+    if missing or plain:
+        raise AssertionError(f"cli solve: kernels not launched {missing}; plain on CUDA {plain}")
+    # the facade's warm wall split into its phases (the route is built)
+    prof = Profiler()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = solver.solve(profiler=prof)
+    torch.cuda.synchronize()
+    log(f"cli {n}^2 warm facade solve: wall {time.perf_counter() - t0:.3f} s, inner "
+        f"{res.iterations} converged {res.converged}")
+    for line in prof.report().splitlines():
+        log(f"  warm| {line}")
+    del solver, res, captured
+    torch.cuda.empty_cache()
+    return launches
+
+
+def cli_files(tmp, n=NB):
+    """(b) ``solve --save T.txt --save-npz N.npz --save-matrix M.txt`` at
+    ``n``², then ``view T.txt --save-npz N2.npz``: N and N2 bit-equal on
+    every array the text format keeps; the native CSR equal to the NumPy
+    builder's, and the dump's CSR to both."""
+    import numpy as np
+
+    from iterative_solvers_tpu_torch import Domain2D
+    from iterative_solvers_tpu_torch.ops.sparse import assemble_csr
+    from iterative_solvers_tpu_torch.results_io import load_matrix_and_rhs
+
+    t_txt, t_npz, t_npz2, t_mat = (os.path.join(tmp, f) for f in ("T.txt", "N.npz", "N2.npz",
+                                                                  "M.txt"))
+    t0 = time.perf_counter()
+    rc, _, err = _cli(["solve", "--nx", str(n), "--ny", str(n), *CLI_FLAGS, "--quiet",
+                       "--save", t_txt, "--save-npz", t_npz, "--save-matrix", t_mat])
+    t_solve = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"cli files: solve rc {rc}: {err}")
+    t0 = time.perf_counter()
+    rc, _, err = _cli(["view", t_txt, "--save-npz", t_npz2])
+    t_view = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"cli files: view rc {rc}: {err}")
+    with np.load(t_npz) as a, np.load(t_npz2) as b:
+        differ = [k for k in TEXT_KEYS if not np.array_equal(a[k], b[k])]
+        rest = sorted(set(a.files) - set(TEXT_KEYS))
+    t0 = time.perf_counter()
+    dom = Domain2D(nx=n, ny=n)
+    native, plain = assemble_csr(dom, backend="native"), assemble_csr(dom, backend="numpy")
+    t_csr = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dumped = load_matrix_and_rhs(t_mat)[:3]
+    t_load = time.perf_counter() - t0
+    csr_ok = all(np.array_equal(x, y) and np.array_equal(x, z)
+                 for x, y, z in zip(native, plain, dumped))
+    sizes = {os.path.basename(f): os.path.getsize(f) for f in (t_txt, t_npz, t_npz2, t_mat)}
+    log(f"cli files {n}^2: solve+save {t_solve:.3f} s, view+npz {t_view:.3f} s, native vs "
+        f"numpy CSR {t_csr:.3f} s ({len(native[1])} nonzeros, equal {csr_ok}), dump reload "
+        f"{t_load:.3f} s; sizes {sizes}; N vs N2 bit-equal on {len(TEXT_KEYS)} arrays "
+        f"(differ {differ}); not in the text format: {rest}")
+    if differ or not csr_ok:
+        raise AssertionError(f"cli files: N/N2 differ on {differ}; CSR equal {csr_ok}")
+
+
+def cli_checkpoint(tmp, n=NB):
+    """(c) plain f32 MSG CG on A1 at ``n``² to rel 1e-6: a run stopped after
+    its first checkpoint (``periodic_checkpointer(every_iters=500)``),
+    reloaded with ``load_cg_state`` and resumed, against an uninterrupted
+    run: the same iteration count and x bit for bit. Returns the resumed
+    run's launches."""
+    import torch
+
+    from iterative_solvers_tpu_torch import Domain2D, PoissonProblem
+    from iterative_solvers_tpu_torch.kernels import _build
+    from iterative_solvers_tpu_torch.kernels.stencil_layout import PaddedStencilOperator
+    from iterative_solvers_tpu_torch.solvers.cg import CGOptions, cg_solve
+    from iterative_solvers_tpu_torch.solvers.checkpoint import (
+        load_cg_state,
+        periodic_checkpointer,
+    )
+
+    dom = Domain2D(nx=n, ny=n)
+    op = PaddedStencilOperator.from_domain(dom)
+    b = op.pad(PoissonProblem.manufactured(dom).rhs_field(torch.float32, "cuda"))
+    stop = stop_rel6()
+    t0 = time.perf_counter()
+    full = cg_solve(op, b, options=CGOptions(stop=stop))
+    t_full = time.perf_counter() - t0
+    ckpt = os.path.join(tmp, "cg.npz")
+    t0 = time.perf_counter()
+    first = cg_solve(op, b, options=CGOptions(
+        stop=stop, state_callback=periodic_checkpointer(ckpt, every_iters=500),
+        stop_requested=lambda: os.path.exists(ckpt)))
+    t_first = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    state = load_cg_state(ckpt)
+    t_load = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    res = cg_solve(op, b, options=CGOptions(stop=stop), init_state=state)
+    t_resume = time.perf_counter() - t0
+    launches, plain = dict(_build.launches), dict(_build.plain_on_cuda)
+    same_x = bool(torch.equal(res.x, full.x))
+    log(f"cli checkpoint {n}^2 plain f32 CG on A1: uninterrupted {full.iterations} "
+        f"{full.reason.name} {t_full:.3f} s; first run {first.reason.name} at "
+        f"{first.iterations} {t_first:.3f} s; checkpoint {os.path.getsize(ckpt)} bytes, load "
+        f"{t_load:.3f} s (k {state.k}); resumed {res.iterations} {res.reason.name} "
+        f"{t_resume:.3f} s; x bit-equal {same_x}; launches {launches} plain_on_cuda {plain}")
+    if not (first.reason.name == "INTERRUPTED" and state.k == 500 and res.converged
+            and res.iterations == full.iterations and same_x):
+        raise AssertionError("cli checkpoint: the resumed run differs from the uninterrupted "
+                             f"one ({res.iterations} vs {full.iterations}, x equal {same_x})")
+    if launches.get("stencil", 0) <= 0 or plain:
+        raise AssertionError(f"cli checkpoint: launches {launches}, plain on CUDA {plain}")
+    return launches
+
+
+def cli_phase():
+    """The CLI and the files: (a) the 8192² solve, (b) the 1024² files,
+    (c) the checkpoint, each with its wall time. Returns the launches of
+    (a) and (c)."""
+    import tempfile
+
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        for name, fn in (("(a) solve", cli_solve), ("(b) files", cli_files),
+                         ("(c) checkpoint", cli_checkpoint)):
+            t0 = time.perf_counter()
+            got = fn(tmp)
+            log(f"cli phase {name}: {time.perf_counter() - t0:.3f} s")
+            if got is not None:
+                launches["cli" if name == "(a) solve" else "cli checkpoint"] = got
+    return launches
+
+
 def mesh_facade_3d(n=MESH_N3):
     """The 3D facade with a mesh: operator='pallas' (D2), 'mg' (the plain
     V-cycle on the gathered field, as JAX runs its jnp legs there), mixed,
@@ -2858,6 +3080,9 @@ def main(argv) -> int:
         f"{N}^2 path A")
     del pop, Mp, b, u
     del solver, res
+    torch.cuda.empty_cache()
+    # the CLI: the 8192² solve, the 1024² files, the checkpoint
+    launches.update(cli_phase())
     torch.cuda.empty_cache()
     # the mesh: the sharded fast path on a 1x1 mesh, the per-chip V-cycle
     # ratio, four ranks on the one card

@@ -1,4 +1,4 @@
-"""High-level facade (counterpart of iterative_solvers_tpu/api.py).
+"""High-level facade (counterpart of the JAX package's api.py).
 
 ``DirichletSolver`` configures a Dirichlet–Poisson problem on a 2D domain
 (gamma, rect, custom) or a 3D box, solves it and returns
@@ -34,8 +34,18 @@ its results carry ``interior_mask``, as the JAX package's do.
 
 ``solve(callback=...)`` receives ``(k, prec∞, r∞, err∞)`` at the JAX
 driver's cadence; :meth:`DirichletSolver.request_stop` interrupts a
-chunked solve at its next chunk (INTERRUPTED). ``device="cuda"`` (the
-default) launches the hand-written kernels and raises if there is no card;
+chunked solve at its next chunk (INTERRUPTED). ``solve(profiler=...)``
+(:class:`~iterative_solvers_tpu_torch.profiling.Profiler`) splits the
+call's wall time into the facade's phases — ``assemble`` (building the
+route's operator and preconditioner, on its first solve), ``fields`` (b and
+u on the device), ``solve`` (the driver, with the driver's own phases
+nested), ``residual`` (the final f64 residual), ``result_copies`` (packing
+and the device-to-host copies) and ``result_host`` (host norms and node
+coordinates) — and gathers the drivers' counters. :meth:`set_grid` and
+:meth:`set_stop` change the problem between solves; results save with
+:meth:`SolverResults.save` and print with :meth:`SolverResults.report`.
+``device="cuda"`` (the default) launches the hand-written kernels and
+raises if there is no card;
 ``device="cpu"`` runs their plain torch versions. Nothing falls back from
 one to the other.
 
@@ -92,6 +102,7 @@ from iterative_solvers_tpu_torch.parallel.halo_pallas import (
     ShardedPallasStencilOperator,
 )
 from iterative_solvers_tpu_torch.parallel.mg_sharded import ShardedFusedMultigrid
+from iterative_solvers_tpu_torch.profiling import phase_of
 from iterative_solvers_tpu_torch.solvers.cg import CGOptions, cg_solve
 from iterative_solvers_tpu_torch.solvers.multigrid import (
     MultigridPreconditioner,
@@ -151,6 +162,17 @@ class SolverResults:
     def solution_field(self, domain) -> np.ndarray:
         """Scatter the compacted solution back onto the full grid."""
         return ordering.unpack(np.asarray(self.solution, np.float64), domain)
+
+    def save(self, path: str) -> None:
+        """The sectioned-text results file (:func:`results_io.save_results`)."""
+        from iterative_solvers_tpu_torch.results_io import save_results
+
+        save_results(path, self)
+
+    def report(self) -> str:
+        from iterative_solvers_tpu_torch.report import results_report
+
+        return results_report(self)
 
 
 def _attach_fmg(M, problem):
@@ -316,6 +338,27 @@ class DirichletSolver:
             return self.dtype
         return torch.float32 if self.operator_kind == "pallas" else torch.float64
 
+    def set_grid(self, nx: int, ny: int, x0=None, x1=None, y0=None, y1=None) -> None:
+        """A new 2D grid (bounds kept unless given) on the same shape; the
+        routes built for the old grid are dropped."""
+        d = self.domain
+        if isinstance(d, Domain3D):
+            raise ValueError("set_grid is 2D-only; build a new Domain3D instead")
+        dom = Domain2D(
+            nx=nx, ny=ny,
+            x0=d.x0 if x0 is None else x0, x1=d.x1 if x1 is None else x1,
+            y0=d.y0 if y0 is None else y0, y1=d.y1 if y1 is None else y1,
+            shape=d.shape, inside_fn=d.inside_fn,
+        )
+        self.problem = dataclasses.replace(self.problem, domain=dom)
+        self._routes = {}
+        self._parts = None
+
+    def set_stop(self, **kwargs) -> None:
+        """Update stop criteria (:class:`StopConfig` fields); eps <= 0
+        disables a criterion."""
+        self.stop = dataclasses.replace(self.stop, **kwargs)
+
     def request_stop(self) -> None:
         """Cooperative interrupt: a chunked solve stops at its next chunk
         boundary with INTERRUPTED (a solve with a ``callback`` polls every
@@ -402,6 +445,7 @@ class DirichletSolver:
     def _solve_mesh(self, route, A, M, callback, opts_kw):
         """One solve over the mesh; returns (result, global x, global r, u)."""
         mesh, dev = self.mesh, self.device
+        profiler = opts_kw["profiler"]
         dom = self.domain
         has_u = self.problem.u_exact is not None
 
@@ -417,14 +461,17 @@ class DirichletSolver:
             if route == "mesh_ladder":
                 res = refined_solve(A_hi, A, bs, u_true=us, stop=self.stop, preconditioner=M,
                                     callback=callback, stop_requested=self._stop_event.is_set,
-                                    x0=_maybe_fmg_x0(M, self.fmg_cycles, bs))
+                                    x0=_maybe_fmg_x0(M, self.fmg_cycles, bs),
+                                    profiler=profiler)
             elif isinstance(M, ShardedFusedMultigrid):
                 # the engine ladder: the sharded fused engine (D5, D6) inside
                 res = engine_refined_solve(ShardedFusedCGEngine(A, M), A_hi, bs, u_true=us,
-                                           stop=self.stop, fmg=self.fmg_cycles)
+                                           stop=self.stop, fmg=self.fmg_cycles,
+                                           profiler=profiler)
             else:
                 res = device_refined_solve(A_hi, A, bs, preconditioner=M, u_true=us,
-                                           stop=self.stop, fmg=self.fmg_cycles)
+                                           stop=self.stop, fmg=self.fmg_cycles,
+                                           profiler=profiler)
             r = bs - A_hi(res.x)
         else:
             dtype = self.field_dtype
@@ -452,6 +499,7 @@ class DirichletSolver:
         record_history: bool = True,
         callback_every: int = 100,
         state_callback: Optional[Callable] = None,
+        profiler=None,
     ) -> SolverResults:
         self._stop_event.clear()
         if self.outer == "ff" and callback is not None:
@@ -459,9 +507,11 @@ class DirichletSolver:
                 "outer='ff' runs the whole ladder as one device program — live iteration "
                 "callbacks need the host-chunked loop; use outer='auto'/'f64' with callbacks"
             )
+        phase = phase_of(profiler)
         route = self._route(callback)
         if route not in self._routes:
-            self._routes[route] = self._build(route)
+            with phase("assemble"):
+                self._routes[route] = self._build(route)
         A, M = self._parts = self._routes[route]
         dev, f64 = self.device, torch.float64
         has_u = self.problem.u_exact is not None
@@ -470,73 +520,91 @@ class DirichletSolver:
                 stop=self.stop, beta_kind=self.beta_kind, callback=callback,
                 callback_every=callback_every, stop_requested=self._stop_event.is_set,
                 record_history=record_history, state_callback=state_callback,
+                profiler=profiler,
             ))
         elif self.precision == "mixed":
-            b = self.problem.rhs_field(f64, dev)
-            u = self.problem.true_solution_field(f64, dev) if has_u else None
+            with phase("fields"):
+                b = self.problem.rhs_field(f64, dev)
+                u = self.problem.true_solution_field(f64, dev) if has_u else None
             ff = self.outer_kind == "ff"
-            if route == "fused_ir":
-                res = fused_refined_solve(A, M, b, u_true=u, stop=self.stop,
-                                          fmg=self.fmg_cycles, ff=ff)
-                x = res.x
-            elif route == "padded3d":
-                res = device_refined_solve(
-                    _padded_hi_operator(A), A, A.pad(b), preconditioner=M,
-                    u_true=None if u is None else A.pad(u), stop=self.stop,
-                    fmg=self.fmg_cycles, ff=ff,
-                )
-                x = A.crop(res.x)
-            elif route == "ladder":
-                res = refined_solve(A, A, b, u_true=u, stop=self.stop, preconditioner=M,
-                                    callback=callback, stop_requested=self._stop_event.is_set,
-                                    x0=_maybe_fmg_x0(M, self.fmg_cycles, b))
-                x = res.x
-            else:
-                res = device_refined_solve(A, A, b, preconditioner=M, u_true=u, stop=self.stop,
-                                           fmg=self.fmg_cycles, ff=ff)
-                x = res.x
-            r = b - StencilOperator.from_domain(self.domain)(x)
+            with phase("solve"):
+                if route == "fused_ir":
+                    res = fused_refined_solve(A, M, b, u_true=u, stop=self.stop,
+                                              fmg=self.fmg_cycles, ff=ff, profiler=profiler)
+                    x = res.x
+                elif route == "padded3d":
+                    res = device_refined_solve(
+                        _padded_hi_operator(A), A, A.pad(b), preconditioner=M,
+                        u_true=None if u is None else A.pad(u), stop=self.stop,
+                        fmg=self.fmg_cycles, ff=ff, profiler=profiler,
+                    )
+                    x = A.crop(res.x)
+                elif route == "ladder":
+                    res = refined_solve(A, A, b, u_true=u, stop=self.stop, preconditioner=M,
+                                        callback=callback,
+                                        stop_requested=self._stop_event.is_set,
+                                        x0=_maybe_fmg_x0(M, self.fmg_cycles, b),
+                                        profiler=profiler)
+                    x = res.x
+                else:
+                    res = device_refined_solve(A, A, b, preconditioner=M, u_true=u,
+                                               stop=self.stop, fmg=self.fmg_cycles, ff=ff,
+                                               profiler=profiler)
+                    x = res.x
+            with phase("residual"):
+                r = b - StencilOperator.from_domain(self.domain)(x)
         else:
-            b = self.problem.rhs_field(self.field_dtype, dev)
-            u = self.problem.true_solution_field(self.field_dtype, dev) if has_u else None
+            with phase("fields"):
+                b = self.problem.rhs_field(self.field_dtype, dev)
+                u = self.problem.true_solution_field(self.field_dtype, dev) if has_u else None
             opts = CGOptions(
                 stop=self.stop, beta_kind=self.beta_kind, preconditioner=M, callback=callback,
                 callback_every=callback_every, stop_requested=self._stop_event.is_set,
                 record_history=record_history, state_callback=state_callback,
+                profiler=profiler,
             )
             if route == "fused":
-                res = fused_cg_solve(A, b, u_true=u, options=opts)
-                x = res.x
-                # the final residual through the stencil kernel, as the JAX facade does
-                r = b - A.crop(A(A.pad(x))).to(b.dtype)
+                with phase("solve"):
+                    res = fused_cg_solve(A, b, u_true=u, options=opts)
+                    x = res.x
+                with phase("residual"):
+                    # the final residual through the stencil kernel, as the JAX facade does
+                    r = b - A.crop(A(A.pad(x))).to(b.dtype)
             elif route == "pallas":
-                bp = A.pad(b)
-                res = cg_solve(A, bp, u_true=None if u is None else A.pad(u), options=opts)
-                x, r = A.crop(res.x), A.crop(bp - A(res.x))
-            elif route == "sparse":
-                b, u = ordering.pack(b, self.domain), (ordering.pack(u, self.domain)
-                                                       if has_u else None)
-                res = cg_solve(A, b, u_true=u, options=opts)
-                x = res.x
-                r = b - A(x)
+                with phase("solve"):
+                    bp = A.pad(b)
+                    res = cg_solve(A, bp, u_true=None if u is None else A.pad(u), options=opts)
+                with phase("residual"):
+                    x, r = A.crop(res.x), A.crop(bp - A(res.x))
             else:
-                res = cg_solve(A, b, u_true=u, options=opts)
-                x = res.x
-                r = b - A(x)
-        results = self._assemble_results(res, x, r, u)
+                if route == "sparse":
+                    b, u = ordering.pack(b, self.domain), (ordering.pack(u, self.domain)
+                                                           if has_u else None)
+                with phase("solve"):
+                    res = cg_solve(A, b, u_true=u, options=opts)
+                    x = res.x
+                with phase("residual"):
+                    r = b - A(x)
+        results = self._assemble_results(res, x, r, u, phase)
         if completion_callback is not None:
             completion_callback(results.converged, results.stop_reason.text())
         return results
 
-    def _assemble_results(self, res, x, r, u) -> SolverResults:
+    def _assemble_results(self, res, x, r, u, phase) -> SolverResults:
         dom = self.domain
-        if self.operator_kind != "sparse" or self.precision == "mixed":
-            x, r = ordering.pack(x, dom), ordering.pack(r, dom)
-            u = ordering.pack(u, dom) if u is not None else None
-        sol = x.cpu().numpy().astype(np.float64)
-        resid = r.cpu().numpy().astype(np.float64)
-        if u is not None:
-            tru = u.cpu().numpy().astype(np.float64)
+        with phase("result_copies"):
+            if self.operator_kind != "sparse" or self.precision == "mixed":
+                x, r = ordering.pack(x, dom), ordering.pack(r, dom)
+                u = ordering.pack(u, dom) if u is not None else None
+            sol = x.cpu().numpy().astype(np.float64)
+            resid = r.cpu().numpy().astype(np.float64)
+            tru = u.cpu().numpy().astype(np.float64) if u is not None else None
+        with phase("result_host"):
+            return self._results(res, sol, resid, tru)
+
+    def _results(self, res, sol, resid, tru) -> SolverResults:
+        dom = self.domain
+        if tru is not None:
             err = sol - tru
         else:
             tru = err = np.zeros(0)

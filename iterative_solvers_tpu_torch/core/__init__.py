@@ -1,1 +1,1 @@
-"""core of the PyTorch/CUDA port (mirrors iterative_solvers_tpu/core)."""
+"""core of the PyTorch/CUDA port (mirrors the JAX package's core)."""

@@ -1,4 +1,4 @@
-"""Grid domains with node masks (counterpart of iterative_solvers_tpu/core/domain.py).
+"""Grid domains with node masks (counterpart of the JAX package's core/domain.py).
 
 A 2D field is a dense tensor over the full rectangular node grid, shape
 ``(ny + 1, nx + 1)`` indexed ``[iy, ix]``; a 3D field (:class:`Domain3D`, the

@@ -1,5 +1,5 @@
 """Full-grid fields and compacted unknown vectors (counterpart of
-iterative_solvers_tpu/core/ordering.py).
+the JAX package's core/ordering.py).
 
 The compacted order is row-major over the interior mask: the reference's
 unknown numbering on square Г-grids (bottom strip first, then the upper

@@ -1,4 +1,4 @@
-"""Poisson problem and RHS assembly (counterpart of iterative_solvers_tpu/core/problem.py).
+"""Poisson problem and RHS assembly (counterpart of the JAX package's core/problem.py).
 
 The system is the discrete Laplacian itself, ``A u = f``, with Dirichlet
 values eliminated into the RHS: for an interior node next to a boundary node,

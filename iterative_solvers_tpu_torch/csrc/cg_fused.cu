@@ -1,6 +1,6 @@
 // Fused CG / PCG iteration kernels K1, K2 and K2-pcg.
 //
-// K1 replaces iterative_solvers_tpu/kernels/cg_fused.py:_make_k1 (A2);
+// K1 replaces the JAX package's kernels/cg_fused.py:_make_k1 (A2);
 // K2 replaces cg_fused.py:_make_k2 (A3, plain CG);
 // K2-pcg replaces cg_fused.py:_make_k2_pcg (A4).
 // Their kMask = true instantiations (the *_custom launchers) replace the same

@@ -1,7 +1,7 @@
 // The fused CG / PCG iteration on one block of a mesh-sharded field: block
 // K1 (D5) and block K2 / K2-pcg (D6).
 //
-// ist_k1_block replaces iterative_solvers_tpu/parallel/cg_fused_sharded.py:
+// ist_k1_block replaces the JAX package's parallel/cg_fused_sharded.py:
 // _make_k1_block / _k1_call (D5); ist_k2_block and ist_k2_pcg_block replace
 // _make_k2_block / _k2_call (D6, pcg=False / True).
 //

@@ -1,7 +1,7 @@
 // Masked 5-point (D1) and 7-point (D2) stencils on one block of a
 // mesh-sharded field.
 //
-// ist_stencil_block replaces iterative_solvers_tpu/parallel/halo_pallas.py:
+// ist_stencil_block replaces the JAX package's parallel/halo_pallas.py:
 // _make_block_kernel / _block_stencil_call (D1); ist_stencil3d_block
 // replaces _make_block_kernel_3d / _block_stencil_call_3d (D2).
 //

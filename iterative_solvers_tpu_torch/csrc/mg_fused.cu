@@ -1,7 +1,7 @@
 // Fused V-cycle leg kernels K_down and K_up for the multigrid fine levels,
 // and the weighted-Jacobi sweep K_jacobi of the FMG warm start.
 //
-// K_down replaces iterative_solvers_tpu/kernels/mg_fused.py:_make_k_down (A5);
+// K_down replaces the JAX package's kernels/mg_fused.py:_make_k_down (A5);
 // K_up replaces mg_fused.py:_make_k_up (A6), with and without its dot epilogue;
 // K_jacobi replaces mg_fused.py:_make_k_jacobi (A7).
 // The kMask = true instantiations of K_down and K_up (ist_k_down_custom,

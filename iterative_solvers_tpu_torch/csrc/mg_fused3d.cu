@@ -1,11 +1,11 @@
 // Fused legs of the 3D V-cycle's fine levels (D3, U3) and the weighted-Jacobi
 // sweep of the FMG warm start (J3), on the padded (d, hp, wp) layout.
 //
-// D3 (k_down3d) replaces iterative_solvers_tpu/kernels/mg_fused3d.py:
+// D3 (k_down3d) replaces the JAX package's kernels/mg_fused3d.py:
 //   _make_k_resid_3d (B3) + _make_k_zrestrict (B4), and their chunked fusion
 //   _make_k_down_chunked_3d (B6), together with the y/x full weighting that
 //   the JAX package runs outside its kernels (banded MXU matmuls,
-//   iterative_solvers_tpu/solvers/multigrid.py:341-377): the residual of the
+//   the JAX package's solvers/multigrid.py:341-377): the residual of the
 //   pre-smoothed iterate x = cs b (cs = omega / d), restricted [1,2,1]/4
 //   along z, then y, then x, masked by the child's interior and written
 //   straight onto the child's input layout (ho, wo per plane: its padded

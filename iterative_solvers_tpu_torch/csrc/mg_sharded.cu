@@ -1,7 +1,7 @@
 // The fused V-cycle legs on one block of a mesh-sharded level: K_down (D3)
 // and K_up with its optional dot epilogue (D4).
 //
-// ist_k_down_block replaces iterative_solvers_tpu/parallel/mg_sharded.py:
+// ist_k_down_block replaces the JAX package's parallel/mg_sharded.py:
 // _make_k_down_block / _k_down_call (D3); ist_k_up_block replaces
 // _make_k_up_block / _k_up_call (D4).
 //

@@ -1,6 +1,6 @@
 // Compensated double-f32 true residual (rh, rl) = (bh + bl) - A (xh + xl).
 //
-// Replaces iterative_solvers_tpu/kernels/resid_ff.py:_make_k_resid_ff_2d (A8)
+// Replaces the JAX package's kernels/resid_ff.py:_make_k_resid_ff_2d (A8)
 // and, for the 3D box, its 3D bodies (R3, below): the only high-precision
 // work of the double-f32 refinement outer. On a custom domain the JAX
 // package runs the jnp ops/ddf32.residual_ff instead (its kernel takes no
@@ -118,7 +118,7 @@ __global__ void k_resid_ff_kernel(const float* __restrict__ xh, const float* __r
 }
 
 // R3: the 3D box on the (d, hp, wp) layout. Replaces
-// iterative_solvers_tpu/kernels/resid_ff.py:_make_k_resid_ff_3d (B10, one
+// the JAX package's kernels/resid_ff.py:_make_k_resid_ff_3d (B10, one
 // plane per program) and _make_k_resid_ff_chunked_3d (B11, bz planes per
 // program). It runs the staged z-march of csrc/zstream3d.cuh on two rings,
 // xh and xl: each plane of both is staged once per chunk by 16-byte

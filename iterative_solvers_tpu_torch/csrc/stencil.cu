@@ -1,6 +1,6 @@
 // Masked 5-point stencil y = A x on the padded layout.
 //
-// Replaces iterative_solvers_tpu/kernels/stencil_pallas.py:_make_kernel (A1),
+// Replaces the JAX package's kernels/stencil_pallas.py:_make_kernel (A1),
 // the apply of the padded operator (the operator of every CG on
 // operator="pallas" without the fused engine, the facade's final residual of
 // the fused plain-CG solve), and, as stencil_kernel<true, TJ>, the

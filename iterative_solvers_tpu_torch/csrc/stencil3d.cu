@@ -1,6 +1,6 @@
 // Masked 7-point stencil y = A x on the padded 3D layout (S7).
 //
-// Replaces iterative_solvers_tpu/kernels/stencil3d_pallas.py:_make_kernel_3d
+// Replaces the JAX package's kernels/stencil3d_pallas.py:_make_kernel_3d
 // (B1, one z-plane per program) and _make_kernel_3d_chunked (B2, bz planes
 // per program): the same function, split on the TPU only by what fit in
 // VMEM. It is the inner PCG's A z and the plain f32 CG baseline's operator.

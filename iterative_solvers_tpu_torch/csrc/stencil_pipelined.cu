@@ -2,7 +2,7 @@
 // in place or out of place with a chosen depth of copies in flight (C5):
 // one streaming body for both.
 //
-// Replaces iterative_solvers_tpu/kernels/stencil_pipelined.py:
+// Replaces the JAX package's kernels/stencil_pipelined.py:
 //   _make_inplace_kernel (C4)   -> stencil_stream_kernel<kMask, G>, depth set by the width
 //   _make_pipelined_kernel (C5) -> stencil_stream_kernel<kMask, G>, depth = lookahead
 // kMask = true reads a custom layout's int8 interior (the *_custom

@@ -1,1 +1,1 @@
-"""kernels of the PyTorch/CUDA port (mirrors iterative_solvers_tpu/kernels)."""
+"""kernels of the PyTorch/CUDA port (mirrors the JAX package's kernels)."""

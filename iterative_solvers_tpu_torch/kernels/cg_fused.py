@@ -1,4 +1,4 @@
-"""Fused two-kernel CG/PCG iteration (counterpart of iterative_solvers_tpu/kernels/cg_fused.py).
+"""Fused two-kernel CG/PCG iteration (counterpart of the JAX package's kernels/cg_fused.py).
 
 - **K1** (:func:`k1`, CUDA ``csrc/cg_fused.cu``): forms ``z_k = d + β·z_prev``
   and ``A z_k`` on chip and emits per-block partials of (d, z_k),
@@ -290,13 +290,18 @@ def _engine_for(op: PaddedStencilOperator, M) -> FusedCGEngine:
 
 
 def run_fused_solve(engine: FusedCGEngine, b: torch.Tensor, u_true, opts: CGOptions, *, lay,
-                    unlay) -> CGResult:
+                    unlay, init_state: Optional[CGState] = None) -> CGResult:
     """The driver of the single-device and the mesh fused solves (the JAX
     package's ``_run_fused_solve``): the state init (z_prev convention,
     PCG carries z_0 = w_0 = M r_0), the CG loop with the fused-chunk stop
     rules, in one place so the twins cannot drift. ``lay`` maps an unpadded
     full-grid field onto the engine's layout (``op.pad``, or ``op.shard``
-    over a mesh), ``unlay`` the iterate back (crop; gather and crop)."""
+    over a mesh), ``unlay`` the iterate back (crop; gather and crop).
+    ``init_state`` (a state of this engine on its layout, e.g. from
+    ``solvers.checkpoint.load_cg_state``) resumes a run. The PCG engine
+    needs its carries ``w`` and ``rz_prev`` there, which a JAX package
+    checkpoint lacks; (r_{k-1}, w_{k-1}) cannot be rebuilt from the saved
+    state, so such a state is refused rather than resumed on a wrong β."""
     if opts.beta_kind != "msg":
         raise ValueError("fused engine implements the MSG recurrence only")
     M = opts.preconditioner
@@ -307,6 +312,16 @@ def run_fused_solve(engine: FusedCGEngine, b: torch.Tensor, u_true, opts: CGOpti
     dev = bp.device
     inf = torch.full((), float("inf"), dtype=f32, device=dev)
     one = torch.ones((), dtype=f32, device=dev)
+    stop = opts.stop
+    fused = dataclasses.replace(opts, step_fn=lambda s, u: engine.step(stop, s, u))
+    if init_state is not None:
+        if M is not None and (init_state.w is None or init_state.rz_prev is None):
+            raise ValueError(
+                "resuming the fused PCG engine needs the state's carries w and rz_prev; "
+                "this checkpoint has none (a JAX package checkpoint does not save them)")
+        res = cg_solve(None, bp, u_true=up, options=fused, init_state=init_state)
+        res.x = unlay(res.x)
+        return res
     (r2_0,) = all_sum(mesh, torch.sum(bp * bp))
     w0, rz0 = engine.precondition(bp) if M is not None else (None, None)
     r_max, err_max = all_max(mesh, torch.max(torch.abs(bp)),
@@ -319,8 +334,6 @@ def run_fused_solve(engine: FusedCGEngine, b: torch.Tensor, u_true, opts: CGOpti
         r_max=r_max, err_max=err_max,
         r0_norm=torch.sqrt(r2_0), w=w0, rz_prev=one if M is not None else None,
     )
-    stop = opts.stop
-    fused = dataclasses.replace(opts, step_fn=lambda s, u: engine.step(stop, s, u))
     res = cg_solve(None, bp, u_true=up, options=fused, init_state=state)
     res.x = unlay(res.x)
     return res
@@ -332,10 +345,13 @@ def fused_cg_solve(
     *,
     u_true: Optional[torch.Tensor] = None,
     options: Optional[CGOptions] = None,
+    init_state: Optional[CGState] = None,
 ) -> CGResult:
     """Solve with the fused engine (f32). ``b``/``u_true`` are unpadded
     full-grid fields; the returned ``x`` is cropped back to the grid shape.
-    With ``options.preconditioner`` the engine runs PCG (z_0 = w_0 = M r_0)."""
+    With ``options.preconditioner`` the engine runs PCG (z_0 = w_0 = M r_0).
+    ``init_state`` (on the padded layout, as ``options.state_callback``
+    sees it) resumes a saved run (:func:`run_fused_solve`)."""
     opts = options or CGOptions()
     return run_fused_solve(_engine_for(op, opts.preconditioner), b, u_true, opts, lay=op.pad,
-                           unlay=op.crop)
+                           unlay=op.crop, init_state=init_state)

@@ -1,4 +1,4 @@
-"""Fused V-cycle legs of the multigrid fine levels (counterpart of iterative_solvers_tpu/kernels/mg_fused.py).
+"""Fused V-cycle legs of the multigrid fine levels (counterpart of the JAX package's kernels/mg_fused.py).
 
 - **K_down** (:meth:`FusedLevelKernels.down`, CUDA ``csrc/mg_fused.cu``):
   pre-smoothing from zero (x = (ω/d)·b, never stored), the residual, the

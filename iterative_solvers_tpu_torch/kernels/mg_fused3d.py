@@ -1,4 +1,4 @@
-"""Fused legs of the 3D V-cycle's fine levels (counterpart of iterative_solvers_tpu/kernels/mg_fused3d.py).
+"""Fused legs of the 3D V-cycle's fine levels (counterpart of the JAX package's kernels/mg_fused3d.py).
 
 - **D3** (:meth:`FusedLevelKernels3D.down`, CUDA ``csrc/mg_fused3d.cu``):
   pre-smoothing from zero (x = (ω/d)·b, never stored), the residual, the

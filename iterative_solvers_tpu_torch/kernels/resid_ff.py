@@ -1,4 +1,4 @@
-"""Fused double-f32 true residual (counterpart of iterative_solvers_tpu/kernels/resid_ff.py).
+"""Fused double-f32 true residual (counterpart of the JAX package's kernels/resid_ff.py).
 
 :func:`resid_ff` computes ``(rh, rl) = (bh + bl) − A·(xh + xl)`` on the
 padded layout in one pass: the CUDA kernels of ``csrc/resid_ff.cu`` on CUDA

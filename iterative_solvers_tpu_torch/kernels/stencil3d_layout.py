@@ -1,5 +1,5 @@
 """Padded 3D box operator (counterpart of ``Pallas3DStencilOperator`` in
-iterative_solvers_tpu/kernels/stencil3d_pallas.py).
+the JAX package's kernels/stencil3d_pallas.py).
 
 Volumes live on a ``(D, Hp, Wp)`` canvas, ``D = nz + 1`` exact, ``Wp % 128
 == 0`` and ``Hp`` a multiple of the JAX package's panel height

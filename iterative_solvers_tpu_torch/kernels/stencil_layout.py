@@ -1,5 +1,5 @@
 """Padded stencil operator (counterpart of ``PallasStencilOperator`` in
-iterative_solvers_tpu/kernels/stencil_pallas.py).
+the JAX package's kernels/stencil_pallas.py).
 
 Fields live on an ``(hp, wp)`` canvas with ``wp % 128 == 0`` and
 ``hp % block_rows == 0``; the rule that picks ``block_rows`` and the padding

@@ -1,5 +1,5 @@
 """The in-place and the pipelined stencil, and the SpMV chain (counterpart of
-iterative_solvers_tpu/kernels/stencil_pipelined.py and of the chain that
+the JAX package's kernels/stencil_pipelined.py and of the chain that
 ``bench.py``'s ``nnz`` mode times).
 
 Both kernels apply the masked 5-point stencil of a

@@ -1,1 +1,1 @@
-"""ops of the PyTorch/CUDA port (mirrors iterative_solvers_tpu/ops)."""
+"""ops of the PyTorch/CUDA port (mirrors the JAX package's ops)."""

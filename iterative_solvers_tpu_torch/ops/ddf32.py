@@ -1,5 +1,5 @@
 """Double-float32 (error-free transformation) arithmetic (counterpart of
-iterative_solvers_tpu/ops/ddf32.py).
+the JAX package's ops/ddf32.py).
 
 The double-f32 ("ff") outer of the mixed-precision refinement carries its
 iterate and right-hand side as f32 pairs ``(hi, lo)`` and needs one

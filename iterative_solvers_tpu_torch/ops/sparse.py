@@ -1,10 +1,12 @@
 """Explicit sparse (CSR) assembly and SpMV (counterpart of
-iterative_solvers_tpu/ops/sparse.py).
+the JAX package's ops/sparse.py).
 
-Assembly is the JAX package's vectorised NumPy builder: rank the interior
-nodes in compacted order (:mod:`~iterative_solvers_tpu_torch.core.ordering`),
-emit one entry block per stencil offset, drop the neighbours off the
-interior, sort by (row, col). :class:`SparseOperator` holds the result as a
+Assembly takes the native C++ engine (``native/assembly.cpp``: closed-form
+ranks, two flat passes) for gamma/rect domains and 3D boxes, and the
+vectorised NumPy builder for custom masks: rank the interior nodes in
+compacted order (:mod:`~iterative_solvers_tpu_torch.core.ordering`), emit one
+entry block per stencil offset, drop the neighbours off the interior, sort by
+(row, col). Both give the same arrays. :class:`SparseOperator` holds the result as a
 ``torch.sparse_csr_tensor`` over compacted unknown vectors; its SpMV is
 PyTorch's CSR product, a library call outside any kernel, as the JAX
 package's is XLA's BCOO product. The matrix-free stencil operators are the
@@ -77,15 +79,21 @@ def assemble_csr(domain, dtype=np.float64,
                  backend: str = "auto") -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """CSR (row_map, entries, values) of the compacted system matrix: the
     reference's ``finalize_matrix`` content up to within-row entry order.
-    ``backend``: ``"auto"`` and ``"numpy"`` take the vectorised builder;
-    the JAX package's native C++ engine (``"native"``) is not ported."""
-    if backend == "native":
-        raise NotImplementedError(
-            "the native C++ assembly engine is not ported yet (ROADMAP Queue 1 item 15); "
-            "use backend='numpy' or 'auto'"
-        )
-    if backend not in ("auto", "numpy"):
+    ``backend``: ``"auto"`` takes the native C++ engine
+    (``native/assembly.cpp``) for gamma/rect domains and 3D boxes and the
+    vectorised builder for custom masks; ``"native"`` requires the engine
+    (a custom mask raises); ``"numpy"`` skips it. Both give the same arrays."""
+    if backend not in ("auto", "numpy", "native"):
         raise ValueError(f"unknown backend {backend!r} (use 'auto', 'numpy' or 'native')")
+    if backend != "numpy":
+        from iterative_solvers_tpu_torch.native import assemble_csr_native
+
+        out = assemble_csr_native(domain)
+        if out is not None:
+            row_map, entries, values = out
+            return row_map, entries, values.astype(dtype, copy=False)
+        if backend == "native":
+            raise RuntimeError("the native assembly engine does not cover custom masks")
     rows, cols, vals = assemble_coo(domain, dtype)
     row_map = np.zeros(domain.num_unknowns + 1, dtype=np.int64)
     np.add.at(row_map, rows + 1, 1)

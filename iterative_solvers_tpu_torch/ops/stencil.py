@@ -1,5 +1,5 @@
 """Masked 5-point (2D) and 7-point (3D) stencils in plain torch (counterpart
-of iterative_solvers_tpu/ops/stencil.py).
+of the JAX package's ops/stencil.py).
 
 This is the high-precision operator ``A_hi`` of the mixed-precision outer
 loop: it runs in f64 (or f32) outside any kernel, exactly as the JAX package

@@ -1,4 +1,4 @@
-"""The mesh layer (counterpart of iterative_solvers_tpu/parallel): solver
+"""The mesh layer (counterpart of the JAX package's parallel): solver
 meshes over ``torch.distributed`` ranks, the block partition of fields, the
 halo-exchanging stencils, the shard-fused V-cycle (``parallel.mg_sharded``)
 and the sharded fused CG engine (``parallel.cg_fused_sharded``)."""

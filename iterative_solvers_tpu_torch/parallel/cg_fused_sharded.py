@@ -1,5 +1,5 @@
 """Mesh-sharded fused CG/PCG engine: the two-kernel iteration per block
-(counterpart of iterative_solvers_tpu/parallel/cg_fused_sharded.py).
+(counterpart of the JAX package's parallel/cg_fused_sharded.py).
 
 The single-device engine (``kernels/cg_fused.py``: K1, then K2 or K2-pcg)
 runs on each rank's block of the sharded operator's padded layout:

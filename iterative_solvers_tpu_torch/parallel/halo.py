@@ -1,5 +1,5 @@
 """Halo-exchanging stencil operator over mesh blocks (counterpart of
-iterative_solvers_tpu/parallel/halo.py).
+the JAX package's parallel/halo.py).
 
 Each rank owns one block of the padded node grid (``parallel/mesh.py``).
 An apply masks the block, exchanges one row and one column of halo with

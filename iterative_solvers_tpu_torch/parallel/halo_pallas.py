@@ -1,5 +1,5 @@
 """Sharded stencil kernels: the padded-layout stencils per mesh block
-(counterpart of iterative_solvers_tpu/parallel/halo_pallas.py).
+(counterpart of the JAX package's parallel/halo_pallas.py).
 
 - :class:`ShardedPallasStencilOperator` (2D Г/rect) runs the CUDA kernel
   ``ist_stencil_block`` (``csrc/halo_pallas.cu``), which replaces the TPU

@@ -1,5 +1,5 @@
 """Solver meshes over ``torch.distributed`` ranks and the block partition of
-global fields (counterpart of iterative_solvers_tpu/parallel/mesh.py).
+global fields (counterpart of the JAX package's parallel/mesh.py).
 
 The JAX package names the devices of one program (a ``jax.sharding.Mesh``)
 and keeps each field as one global array that GSPMD partitions. Here every

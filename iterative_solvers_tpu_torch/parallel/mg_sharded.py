@@ -1,5 +1,5 @@
 """Mesh-sharded fused multigrid V-cycle: the sharded fast path's
-preconditioner (counterpart of iterative_solvers_tpu/parallel/mg_sharded.py).
+preconditioner (counterpart of the JAX package's parallel/mg_sharded.py).
 
 Each fused fine level runs its V-cycle legs per mesh block, as the
 single-device legs' tiles (``csrc/mg_tiles.cuh``) on the block:

@@ -1,5 +1,5 @@
 """Process groups, hybrid meshes and a local launcher (counterpart of
-iterative_solvers_tpu/parallel/multihost.py).
+the JAX package's parallel/multihost.py).
 
 - :func:`initialize_distributed` joins the default ``torch.distributed``
   process group, from explicit arguments or the usual environment

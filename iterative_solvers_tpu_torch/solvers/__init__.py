@@ -1,1 +1,1 @@
-"""solvers of the PyTorch/CUDA port (mirrors iterative_solvers_tpu/solvers)."""
+"""solvers of the PyTorch/CUDA port (mirrors the JAX package's solvers)."""

@@ -1,4 +1,4 @@
-"""Conjugate gradients with the reference stop criteria (counterpart of iterative_solvers_tpu/solvers/cg.py).
+"""Conjugate gradients with the reference stop criteria (counterpart of the JAX package's solvers/cg.py).
 
 PyTorch runs eagerly, so the JAX package's compiled chunk becomes a host
 loop over device tensors. Every scalar of the recurrence stays a 0-dim tensor
@@ -15,6 +15,10 @@ the history rows ``(k, prec∞, r∞, err∞, ‖r‖₂)`` fire at the initial 
 at each chunk's end and once more at the end. ``beta_kind`` is ``"msg"``
 (the reference recurrence, β = ‖r_new‖²/(r, z)) or ``"fr"``
 (Fletcher–Reeves, β = ‖r_new‖²/‖r‖²); a preconditioner runs standard PCG.
+``profiler`` (:class:`~iterative_solvers_tpu_torch.profiling.Profiler`)
+times ``setup`` and each ``cg_chunk`` (whose last iteration's read is the
+chunk's synchronisation) and counts ``iterations``, ``operator_applies`` and
+``nnz_per_apply``. :func:`cg_run` is the fixed-count core with no host read.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import numpy as np
 import torch
 
 from iterative_solvers_tpu_torch.parallel.mesh import all_max, all_sum, mesh_of
+from iterative_solvers_tpu_torch.profiling import phase_of
 from iterative_solvers_tpu_torch.solvers.stopping import StopConfig, StopReason
 
 Operator = Callable[[torch.Tensor], torch.Tensor]
@@ -66,6 +71,7 @@ class CGOptions:
     # done/reason, e.g. the fused engine's step (kernels/cg_fused.py); the
     # loop's stop protocol and result assembly stay the same around it
     step_fn: Optional[Callable] = None
+    profiler: Optional[object] = None  # profiling.Profiler: phases and counters
 
 
 @dataclass
@@ -172,6 +178,21 @@ def cg_iteration(A, M, stop: StopConfig, s: CGState, u_true, beta_kind: str = "m
     )
 
 
+def cg_run(A: Operator, b: torch.Tensor, n_iters: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``n_iters`` iterations of plain MSG CG from x0 = 0, with no stop test
+    and no host read: the compute core alone, for timing and compile checks.
+    Returns (x, ‖r‖²) as device tensors."""
+    x, r, z = torch.zeros_like(b), b.clone(), b.clone()
+    for _ in range(n_iters):
+        Az = A(z)
+        rz = _dot(r, z)
+        alpha = rz / _dot(Az, z)
+        x = x + alpha * z
+        r = r - alpha * Az
+        z = r + (_dot(r, r) / rz) * z
+    return x, _dot(r, r)
+
+
 def _sync_stats(s: CGState) -> Tuple[bool, int, float, float, float, float, float]:
     """ONE host transfer of the progress scalars."""
     f = s.r_max.dtype
@@ -197,9 +218,16 @@ def cg_solve(
     stop = opts.stop
     if opts.beta_kind not in ("msg", "fr"):
         raise ValueError(f"unknown beta_kind {opts.beta_kind!r}")
+    prof = opts.profiler
+    phase = phase_of(prof)
+    if prof is not None and "nnz_per_apply" not in prof.counters and hasattr(A, "nnz"):
+        prof.counters["nnz_per_apply"] = float(A.nnz())
     t0 = time.perf_counter()
-    state = init_state if init_state is not None else _cg_init(A, opts.preconditioner, b, x0,
-                                                                u_true)
+    if init_state is not None:
+        state = init_state
+    else:
+        with phase("setup"):
+            state = _cg_init(A, opts.preconditioner, b, x0, u_true)
     step = opts.step_fn or (
         lambda s, u: cg_iteration(A, opts.preconditioner, stop, s, u, opts.beta_kind)
     )
@@ -240,11 +268,15 @@ def cg_solve(
         else:
             k_stop = min(k + chunk, max_iter)
         k_prev, done = k, False
-        # one chunk: the JAX chunk's loop condition, read once per iteration
-        while not done and k < k_stop and r2 > 0:
-            state = step(state, u_true)
-            k = state.k
-            done, code, prec, rmax, emax, r2, r0n = _sync_stats(state)
+        with phase("cg_chunk"):
+            # one chunk: the JAX chunk's loop condition, read once per iteration
+            while not done and k < k_stop and r2 > 0:
+                state = step(state, u_true)
+                k = state.k
+                done, code, prec, rmax, emax, r2, r0n = _sync_stats(state)
+        if prof is not None:
+            prof.count("iterations", k - k_prev)
+            prof.count("operator_applies", k - k_prev)
         if opts.state_callback is not None:
             opts.state_callback(state)
         if done:

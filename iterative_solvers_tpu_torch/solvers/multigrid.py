@@ -1,4 +1,4 @@
-"""Geometric multigrid V-cycle preconditioner (counterpart of iterative_solvers_tpu/solvers/multigrid.py).
+"""Geometric multigrid V-cycle preconditioner (counterpart of the JAX package's solvers/multigrid.py).
 
 One V(ν,ν) cycle of rediscretised multigrid on full-grid masked fields of a
 2D domain or a 3D box: weighted-Jacobi smoothing (ω = 0.8), full-weighting

@@ -1,4 +1,4 @@
-"""Preconditioners for CG (counterpart of iterative_solvers_tpu/solvers/precond.py).
+"""Preconditioners for CG (counterpart of the JAX package's solvers/precond.py).
 
 Each is a callable from a residual field to a preconditioned field, on
 whatever layout its operator works on (full grid, padded canvas or

@@ -1,5 +1,5 @@
 """Mixed-precision iterative refinement, high-precision outer / f32 inner
-MG-PCG (counterpart of iterative_solvers_tpu/solvers/refine.py).
+MG-PCG (counterpart of the JAX package's solvers/refine.py).
 
 The JAX package runs the whole refinement ladder as one compiled program
 (``_device_ir``, ``_device_ir_generic``). Eager PyTorch runs it as a host
@@ -27,6 +27,12 @@ on the plain stencil its torch form ``ops/ddf32.residual_ff``, as the JAX
 package computes it there outside any kernel; f32 norms compared in f32 as
 the device would). ``fmg`` starts the ladder from the FMG warm
 start (:func:`_maybe_fmg_x0`) instead of zero.
+
+``profiler=`` (:class:`~iterative_solvers_tpu_torch.profiling.Profiler`)
+times the JAX package's phases: ``inner_solve`` and ``outer_residual`` per
+outer step of the host ladder, ``device_ir`` around a whole device ladder
+(FMG warm start included) and ``escalated_polish`` around its host polish,
+and counts the inner ``iterations``.
 """
 
 from __future__ import annotations
@@ -50,6 +56,7 @@ from iterative_solvers_tpu_torch.ops.ddf32 import (
 )
 from iterative_solvers_tpu_torch.ops.stencil import StencilOperator
 from iterative_solvers_tpu_torch.parallel.mesh import all_max, all_sum, mesh_of
+from iterative_solvers_tpu_torch.profiling import phase_of
 from iterative_solvers_tpu_torch.solvers.cg import CGOptions, CGResult, CGState, cg_solve
 from iterative_solvers_tpu_torch.solvers.stopping import StopConfig, StopReason
 
@@ -93,6 +100,7 @@ def refined_solve(
     x0: Optional[torch.Tensor] = None,
     callback: Optional[Callable[[int, float, float, float], None]] = None,
     stop_requested: Optional[Callable[[], bool]] = None,
+    profiler=None,
 ) -> RefinedResult:
     """Host-driven refinement with the precision ladder: inner solves run in
     f32 until an outer step shrinks ‖r‖∞ by less than 20x, then in
@@ -107,6 +115,7 @@ def refined_solve(
         raise ValueError("b must be f64 for the high-precision outer loop")
     t0 = time.perf_counter()
     mesh = mesh_of(A_hi)
+    phase = phase_of(profiler)
 
     def adaptive_inner_tol(r_max_now: float, r_norm_now: float) -> float:
         need = math.inf
@@ -163,23 +172,26 @@ def refined_solve(
         if stop_requested is not None and stop_requested():
             interrupted, reason = True, StopReason.INTERRUPTED
             break
-        opts = CGOptions(
-            stop=StopConfig(
-                eps_precision=-1.0, eps_residual=-1.0, eps_exact_error=-1.0,
-                eps_relative=adaptive_inner_tol(r_max, r_norm),
-                max_iterations=inner_max_iter,
-            ),
-            preconditioner=preconditioner,
-        )
-        # escalated (b.dtype) inners use A_hi: A_lo may be f32-only
-        A_in = A_lo if cur_dtype == lo_dtype else A_hi
-        inner = cg_solve(A_in, r.to(cur_dtype), options=opts)
-        d = inner.x.to(b.dtype)
-        x = x + d
-        r = b - A_hi(x)
-        total_inner += inner.iterations
-        inner_counts.append(inner.iterations)
-        r_max_new, prec_max, err, r2 = _norms(r, d, x, u_true, mesh)
+        with phase("inner_solve"):
+            opts = CGOptions(
+                stop=StopConfig(
+                    eps_precision=-1.0, eps_residual=-1.0, eps_exact_error=-1.0,
+                    eps_relative=adaptive_inner_tol(r_max, r_norm),
+                    max_iterations=inner_max_iter,
+                ),
+                preconditioner=preconditioner,
+                profiler=profiler,
+            )
+            # escalated (b.dtype) inners use A_hi: A_lo may be f32-only
+            A_in = A_lo if cur_dtype == lo_dtype else A_hi
+            inner = cg_solve(A_in, r.to(cur_dtype), options=opts)
+        with phase("outer_residual"):
+            d = inner.x.to(b.dtype)
+            x = x + d
+            r = b - A_hi(x)
+            total_inner += inner.iterations
+            inner_counts.append(inner.iterations)
+            r_max_new, prec_max, err, r2 = _norms(r, d, x, u_true, mesh)
         r_norm = math.sqrt(max(r2, 0.0))
         if u_true is not None:
             err_max = err
@@ -517,8 +529,8 @@ def _join_history(dev_hist, cont_hist, inner_offset: int):
 
 
 def _finish_refined(stats, x, *, stop: StopConfig, t0: float, max_outer: int, A_hi, A_lo, b,
-                    u_true, preconditioner, inner_rel_tol: float,
-                    inner_max_iter: int) -> RefinedResult:
+                    u_true, preconditioner, inner_rel_tol: float, inner_max_iter: int,
+                    profiler=None) -> RefinedResult:
     """Unpack the stats vector; if the f32 ladder left the criteria unmet,
     continue with the escalated polish (:func:`refined_solve` from x)."""
     k_out, total_inner = int(stats[0]), int(stats[1])
@@ -527,11 +539,15 @@ def _finish_refined(stats, x, *, stop: StopConfig, t0: float, max_outer: int, A_
     r_norm = math.sqrt(max(float(stats[7]), 0.0))
     r0_norm = float(stats[8])
     hist = stats[9:].reshape(max_outer + 1, 5)[: k_out + 1].copy()
+    if profiler is not None:
+        profiler.count("iterations", total_inner)
     if not done and reason == StopReason.ITERATIONS and total_inner < stop.max_iterations:
-        res = refined_solve(
-            A_hi, A_lo, b, u_true=u_true, stop=stop, preconditioner=preconditioner,
-            inner_rel_tol=inner_rel_tol, inner_max_iter=inner_max_iter, x0=x,
-        )
+        with phase_of(profiler)("escalated_polish"):
+            res = refined_solve(
+                A_hi, A_lo, b, u_true=u_true, stop=stop, preconditioner=preconditioner,
+                inner_rel_tol=inner_rel_tol, inner_max_iter=inner_max_iter, x0=x,
+                profiler=profiler,
+            )
         res.iterations += total_inner
         res.outer_iterations += k_out
         res.escalated = True
@@ -566,6 +582,7 @@ def engine_refined_solve(
     max_outer: int = 8,
     fmg=False,  # False/0 cold | True/1 | int n = FMG polish V-cycles per level
     ff: bool = False,  # double-f32 outer (single-device only)
+    profiler=None,
 ) -> RefinedResult:
     """Mixed-precision refinement around any fused engine, on the caller's
     field layout: the FMG warm start when ``fmg`` (and ``engine.M`` carries
@@ -580,13 +597,14 @@ def engine_refined_solve(
     if ff and mesh_of(engine.op) is not None:
         raise ValueError("the ff outer is single-device: over a mesh the outer is f64")
     t0 = time.perf_counter()
-    x0 = _maybe_fmg_x0(engine.M, fmg, b)
-    x, stats = _device_ir(engine, A_hi, stop, inner_rel_tol, inner_max_iter, max_outer, b,
-                          u_true, x0, ff=ff)
+    with phase_of(profiler)("device_ir"):
+        x0 = _maybe_fmg_x0(engine.M, fmg, b)
+        x, stats = _device_ir(engine, A_hi, stop, inner_rel_tol, inner_max_iter, max_outer, b,
+                              u_true, x0, ff=ff)
     return _finish_refined(
         stats, x, stop=stop, t0=t0, max_outer=max_outer, A_hi=A_hi, A_lo=A_hi, b=b,
         u_true=u_true, preconditioner=engine.M, inner_rel_tol=inner_rel_tol,
-        inner_max_iter=inner_max_iter,
+        inner_max_iter=inner_max_iter, profiler=profiler,
     )
 
 
@@ -602,6 +620,7 @@ def fused_refined_solve(
     max_outer: int = 8,
     fmg=False,  # False/0 cold | True/1 | int n = FMG polish V-cycles per level
     ff: bool = False,  # double-f32 outer
+    profiler=None,
 ) -> RefinedResult:
     """:func:`engine_refined_solve` on the single-device fused engine of
     ``pop``'s padded layout: pads ``b`` (and ``u_true``), crops ``x``."""
@@ -609,7 +628,7 @@ def fused_refined_solve(
         _engine_for(pop, M_padded), _padded_hi_operator(pop), pop.pad(b),
         u_true=pop.pad(u_true) if u_true is not None else None, stop=stop,
         inner_rel_tol=inner_rel_tol, inner_max_iter=inner_max_iter, max_outer=max_outer,
-        fmg=fmg, ff=ff,
+        fmg=fmg, ff=ff, profiler=profiler,
     )
     res.x = pop.crop(res.x)
     return res
@@ -628,6 +647,7 @@ def device_refined_solve(
     max_outer: int = 8,
     fmg=False,  # False/0 cold | True/1 | int n = FMG polish V-cycles per level
     ff: bool = False,  # double-f32 outer
+    profiler=None,
 ) -> RefinedResult:
     """Mixed-precision refinement with the plain PCG recurrence as its inner
     solve, on the caller's field layout: the JAX package's 3D route, called
@@ -644,11 +664,12 @@ def device_refined_solve(
     if ff and mesh_of(A_lo) is not None:
         raise ValueError("the ff outer is single-device: over a mesh the outer is f64")
     t0 = time.perf_counter()
-    x0 = _maybe_fmg_x0(preconditioner, fmg, b)
-    x, stats = _device_ir_generic(A_hi, A_lo, preconditioner, stop, inner_rel_tol,
-                                  inner_max_iter, max_outer, b, u_true, x0, ff=ff)
+    with phase_of(profiler)("device_ir"):
+        x0 = _maybe_fmg_x0(preconditioner, fmg, b)
+        x, stats = _device_ir_generic(A_hi, A_lo, preconditioner, stop, inner_rel_tol,
+                                      inner_max_iter, max_outer, b, u_true, x0, ff=ff)
     return _finish_refined(
         stats, x, stop=stop, t0=t0, max_outer=max_outer, A_hi=A_hi, A_lo=A_lo, b=b,
         u_true=u_true, preconditioner=preconditioner, inner_rel_tol=inner_rel_tol,
-        inner_max_iter=inner_max_iter,
+        inner_max_iter=inner_max_iter, profiler=profiler,
     )

@@ -1,4 +1,4 @@
-"""Stop criteria (counterpart of iterative_solvers_tpu/solvers/stopping.py).
+"""Stop criteria (counterpart of the JAX package's solvers/stopping.py).
 
 Same enum values and the same eps <= 0 disables convention, so reasons
 compare by integer code across the two packages."""
@@ -54,6 +54,12 @@ class StopConfig:
     def __post_init__(self) -> None:
         if self.max_iterations < 1:
             raise ValueError("max_iterations must be >= 1")
+
+    @property
+    def any_enabled(self) -> bool:
+        """Whether any eps criterion is on (else only max_iterations stops)."""
+        return (self.eps_precision > 0 or self.eps_residual > 0 or self.eps_exact_error > 0
+                or self.eps_relative > 0)
 
     def disable_all_but_iterations(self) -> "StopConfig":
         return replace(self, eps_precision=-1.0, eps_residual=-1.0, eps_exact_error=-1.0,

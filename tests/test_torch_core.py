@@ -2,6 +2,7 @@
 against the JAX package, plus the port's package contract."""
 
 import os
+import re
 import subprocess
 import sys
 
@@ -102,15 +103,42 @@ def test_padded_layout_matches_pallas_operator(shape, nx, ny):
 
 
 def test_port_imports_no_jax():
+    """Importing every module of the port (the front-ends too: the CLI, the
+    TUI, the plots, the native engines, the results files, the checkpoints)
+    loads nothing of JAX or of the JAX package, nor matplotlib."""
+    port_dir = os.path.join(REPO, "iterative_solvers_tpu_torch")
+    modules = sorted(
+        "iterative_solvers_tpu_torch." + os.path.relpath(os.path.join(d, f), port_dir)[:-3]
+        .replace(os.sep, ".").removesuffix(".__init__")
+        for d, _, files in os.walk(port_dir) for f in files
+        if f.endswith(".py") and f != "__main__.py")
+    for required in ("cli", "tui", "viz", "viz_html", "native.loader", "results_io",
+                     "solvers.checkpoint", "config", "report", "profiling", "async_driver"):
+        assert f"iterative_solvers_tpu_torch.{required}" in modules
     code = (
-        "import sys, iterative_solvers_tpu_torch, iterative_solvers_tpu_torch.interop; "
-        "import iterative_solvers_tpu_torch.kernels._build, iterative_solvers_tpu_torch.profile_paths; "
+        "import importlib, sys; "
+        f"[importlib.import_module(m) for m in {modules!r}]; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', "
-        "'iterative_solvers_tpu.')) or m == 'iterative_solvers_tpu']; "
+        "'iterative_solvers_tpu.', 'matplotlib')) or m == 'iterative_solvers_tpu']; "
         "assert not bad, bad"
     )
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
     subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO, env=env, timeout=120)
+
+
+def test_port_names_no_path_in_the_jax_package():
+    """No file of the port names a path inside the JAX package (its C++
+    sources included): the port builds, loads and reads only its own files."""
+    port_dir = os.path.join(REPO, "iterative_solvers_tpu_torch")
+    bad = []
+    for d, _, files in os.walk(port_dir):
+        for f in files:
+            if f.endswith((".py", ".cpp", ".cu", ".cuh")):
+                path = os.path.join(d, f)
+                text = open(path, encoding="utf-8").read()
+                if re.search(r"iterative_solvers_tpu/|[\'\"]iterative_solvers_tpu[\'\"]", text):
+                    bad.append(os.path.relpath(path, REPO))
+    assert not bad, bad
 
 
 _MIXED = dict(preconditioner="mg", precision="mixed", outer="f64", fmg_cycles=0)

@@ -139,11 +139,18 @@ def test_csr_assembly_and_spmv_match_jax(name):
 
 
 def test_unported_assembly_and_mesh_raise():
-    """The native CSR engine (item 15) raises naming its ROADMAP item; the
-    mesh's sharded fused engine (item 14c, which raised before it was
-    ported) runs and takes the single-device fused engine's count."""
-    with pytest.raises(NotImplementedError, match="item 15"):
-        sparse.assemble_csr(Domain2D(nx=8, ny=8), backend="native")
+    """The native CSR engine and the mesh's sharded fused engine, which both
+    raised before they were ported, now run: the native CSR equals the
+    NumPy builder's (a custom mask, which the engine does not cover, raises
+    on backend='native'), and the mesh engine takes the single-device fused
+    engine's count."""
+    dom = Domain2D(nx=8, ny=8)
+    for got, want in zip(sparse.assemble_csr(dom, backend="native"),
+                         sparse.assemble_csr(dom, backend="numpy")):
+        np.testing.assert_array_equal(got, want)
+    with pytest.raises(RuntimeError, match="custom masks"):
+        sparse.assemble_csr(Domain2D(nx=8, ny=8, shape="custom",
+                                     inside_fn=lambda ix, iy: ix + iy < 12), backend="native")
     with pytest.raises(ValueError):
         sparse.assemble_csr(Domain2D(nx=8, ny=8), backend="bogus")
     r = DirichletSolver(nx=8, ny=8, operator="fused", mesh=make_solver_mesh(1),
