@@ -6,6 +6,7 @@
     python3 chip_smoke.py --cg DIR     # only the fused CG kernels K1/K2 and D5/D6 of the port in DIR
     python3 chip_smoke.py --stencil DIR  # only A1/C1, C4/C5 and the nnz chain of the port in DIR
     python3 chip_smoke.py --zstream DIR  # only the z-march's S7, J3, D2 and R3 of the port in DIR
+    python3 chip_smoke.py --mesh DIR   # only the 4-rank world of the port in DIR
 
 Phases, each printing its own lines; any failure exits non-zero before the
 final ``ok`` line:
@@ -84,7 +85,14 @@ final ``ok`` line:
      the one card (``gloo``, halos through host memory) at 2048²: the fast
      path, the facade's ``pallas`` + ``mg``, the engine ladder and the
      ``fused`` MSG and PCG solves against the 1x1 mesh and the
-     single-device solves;
+     single-device solves; the routes whose plain multigrid runs on blocks
+     (``stencil`` + ``mg`` at 2048², the 3D ``pallas`` + ``mg`` +
+     ``mixed`` at 128³) against the 1x1 mesh, and the graft entry's dry
+     run; per rank the bytes each preconditioner application gathers
+     (``mesh.gather`` wrapped in the rank function; at most the block
+     multigrid's threshold field), its device operations, each route's
+     host seconds and peak device memory, the block V-cycle and FMG bit
+     for bit against the single-device plain hierarchy;
    - the cold f64-outer 8192² solve of the first slice, as before;
    - the ff-vs-f64 A/B of path A's refinement (10 interleaved pairs, and
      whether ff qualifies for ``outer='auto'``);
@@ -243,6 +251,10 @@ PATH_KERNELS = {
     "mesh engine": ("k1_block", "k2_pcg_block", "k_down_block", "k_up_block"),
     "mesh fused B": ("k1_block", "k2_block"),
     "mesh fused mg": ("k1_block", "k2_pcg_block", "k_down_block", "k_up_block"),
+    # ShardedMultigridPreconditioner's routes: the halo stencil and the
+    # plain V-cycle are torch ops (JAX: jnp); the 3D route runs D2
+    "mesh stencil mg": (),
+    "mesh 3D mg": ("stencil3d_block",),
 }
 # the kernels that a counted path launches at NB² (paths B's and C-B's
 # 1280 x 1152 layout, the mesh block's 1152 x 1152) while their row's time
@@ -2537,57 +2549,194 @@ def _engine_runs():
     }
 
 
-def _mesh_rank(rank, n):
-    """One rank of the 4-rank world on the one card: the sharded fast path,
-    the facade's 'pallas' + 'mg' and its engine routes (``_engine_runs``)
-    at n² on a (2, 2) mesh, each with the launch counts set to 0 just
-    before it and read just after."""
+MESH_BLOCKS_N3 = 128  # the 3D mesh route in the 4-rank world
+
+
+class _GatherLog:
+    """This rank's ``mesh.gather`` wrapped (an attribute of the mesh
+    object, in the rank function, nothing in the program): the shape and
+    bytes of every field it assembles, taken per phase."""
+
+    def __init__(self, mesh):
+        self.fields = []
+        real = mesh.gather
+
+        def gather(block):
+            g = real(block)
+            self.fields.append((tuple(g.shape), g.numel() * g.element_size()))
+            return g
+
+        mesh.gather = gather
+
+    def take(self):
+        """(fields gathered, bytes, largest field's bytes) since the last take."""
+        out, self.fields = self.fields, []
+        return len(out), sum(b for _, b in out), max((b for _, b in out), default=0)
+
+
+def _route(gathers, fn):
+    """``fn()`` timed on the host (ending in a synchronize), with this
+    rank's peak device memory and the fields it gathered; the launch counts
+    set to 0 just before it and read just after."""
     import torch
     import torch.distributed as dist
 
-    from iterative_solvers_tpu_torch import DirichletSolver, StopConfig
     from iterative_solvers_tpu_torch.kernels import _build
+
+    dist.barrier()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gathers.take()
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter() - t0
+    launches = (dict(_build.launches), dict(_build.plain_on_cuda))
+    return res, dict(t=t, peak=torch.cuda.max_memory_allocated(), gathered=gathers.take(),
+                     launches=launches)
+
+
+def _device_ops(fn):
+    """(device operations, their summed device ms) of one call of ``fn``:
+    the kernels and copies ``torch.profiler`` sees."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return len(evs), sum(e.time_range.end - e.time_range.start for e in evs) / 1e3
+
+
+def _block_cycles(mesh, gathers, n, M_fused, b_fused):
+    """The preconditioners' applications on this rank's blocks at n²: the
+    plain V-cycle (f32, f64) and the stepwise FMG (f32) of
+    ``ShardedMultigridPreconditioner`` on the halo stencil's layout, each
+    against the single-device plain hierarchy on the whole field on the
+    card (bit for bit), and one shard-fused V-cycle (f32); the bytes each
+    application gathered, its device operations (a second, profiled
+    application), and the threshold's field (what the block path may
+    gather: its gathered level's blocks) where the program has it."""
+    import dataclasses
+
+    import torch
+
+    from iterative_solvers_tpu_torch import Domain2D, PoissonProblem
+    from iterative_solvers_tpu_torch.parallel import crop_field, shard_field
+    from iterative_solvers_tpu_torch.solvers.multigrid import ShardedMultigridPreconditioner
+
+    dom = Domain2D(nx=n, ny=n)
+    prob = PoissonProblem.manufactured(dom)
+    M = ShardedMultigridPreconditioner.from_domain(dom, mesh, device="cuda")
+    Mf = dataclasses.replace(M, inner=M.inner.with_fmg(prob))
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    noise = torch.randn(dom.grid_shape, generator=gen, device="cuda", dtype=torch.float64)
+    r = torch.where(dom.interior_on("cuda"), noise, 0.0)
+    b = prob.rhs_field(torch.float64, "cuda")
+    cases = {"vcycle f32": (M, r.float()), "vcycle f64": (M, r),
+             "fmg_stepwise f32": (Mf, b)}
+    out = {}
+    for name, (P, f) in cases.items():
+        call = P if name.startswith("vcycle") else (lambda g: P.fmg_stepwise(g, 1))
+        ref = P.inner(f) if name.startswith("vcycle") else P.inner.fmg_stepwise(f, 1)
+        z, rec = _route(gathers, lambda: call(shard_field(f, mesh)))
+        got = crop_field(mesh.gather(z), dom.grid_shape)
+        gathers.take()
+        out[name] = dict(t=rec["t"], gathered=rec["gathered"], equal=bool(torch.equal(got, ref)),
+                         ops=_device_ops(lambda: call(shard_field(f, mesh))))
+    _, rec = _route(gathers, lambda: M_fused(b_fused.float()))
+    out["shard-fused vcycle f32"] = dict(t=rec["t"], gathered=rec["gathered"], equal=True,
+                                         ops=_device_ops(lambda: M_fused(b_fused.float())))
+    blocks = getattr(M, "blocks", None)  # absent where the program gathers the fine field
+    if blocks is not None:
+        shape = blocks.gathered_shape
+        out["threshold"] = dict(shape=shape, nodes=math.prod(shape), stop=blocks.stop,
+                                levels=len(M.inner.levels))
+        rem = M_fused._blocks(len(M_fused.levels))
+        out["threshold fused"] = dict(shape=rem.gathered_shape,
+                                      nodes=math.prod(rem.gathered_shape or (0,)))
+    return out
+
+
+def _mesh_rank(rank, n):
+    """One rank of the 4-rank world on the one card: the sharded fast path,
+    the facade's 'pallas' + 'mg', its engine routes (``_engine_runs``), its
+    'stencil' + 'mg' route at n² and its 3D 'pallas' + 'mg' + 'mixed'
+    route at ``MESH_BLOCKS_N3``³ on a (2, 2) mesh, each with the launch
+    counts set to 0 just before it and read just after, its host seconds,
+    this rank's peak device memory and the fields it gathered; the graft
+    entry's dry run; the preconditioners' single applications
+    (``_block_cycles``)."""
+    import torch
+
+    from iterative_solvers_tpu_torch import DirichletSolver, StopConfig
     from iterative_solvers_tpu_torch.parallel import make_solver_mesh
     from iterative_solvers_tpu_torch.solvers.refine import device_refined_solve
 
     mesh = make_solver_mesh(4, (2, 2))
+    gathers = _GatherLog(mesh)
     pop, M, A_hi, b = _fast_path_parts(n, mesh)
-    dist.barrier()
-    _build.reset_counts()
-    t0 = time.perf_counter()
-    res = device_refined_solve(A_hi, pop, b, preconditioner=M, stop=stop_rel6(), fmg=True)
-    torch.cuda.synchronize()
-    t_fast = time.perf_counter() - t0
-    fast_counts = (dict(_build.launches), dict(_build.plain_on_cuda))
+    res, fast = _route(gathers, lambda: device_refined_solve(A_hi, pop, b, preconditioner=M,
+                                                         stop=stop_rel6(), fmg=True))
     x = pop.crop(mesh.gather(res.x)).cpu().numpy()  # results cross processes as numpy
+    stop3 = StopConfig(eps_precision=-1, eps_residual=1e-3, max_iterations=200)
     s = DirichletSolver(nx=n, ny=n, operator="pallas", preconditioner="mg", mesh=mesh,
-                        device="cuda",
-                        stop=StopConfig(eps_precision=-1, eps_residual=1e-3, max_iterations=200))
-    dist.barrier()
-    _build.reset_counts()
-    t0 = time.perf_counter()
-    r = s.solve(record_history=False)
-    t_facade = time.perf_counter() - t0
-    facade_counts = (dict(_build.launches), dict(_build.plain_on_cuda))
-    out = {"fast": (int(res.reason), res.outer_iterations, res.iterations), "t_fast": t_fast,
-           "facade": (int(r.stop_reason), r.iterations), "t_facade": t_facade,
-           "transport": mesh.transport(b.device), "counts": {"mesh a": fast_counts,
-                                                              "mesh facade": facade_counts}}
+                        device="cuda", stop=stop3)
+    r, facade = _route(gathers, lambda: s.solve(record_history=False))
+    out = {"fast": (int(res.reason), res.outer_iterations, res.iterations), "t_fast": fast["t"],
+           "facade": (int(r.stop_reason), r.iterations), "t_facade": facade["t"],
+           "transport": mesh.transport(b.device),
+           "counts": {"mesh a": fast["launches"], "mesh facade": facade["launches"]},
+           "routes": {"mesh a": fast, "mesh facade": facade}}
     if rank == 0:
         out["x"], out["solution"] = x, r.solution
     out["engine"] = {}
     for path, kw in _engine_runs().items():
         s = DirichletSolver(nx=n, ny=n, mesh=mesh, device="cuda", **kw)
-        dist.barrier()
-        _build.reset_counts()
-        t0 = time.perf_counter()
-        r = s.solve(record_history=False)
+        r, rec = _route(gathers, lambda: s.solve(record_history=False))
         out["engine"][path] = dict(
+            counts=(int(r.stop_reason), r.outer_iterations, r.iterations), t=rec["t"],
+            launches=rec["launches"], solution=r.solution if rank == 0 else None)
+        out["routes"][path] = rec
+    # the routes whose multigrid is ShardedMultigridPreconditioner
+    out["blocks"] = {}
+    for path, kw in _block_runs(n).items():
+        s = DirichletSolver(mesh=mesh, device="cuda", **kw)
+        r, rec = _route(gathers, lambda: s.solve(record_history=False))
+        out["blocks"][path] = dict(
             counts=(int(r.stop_reason), r.outer_iterations, r.iterations),
-            t=time.perf_counter() - t0,
-            launches=(dict(_build.launches), dict(_build.plain_on_cuda)),
             solution=r.solution if rank == 0 else None)
+        out["routes"][path] = rec
+    try:
+        from iterative_solvers_tpu_torch.graft_entry import dryrun_rank
+    except ImportError:  # a checkout from before the graft entry (``--mesh DIR``)
+        out["dryrun"] = None
+    else:
+        dry, rec = _route(gathers, lambda: dryrun_rank(rank, "cuda"))  # on a mesh of its own
+        out["dryrun"] = (dry["reason"], dry["iterations"], rec["t"])
+    out["cycles"] = _block_cycles(mesh, gathers, n, M, b)
+    del pop, M, A_hi, b, s
+    torch.cuda.empty_cache()
     return out
+
+
+def _block_runs(n):
+    """The facade's mesh routes whose multigrid runs the plain hierarchy on
+    blocks (``ShardedMultigridPreconditioner``): 'stencil' + 'mg' at n²
+    (f64 PCG), and the 3D 'pallas' + 'mg' + 'mixed' route (D2, the FMG
+    warm start and the f64 outer) at ``MESH_BLOCKS_N3``³; path ->
+    DirichletSolver kwargs (no mesh, no device)."""
+    from iterative_solvers_tpu_torch import Domain3D, StopConfig
+
+    m = MESH_BLOCKS_N3
+    return {
+        "mesh stencil mg": dict(nx=n, ny=n, preconditioner="mg", stop=StopConfig(
+            eps_precision=-1, eps_residual=1e-3, max_iterations=200)),
+        "mesh 3D mg": dict(domain=Domain3D(m, m, m), operator="pallas", preconditioner="mg",
+                           precision="mixed", stop=stop_rel6()),
+    }
 
 
 def _count_gap(what, got, want, why):
@@ -2600,11 +2749,14 @@ def _count_gap(what, got, want, why):
     log(f"{what} {got} vs {want}, within the 1 allowed: {why}")
 
 
-def four_ranks_one_card(n=MESH_N):
+def four_ranks_one_card(n=MESH_N, exact=True):
     """A (2, 2) gloo world of 4 ranks on the one card (NCCL refuses two
     ranks on one GPU, so the halos and reductions are staged through host
-    memory), against the 1x1 mesh and the single-device solves. Returns
-    each path's launches (rank 0)."""
+    memory), against the 1x1 mesh and the single-device solves; per rank
+    the bytes each preconditioner application gathers, the peak device
+    memory and the host seconds of every route (``_mesh_rank``). With
+    ``exact`` (this checkout's port) the block multigrid's gathers are held
+    to its threshold's field. Returns each path's launches (rank 0)."""
     import numpy as np
     import torch
 
@@ -2613,7 +2765,7 @@ def four_ranks_one_card(n=MESH_N):
     from iterative_solvers_tpu_torch.solvers.refine import device_refined_solve
 
     t0 = time.perf_counter()
-    ranks = run_world(_mesh_rank, 4, (n,), timeout=240)
+    ranks = run_world(_mesh_rank, 4, (n,), timeout=420)
     t_world = time.perf_counter() - t0
     r0 = ranks[0]
     pop, M, A_hi, b = _fast_path_parts(n, make_solver_mesh(1))
@@ -2685,7 +2837,91 @@ def four_ranks_one_card(n=MESH_N):
             raise AssertionError(f"4 ranks {path}: solution differs from 1x1 by {gap_e:.2e}")
     del pop, M, A_hi, b, one
     torch.cuda.empty_cache()
+    # the routes on ShardedMultigridPreconditioner (its V-cycle and FMG on
+    # blocks), against the 1x1 mesh, which runs the whole hierarchy
+    for path, kw in _block_runs(n).items():
+        got = r0["blocks"][path]
+        ref = DirichletSolver(mesh=make_solver_mesh(1), device="cuda", **kw).solve(
+            record_history=False)
+        ref_c = (int(ref.stop_reason), ref.outer_iterations, ref.iterations)
+        gap_b = float(np.abs(got["solution"] - ref.solution).max() / np.abs(ref.solution).max())
+        counts, plain = r0["routes"][path]["launches"]
+        log(f"mesh 4 ranks {path}: (reason, outer, inner) {got['counts']} in "
+            f"{r0['routes'][path]['t']:.3f} s vs 1x1 {ref_c}, solution gap to 1x1 {gap_b:.2e}; "
+            f"launches (rank 0) {counts} plain_on_cuda {plain}")
+        if any(rk["blocks"][path]["counts"] != got["counts"] for rk in ranks):
+            raise AssertionError(f"4 ranks {path}: the ranks disagree")
+        missing = [k for k in PATH_KERNELS[path] if counts.get(k, 0) <= 0]
+        if missing or plain:
+            raise AssertionError(f"4 ranks {path}: kernels not launched {missing}; "
+                                 f"plain on CUDA {plain}")
+        launches[f"{path} 4 ranks"] = counts
+        if got["counts"][:2] != ref_c[:2]:
+            raise AssertionError(f"4 ranks {path}: stop reason or outer count differ from the "
+                                 f"1x1 mesh ({got['counts']} vs {ref_c})")
+        _count_gap(f"mesh 4 ranks: {path} inners vs 1x1", got["counts"][2], ref_c[2], why)
+        if not gap_b < 1e-5:
+            raise AssertionError(f"4 ranks {path}: solution differs from 1x1 by {gap_b:.2e}")
+    if r0["dryrun"] is not None:
+        log(f"mesh 4 ranks graft dry run (32^2, ShardedMultigridPreconditioner, cg_solve to 50 "
+            f"its): (reason, iterations) {r0['dryrun'][:2]} in {r0['dryrun'][2]:.3f} s")
+        if r0["dryrun"][1] <= 0 or any(rk["dryrun"][:2] != r0["dryrun"][:2] for rk in ranks):
+            raise AssertionError(f"4 ranks graft dry run: {[rk['dryrun'] for rk in ranks]}")
+    elif exact:
+        raise AssertionError("4 ranks: the graft entry's dry run did not run")
+    _print_rank_numbers(ranks, t_world, exact)
     return launches
+
+
+def _print_rank_numbers(ranks, t_world, exact):
+    """Per rank: the bytes each preconditioner application gathered (against
+    the threshold's field), and each route's host seconds, peak device
+    memory and gathered bytes; the world's seconds. Each block application
+    must equal the single-device plain hierarchy bit for bit; with
+    ``exact`` a V-cycle gathers at most the threshold's field, and an FMG
+    no larger field."""
+    log(f"mesh 4 ranks world: {t_world:.3f} s (spawn, build of each rank's kernels, every route)")
+    for k, rk in enumerate(ranks):
+        c = rk["cycles"]
+        thr = c.get("threshold")
+        parts = []
+        for name in ("vcycle f32", "vcycle f64", "fmg_stepwise f32", "shard-fused vcycle f32"):
+            fields, total, largest = c[name]["gathered"]
+            ops, ops_ms = c[name]["ops"]
+            parts.append(f"{name} {total} B in {fields} fields, largest {largest} B, "
+                         f"{c[name]['t'] * 1e3:.1f} ms, {ops} device ops ({ops_ms:.2f} ms)")
+            if not c[name]["equal"]:
+                raise AssertionError(f"rank {k}: {name} on blocks differs from the "
+                                     "single-device plain hierarchy")
+        log(f"mesh 4 ranks rank {k} per application: " + "; ".join(parts))
+        if thr is not None:
+            tf = c["threshold fused"]
+            log(f"mesh 4 ranks rank {k} threshold field: {thr['shape']} ({thr['nodes']} nodes: "
+                f"{4 * thr['nodes']} B f32, {8 * thr['nodes']} B f64; levels on blocks "
+                f"{thr['stop']} of {thr['levels']}); shard-fused remainder's {tf['shape']}")
+        if exact:
+            if thr is None:
+                raise AssertionError(f"rank {k}: no block multigrid")
+            bound = {"vcycle f32": 4 * thr["nodes"], "vcycle f64": 8 * thr["nodes"],
+                     "shard-fused vcycle f32": 4 * c["threshold fused"]["nodes"]}
+            for name, b in bound.items():
+                if c[name]["gathered"][1] > b:
+                    raise AssertionError(f"rank {k}: {name} gathered {c[name]['gathered'][1]} B "
+                                         f"> the threshold's field {b} B")
+            if c["fmg_stepwise f32"]["gathered"][2] > 4 * thr["nodes"]:
+                raise AssertionError(f"rank {k}: the FMG gathered a field above the threshold")
+        log(f"mesh 4 ranks rank {k} per route (host s, peak device MiB, fields / MB gathered): "
+            + "; ".join(f"{p} {r['t']:.3f} s, {r['peak'] / 2**20:.1f} MiB, "
+                        f"{r['gathered'][0]} / {r['gathered'][1] / 1e6:.3f} MB"
+                        for p, r in rk["routes"].items()))
+
+
+def mesh_only(exact) -> int:
+    """``--mesh DIR``: the 4-rank world of the port in DIR
+    (:func:`four_ranks_one_card`), then one JSON line of each route's rank-0
+    launches."""
+    log(json.dumps({"mesh": four_ranks_one_card(MESH_N, exact)}))
+    return 0
 
 
 # the slice's CLI command: the JAX package's default solve at 8192², with
@@ -2901,7 +3137,7 @@ def cli_phase():
 
 def mesh_facade_3d(n=MESH_N3):
     """The 3D facade with a mesh: operator='pallas' (D2), 'mg' (the plain
-    V-cycle on the gathered field, as JAX runs its jnp legs there), mixed,
+    V-cycle, whole on the one block, as JAX runs its jnp legs there), mixed,
     on a 1x1 mesh, to true rel < 1e-6."""
     import torch
 
@@ -2936,6 +3172,10 @@ def main(argv) -> int:
                     help="only check and time the fused CG kernels K1, K2 and K2-pcg and "
                          "their mesh blocks D5, D6 and D6-pcg of the port in the checkout DIR "
                          "(this one or an earlier commit's)")
+    ap.add_argument("--mesh", metavar="DIR",
+                    help="only the 4-rank world on the one card (the mesh routes, the "
+                         "preconditioners' gathered bytes, peak memory and seconds per rank) "
+                         "of the port in the checkout DIR (this one or an earlier commit's)")
     ap.add_argument("--zstream", metavar="DIR",
                     help="only check and time the staged z-march's kernels S7, J3, D2 and R3 "
                          "of the port in the checkout DIR (this one or an earlier commit's)")
@@ -2944,7 +3184,7 @@ def main(argv) -> int:
                          "and pipelined stencils C4 and C5, conv2d and the nnz chain of the "
                          "port in the checkout DIR (this one or an earlier commit's)")
     args = ap.parse_args(argv)
-    other = args.legs or args.cg or args.stencil or args.zstream
+    other = args.legs or args.cg or args.stencil or args.zstream or args.mesh
     root = os.path.abspath(other) if other else REPO
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2985,6 +3225,8 @@ def main(argv) -> int:
         return cg_only(gen)
     if args.stencil:
         return stencil_only(gen, exact=root == REPO)
+    if args.mesh:
+        return mesh_only(exact=root == REPO)
     if args.zstream:
         # an earlier checkout's J3 (PR 3's march, whose node update nvcc may
         # contract into an fmaf) is held to the field tolerance it had

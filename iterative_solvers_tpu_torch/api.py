@@ -58,7 +58,8 @@ block of every field, on the JAX facade's mesh routes:
   any domain, f64 by default) or ``"pallas"`` (the block kernels: D1 on a
   Г/rect domain, D2 on the box; f32), with no preconditioner, Jacobi,
   Chebyshev or ``"mg"`` — on ``"pallas"`` in 2D the shard-fused V-cycle
-  (D3, D4), otherwise the plain V-cycle on the gathered field; and
+  (D3, D4), otherwise the plain V-cycle on blocks (one-node halos, only
+  a coarse field gathered: ``parallel/mg_blocks.py``); and
   ``operator="fused"`` (2D), the sharded fused engine (D5, D6:
   :class:`~iterative_solvers_tpu_torch.parallel.cg_fused_sharded.
   ShardedFusedCGEngine`, driven as ``sharded_fused_cg_solve`` drives it
@@ -407,7 +408,7 @@ class DirichletSolver:
     def _build_mesh(self):
         """(operator, preconditioner) on the mesh, as the JAX facade builds
         them: the shard-fused V-cycle behind ``operator="pallas"`` in 2D,
-        the plain V-cycle on the gathered field otherwise."""
+        the plain V-cycle on blocks otherwise (``parallel/mg_blocks.py``)."""
         dom, mesh = self.domain, self.mesh
         if self.operator_kind in ("pallas", "fused"):
             layout = ShardedPallas3DStencilOperator if self.is3d else ShardedPallasStencilOperator

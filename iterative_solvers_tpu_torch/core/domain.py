@@ -239,19 +239,34 @@ class Domain2D:
     def num_unknowns(self) -> int:
         return int(self.interior.sum())
 
-    def interior_on(self, device) -> torch.Tensor:
-        return self.mask_spec.build(device)
-
-    def boundary_on(self, device) -> torch.Tensor:
+    def box_mask_spec(self, box=None):
+        """The interior on ``box`` (per field dim a ``(start, stop)`` range
+        of global node indices; the whole grid by default): a
+        :class:`MaskSpec` at the box's origin, or a custom domain's
+        :class:`ArrayMask` cut to the box."""
+        if box is None or tuple(box) == tuple((0, s) for s in self.grid_shape):
+            return self.mask_spec
         if self.shape == "custom":
-            return self._array_masks[1].build(device)
-        h, w = self.grid_shape
-        ri = torch.arange(h, device=device)[:, None]
-        ci = torch.arange(w, device=device)[None, :]
-        inside = torch.ones(h, w, dtype=torch.bool, device=device)
+            return ArrayMask(self.interior[tuple(slice(a, b) for a, b in box)])
+        return MaskSpec(self.shape, self.nx, self.ny, tuple(b - a for a, b in box),
+                        origin=tuple(a for a, _ in box))
+
+    def interior_on(self, device, box=None) -> torch.Tensor:
+        return self.box_mask_spec(box).build(device)
+
+    def boundary_on(self, device, box=None) -> torch.Tensor:
+        if self.shape == "custom":
+            if box is None or tuple(box) == tuple((0, s) for s in self.grid_shape):
+                return self._array_masks[1].build(device)
+            cut = self.boundary[tuple(slice(a, b) for a, b in box)]
+            return torch.from_numpy(np.ascontiguousarray(cut)).to(device)
+        (r0, r1), (c0, c1) = box or tuple((0, s) for s in self.grid_shape)
+        ri = torch.arange(r0, r1, device=device)[:, None]
+        ci = torch.arange(c0, c1, device=device)[None, :]
+        inside = torch.ones(r1 - r0, c1 - c0, dtype=torch.bool, device=device)
         if self.shape == "gamma":
             inside = ~((ci < self.nx // 2) & (ri < self.ny // 2))
-        return inside & ~self.interior_on(device)
+        return inside & ~self.interior_on(device, box)
 
     def with_resolution(self, nx: int, ny: int) -> "Domain2D":
         return dataclasses.replace(self, nx=nx, ny=ny)
@@ -325,8 +340,16 @@ class Domain3D:
     def num_unknowns(self) -> int:
         return (self.nx - 1) * (self.ny - 1) * (self.nz - 1)
 
-    def interior_on(self, device) -> torch.Tensor:
-        return self.mask_spec.build(device)
+    def box_mask_spec(self, box=None) -> MaskSpec:
+        """The interior on ``box`` (per field dim a ``(start, stop)``
+        range; the whole grid by default)."""
+        if box is None:
+            return self.mask_spec
+        return MaskSpec("box", self.nx, self.ny, tuple(b - a for a, b in box), nz=self.nz,
+                        origin=tuple(a for a, _ in box))
 
-    def boundary_on(self, device) -> torch.Tensor:
-        return ~self.interior_on(device)
+    def interior_on(self, device, box=None) -> torch.Tensor:
+        return self.box_mask_spec(box).build(device)
+
+    def boundary_on(self, device, box=None) -> torch.Tensor:
+        return ~self.interior_on(device, box)

@@ -48,20 +48,29 @@ def _reference_u3(x, y, z):
 Domain = Union[Domain2D, Domain3D]
 
 
-def _coords(dom: Domain, device):
-    """Full-grid coordinate tensors (X, Y[, Z]) in f64, ``x0 + i·hx`` as in
-    the JAX package (so both sides sample the same points)."""
+def _whole(dom: Domain, box):
+    """``box`` (per field dim a ``(start, stop)`` range of node indices),
+    the whole grid when None."""
+    return tuple(box) if box is not None else tuple((0, s) for s in dom.grid_shape)
+
+
+def _coords(dom: Domain, device, box=None):
+    """Coordinate tensors (X, Y[, Z]) in f64 on ``box`` (the full grid by
+    default), ``x0 + i·hx`` as in the JAX package (so both sides sample the
+    same points)."""
     f64 = torch.float64
-    axes = [(dom.x0, dom.nx, dom.hx), (dom.y0, dom.ny, dom.hy)]
+    axes = [(dom.x0, dom.hx), (dom.y0, dom.hy)]
     if isinstance(dom, Domain3D):
-        axes.append((dom.z0, dom.nz, dom.hz))
-    shape = dom.grid_shape
+        axes.append((dom.z0, dom.hz))
+    box = _whole(dom, box)
+    shape = tuple(b - a for a, b in box)
     nd = len(shape)
     out = []
-    for k, (o, n, h) in enumerate(axes):
-        c = o + torch.arange(n + 1, dtype=f64, device=device) * h
+    for k, (o, h) in enumerate(axes):
         # axis k of the coordinate list is field axis nd-1-k (x is the last)
-        out.append(c.view([-1 if a == nd - 1 - k else 1 for a in range(nd)]).expand(shape))
+        a, b = box[nd - 1 - k]
+        c = o + torch.arange(a, b, dtype=f64, device=device) * h
+        out.append(c.view([-1 if i == nd - 1 - k else 1 for i in range(nd)]).expand(shape))
     return tuple(out)
 
 
@@ -90,29 +99,39 @@ class PoissonProblem:
             raise ValueError("no Dirichlet data: provide g or u_exact")
         return self.u_exact
 
-    def boundary_field(self, dtype=torch.float64, device="cuda") -> torch.Tensor:
-        """Dirichlet data on boundary nodes, zero elsewhere."""
+    def boundary_field(self, dtype=torch.float64, device="cuda", box=None) -> torch.Tensor:
+        """Dirichlet data on boundary nodes, zero elsewhere; on ``box`` (per
+        field dim a ``(start, stop)`` range of node indices inside the grid:
+        a mesh block's own nodes) or the full grid."""
         device = resolve_device(device)
-        G = torch.where(self.domain.boundary_on(device),
-                        self.dirichlet(*_coords(self.domain, device)), 0.0)
+        G = torch.where(self.domain.boundary_on(device, box),
+                        self.dirichlet(*_coords(self.domain, device, box)), 0.0)
         return G.to(dtype)
 
-    def rhs_field(self, dtype=torch.float64, device="cuda") -> torch.Tensor:
-        """Full-grid RHS with the boundary eliminated, zero off the interior."""
+    def rhs_field(self, dtype=torch.float64, device="cuda", box=None) -> torch.Tensor:
+        """RHS with the boundary eliminated, zero off the interior, on the
+        full grid or on ``box`` (as :meth:`boundary_field`): a box reads the
+        Dirichlet data one node past its faces, zero off the grid, so every
+        node gets the whole grid's value bit for bit."""
         device = resolve_device(device)
         dom = self.domain
-        G = self.boundary_field(torch.float64, device)
-        rhs = self.f(*_coords(dom, device))
+        box = _whole(dom, box)
+        grown = tuple((max(a - 1, 0), min(b + 1, n)) for (a, b), n in zip(box, dom.grid_shape))
+        G = self.boundary_field(torch.float64, device, grown)
+        # one zero node a side where the grown box met the grid's edge
+        pad = [w for (a, b), (ga, gb) in zip(reversed(box), reversed(grown))
+               for w in (1 - (a - ga), 1 - (gb - b))]
+        rhs = self.f(*_coords(dom, device, box))
         if isinstance(dom, Domain3D):
-            p = torch.nn.functional.pad(G, (1, 1, 1, 1, 1, 1))
+            p = torch.nn.functional.pad(G, pad)
             rhs = rhs - dom.coeff_x * (p[1:-1, 1:-1, :-2] + p[1:-1, 1:-1, 2:])
             rhs = rhs - dom.coeff_y * (p[1:-1, :-2, 1:-1] + p[1:-1, 2:, 1:-1])
             rhs = rhs - dom.coeff_z * (p[:-2, 1:-1, 1:-1] + p[2:, 1:-1, 1:-1])
         else:
-            p = torch.nn.functional.pad(G, (1, 1, 1, 1))
+            p = torch.nn.functional.pad(G, pad)
             rhs = rhs - dom.coeff_y * (p[:-2, 1:-1] + p[2:, 1:-1])
             rhs = rhs - dom.coeff_x * (p[1:-1, :-2] + p[1:-1, 2:])
-        return torch.where(dom.interior_on(device), rhs, 0.0).to(dtype)
+        return torch.where(dom.interior_on(device, box), rhs, 0.0).to(dtype)
 
     def true_solution_field(
         self, dtype=torch.float64, device="cuda", masked: bool = True

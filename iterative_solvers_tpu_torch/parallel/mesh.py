@@ -16,9 +16,13 @@ collectives the solvers need:
 - :func:`all_sum` and :func:`all_max`: the reductions of the CG and the
   refinement loops over sharded fields. Every rank gets the same bits, so
   every stop decision taken from them takes the same branch on every rank.
-- :meth:`SolverMesh.gather`: a global field from the blocks, on every rank,
-  and :meth:`SolverMesh.gather_cols`: the blocks of one block row, within
-  that row's group.
+- :meth:`SolverMesh.repartition`: a field moved point to point from one
+  partition of an axis into another (the block multigrid's own per-level
+  layout, ``parallel/mg_blocks.py``).
+- :meth:`SolverMesh.gather`: a global field from the blocks, on every rank
+  (the results, and the coarse field below the block multigrid's
+  threshold), and :meth:`SolverMesh.gather_cols`: the blocks of one block
+  row, within that row's group (the shard-fused V-cycle's lane transfers).
 
 Layout, as in the JAX package: the first field dim (rows, or z-planes in
 3D) is split over every mesh axis but the last, the last dim (columns) over
@@ -99,42 +103,47 @@ class SolverMesh:
             return "gloo-host"
         return backend
 
-    def peer(self, axis: int, step: int) -> int:
-        """The rank ``step`` blocks away along ``axis`` (0: rows, 1: cols),
-        on the ring (the wrapped halo is zeroed by the receiver's mask)."""
+    def peer(self, axis: Optional[int], step) -> int:
+        """The rank ``step`` blocks away along ``axis`` (0: rows, 1: cols;
+        None: ``step`` is a (rows, cols) pair, a diagonal neighbour), on the
+        ring (the wrapped halo is zeroed by the receiver's mask)."""
         ri, ci = self.coords
-        if axis == 0:
-            ri = (ri + step) % self.rows
-        else:
-            ci = (ci + step) % self.cols
-        return ri * self.cols + ci
+        dr, dc = step if axis is None else ((step, 0) if axis == 0 else (0, step))
+        return (ri + dr) % self.rows * self.cols + (ci + dc) % self.cols
 
     # --- collectives ------------------------------------------------------------
 
-    def exchange(self, msgs: Sequence[Tuple[torch.Tensor, int, int]]) -> List[torch.Tensor]:
+    def exchange(self, msgs: Sequence[Tuple[torch.Tensor, Optional[int], object]]
+                 ) -> List[torch.Tensor]:
         """One round of ring messages ``(tensor, axis, step)``: each rank
         sends ``tensor`` to ``peer(axis, step)`` and receives the tensor of
-        ``peer(axis, -step)``, of the same shape. Returns the received
-        tensors, on the senders' device. All ranks must pass the same list
-        of shapes."""
+        ``peer(axis, -step)`` (both components negated for a diagonal
+        step), of the same shape. Returns the received tensors, on the
+        senders' device. All ranks must pass the same list of shapes."""
         out: List[Optional[torch.Tensor]] = [None] * len(msgs)
-        ops = []
         device = msgs[0][0].device if msgs else None
         staged = self.transport(device) == "gloo-host"
+        sent = []  # (slot, tensor, destination, source)
         for k, (t, axis, step) in enumerate(msgs):
-            dst, src = self.peer(axis, step), self.peer(axis, -step)
+            back = tuple(-s for s in step) if axis is None else -step
+            dst, src = self.peer(axis, step), self.peer(axis, back)
             if dst == self.rank:  # a 1-wide axis: the neighbour is this rank
                 out[k] = t.clone()
-                continue
-            send = t.contiguous().cpu() if staged else t.contiguous()
-            buf = torch.empty_like(send)
+            else:
+                sent.append((k, t.contiguous(), dst, src))
+        sends = [t for _, t, _, _ in sent]
+        ops = []
+        for (k, _, dst, src), send in zip(sent, _to_host(sends) if staged else sends):
+            out[k] = torch.empty_like(send)
             ops += [dist.P2POp(dist.isend, send, dst, tag=k),
-                    dist.P2POp(dist.irecv, buf, src, tag=k)]
-            out[k] = buf
+                    dist.P2POp(dist.irecv, out[k], src, tag=k)]
         if ops:
             for req in dist.batch_isend_irecv(ops):
                 req.wait()
-        return [o.to(device) if staged else o for o in out]
+        if staged:
+            for k, t in zip([k for k, *_ in sent], _to_device([out[k] for k, *_ in sent], device)):
+                out[k] = t
+        return out
 
     def _all_reduce(self, ts, op) -> Tuple[torch.Tensor, ...]:
         v = torch.stack([t.reshape(()) for t in ts])
@@ -172,6 +181,60 @@ class SolverMesh:
         out = torch.cat(parts, dim=-1)
         return out.to(block.device) if staged else out
 
+    def repartition(self, block: torch.Tensor, axis: int, old: Sequence[int],
+                    new: Sequence[int]) -> torch.Tensor:
+        """Move a field split along ``axis`` (0: the first field dim over
+        the row axes, 1: the last dim over the columns) from one partition
+        to another. ``old`` and ``new`` are the ``P + 1`` global starts of
+        the ``P`` ranks' ranges along the axis (the last one the extent),
+        the same on every rank; ``block`` holds this rank's range of
+        ``old``, and the result its range of ``new``. Each rank sends each
+        rank of its line the part of its old range that lies in that rank's
+        new range (point to point: nothing is gathered)."""
+        parts = self.rows if axis == 0 else self.cols
+        if parts == 1 or not self.distributed:
+            return block
+        d = 0 if axis == 0 else block.ndim - 1
+        ri, ci = self.coords
+        me = self.coords[axis]
+
+        def rank_of(p):
+            return p * self.cols + ci if axis == 0 else ri * self.cols + p
+
+        def overlap(a, b):  # rank a's old range within rank b's new one
+            lo, hi = max(old[a], new[b]), min(old[a + 1], new[b + 1])
+            return (lo, hi) if hi > lo else None
+
+        staged = self.transport(block.device) == "gloo-host"
+        sends, dsts, pieces, recvs = [], [], [], []
+        for p in range(parts):
+            mine, theirs = overlap(me, p), overlap(p, me)
+            if mine is not None and p != me:
+                sends.append(block.narrow(d, mine[0] - old[me], mine[1] - mine[0]).contiguous())
+                dsts.append(rank_of(p))
+            if theirs is None:
+                continue
+            if p == me:
+                pieces.append(block.narrow(d, theirs[0] - old[me], theirs[1] - theirs[0]))
+                continue
+            shape = list(block.shape)
+            shape[d] = theirs[1] - theirs[0]
+            recvs.append((len(pieces), rank_of(p)))
+            pieces.append(torch.empty(shape, dtype=block.dtype,
+                                      device="cpu" if staged else block.device))
+        ops = [dist.P2POp(dist.isend, t, dst)
+               for t, dst in zip(_to_host(sends) if staged else sends, dsts)]
+        ops += [dist.P2POp(dist.irecv, pieces[i], src) for i, src in recvs]
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        if staged:
+            for (i, _), t in zip(recvs, _to_device([pieces[i] for i, _ in recvs], block.device)):
+                pieces[i] = t
+        if not pieces:  # an empty range (a block of padding only)
+            return block.narrow(d, 0, 0)
+        return torch.cat(pieces, dim=d)
+
     def _row_group(self):
         """This rank's block-row process group. Every rank of the world
         takes part in making each group, so the groups are made at the
@@ -205,10 +268,10 @@ class SolverMesh:
 
     def global_apply(self, fn, block: torch.Tensor, grid_shape: Sequence[int]) -> torch.Tensor:
         """``fn`` on the cropped global field: gather the blocks, crop to
-        ``grid_shape``, apply, pad back and take this rank's block. This is
-        how the port runs the pieces the JAX package leaves to GSPMD on
-        global arrays (the coarse V-cycle, the FMG); the gather of a fine
-        field does not scale, and is a limit of the port's mesh."""
+        ``grid_shape``, apply, pad back and take this rank's block. The
+        block multigrid (``parallel/mg_blocks.py``) calls it only for a
+        hierarchy whose first level is already below its coarse threshold,
+        or on a mesh of one rank, where the gather is the block itself."""
         g = self.gather(block)
         sl = tuple(slice(0, s) for s in grid_shape)
         out = fn(g[sl])
@@ -216,6 +279,26 @@ class SolverMesh:
         for p, s in zip(reversed(g.shape), reversed(tuple(grid_shape))):
             pad += [0, p - s]
         return self.take_block(F.pad(out, pad), block.shape)
+
+
+def _to_host(ts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Card tensors (one dtype) as host tensors through one copy: each copy
+    waits for the card, so a round of messages waits once, not once a
+    message."""
+    if not ts:
+        return []
+    if len({t.dtype for t in ts}) > 1:
+        raise ValueError("one round of staged messages takes one dtype")
+    flat = torch.cat([t.reshape(-1) for t in ts]).cpu()
+    return [f.view(t.shape) for f, t in zip(flat.split([t.numel() for t in ts]), ts)]
+
+
+def _to_device(ts: Sequence[torch.Tensor], device) -> List[torch.Tensor]:
+    """Host tensors (one dtype) on ``device`` through one copy."""
+    if not ts:
+        return []
+    flat = torch.cat([t.reshape(-1) for t in ts]).to(device)
+    return [f.view(t.shape) for f, t in zip(flat.split([t.numel() for t in ts]), ts)]
 
 
 def ring_take(field: torch.Tensor, index, dim: int) -> torch.Tensor:

@@ -28,21 +28,23 @@ reassociation of their edge strips.
 Between fused levels the lane (column) transfers change the padded width
 from ``wp`` to the child's ``cw_pad``. The JAX package runs them, and the
 coarse remainder below the fused levels, under GSPMD on global arrays. The
-port gathers what they need: the lane transfers gather the block row's
-columns (:meth:`SolverMesh.gather_cols`) and run the single-device
-:func:`lane_restrict` / :func:`lane_prolong`; the remainder and the FMG
-gather the whole field (:meth:`SolverMesh.global_apply`) and run the
-single-device V-cycle of the plain hierarchy. That is JAX's arithmetic
-exactly, and a limit of the port's mesh: those gathers do not scale.
+lane transfers gather the block row's columns
+(:meth:`SolverMesh.gather_cols`) and run the single-device
+:func:`lane_restrict` / :func:`lane_prolong`. The remainder and the FMG run
+the plain hierarchy on blocks (``parallel/mg_blocks.py``:
+:class:`BlockMultigrid`), which gathers only a field below its coarse
+threshold and equals the single-device plain V-cycle bit for bit: JAX's
+arithmetic exactly.
 
 The kernels are f32-only; f64 fields (the escalated polish) take the plain
-V-cycle on the gathered field, as the JAX package takes its jnp V-cycle.
+V-cycle on blocks, as the JAX package takes its jnp V-cycle.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from functools import cached_property
 from typing import Tuple
 
 import torch
@@ -55,6 +57,7 @@ from iterative_solvers_tpu_torch.kernels.stencil_layout import check_aligned, ch
 from iterative_solvers_tpu_torch.parallel.halo import apply5
 from iterative_solvers_tpu_torch.parallel.halo_pallas import extended_mask
 from iterative_solvers_tpu_torch.parallel.mesh import SolverMesh, all_sum, ring_take
+from iterative_solvers_tpu_torch.parallel.mg_blocks import BlockMultigrid
 from iterative_solvers_tpu_torch.solvers.multigrid import (
     MultigridPreconditioner,
     _coarsen_domain,
@@ -272,7 +275,7 @@ class _ShardedFusedLevel:
 @dataclass(frozen=True, eq=False)
 class ShardedFusedMultigrid:
     """V(1,1) multigrid preconditioner over mesh blocks, with shard-fused
-    fine levels (D3, D4) and the plain V-cycle on the gathered coarse
+    fine levels (D3, D4) and the plain V-cycle on blocks for the coarse
     remainder.
 
     Build it with :meth:`from_operator` on a
@@ -280,7 +283,7 @@ class ShardedFusedMultigrid:
     ShardedPallasStencilOperator`: the fine level takes the operator's
     padded layout, so the solvers' fields need no pad or crop. f32 fields
     take the fused path; others (the escalated f64 polish) the plain
-    V-cycle on the gathered field."""
+    V-cycle on blocks."""
 
     mesh: SolverMesh
     levels: Tuple[_ShardedFusedLevel, ...]
@@ -334,10 +337,19 @@ class ShardedFusedMultigrid:
             nu_pre=nu_pre, nu_post=nu_post,
         )
 
+    @cached_property
+    def _block_cycles(self) -> dict:
+        return {}
+
+    def _blocks(self, li: int) -> BlockMultigrid:
+        """The plain hierarchy on blocks from inner level ``li``."""
+        if li not in self._block_cycles:
+            self._block_cycles[li] = BlockMultigrid(self.inner, self.mesh, li)
+        return self._block_cycles[li]
+
     def _remainder(self, li: int, b: torch.Tensor) -> torch.Tensor:
-        """The plain V-cycle from inner level ``li`` on the gathered field."""
-        lev = self.inner.levels[li]
-        return self.mesh.global_apply(lambda g: self.inner._vcycle(li, g), b, lev.grid_shape)
+        """The plain V-cycle from inner level ``li``, on blocks."""
+        return self._blocks(li).vcycle(b)
 
     def _vc(self, li: int, b: torch.Tensor, with_dot: bool = False):
         if li == len(self.levels):
@@ -383,12 +395,10 @@ class ShardedFusedMultigrid:
 
     def fmg(self, r: torch.Tensor, n_vcycles: int = 1) -> torch.Tensor:
         """FMG warm start on the mesh-padded layout: a one-off set-up pass
-        on the gathered field (the JAX package runs it under GSPMD on the
-        global array, not on the shard-fused kernels)."""
-        return self.mesh.global_apply(lambda g: self.inner.fmg(g, n_vcycles), r,
-                                      self.grid_shape)
+        of the plain hierarchy on blocks (the JAX package runs it under
+        GSPMD on the global array, not on the shard-fused kernels)."""
+        return self._blocks(0).fmg(r, n_vcycles)
 
     def fmg_stepwise(self, r: torch.Tensor, n_vcycles: int = 1, **kw) -> torch.Tensor:
-        """:meth:`MultigridPreconditioner.fmg_stepwise` on the gathered field."""
-        return self.mesh.global_apply(lambda g: self.inner.fmg_stepwise(g, n_vcycles, **kw), r,
-                                      self.grid_shape)
+        """:meth:`MultigridPreconditioner.fmg_stepwise` on blocks."""
+        return self._blocks(0).fmg_stepwise(r, n_vcycles, **kw)

@@ -19,7 +19,7 @@ B on a 1x1 mesh (``operator='fused'``, ``mesh=make_solver_mesh(1)``: the
 sharded fused engine's D5 and D6 on the mesh's own layout) at ``nb``²;
 mesh-3D, the 3D facade with a mesh at ``n3``³ on a 1x1 mesh
 (``operator='pallas'``, ``mg``, ``mixed``: the f64 outer around inners on the
-halo stencil D2, the plain V-cycle on the gathered field). For
+halo stencil D2, the plain V-cycle, whole on the one block). For
 each it prints the facade's ``solve()`` wall time, then profiles the solver
 core alone (the refinement, or the CG solve, on fields assembled
 beforehand): its time without and with the profiler, the device-busy time
@@ -195,7 +195,7 @@ def breakdown_mesh_3d(solver: DirichletSolver) -> None:
 def stencil_route_3d(n3: int, ns: int, stop: StopConfig) -> None:
     """The 3D ``operator="stencil"`` route: the plain f32 7-point apply
     (``ops/stencil.py``, which also runs the 3D V-cycle's plain coarse
-    levels and the mesh's gathered V-cycle) and one inner Jacobi PCG
+    levels and the mesh's plain V-cycle) and one inner Jacobi PCG
     iteration on it at ``n3``³, CUDA events; then the facade's mixed Jacobi
     solve at ``ns``³ (warm), its counts and wall."""
     dom = Domain3D(n3, n3, n3)

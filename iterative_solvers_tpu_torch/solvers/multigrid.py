@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from functools import cached_property
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -158,8 +159,13 @@ class _Level:
         """Masked stencil apply, the axes' terms added in field-axis order."""
         m = self.interior(x.device)
         xm = torch.where(m, x, 0.0)
-        nd = x.ndim
-        p = F.pad(xm, (1, 1) * nd)
+        return self.stencil(xm, F.pad(xm, (1, 1) * x.ndim), m)
+
+    def stencil(self, xm: torch.Tensor, p: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+        """The masked stencil of ``xm`` (masked by ``m``) from ``p``, ``xm``
+        grown by one node a side: zeros on a whole grid, the neighbours'
+        nodes on a mesh block's split faces (``parallel/mg_blocks.py``)."""
+        nd = xm.ndim
         y = self.coeffs[0] * xm
         for ax in range(nd):
             lo = tuple(slice(0, -2) if a == ax else slice(1, -1) for a in range(nd))
@@ -605,14 +611,14 @@ class PaddedPreconditioner:
 
 @dataclass(frozen=True, eq=False)
 class ShardedMultigridPreconditioner:
-    """The multigrid V-cycle over mesh blocks (``parallel/mesh.py``
-    layout). The V-cycle's transfers need the exact ``2^k·n + 1`` node
-    extents, so each call gathers the blocks into the global field, crops
-    it to the grid, runs the plain hierarchy there (on every rank, the same
-    arithmetic) and takes this rank's block of the zero-padded result — the
-    JAX package runs the same crop, cycle and pad on global arrays under
-    GSPMD. The gather of the fine field does not scale: a limit of the
-    port's mesh."""
+    """The multigrid V-cycle and FMG over mesh blocks (``parallel/mesh.py``
+    layout): the plain hierarchy runs on each rank's block of every level
+    with one-node halos, and only a coarse field is gathered
+    (``parallel/mg_blocks.py``: :class:`BlockMultigrid`, its per-level
+    layout and its coarse threshold). Every node sees the operations of the
+    single-device hierarchy on the cropped global field, in the same order,
+    so the result equals that bit for bit — the JAX package runs the same
+    crop, cycle and pad on global arrays under GSPMD."""
 
     inner: MultigridPreconditioner
     grid_shape: Tuple[int, ...]
@@ -626,15 +632,20 @@ class ShardedMultigridPreconditioner:
             grid_shape=tuple(domain.grid_shape), mesh=mesh,
         )
 
+    @cached_property
+    def blocks(self):
+        """The hierarchy on this rank's blocks (built on first use)."""
+        from iterative_solvers_tpu_torch.parallel.mg_blocks import BlockMultigrid
+
+        return BlockMultigrid(self.inner, self.mesh)
+
     def __call__(self, r: torch.Tensor) -> torch.Tensor:
-        return self.mesh.global_apply(self.inner, r, self.grid_shape)
+        return self.blocks.vcycle(r)
 
     def fmg(self, r: torch.Tensor, n_vcycles: int = 1) -> torch.Tensor:
         """FMG initial guess on the mesh-padded layout."""
-        return self.mesh.global_apply(lambda g: self.inner.fmg(g, n_vcycles), r,
-                                      self.grid_shape)
+        return self.blocks.fmg(r, n_vcycles)
 
     def fmg_stepwise(self, r: torch.Tensor, n_vcycles: int = 1, **kw) -> torch.Tensor:
         """Stepwise FMG initial guess on the mesh-padded layout."""
-        return self.mesh.global_apply(lambda g: self.inner.fmg_stepwise(g, n_vcycles, **kw), r,
-                                      self.grid_shape)
+        return self.blocks.fmg_stepwise(r, n_vcycles, **kw)

@@ -20,6 +20,7 @@ import torch
 
 from iterative_solvers_tpu_torch import DirichletSolver, Domain2D, Domain3D, PoissonProblem
 from iterative_solvers_tpu_torch import StopConfig
+from iterative_solvers_tpu_torch.graft_entry import dryrun_rank
 from iterative_solvers_tpu_torch.ops.stencil import StencilOperator
 from iterative_solvers_tpu_torch.parallel import (
     ShardedPallas3DStencilOperator,
@@ -152,7 +153,7 @@ def world_operators(rank: int) -> dict:
         res = cg_solve(op, b, u_true=u, options=CGOptions(stop=stop8))
         out[("invariance", shape)] = dict(
             _res(res), x=_np(crop_field(op.mesh.gather(res.x), dom.grid_shape)))
-    # MG-PCG with the plain V-cycle on the gathered field (f32)
+    # MG-PCG with the plain V-cycle on blocks (f32)
     dom = Domain2D(nx=64, ny=64)
     prob = PoissonProblem.manufactured(dom)
     op, b, u = make_sharded_problem(prob, mesh, torch.float32, device=CPU)
@@ -160,10 +161,143 @@ def world_operators(rank: int) -> dict:
     stop4 = StopConfig(eps_precision=-1, eps_residual=1e-4, max_iterations=100)
     res = cg_solve(op, b, u_true=u, options=CGOptions(stop=stop4, preconditioner=M))
     out["mg_pcg"] = dict(_res(res), x=_np(crop_field(mesh.gather(res.x), dom.grid_shape)))
+    # the graft entry's dry run, its body on every rank of this world
+    out["dryrun"] = dryrun_rank(rank, CPU)
     return out
 
 
 # --- world 2: the shard-fused V-cycle, the fast path and the facade -----------
+
+# the block V-cycle's cases: two block levels and a gathered dense coarsest
+# level in 2D (129² / 129 x 97 -> 65 -> 33), one block level in 3D
+BLOCK_DOMAINS = {"gamma": dict(nx=128, ny=128), "rect": dict(nx=128, ny=96, shape="rect"),
+                 "box": BOX}
+
+
+def block_domain(kind):
+    return Domain3D(**BOX) if kind == "box" else Domain2D(**BLOCK_DOMAINS[kind])
+
+
+def _recording_gathers(mesh, log):
+    """Wrap ``mesh.gather`` so each gathered field's shape lands in
+    ``log``; returns the undo."""
+    real = mesh.gather
+
+    def gather(block):
+        g = real(block)
+        log.append(tuple(g.shape))
+        return g
+
+    mesh.gather = gather
+    return lambda: vars(mesh).pop("gather")
+
+
+def _block_run(M, Mf, prob, dom, mesh, dtype):
+    """(z, fmg, stepwise fmg) of the block path on ``mesh`` and of the same
+    hierarchy on the whole field, and the shapes gathered on the way."""
+    r = torch.from_numpy(masked_noise(dom.interior)).to(dtype)
+    b = prob.rhs_field(dtype, CPU)
+    gathered = []
+    undo = _recording_gathers(mesh, gathered)
+    try:
+        got = (M(shard_field(r, mesh)), Mf.fmg(shard_field(b, mesh)),
+               Mf.fmg_stepwise(shard_field(b, mesh)))
+    finally:
+        undo()
+    got = [crop_field(mesh.gather(t), dom.grid_shape) for t in got]
+    ref = (M.inner(r), Mf.inner.fmg(b), Mf.inner.fmg_stepwise(b))
+    return got, ref, gathered
+
+
+def block_cases(rank, mesh) -> dict:
+    """The plain V-cycle, FMG and stepwise FMG on blocks (f32, f64) against
+    the same hierarchy on the whole field (the gathered path), for the
+    gamma, rect and box domains; rank 0 also returns its fields."""
+    import dataclasses
+
+    out = {}
+    for kind in BLOCK_DOMAINS:
+        dom = block_domain(kind)
+        prob = PoissonProblem.manufactured(dom)
+        M = ShardedMultigridPreconditioner.from_domain(dom, mesh, device=CPU)
+        Mf = dataclasses.replace(M, inner=M.inner.with_fmg(prob))
+        rec = dict(stop=M.blocks.stop, levels=[d.grid_shape for d in M.inner.domains],
+                   dense=type(M.inner.coarse_solve).__name__ == "_CoarseSolveDense",
+                   gathered_shape=M.blocks.gathered_shape, gathered=[])
+        for dtype in (torch.float32, torch.float64):
+            got, ref, gathered = _block_run(M, Mf, prob, dom, mesh, dtype)
+            rec["gathered"] += gathered
+            rec[str(dtype)] = dict(
+                equal=[bool(torch.equal(g, f)) for g, f in zip(got, ref)],
+                fields=[_np(g) for g in got] if rank == 0 else None)
+        out[kind] = rec
+    return out
+
+
+def block_extras(rank) -> dict:
+    """On (2, 2): a custom-mask domain and a Chebyshev coarsest level (130²
+    rect: 131 -> 66, whose 4096 unknowns are over the dense limit) against
+    the whole field, bit for bit; the shard-fused V-cycle's coarse
+    remainder and its FMG, every field gathered on the way recorded."""
+    import dataclasses
+
+    from iterative_solvers_tpu_torch.core.domain import notched_disk
+
+    mesh = _mesh((2, 2))
+    out = {}
+    for kind, dom in (("custom", Domain2D(nx=64, ny=64, shape="custom", inside_fn=notched_disk)),
+                      ("chebyshev", Domain2D(nx=130, ny=130, shape="rect"))):
+        prob = PoissonProblem.manufactured(dom)
+        M = ShardedMultigridPreconditioner.from_domain(dom, mesh, device=CPU)
+        Mf = dataclasses.replace(M, inner=M.inner.with_fmg(prob))
+        for dtype in (torch.float32, torch.float64):
+            got, ref, _ = _block_run(M, Mf, prob, dom, mesh, dtype)
+            out[(kind, str(dtype))] = [bool(torch.equal(g, f)) for g, f in zip(got, ref)]
+        out[kind] = (M.blocks.stop, len(M.inner.levels))
+    # the 3D block kernel's layout (the middle dim padded too): 128-column
+    # blocks, so the second column of ranks holds padding only
+    box = Domain3D(**BOX)
+    op3 = ShardedPallas3DStencilOperator.from_domain(box, mesh, block_rows=8)
+    M = ShardedMultigridPreconditioner.from_domain(box, mesh, device=CPU)
+    r = torch.from_numpy(masked_noise(box.interior, 4))
+    z = op3.crop(mesh.gather(M(op3.shard(r))))
+    out["pallas3d"] = dict(equal=bool(torch.equal(z, M.inner(r))),
+                           padding_only=op3.block_shape[-1] >= box.grid_shape[-1])
+    # the exchanges and repartitions staged through host memory, as CUDA
+    # blocks in a gloo group take them, forced on these CPU blocks
+    mesh.transport = lambda device=None: "gloo-host"
+    try:
+        staged = op3.crop(mesh.gather(M(op3.shard(r))))
+    finally:
+        vars(mesh).pop("transport")
+    out["pallas3d"]["staged_equal"] = bool(torch.equal(staged, z))
+    # the shard-fused V-cycle at 256² (one fused level: 129 -> 65 -> 33
+    # remain) and its FMG; the remainder on blocks equals the plain V-cycle
+    # from its level on the whole field
+    dom = Domain2D(nx=256, ny=256)
+    op, M = _fused(dom, mesh, fuse_min_extent=129)
+    li = len(M.levels)
+    inner = M.inner.domains[li]
+    rc = torch.from_numpy(masked_noise(inner.interior, 3))
+    hc, wc = op.padded_shape[0] // 2, M.levels[-1].cw_pad
+    lay = torch.nn.functional.pad(rc, (0, wc - rc.shape[1], 0, hc - rc.shape[0]))
+    blk = mesh.take_block(lay, (hc // mesh.rows, wc // mesh.cols))
+    gathered = []
+    undo = _recording_gathers(mesh, gathered)
+    try:
+        rem = M._remainder(li, blk)
+        z = M(op.shard(torch.from_numpy(masked_noise(dom.interior))))
+        f = M.with_fmg(PoissonProblem.manufactured(dom)).fmg_stepwise(
+            op.shard(PoissonProblem.manufactured(dom).rhs_field(torch.float64, CPU)))
+    finally:
+        undo()
+    rem = mesh.gather(rem)[:inner.grid_shape[0], :inner.grid_shape[1]]
+    out["fused"] = dict(levels=li, remainder_equal=bool(torch.equal(rem, M.inner._vcycle(li, rc))),
+                        gathered=gathered, fine=tuple(op.padded_shape),
+                        finite=bool(torch.isfinite(z).all() and torch.isfinite(f).all()),
+                        gathered_shape=M._blocks(li).gathered_shape,
+                        fmg_gathered_shape=M._blocks(0).gathered_shape)
+    return out
 
 
 def _fused(dom, mesh, block_rows=16, fuse_min_extent=33):
@@ -191,6 +325,9 @@ def world_multigrid(rank: int) -> dict:
                 levels=len(M.levels), z=_np(op.crop(mesh.gather(z))),
                 w_equal=bool(torch.equal(w, z)), rz=float(rz),
                 single=_np(single(r)))
+        if len(shape) == 2:
+            out[("blocks", shape)] = block_cases(rank, mesh)
+    out["block_extras"] = block_extras(rank)
     mesh = _mesh((2, 2))
     dom = Domain2D(nx=128, ny=128)
     op, M = _fused(dom, mesh, block_rows=32)

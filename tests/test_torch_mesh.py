@@ -22,6 +22,10 @@ Tolerances:
 - f32 operators: 64 eps32 · max|y| (contracted and reassociated products).
 - CG: the same stop reason and iteration count as JAX on the same mesh
   shape (f64: reduction order only), x within 1e-9 (f64) or 5e-5 (f32).
+- The graft entry (``graft_entry.py``): its dry run's MG-PCG as the JAX
+  dry run's on (2, 2) (the CG's tolerances), its 16 f32 CG iterations at
+  256² against the JAX entry's to 1e-4 of max|x| (reduction order over 66k
+  nodes, 16 times).
 """
 
 import jax
@@ -207,6 +211,38 @@ def test_sharded_multigrid_pcg_matches_jax(world):
     _same_run(got, ref)
     assert got["converged"] and got["iterations"] <= 15
     np.testing.assert_allclose(got["x"], np.asarray(j_crop(ref.x, jd.grid_shape)), atol=5e-5)
+
+
+def test_graft_dryrun_matches_jax(world):
+    """``graft_entry.dryrun_rank`` in this world: the JAX dry run's solve
+    (``__graft_entry__.dryrun_multichip``: 32², ShardedMultigridPreconditioner,
+    cg_solve to at most 50 iterations) on the (2, 2) mesh."""
+    jd = JDomain2D(nx=32, ny=32)
+    m = jmesh((2, 2))
+    op, b, u = j_sharded_problem(JProblem.manufactured(jd), m)
+    stop = JStop(eps_precision=1e-6, eps_residual=1e-6, max_iterations=50)
+    ref = j_cg_solve(op, b, u_true=u, options=JCGOptions(
+        stop=stop, preconditioner=JShardedMG.from_domain(jd, m)))
+    got = world[0]["dryrun"]
+    assert dict(got["mesh"]) == {"y": 2, "x": 2} and got["iterations"] > 0
+    assert (got["reason"], got["iterations"]) == (int(ref.reason), int(ref.iterations))
+    np.testing.assert_allclose(got["x"], np.asarray(j_crop(ref.x, jd.grid_shape)), atol=1e-9)
+
+
+def test_graft_entry_matches_jax():
+    """``graft_entry.entry`` (on the CPU): 16 plain CG iterations at 256²,
+    as the JAX entry's jitted step."""
+    import __graft_entry__ as jax_entry
+
+    from iterative_solvers_tpu_torch.graft_entry import entry
+
+    fn, args = entry(device="cpu")
+    x, r2 = fn(*args)
+    jfn, jargs = jax_entry.entry()
+    jx, jr2 = jax.jit(jfn)(*jargs)
+    assert x.dtype == torch.float32 and tuple(x.shape) == (257, 257)
+    _rel_close(x.numpy(), np.asarray(jx), 1e-4)
+    assert abs(float(r2) - float(jr2)) <= 1e-3 * float(jr2)
 
 
 def test_every_rank_returns_the_same_results(world):

@@ -20,9 +20,16 @@ facade's counts (see that test). Tolerances:
 - Facade routes: JAX's stop reason and iteration count (the host ladder's
   callbacks at the same inner counts), the solution to 1e-4 (the JAX mesh
   tests' tolerance).
+- The plain V-cycle and FMG on blocks (``parallel/mg_blocks.py``): the same
+  hierarchy on the gathered field bit for bit, on every rank, in f32 and
+  f64; JAX's ``ShardedMultigridPreconditioner`` to 1e-5 of max|z|. JAX's
+  programs (f64) run once per domain on the (2, 2) mesh: GSPMD's result
+  does not depend on the mesh, and the port's equals the gathered field's
+  on every mesh.
 """
 
 import functools
+import math
 
 import jax
 import jax.numpy as jnp
@@ -34,18 +41,22 @@ from iterative_solvers_tpu.core.domain import Domain2D as JDomain2D
 from iterative_solvers_tpu.core.domain import Domain3D as JDomain3D
 from iterative_solvers_tpu.core.problem import PoissonProblem as JProblem
 from iterative_solvers_tpu.parallel import ShardedPallasStencilOperator as JPallas
+from iterative_solvers_tpu.parallel import crop_field as j_crop
 from iterative_solvers_tpu.parallel import make_solver_mesh as j_mesh
+from iterative_solvers_tpu.parallel import shard_field as j_shard
 from iterative_solvers_tpu.parallel.halo import ShardedStencilOperator as JHalo
 from iterative_solvers_tpu.parallel.mg_sharded import ShardedFusedMultigrid as JFusedMG
 from iterative_solvers_tpu.solvers.cg import CGOptions as JCGOptions
 from iterative_solvers_tpu.solvers.cg import cg_solve as j_cg_solve
 from iterative_solvers_tpu.ops.stencil import StencilOperator as JStencil
 from iterative_solvers_tpu.solvers.multigrid import MultigridPreconditioner as JMG
+from iterative_solvers_tpu.solvers.multigrid import ShardedMultigridPreconditioner as JShardedMG
 from iterative_solvers_tpu.solvers.refine import device_refined_solve as j_device_refined_solve
 from iterative_solvers_tpu.solvers.stopping import StopConfig as JStop
 
-from _torch_mesh_cases import FACADE, MESHES, masked_noise, world_multigrid
+from _torch_mesh_cases import BLOCK_DOMAINS, BOX, FACADE, MESHES, masked_noise, world_multigrid
 from iterative_solvers_tpu_torch.parallel import run_world
+from iterative_solvers_tpu_torch.parallel.mg_blocks import MIN_BLOCK_NODES
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 REL8 = dict(eps_precision=-1.0, eps_residual=-1.0, eps_exact_error=-1.0, eps_relative=1e-8,
@@ -195,3 +206,68 @@ def test_facade_device_ladder(world):
     ladder (f64 outer through the halo stencil, the gathered V-cycle)."""
     got = world[0]["facade_device_ladder"]
     assert got["reason"] == 2 and got["residual_norm"] < 1e-6
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_blocks(kind):
+    """JAX's ShardedMultigridPreconditioner (f64) on the (2, 2) mesh of 4
+    virtual CPU devices: the V-cycle of the block cases' noise, the FMG and
+    the stepwise FMG of the manufactured RHS, cropped to the grid."""
+    jd = JDomain3D(**BOX) if kind == "box" else JDomain2D(**BLOCK_DOMAINS[kind])
+    m = j_mesh(4, (2, 2), devices=jax.devices()[:4])
+    prob = JProblem.manufactured(jd)
+    M = JShardedMG.from_domain(jd, m)
+    Mf = JShardedMG(inner=M.inner.with_fmg(prob), grid_shape=M.grid_shape)
+    r = j_shard(jnp.asarray(masked_noise(np.asarray(jd.interior)).astype(np.float64)), m)
+    b = j_shard(prob.rhs_field(jnp.float64), m)
+    return tuple(np.asarray(j_crop(z, jd.grid_shape))
+                 for z in (jax.jit(M)(r), jax.jit(Mf.fmg)(b), Mf.fmg_stepwise(b)))
+
+
+@pytest.mark.parametrize("shape,kind", [(s, k) for s in MESHES for k in BLOCK_DOMAINS])
+def test_block_multigrid_matches_gathered_and_jax(world, shape, kind):
+    """``ShardedMultigridPreconditioner`` on blocks: its V-cycle, FMG and
+    stepwise FMG, f32 and f64, equal the same hierarchy on the gathered
+    field bit for bit on every rank, with the fine level on blocks, and
+    match JAX's ShardedMultigridPreconditioner."""
+    for rank in world:
+        rec = rank[("blocks", shape)][kind]
+        assert rec["stop"] >= 1
+        for dtype in ("torch.float32", "torch.float64"):
+            assert rec[dtype]["equal"] == [True, True, True], (rank, dtype)
+    rec = world[0][("blocks", shape)][kind]
+    for dtype in ("torch.float32", "torch.float64"):
+        for got, ref in zip(rec[dtype]["fields"], _jax_blocks(kind)):
+            _scaled_close(got, ref)
+
+
+def test_block_multigrid_gathers_only_the_coarse_field(world):
+    """Every field gathered during the block V-cycles and FMGs
+    (``SolverMesh.gather`` wrapped in the rank function) is the gathered
+    level's: the dense coarsest level, or the first with fewer than
+    ``MIN_BLOCK_NODES`` nodes a rank along a split axis; never a level that
+    runs on blocks. The shard-fused V-cycle's remainder and FMG likewise;
+    the custom-mask and Chebyshev-coarsest hierarchies, and the 3D block
+    kernel's layout (a rank of padding only; also with its messages staged
+    through host memory), equal the gathered field bit for bit."""
+    for shape in MESHES:
+        parts = {0: shape[0], -1: shape[1]}
+        for kind, rec in world[0][("blocks", shape)].items():
+            levels, stop, g = rec["levels"], rec["stop"], rec["gathered_shape"]
+            below = any(levels[stop][d] < MIN_BLOCK_NODES * p for d, p in parts.items() if p > 1)
+            assert below or (rec["dense"] and stop == len(levels) - 1), (shape, kind)
+            assert rec["gathered"] and set(rec["gathered"]) == {g}, (shape, kind)
+            for d, p in parts.items():  # level stop's blocks, each padded to the largest
+                assert levels[stop][d] <= g[d] < levels[stop][d] + 2 * p, (shape, kind)
+            assert math.prod(g) < math.prod(levels[stop - 1]), (shape, kind)
+    extras = world[0]["block_extras"]
+    for kind in ("custom", "chebyshev"):
+        for dtype in ("torch.float32", "torch.float64"):
+            assert extras[(kind, dtype)] == [True, True, True], (kind, dtype)
+    assert extras["chebyshev"] == (2, 2)  # every level on blocks, Chebyshev steps included
+    assert extras["pallas3d"] == dict(equal=True, padding_only=True, staged_equal=True)
+    fused = extras["fused"]
+    assert fused["levels"] >= 1 and fused["remainder_equal"] and fused["finite"]
+    assert fused["gathered"] and set(fused["gathered"]) <= {fused["gathered_shape"],
+                                                             fused["fmg_gathered_shape"]}
+    assert max(map(math.prod, fused["gathered"])) * 16 < math.prod(fused["fine"])
