@@ -90,9 +90,14 @@ final ``ok`` line:
      ``mixed`` at 128³) against the 1x1 mesh, and the graft entry's dry
      run; per rank the bytes each preconditioner application gathers
      (``mesh.gather`` wrapped in the rank function; at most the block
-     multigrid's threshold field), its device operations, each route's
-     host seconds and peak device memory, the block V-cycle and FMG bit
-     for bit against the single-device plain hierarchy;
+     multigrid's threshold field) and receives (every all-gather,
+     all-reduce and point-to-point message; the shard-fused V-cycle's lane
+     transfers on a line of their own, at most their windows' bound), its
+     device operations, each route's host seconds and peak device memory,
+     the block V-cycle and FMG bit for bit against the single-device plain
+     hierarchy; one shard-fused V-cycle application at 8192² on the (2, 2)
+     mesh, bit for bit against the single-device fused V-cycle with the
+     same levels fused, with its bytes, peak memory and seconds per rank;
    - the cold f64-outer 8192² solve of the first slice, as before;
    - the ff-vs-f64 A/B of path A's refinement (10 interleaved pairs, and
      whether ff qualifies for ``outer='auto'``);
@@ -2553,12 +2558,20 @@ MESH_BLOCKS_N3 = 128  # the 3D mesh route in the 4-rank world
 
 
 class _GatherLog:
-    """This rank's ``mesh.gather`` wrapped (an attribute of the mesh
-    object, in the rank function, nothing in the program): the shape and
-    bytes of every field it assembles, taken per phase."""
+    """This rank's collectives wrapped (attributes of the mesh object and
+    of ``torch.distributed``, in the rank function, nothing in the
+    program): the shape and bytes of every field ``mesh.gather``
+    assembles, and the bytes this rank receives, in all (each all-gather's
+    other blocks, each all-reduce's operand, each point-to-point message)
+    and in the shard-fused V-cycle's lane transfers (``mesh.gather_cols``
+    where the program has it, ``mesh.fetch`` where it has that), taken per
+    phase."""
 
     def __init__(self, mesh):
+        import torch.distributed as dist
+
         self.fields = []
+        self.received = dict(all=0, lane=0)
         real = mesh.gather
 
         def gather(block):
@@ -2567,11 +2580,56 @@ class _GatherLog:
             return g
 
         mesh.gather = gather
+        for name in ("gather_cols", "fetch"):
+            lane = getattr(mesh, name, None)
+            if lane is not None:
+                setattr(mesh, name, self._lane(lane))
+        all_gather, all_reduce, rounds = dist.all_gather, dist.all_reduce, dist.batch_isend_irecv
+
+        def nbytes_(t):
+            return t.numel() * t.element_size()
+
+        def gathered(parts, t, *a, **kw):
+            self.received["all"] += (len(parts) - 1) * nbytes_(t)
+            return all_gather(parts, t, *a, **kw)
+
+        def reduced(t, *a, **kw):
+            self.received["all"] += nbytes_(t)
+            return all_reduce(t, *a, **kw)
+
+        def round_(ops):
+            self.received["all"] += sum(nbytes_(o.tensor) for o in ops if o.op is dist.irecv)
+            return rounds(ops)
+
+        dist.all_gather, dist.all_reduce, dist.batch_isend_irecv = gathered, reduced, round_
+
+    def _lane(self, fn):
+        def lane(*a, **kw):
+            before = self.received["all"]
+            out = fn(*a, **kw)
+            self.received["lane"] += self.received["all"] - before
+            return out
+
+        return lane
 
     def take(self):
-        """(fields gathered, bytes, largest field's bytes) since the last take."""
+        """(fields gathered, bytes, largest field's bytes, bytes received in
+        the lane transfers, bytes received in all) since the last take."""
         out, self.fields = self.fields, []
-        return len(out), sum(b for _, b in out), max((b for _, b in out), default=0)
+        got, self.received = self.received, dict(all=0, lane=0)
+        return (len(out), sum(b for _, b in out), max((b for _, b in out), default=0),
+                got["lane"], got["all"])
+
+
+def _lane_bound(M):
+    """The bytes (f32) a rank's lane transfers may receive in one
+    application of the shard-fused V-cycle ``M``: two a fused level, each
+    window leaving the rank's own columns by at most (cols - 1)
+    |2 cwb - wb| + 2 columns of Hb/2 rows."""
+    cols = M.mesh.cols
+    return sum(2 * 4 * (lev.block_shape[0] // 2)
+               * ((cols - 1) * abs(2 * (lev.cw_pad // cols) - lev.block_shape[1]) + 2)
+               for lev in M.levels)
 
 
 def _route(gathers, fn):
@@ -2648,7 +2706,8 @@ def _block_cycles(mesh, gathers, n, M_fused, b_fused):
                          ops=_device_ops(lambda: call(shard_field(f, mesh))))
     _, rec = _route(gathers, lambda: M_fused(b_fused.float()))
     out["shard-fused vcycle f32"] = dict(t=rec["t"], gathered=rec["gathered"], equal=True,
-                                         ops=_device_ops(lambda: M_fused(b_fused.float())))
+                                         ops=_device_ops(lambda: M_fused(b_fused.float())),
+                                         lane_bound=_lane_bound(M_fused))
     blocks = getattr(M, "blocks", None)  # absent where the program gathers the fine field
     if blocks is not None:
         shape = blocks.gathered_shape
@@ -2657,6 +2716,48 @@ def _block_cycles(mesh, gathers, n, M_fused, b_fused):
         rem = M_fused._blocks(len(M_fused.levels))
         out["threshold fused"] = dict(shape=rem.gathered_shape,
                                       nodes=math.prod(rem.gathered_shape or (0,)))
+    return out
+
+
+MESH_FUSED_N = 8192  # the shard-fused V-cycle's single application in the 4-rank world
+
+
+def _shard_fused_big(mesh, gathers, n=MESH_FUSED_N):
+    """One shard-fused V-cycle application (f32) at n² on this rank's block
+    of seeded noise, after one warm-up application: its host seconds, this
+    rank's peak device memory, the bytes it gathered and received; held bit
+    for bit against this rank's part of the single-device fused V-cycle on
+    the whole field, built with the same levels fused."""
+    import torch
+
+    from iterative_solvers_tpu_torch import Domain2D
+    from iterative_solvers_tpu_torch.parallel import ShardedPallasStencilOperator
+    from iterative_solvers_tpu_torch.parallel.mg_sharded import ShardedFusedMultigrid
+    from iterative_solvers_tpu_torch.solvers.multigrid import MultigridPreconditioner
+
+    dom = Domain2D(nx=n, ny=n)
+    gen = torch.Generator().manual_seed(7)  # on the host: the same field on every rank
+    r = torch.where(dom.interior_on("cpu"), torch.randn(dom.grid_shape, generator=gen), 0.0)
+    pop = ShardedPallasStencilOperator.from_domain(dom, mesh)
+    M = ShardedFusedMultigrid.from_operator(pop, dom, device="cuda")
+    rb = pop.shard(r).cuda()
+    M(rb)
+    z, rec = _route(gathers, lambda: M(rb))
+    rem = getattr(M, "_blocks", None)  # the remainder's threshold field, where it has one
+    shape = rem(len(M.levels)).gathered_shape if rem is not None else None
+    out = dict(t=rec["t"], peak=rec["peak"], gathered=rec["gathered"], levels=len(M.levels),
+               lane_bound=_lane_bound(M), threshold_nodes=math.prod(shape or (0,)))
+    extent = M.levels[-1].ny + 1  # the last shard-fused level's: fuse down to it
+    del M, rb
+    torch.cuda.empty_cache()
+    single = MultigridPreconditioner.from_domain(dom, device="cuda", fuse_min_extent=extent)
+    ref = single(r.cuda())
+    (r0, c0), (gh, gw) = mesh.block_origin(z.shape), dom.grid_shape
+    h, w = max(0, min(z.shape[0], gh - r0)), max(0, min(z.shape[1], gw - c0))
+    out["equal"] = bool(torch.equal(z[:h, :w], ref[r0:r0 + h, c0:c0 + w]))
+    out["single_levels"] = sum(getattr(lev, "kernels", None) is not None for lev in single.levels)
+    del single, ref, z
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2675,9 +2776,11 @@ def _mesh_rank(rank, n):
     from iterative_solvers_tpu_torch.parallel import make_solver_mesh
     from iterative_solvers_tpu_torch.solvers.refine import device_refined_solve
 
+    laps = [("start", time.perf_counter())]
     mesh = make_solver_mesh(4, (2, 2))
     gathers = _GatherLog(mesh)
     pop, M, A_hi, b = _fast_path_parts(n, mesh)
+    laps.append(("set-up", time.perf_counter()))
     res, fast = _route(gathers, lambda: device_refined_solve(A_hi, pop, b, preconditioner=M,
                                                          stop=stop_rel6(), fmg=True))
     x = pop.crop(mesh.gather(res.x)).cpu().numpy()  # results cross processes as numpy
@@ -2692,6 +2795,7 @@ def _mesh_rank(rank, n):
            "routes": {"mesh a": fast, "mesh facade": facade}}
     if rank == 0:
         out["x"], out["solution"] = x, r.solution
+    laps.append(("fast path, facade", time.perf_counter()))
     out["engine"] = {}
     for path, kw in _engine_runs().items():
         s = DirichletSolver(nx=n, ny=n, mesh=mesh, device="cuda", **kw)
@@ -2700,6 +2804,7 @@ def _mesh_rank(rank, n):
             counts=(int(r.stop_reason), r.outer_iterations, r.iterations), t=rec["t"],
             launches=rec["launches"], solution=r.solution if rank == 0 else None)
         out["routes"][path] = rec
+    laps.append(("engine routes", time.perf_counter()))
     # the routes whose multigrid is ShardedMultigridPreconditioner
     out["blocks"] = {}
     for path, kw in _block_runs(n).items():
@@ -2716,9 +2821,14 @@ def _mesh_rank(rank, n):
     else:
         dry, rec = _route(gathers, lambda: dryrun_rank(rank, "cuda"))  # on a mesh of its own
         out["dryrun"] = (dry["reason"], dry["iterations"], rec["t"])
+    laps.append(("block routes, dry run", time.perf_counter()))
     out["cycles"] = _block_cycles(mesh, gathers, n, M, b)
     del pop, M, A_hi, b, s
     torch.cuda.empty_cache()
+    laps.append((f"applications {n}^2", time.perf_counter()))
+    out["big"] = _shard_fused_big(mesh, gathers)
+    laps.append((f"application {MESH_FUSED_N}^2 and its reference", time.perf_counter()))
+    out["laps"] = [(name, t - t0) for (name, t), (_, t0) in zip(laps[1:], laps)]
     return out
 
 
@@ -2875,25 +2985,43 @@ def four_ranks_one_card(n=MESH_N, exact=True):
 
 def _print_rank_numbers(ranks, t_world, exact):
     """Per rank: the bytes each preconditioner application gathered (against
-    the threshold's field), and each route's host seconds, peak device
-    memory and gathered bytes; the world's seconds. Each block application
-    must equal the single-device plain hierarchy bit for bit; with
-    ``exact`` a V-cycle gathers at most the threshold's field, and an FMG
-    no larger field."""
-    log(f"mesh 4 ranks world: {t_world:.3f} s (spawn, build of each rank's kernels, every route)")
+    the threshold's field) and received, the shard-fused V-cycle's lane
+    transfers (2048² and 8192²) against their bound, the 8192²
+    application's seconds and peak memory, and each route's host seconds,
+    peak device memory and gathered bytes; the world's seconds. Each block
+    application must equal the single-device plain hierarchy bit for bit,
+    the 8192² application the single-device fused V-cycle; with ``exact`` a
+    V-cycle gathers at most the threshold's field, an FMG no larger field,
+    and the lane transfers receive at most their bound."""
+    log(f"mesh 4 ranks world: {t_world:.3f} s (spawn, build of each rank's kernels, every route); "
+        "rank 0's phases: " + ", ".join(f"{p} {t:.3f} s" for p, t in ranks[0]["laps"]))
     for k, rk in enumerate(ranks):
         c = rk["cycles"]
         thr = c.get("threshold")
         parts = []
         for name in ("vcycle f32", "vcycle f64", "fmg_stepwise f32", "shard-fused vcycle f32"):
-            fields, total, largest = c[name]["gathered"]
+            fields, total, largest, lane, received = c[name]["gathered"]
             ops, ops_ms = c[name]["ops"]
-            parts.append(f"{name} {total} B in {fields} fields, largest {largest} B, "
-                         f"{c[name]['t'] * 1e3:.1f} ms, {ops} device ops ({ops_ms:.2f} ms)")
+            parts.append(f"{name} {total} B in {fields} fields, largest {largest} B, received "
+                         f"{received} B, {c[name]['t'] * 1e3:.1f} ms, {ops} device ops "
+                         f"({ops_ms:.2f} ms)")
             if not c[name]["equal"]:
                 raise AssertionError(f"rank {k}: {name} on blocks differs from the "
                                      "single-device plain hierarchy")
         log(f"mesh 4 ranks rank {k} per application: " + "; ".join(parts))
+        big = rk["big"]
+        for label, rec in ((MESH_N, c["shard-fused vcycle f32"]), (MESH_FUSED_N, big)):
+            log(f"mesh 4 ranks rank {k} shard-fused V-cycle lane transfers {label}^2: received "
+                f"{rec['gathered'][3]} B (bound {rec['lane_bound']} B) of "
+                f"{rec['gathered'][4]} B received in all")
+        log(f"mesh 4 ranks rank {k} shard-fused V-cycle {MESH_FUSED_N}^2 (2, 2), one application: "
+            f"{big['t'] * 1e3:.1f} ms, peak {big['peak'] / 2**20:.1f} MiB, gathered "
+            f"{big['gathered'][1]} B in {big['gathered'][0]} fields, received "
+            f"{big['gathered'][4]} B; fused levels {big['levels']} (single-device "
+            f"{big['single_levels']}), bit-equal to the single-device fused V-cycle {big['equal']}")
+        if not big["equal"] or big["levels"] != big["single_levels"]:
+            raise AssertionError(f"rank {k}: the {MESH_FUSED_N}^2 shard-fused V-cycle differs "
+                                 "from the single-device fused V-cycle")
         if thr is not None:
             tf = c["threshold fused"]
             log(f"mesh 4 ranks rank {k} threshold field: {thr['shape']} ({thr['nodes']} nodes: "
@@ -2908,6 +3036,14 @@ def _print_rank_numbers(ranks, t_world, exact):
                 if c[name]["gathered"][1] > b:
                     raise AssertionError(f"rank {k}: {name} gathered {c[name]['gathered'][1]} B "
                                          f"> the threshold's field {b} B")
+            if big["gathered"][1] > 4 * big["threshold_nodes"]:
+                raise AssertionError(f"rank {k}: the {MESH_FUSED_N}^2 shard-fused V-cycle "
+                                     f"gathered {big['gathered'][1]} B > its threshold's field")
+            for rec in (c["shard-fused vcycle f32"], big):
+                if rec["gathered"][3] > rec["lane_bound"]:
+                    raise AssertionError(f"rank {k}: shard-fused lane transfers received "
+                                         f"{rec['gathered'][3]} B > their bound "
+                                         f"{rec['lane_bound']} B")
             if c["fmg_stepwise f32"]["gathered"][2] > 4 * thr["nodes"]:
                 raise AssertionError(f"rank {k}: the FMG gathered a field above the threshold")
         log(f"mesh 4 ranks rank {k} per route (host s, peak device MiB, fields / MB gathered): "

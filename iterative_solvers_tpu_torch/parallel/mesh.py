@@ -18,11 +18,13 @@ collectives the solvers need:
   every stop decision taken from them takes the same branch on every rank.
 - :meth:`SolverMesh.repartition`: a field moved point to point from one
   partition of an axis into another (the block multigrid's own per-level
-  layout, ``parallel/mg_blocks.py``).
+  layout, ``parallel/mg_blocks.py``), and :meth:`SolverMesh.fetch`: each
+  rank's window of such a field, windows that may overlap and reach past
+  the field (the shard-fused V-cycle's lane transfers,
+  ``parallel/mg_sharded.py``).
 - :meth:`SolverMesh.gather`: a global field from the blocks, on every rank
   (the results, and the coarse field below the block multigrid's
-  threshold), and :meth:`SolverMesh.gather_cols`: the blocks of one block
-  row, within that row's group (the shard-fused V-cycle's lane transfers).
+  threshold).
 
 Layout, as in the JAX package: the first field dim (rows, or z-planes in
 3D) is split over every mesh axis but the last, the last dim (columns) over
@@ -68,7 +70,6 @@ class SolverMesh:
         self.shape = tuple(int(s) for s in shape)
         self.rank = int(rank)
         self.distributed = bool(distributed)
-        self._row_groups = None  # one process group per block row, made on first use
 
     def __repr__(self) -> str:
         return (f"SolverMesh({dict(zip(self.axis_names, self.shape))}, rank={self.rank}, "
@@ -167,20 +168,6 @@ class SolverMesh:
         out = torch.cat(rows, dim=0)
         return out.to(block.device) if staged else out
 
-    def gather_cols(self, block: torch.Tensor) -> torch.Tensor:
-        """The blocks of this rank's block row side by side along the last
-        dim (the full width of its band of rows): an all-gather within the
-        row's own group, so each rank receives ``cols`` blocks, not the
-        whole field."""
-        if self.cols == 1 or not self.distributed:
-            return block
-        staged = self.transport(block.device) == "gloo-host"
-        send = block.contiguous().cpu() if staged else block.contiguous()
-        parts = [torch.empty_like(send) for _ in range(self.cols)]
-        dist.all_gather(parts, send, group=self._row_group())
-        out = torch.cat(parts, dim=-1)
-        return out.to(block.device) if staged else out
-
     def repartition(self, block: torch.Tensor, axis: int, old: Sequence[int],
                     new: Sequence[int]) -> torch.Tensor:
         """Move a field split along ``axis`` (0: the first field dim over
@@ -191,22 +178,45 @@ class SolverMesh:
         ``old``, and the result its range of ``new``. Each rank sends each
         rank of its line the part of its old range that lies in that rank's
         new range (point to point: nothing is gathered)."""
+        return self._move(block, axis, old, list(zip(new[:-1], new[1:])))
+
+    def fetch(self, block: torch.Tensor, axis: int, old: Sequence[int],
+              windows: Sequence[Tuple[int, int]]) -> torch.Tensor:
+        """This rank's window of a field split along ``axis`` as in
+        :meth:`repartition`: ``windows`` holds each rank's global
+        ``(start, stop)`` along the axis, the same on every rank; windows
+        may overlap and reach past the field, which reads zero outside
+        ``[0, old[-1])``. One round of point-to-point messages within the
+        line: each rank receives only the parts of its window that other
+        ranks hold."""
+        return self._move(block, axis, old, windows)
+
+    def _move(self, block, axis, old, windows) -> torch.Tensor:
         parts = self.rows if axis == 0 else self.cols
-        if parts == 1 or not self.distributed:
-            return block
         d = 0 if axis == 0 else block.ndim - 1
         ri, ci = self.coords
         me = self.coords[axis]
+        lo, hi = windows[me]
+        if parts == 1 and (lo, hi) == (0, old[-1]):
+            return block  # the whole line on this rank: nothing moves
 
         def rank_of(p):
             return p * self.cols + ci if axis == 0 else ri * self.cols + p
 
-        def overlap(a, b):  # rank a's old range within rank b's new one
-            lo, hi = max(old[a], new[b]), min(old[a + 1], new[b + 1])
-            return (lo, hi) if hi > lo else None
+        def overlap(a, b):  # rank a's old range within rank b's window
+            start, stop = max(old[a], windows[b][0]), min(old[a + 1], windows[b][1])
+            return (start, stop) if stop > start else None
+
+        def fresh(n, device, zero=False):  # a piece of n nodes along the axis
+            shape = list(block.shape)
+            shape[d] = n
+            return (torch.zeros if zero else torch.empty)(shape, dtype=block.dtype,
+                                                          device=device)
 
         staged = self.transport(block.device) == "gloo-host"
         sends, dsts, pieces, recvs = [], [], [], []
+        if lo < 0:  # the window's part below the field
+            pieces.append(fresh(min(hi, 0) - lo, block.device, zero=True))
         for p in range(parts):
             mine, theirs = overlap(me, p), overlap(p, me)
             if mine is not None and p != me:
@@ -217,11 +227,10 @@ class SolverMesh:
             if p == me:
                 pieces.append(block.narrow(d, theirs[0] - old[me], theirs[1] - theirs[0]))
                 continue
-            shape = list(block.shape)
-            shape[d] = theirs[1] - theirs[0]
             recvs.append((len(pieces), rank_of(p)))
-            pieces.append(torch.empty(shape, dtype=block.dtype,
-                                      device="cpu" if staged else block.device))
+            pieces.append(fresh(theirs[1] - theirs[0], "cpu" if staged else block.device))
+        if hi > max(lo, old[-1]):  # and above it
+            pieces.append(fresh(hi - max(lo, old[-1]), block.device, zero=True))
         ops = [dist.P2POp(dist.isend, t, dst)
                for t, dst in zip(_to_host(sends) if staged else sends, dsts)]
         ops += [dist.P2POp(dist.irecv, pieces[i], src) for i, src in recvs]
@@ -234,17 +243,6 @@ class SolverMesh:
         if not pieces:  # an empty range (a block of padding only)
             return block.narrow(d, 0, 0)
         return torch.cat(pieces, dim=d)
-
-    def _row_group(self):
-        """This rank's block-row process group. Every rank of the world
-        takes part in making each group, so the groups are made at the
-        first row gather, which every rank reaches together."""
-        if self._row_groups is None:
-            self._row_groups = [
-                dist.new_group([r * self.cols + c for c in range(self.cols)])
-                for r in range(self.rows)
-            ]
-        return self._row_groups[self.coords[0]]
 
     # --- blocks of global fields -----------------------------------------------
 

@@ -27,11 +27,14 @@ reassociation of their edge strips.
 
 Between fused levels the lane (column) transfers change the padded width
 from ``wp`` to the child's ``cw_pad``. The JAX package runs them, and the
-coarse remainder below the fused levels, under GSPMD on global arrays. The
-lane transfers gather the block row's columns
-(:meth:`SolverMesh.gather_cols`) and run the single-device
-:func:`lane_restrict` / :func:`lane_prolong`. The remainder and the FMG run
-the plain hierarchy on blocks (``parallel/mg_blocks.py``:
+coarse remainder below the fused levels, under GSPMD on global arrays.
+Here they run on blocks (:func:`lane_restrict_block`,
+:func:`lane_prolong_block`): each rank fetches from the ranks of its block
+row only the columns its own output reads (:meth:`SolverMesh.fetch`, one
+round of point-to-point messages a transfer) and applies the single-device
+:func:`lane_restrict` / :func:`lane_prolong` rule to them, so a block
+equals its slice of the single-device transfer bit for bit. The remainder
+and the FMG run the plain hierarchy on blocks (``parallel/mg_blocks.py``:
 :class:`BlockMultigrid`), which gathers only a field below its coarse
 threshold and equals the single-device plain V-cycle bit for bit: JAX's
 arithmetic exactly.
@@ -52,7 +55,7 @@ import torch
 from iterative_solvers_tpu_torch.core.domain import MaskSpec
 from iterative_solvers_tpu_torch.kernels import _build
 from iterative_solvers_tpu_torch.kernels.cg_fused import TW
-from iterative_solvers_tpu_torch.kernels.mg_fused import lane_prolong, lane_restrict, tile_rows
+from iterative_solvers_tpu_torch.kernels.mg_fused import tile_rows
 from iterative_solvers_tpu_torch.kernels.stencil_layout import check_aligned, check_field, round_up
 from iterative_solvers_tpu_torch.parallel.halo import apply5
 from iterative_solvers_tpu_torch.parallel.halo_pallas import extended_mask
@@ -62,6 +65,50 @@ from iterative_solvers_tpu_torch.solvers.multigrid import (
     MultigridPreconditioner,
     _coarsen_domain,
 )
+
+
+def lane_restrict_block(mesh: SolverMesh, rr: torch.Tensor, nx: int,
+                        wc_pad: int) -> torch.Tensor:
+    """:func:`~iterative_solvers_tpu_torch.kernels.mg_fused.lane_restrict`
+    on blocks: ``rr`` is this rank's (rows, Wb) block of a field whose
+    columns are split over the mesh's columns, the result its
+    (rows, wc_pad / cols) block of ``lane_restrict(row, nx, wc_pad)`` on
+    the whole block row, bit for bit. Coarse column c reads fine columns
+    2c - 1 .. 2c + 1, so the coarse block ``[ci cwb, (ci + 1) cwb)`` reads
+    fine ``[2 ci cwb - 1, 2 (ci + 1) cwb]``; fine columns below 0 and past
+    ``nx`` read zero, coarse columns past ``nx // 2`` are zero."""
+    wb, cols, ci = rr.shape[-1], mesh.cols, mesh.coords[1]
+    cwb = wc_pad // cols
+    old = [min(k * wb, nx + 1) for k in range(cols + 1)]  # the row's columns up to nx
+    f = mesh.fetch(rr.narrow(-1, 0, old[ci + 1] - old[ci]), 1, old,
+                   [(2 * k * cwb - 1, 2 * (k + 1) * cwb + 1) for k in range(cols)])
+    lo, mid, hi = f[:, 0:2 * cwb:2], f[:, 1:2 * cwb:2], f[:, 2:2 * cwb + 1:2]
+    out = 0.25 * (lo + hi) + 0.5 * mid
+    out[:, max(nx // 2 + 1 - ci * cwb, 0):] = 0.0
+    return out
+
+
+def lane_prolong_block(mesh: SolverMesh, ec: torch.Tensor, cnx: int,
+                       w_pad: int) -> torch.Tensor:
+    """:func:`~iterative_solvers_tpu_torch.kernels.mg_fused.lane_prolong`
+    on blocks: ``ec`` is this rank's (rows, cwb) block of a coarse field
+    whose columns are split over the mesh's columns, the result its
+    (rows, w_pad / cols) block of ``lane_prolong(row, cnx, w_pad)`` on the
+    whole block row, bit for bit. Fine column j copies coarse column j / 2
+    (j even) or averages (j - 1) / 2 and (j + 1) / 2 (j odd), so the fine
+    block ``[ci wb, (ci + 1) wb)`` reads coarse ``[ci wb / 2, (ci + 1) wb / 2]``;
+    coarse columns past ``cnx`` read zero, fine columns past ``2 cnx`` are
+    zero."""
+    cols, ci = mesh.cols, mesh.coords[1]
+    wb = w_pad // cols
+    h = wb // 2
+    old = [min(k * ec.shape[-1], cnx + 1) for k in range(cols + 1)]  # coarse columns to cnx
+    g = mesh.fetch(ec.narrow(-1, 0, old[ci + 1] - old[ci]), 1, old,
+                   [(k * h, (k + 1) * h + 1) for k in range(cols)])
+    left, right = g[:, :-1], g[:, 1:]
+    out = torch.stack([left, 0.5 * (left + right)], dim=-1).reshape(g.shape[0], wb)
+    out[:, max(2 * cnx + 1 - ci * wb, 0):] = 0.0
+    return out
 
 
 @dataclass(frozen=True, eq=False)
@@ -358,16 +405,12 @@ class ShardedFusedMultigrid:
         cnx, cny = self.child_dims[li]
         mesh = self.mesh
         rr = lev.down(mesh, b)  # (Hb/2, Wb) row-restricted residual
-        _, ci = mesh.coords
-        cwb = lev.cw_pad // mesh.cols
-        rc = lane_restrict(mesh.gather_cols(rr), lev.nx, lev.cw_pad)[:, ci * cwb:(ci + 1) * cwb]
-        origin = (mesh.coords[0] * rc.shape[0], ci * cwb)
+        rc = lane_restrict_block(mesh, rr, lev.nx, lev.cw_pad)
+        origin = mesh.block_origin(rc.shape)
         child = MaskSpec(lev.mask_mode, cnx, cny, tuple(rc.shape), origin=origin)
-        rc = torch.where(child.build(rc.device), rc, 0.0).contiguous()
+        rc = torch.where(child.build(rc.device), rc, 0.0)
         ec = self._vc(li + 1, rc)
-        wb = lev.block_shape[1]
-        ecl = lane_prolong(mesh.gather_cols(ec), lev.nx // 2, lev.padded_shape[1])
-        ecl = ecl[:, ci * wb:(ci + 1) * wb].contiguous()
+        ecl = lane_prolong_block(mesh, ec, lev.nx // 2, lev.padded_shape[1])
         return lev.up(mesh, b, ecl, with_dot=with_dot)
 
     def __call__(self, r: torch.Tensor) -> torch.Tensor:

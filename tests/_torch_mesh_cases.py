@@ -17,10 +17,12 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from iterative_solvers_tpu_torch import DirichletSolver, Domain2D, Domain3D, PoissonProblem
 from iterative_solvers_tpu_torch import StopConfig
 from iterative_solvers_tpu_torch.graft_entry import dryrun_rank
+from iterative_solvers_tpu_torch.kernels.mg_fused import lane_prolong, lane_restrict
 from iterative_solvers_tpu_torch.ops.stencil import StencilOperator
 from iterative_solvers_tpu_torch.parallel import (
     ShardedPallas3DStencilOperator,
@@ -37,7 +39,11 @@ from iterative_solvers_tpu_torch.parallel.cg_fused_sharded import (
     ShardedFusedCGEngine,
     sharded_fused_cg_solve,
 )
-from iterative_solvers_tpu_torch.parallel.mg_sharded import ShardedFusedMultigrid
+from iterative_solvers_tpu_torch.parallel.mg_sharded import (
+    ShardedFusedMultigrid,
+    lane_prolong_block,
+    lane_restrict_block,
+)
 from iterative_solvers_tpu_torch.solvers.cg import CGOptions, cg_solve
 from iterative_solvers_tpu_torch.solvers.multigrid import (
     MultigridPreconditioner,
@@ -286,7 +292,8 @@ def block_extras(rank) -> dict:
     undo = _recording_gathers(mesh, gathered)
     try:
         rem = M._remainder(li, blk)
-        z = M(op.shard(torch.from_numpy(masked_noise(dom.interior))))
+        z, transfers = _recorded_vcycle(M, mesh, op.shard(torch.from_numpy(
+            masked_noise(dom.interior))))
         f = M.with_fmg(PoissonProblem.manufactured(dom)).fmg_stepwise(
             op.shard(PoissonProblem.manufactured(dom).rhs_field(torch.float64, CPU)))
     finally:
@@ -295,8 +302,100 @@ def block_extras(rank) -> dict:
     out["fused"] = dict(levels=li, remainder_equal=bool(torch.equal(rem, M.inner._vcycle(li, rc))),
                         gathered=gathered, fine=tuple(op.padded_shape),
                         finite=bool(torch.isfinite(z).all() and torch.isfinite(f).all()),
+                        transfers=transfers,
                         gathered_shape=M._blocks(li).gathered_shape,
                         fmg_gathered_shape=M._blocks(0).gathered_shape)
+    return out
+
+
+def _recording_collectives(mesh, log):
+    """Wrap this rank's all-gathers and point-to-point rounds (the
+    ``torch.distributed`` functions the mesh calls) and ``mesh.fetch``:
+    ``log`` gets ``("all_gather", over the whole mesh, nodes assembled)``
+    for each all-gather and ``("fetch", bytes received)`` for each window
+    fetch (a lane transfer); returns the undo."""
+    real_gather, real_round, real_fetch = dist.all_gather, dist.batch_isend_irecv, mesh.fetch
+    received = [0]
+
+    def all_gather(parts, t, group=None, **kw):
+        log.append(("all_gather", group is None, sum(p.numel() for p in parts)))
+        return real_gather(parts, t, group=group, **kw)
+
+    def batch_isend_irecv(ops):
+        received[0] += sum(o.tensor.numel() * o.tensor.element_size() for o in ops
+                           if o.op is dist.irecv)
+        return real_round(ops)
+
+    def fetch(*a, **kw):
+        before = received[0]
+        out = real_fetch(*a, **kw)
+        log.append(("fetch", received[0] - before))
+        return out
+
+    dist.all_gather, dist.batch_isend_irecv, mesh.fetch = all_gather, batch_isend_irecv, fetch
+
+    def undo():
+        dist.all_gather, dist.batch_isend_irecv = real_gather, real_round
+        vars(mesh).pop("fetch")
+
+    return undo
+
+
+def _recorded_vcycle(M, mesh, r):
+    """``M(r)`` with this rank's collectives recorded: the fused levels'
+    (Hb, Wb, cwb, mesh columns), each lane transfer's bytes received, each
+    all-gather (over the whole mesh?, nodes) and the coarse field that the
+    remainder gathers."""
+    log = []
+    undo = _recording_collectives(mesh, log)
+    try:
+        z = M(r)
+    finally:
+        undo()
+    levels = [lev.block_shape + (lev.cw_pad // mesh.cols, mesh.cols) for lev in M.levels]
+    last = M.levels[-1]  # a remainder below its threshold gathers its first level whole
+    coarse = M._blocks(len(M.levels)).gathered_shape or (last.padded_shape[0] // 2, last.cw_pad)
+    return z, dict(levels=levels, fetched=[e[1] for e in log if e[0] == "fetch"],
+                   all_gathers=[e[1:] for e in log if e[0] == "all_gather"],
+                   gathered_shape=coarse)
+
+
+# (nx, padded width, child's padded width) of the lane transfers on noise:
+# 64 at its fused level's widths (on two mesh columns the second rank's
+# restriction window, fine columns 255 .. 512, lies wholly past nx), an odd
+# nx, and windows that reach over several blocks
+LANES = [(64, 256, 256), (63, 512, 512), (400, 512, 512), (1000, 1024, 512)]
+
+
+def lane_cases(mesh) -> list:
+    """:func:`lane_restrict_block` and :func:`lane_prolong_block` on this
+    rank's block of seeded noise (padding columns too) against its slice of
+    the single-device transfer on the block row; per geometry (equal,
+    bytes received by the restriction and by the prolongation, whether the
+    restriction window lies wholly in padding)."""
+    out = []
+    ri, ci = mesh.coords
+    for nx, wp, cwp in LANES:
+        if wp % (128 * mesh.cols) or cwp % (128 * mesh.cols):
+            continue
+        wb, cwb = wp // mesh.cols, cwp // mesh.cols
+        fine = torch.from_numpy(noise((6, wp), seed=nx).astype(np.float32))
+        coarse = fine[:, :cwp]
+        log = []
+        undo = _recording_collectives(mesh, log)
+        try:
+            rc = lane_restrict_block(mesh, fine[:, ci * wb:(ci + 1) * wb].clone(), nx, cwp)
+            ecl = lane_prolong_block(mesh, coarse[:, ci * cwb:(ci + 1) * cwb].clone(), nx // 2,
+                                     wp)
+        finally:
+            undo()
+        equal = (torch.equal(rc, lane_restrict(fine, nx, cwp)[:, ci * cwb:(ci + 1) * cwb])
+                 and torch.equal(ecl, lane_prolong(coarse, nx // 2, wp)[:, ci * wb:(ci + 1) * wb]))
+        padding = 2 * ci * cwb - 1 > nx
+        out.append(dict(nx=nx, rows=6, wb=wb, cwb=cwb, cols=mesh.cols, equal=equal,
+                        fetched=[e[1] for e in log if e[0] == "fetch"],
+                        all_gathers=sum(e[0] == "all_gather" for e in log), padding=padding,
+                        zero=bool(padding and not rc.any())))
     return out
 
 
@@ -317,14 +416,15 @@ def world_multigrid(rank: int) -> dict:
             dom = Domain2D(nx=64, ny=64, shape=kind)
             op, M = _fused(dom, mesh)
             r = torch.from_numpy(masked_noise(dom.interior))
-            z = M(op.shard(r))
+            z, transfers = _recorded_vcycle(M, mesh, op.shard(r))
             w, rz = M.call_with_dot(op.shard(r))
             single = MultigridPreconditioner.from_domain(dom, fuse=True, fuse_min_extent=33,
                                                          device=CPU)
             out[("vcycle", shape, kind)] = dict(
                 levels=len(M.levels), z=_np(op.crop(mesh.gather(z))),
                 w_equal=bool(torch.equal(w, z)), rz=float(rz),
-                single=_np(single(r)))
+                single=_np(single(r)), transfers=transfers)
+        out[("lanes", shape)] = lane_cases(mesh)
         if len(shape) == 2:
             out[("blocks", shape)] = block_cases(rank, mesh)
     out["block_extras"] = block_extras(rank)
@@ -334,8 +434,9 @@ def world_multigrid(rank: int) -> dict:
     uu = op.shard(torch.from_numpy(masked_noise(dom.interior, 1)))
     vv = op.shard(torch.from_numpy(masked_noise(dom.interior, 2)))
     r = torch.from_numpy(masked_noise(dom.interior))
+    z, transfers = _recorded_vcycle(M, mesh, op.shard(r))
     out["two_levels"] = dict(
-        levels=len(M.levels), z=_np(op.crop(mesh.gather(M(op.shard(r))))),
+        levels=len(M.levels), z=_np(op.crop(mesh.gather(z))), transfers=transfers,
         d1=float(mesh.gather(uu * M(vv)).sum()), d2=float(mesh.gather(vv * M(uu)).sum()))
 
     dom = Domain2D(nx=64, ny=64)

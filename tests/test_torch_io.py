@@ -269,15 +269,30 @@ def _doms(spec):
     return Domain2D(nx=nx, ny=ny, shape=kind), JDomain2D(nx=nx, ny=ny, shape=kind)
 
 
+@pytest.fixture
+def jnative(tmp_path, monkeypatch):
+    """The JAX package's native engines, built into this test's own
+    directory. Its loader compiles into a shared cache through one fixed
+    temporary name, so two test processes that build at once can collide
+    there, and the one that loses keeps None for the rest of its life: its
+    state is reset here so that it builds and loads again."""
+    monkeypatch.setenv("ISTPU_NATIVE_CACHE", str(tmp_path))
+    for name, value in (("_lib", None), ("_load_failed", False), ("_textio_lib", None),
+                        ("_textio_failed", False)):
+        monkeypatch.setattr(jloader, name, value)
+    assert jloader.available(), "the JAX package's native assembly engine did not build"
+    return jloader
+
+
 @pytest.mark.parametrize("spec", [
     ("gamma", 6, 6), ("gamma", 64, 64), ("gamma", 10, 6), ("rect", 12, 20), ("rect", 33, 17),
     ("3d", 6, 5, 4),
 ])
-def test_native_csr_equals_numpy_and_jax(spec):
+def test_native_csr_equals_numpy_and_jax(spec, jnative):
     dom, jdom = _doms(spec)
     native = assemble_csr(dom, backend="native")
     for other in (assemble_csr(dom, backend="numpy"), assemble_csr(dom),
-                  jloader.assemble_csr_native(jdom)):
+                  jnative.assemble_csr_native(jdom)):
         for x, y in zip(native, other):
             np.testing.assert_array_equal(x, y)
             assert x.dtype == y.dtype
@@ -318,12 +333,14 @@ def test_native_build_is_the_ports_own(tmp_path, monkeypatch):
         loader.build("broken")
 
 
-def test_textio_format_matches_python():
+def test_textio_format_matches_python(jnative):
     v = np.random.default_rng(3).standard_normal(1000)
     v[::100] = [0.0, -0.0, 1e-300, 1e300, -1.5, 2.0, 3.25, 1e-17, -7.0, 42.0]
     raw = loader.format_doubles(v)
     assert raw.decode("ascii") == "".join(f"{x:.17e}\n" for x in v)
-    assert raw == jloader.format_doubles(v)
+    theirs = jnative.format_doubles(v)
+    assert theirs is not None, "the JAX package's native textio engine did not build"
+    assert raw == theirs
 
 
 def test_textio_parse_roundtrip_and_sentinel():

@@ -104,6 +104,60 @@ def test_shard_fused_vcycle(world, jm, shape, kind):
     assert abs(got["rz"] - dot) <= 1e-5 * abs(dot)
 
 
+def _transfer_bound(rows, wb, cwb, cols):
+    """Bytes (f32) one lane transfer may receive: the coarse block
+    [ci cwb, (ci + 1) cwb) reads fine [2 ci cwb - 1, 2 (ci + 1) cwb], the fine
+    block [ci wb, (ci + 1) wb) coarse [ci wb / 2, (ci + 1) wb / 2], so the
+    window leaves its own range by at most (cols - 1) |2 cwb - wb| + 2
+    columns (|2 cwb - wb| + 2 on two mesh columns)."""
+    return 4 * rows * ((cols - 1) * abs(2 * cwb - wb) + 2)
+
+
+def test_shard_fused_lane_transfers_fetch_only_their_windows(world):
+    """Every rank's shard-fused V-cycles (each mesh shape and domain, the
+    hybrid mesh, two fused levels at 128², one at 256²), with the mesh's
+    collectives recorded: no all-gather runs between fused levels (the
+    only ones gather the coarse remainder's threshold field over the whole
+    mesh, at most once a cycle), and each lane transfer, two a fused
+    level, receives at most Hb/2 x ((cols - 1) |2 cwb - wb| + 2) nodes."""
+    cases = [rank[k] for rank in world for k in rank if k[0] == "vcycle"]
+    cases += [rank["two_levels"] for rank in world]
+    cases += [rank["block_extras"]["fused"] for rank in world]
+    moved = 0
+    for case in cases:
+        rec = case["transfers"]
+        bounds = [_transfer_bound(hb // 2, wb, cwb, cols) for hb, wb, cwb, cols in rec["levels"]]
+        assert len(rec["fetched"]) == 2 * len(bounds)
+        for got, bound in zip(rec["fetched"], bounds + bounds[::-1]):
+            assert got <= bound, (rec["levels"], rec["fetched"])
+        assert len(rec["all_gathers"]) <= 1, rec
+        for world_wide, nodes in rec["all_gathers"]:
+            assert world_wide and nodes == math.prod(rec["gathered_shape"]), rec
+        moved += sum(rec["fetched"])
+    assert moved > 0  # the windows do cross blocks
+
+
+@pytest.mark.parametrize("shape", MESHES + [(2, 1, 2)])
+def test_lane_transfers_on_blocks(world, shape):
+    """``lane_restrict_block`` / ``lane_prolong_block`` on every rank's block
+    of seeded noise (padding columns too, an odd nx, windows over several
+    blocks) equal the slices of the single-device ``lane_restrict`` /
+    ``lane_prolong`` on the block row bit for bit, gather nothing and
+    receive at most their windows' bound; a rank whose restriction window
+    lies wholly past nx receives nothing and gives zeros."""
+    padding = moved = 0
+    for rank in world:
+        for case in rank[("lanes", shape)]:
+            assert case["equal"] and case["all_gathers"] == 0, case
+            bound = _transfer_bound(case["rows"], case["wb"], case["cwb"], case["cols"])
+            assert len(case["fetched"]) == 2 and max(case["fetched"]) <= bound, case
+            if case["padding"]:
+                assert case["zero"] and case["fetched"][0] == 0, case
+            padding += case["padding"]
+            moved += sum(case["fetched"])
+    assert (padding > 0) == (shape[-1] > 1) and (moved > 0) == (shape[-1] > 1)
+
+
 def test_shard_fused_vcycle_two_levels_and_symmetry(world):
     got = world[0]["two_levels"]
     assert got["levels"] == 2
