@@ -36,12 +36,13 @@ its results carry ``interior_mask``, as the JAX package's do.
 driver's cadence; :meth:`DirichletSolver.request_stop` interrupts a
 chunked solve at its next chunk (INTERRUPTED). ``solve(profiler=...)``
 (:class:`~iterative_solvers_tpu_torch.profiling.Profiler`) splits the
-call's wall time into the facade's phases — ``assemble`` (building the
-route's operator and preconditioner, on its first solve), ``fields`` (b and
-u on the device), ``solve`` (the driver, with the driver's own phases
-nested), ``residual`` (the final f64 residual), ``result_copies`` (packing
-and the device-to-host copies) and ``result_host`` (host norms and node
-coordinates) — and gathers the drivers' counters. :meth:`set_grid` and
+call's host wall time (no phase synchronises the card) into the facade's
+phases — ``assemble`` (building the route's operator and preconditioner,
+on its first solve), ``fields`` (b and u on the device), ``solve`` (the
+driver, with the driver's own spans nested), ``residual`` (the final f64
+residual), ``result_copies`` (packing and the device-to-host copies) and
+``result_host`` (host norms and node coordinates) — and gathers the
+drivers' counters. :meth:`set_grid` and
 :meth:`set_stop` change the problem between solves; results save with
 :meth:`SolverResults.save` and print with :meth:`SolverResults.report`.
 ``device="cuda"`` (the default) launches the hand-written kernels and
@@ -103,7 +104,7 @@ from iterative_solvers_tpu_torch.parallel.halo_pallas import (
     ShardedPallasStencilOperator,
 )
 from iterative_solvers_tpu_torch.parallel.mg_sharded import ShardedFusedMultigrid
-from iterative_solvers_tpu_torch.profiling import phase_of
+from iterative_solvers_tpu_torch.profiling import solve_span, span
 from iterative_solvers_tpu_torch.solvers.cg import CGOptions, cg_solve
 from iterative_solvers_tpu_torch.solvers.multigrid import (
     MultigridPreconditioner,
@@ -508,99 +509,99 @@ class DirichletSolver:
                 "outer='ff' runs the whole ladder as one device program — live iteration "
                 "callbacks need the host-chunked loop; use outer='auto'/'f64' with callbacks"
             )
-        phase = phase_of(profiler)
-        route = self._route(callback)
-        if route not in self._routes:
-            with phase("assemble"):
-                self._routes[route] = self._build(route)
-        A, M = self._parts = self._routes[route]
-        dev, f64 = self.device, torch.float64
-        has_u = self.problem.u_exact is not None
-        if route.startswith("mesh"):
-            res, x, r, u = self._solve_mesh(route, A, M, callback, dict(
-                stop=self.stop, beta_kind=self.beta_kind, callback=callback,
-                callback_every=callback_every, stop_requested=self._stop_event.is_set,
-                record_history=record_history, state_callback=state_callback,
-                profiler=profiler,
-            ))
-        elif self.precision == "mixed":
-            with phase("fields"):
-                b = self.problem.rhs_field(f64, dev)
-                u = self.problem.true_solution_field(f64, dev) if has_u else None
-            ff = self.outer_kind == "ff"
-            with phase("solve"):
-                if route == "fused_ir":
-                    res = fused_refined_solve(A, M, b, u_true=u, stop=self.stop,
-                                              fmg=self.fmg_cycles, ff=ff, profiler=profiler)
-                    x = res.x
-                elif route == "padded3d":
-                    res = device_refined_solve(
-                        _padded_hi_operator(A), A, A.pad(b), preconditioner=M,
-                        u_true=None if u is None else A.pad(u), stop=self.stop,
-                        fmg=self.fmg_cycles, ff=ff, profiler=profiler,
-                    )
-                    x = A.crop(res.x)
-                elif route == "ladder":
-                    res = refined_solve(A, A, b, u_true=u, stop=self.stop, preconditioner=M,
-                                        callback=callback,
-                                        stop_requested=self._stop_event.is_set,
-                                        x0=_maybe_fmg_x0(M, self.fmg_cycles, b),
-                                        profiler=profiler)
-                    x = res.x
-                else:
-                    res = device_refined_solve(A, A, b, preconditioner=M, u_true=u,
-                                               stop=self.stop, fmg=self.fmg_cycles, ff=ff,
-                                               profiler=profiler)
-                    x = res.x
-            with phase("residual"):
-                r = b - StencilOperator.from_domain(self.domain)(x)
-        else:
-            with phase("fields"):
-                b = self.problem.rhs_field(self.field_dtype, dev)
-                u = self.problem.true_solution_field(self.field_dtype, dev) if has_u else None
-            opts = CGOptions(
-                stop=self.stop, beta_kind=self.beta_kind, preconditioner=M, callback=callback,
-                callback_every=callback_every, stop_requested=self._stop_event.is_set,
-                record_history=record_history, state_callback=state_callback,
-                profiler=profiler,
-            )
-            if route == "fused":
-                with phase("solve"):
-                    res = fused_cg_solve(A, b, u_true=u, options=opts)
-                    x = res.x
-                with phase("residual"):
-                    # the final residual through the stencil kernel, as the JAX facade does
-                    r = b - A.crop(A(A.pad(x))).to(b.dtype)
-            elif route == "pallas":
-                with phase("solve"):
-                    bp = A.pad(b)
-                    res = cg_solve(A, bp, u_true=None if u is None else A.pad(u), options=opts)
-                with phase("residual"):
-                    x, r = A.crop(res.x), A.crop(bp - A(res.x))
+        with solve_span("DirichletSolver.solve", profiler):
+            route = self._route(callback)
+            if route not in self._routes:
+                with span("assemble"):
+                    self._routes[route] = self._build(route)
+            A, M = self._parts = self._routes[route]
+            dev, f64 = self.device, torch.float64
+            has_u = self.problem.u_exact is not None
+            if route.startswith("mesh"):
+                res, x, r, u = self._solve_mesh(route, A, M, callback, dict(
+                    stop=self.stop, beta_kind=self.beta_kind, callback=callback,
+                    callback_every=callback_every, stop_requested=self._stop_event.is_set,
+                    record_history=record_history, state_callback=state_callback,
+                    profiler=profiler,
+                ))
+            elif self.precision == "mixed":
+                with span("fields"):
+                    b = self.problem.rhs_field(f64, dev)
+                    u = self.problem.true_solution_field(f64, dev) if has_u else None
+                ff = self.outer_kind == "ff"
+                with span("solve"):
+                    if route == "fused_ir":
+                        res = fused_refined_solve(A, M, b, u_true=u, stop=self.stop,
+                                                  fmg=self.fmg_cycles, ff=ff, profiler=profiler)
+                        x = res.x
+                    elif route == "padded3d":
+                        res = device_refined_solve(
+                            _padded_hi_operator(A), A, A.pad(b), preconditioner=M,
+                            u_true=None if u is None else A.pad(u), stop=self.stop,
+                            fmg=self.fmg_cycles, ff=ff, profiler=profiler,
+                        )
+                        x = A.crop(res.x)
+                    elif route == "ladder":
+                        res = refined_solve(A, A, b, u_true=u, stop=self.stop, preconditioner=M,
+                                            callback=callback,
+                                            stop_requested=self._stop_event.is_set,
+                                            x0=_maybe_fmg_x0(M, self.fmg_cycles, b),
+                                            profiler=profiler)
+                        x = res.x
+                    else:
+                        res = device_refined_solve(A, A, b, preconditioner=M, u_true=u,
+                                                   stop=self.stop, fmg=self.fmg_cycles, ff=ff,
+                                                   profiler=profiler)
+                        x = res.x
+                with span("residual"):
+                    r = b - StencilOperator.from_domain(self.domain)(x)
             else:
-                if route == "sparse":
-                    b, u = ordering.pack(b, self.domain), (ordering.pack(u, self.domain)
-                                                           if has_u else None)
-                with phase("solve"):
-                    res = cg_solve(A, b, u_true=u, options=opts)
-                    x = res.x
-                with phase("residual"):
-                    r = b - A(x)
-        results = self._assemble_results(res, x, r, u, phase)
-        if completion_callback is not None:
-            completion_callback(results.converged, results.stop_reason.text())
-        return results
+                with span("fields"):
+                    b = self.problem.rhs_field(self.field_dtype, dev)
+                    u = self.problem.true_solution_field(self.field_dtype, dev) if has_u else None
+                opts = CGOptions(
+                    stop=self.stop, beta_kind=self.beta_kind, preconditioner=M, callback=callback,
+                    callback_every=callback_every, stop_requested=self._stop_event.is_set,
+                    record_history=record_history, state_callback=state_callback,
+                    profiler=profiler,
+                )
+                if route == "fused":
+                    with span("solve"):
+                        res = fused_cg_solve(A, b, u_true=u, options=opts)
+                        x = res.x
+                    with span("residual"):
+                        # the final residual through the stencil kernel, as the JAX facade does
+                        r = b - A.crop(A(A.pad(x))).to(b.dtype)
+                elif route == "pallas":
+                    with span("solve"):
+                        bp = A.pad(b)
+                        res = cg_solve(A, bp, u_true=None if u is None else A.pad(u), options=opts)
+                    with span("residual"):
+                        x, r = A.crop(res.x), A.crop(bp - A(res.x))
+                else:
+                    if route == "sparse":
+                        b, u = ordering.pack(b, self.domain), (ordering.pack(u, self.domain)
+                                                               if has_u else None)
+                    with span("solve"):
+                        res = cg_solve(A, b, u_true=u, options=opts)
+                        x = res.x
+                    with span("residual"):
+                        r = b - A(x)
+            results = self._assemble_results(res, x, r, u)
+            if completion_callback is not None:
+                completion_callback(results.converged, results.stop_reason.text())
+            return results
 
-    def _assemble_results(self, res, x, r, u, phase) -> SolverResults:
+    def _assemble_results(self, res, x, r, u) -> SolverResults:
         dom = self.domain
-        with phase("result_copies"):
+        with span("result_copies"):
             if self.operator_kind != "sparse" or self.precision == "mixed":
                 x, r = ordering.pack(x, dom), ordering.pack(r, dom)
                 u = ordering.pack(u, dom) if u is not None else None
             sol = x.cpu().numpy().astype(np.float64)
             resid = r.cpu().numpy().astype(np.float64)
             tru = u.cpu().numpy().astype(np.float64) if u is not None else None
-        with phase("result_host"):
+        with span("result_host"):
             return self._results(res, sol, resid, tru)
 
     def _results(self, res, sol, resid, tru) -> SolverResults:

@@ -53,6 +53,7 @@ from iterative_solvers_tpu_torch.kernels.stencil_layout import (  # noqa: F401
     tile_grid,
 )
 from iterative_solvers_tpu_torch.parallel.mesh import all_max, all_sum, mesh_of
+from iterative_solvers_tpu_torch.profiling import solve_span, span
 from iterative_solvers_tpu_torch.solvers.cg import CGOptions, CGResult, CGState, cg_solve, stop_reason
 from iterative_solvers_tpu_torch.solvers.stopping import StopConfig, StopReason
 
@@ -235,12 +236,13 @@ class FusedCGEngine:
 
     def precondition(self, r):
         """``(M r, (r, M r))``: the fused dot of ``M.call_with_dot`` where
-        ``M`` has one, else the all-reduced dot."""
-        fn = getattr(self.M, "call_with_dot", None)
-        if fn is not None:
-            return fn(r)
-        w = self.M(r)
-        return w, all_sum(mesh_of(self.op), torch.sum(r * w))[0]
+        ``M`` has one, else the all-reduced dot; a ``precond`` span."""
+        with span("precond"):
+            fn = getattr(self.M, "call_with_dot", None)
+            if fn is not None:
+                return fn(r)
+            w = self.M(r)
+            return w, all_sum(mesh_of(self.op), torch.sum(r * w))[0]
 
     def iteration(self, state: CGState, u_true=None) -> CGState:
         """One fused iteration; ``state.z`` holds z_{k−1} (the direction
@@ -304,39 +306,40 @@ def run_fused_solve(engine: FusedCGEngine, b: torch.Tensor, u_true, opts: CGOpti
     state, so such a state is refused rather than resumed on a wrong β."""
     if opts.beta_kind != "msg":
         raise ValueError("fused engine implements the MSG recurrence only")
-    M = opts.preconditioner
-    mesh = mesh_of(engine.op)
-    f32 = torch.float32
-    bp = lay(b.to(f32))
-    up = lay(u_true.to(f32)) if u_true is not None else None
-    dev = bp.device
-    inf = torch.full((), float("inf"), dtype=f32, device=dev)
-    one = torch.ones((), dtype=f32, device=dev)
-    stop = opts.stop
-    fused = dataclasses.replace(opts, step_fn=lambda s, u: engine.step(stop, s, u))
-    if init_state is not None:
-        if M is not None and (init_state.w is None or init_state.rz_prev is None):
-            raise ValueError(
-                "resuming the fused PCG engine needs the state's carries w and rz_prev; "
-                "this checkpoint has none (a JAX package checkpoint does not save them)")
-        res = cg_solve(None, bp, u_true=up, options=fused, init_state=init_state)
+    with solve_span("run_fused_solve", opts.profiler):
+        M = opts.preconditioner
+        mesh = mesh_of(engine.op)
+        f32 = torch.float32
+        bp = lay(b.to(f32))
+        up = lay(u_true.to(f32)) if u_true is not None else None
+        dev = bp.device
+        inf = torch.full((), float("inf"), dtype=f32, device=dev)
+        one = torch.ones((), dtype=f32, device=dev)
+        stop = opts.stop
+        fused = dataclasses.replace(opts, step_fn=lambda s, u: engine.step(stop, s, u))
+        if init_state is not None:
+            if M is not None and (init_state.w is None or init_state.rz_prev is None):
+                raise ValueError(
+                    "resuming the fused PCG engine needs the state's carries w and rz_prev; "
+                    "this checkpoint has none (a JAX package checkpoint does not save them)")
+            res = cg_solve(None, bp, u_true=up, options=fused, init_state=init_state)
+            res.x = unlay(res.x)
+            return res
+        (r2_0,) = all_sum(mesh, torch.sum(bp * bp))
+        w0, rz0 = engine.precondition(bp) if M is not None else (None, None)
+        r_max, err_max = all_max(mesh, torch.max(torch.abs(bp)),
+                                 torch.max(torch.abs(up)) if up is not None else inf)
+        state = CGState(
+            x=torch.zeros_like(bp), r=bp, z=torch.zeros_like(bp), k=0,
+            done=torch.zeros((), dtype=torch.bool, device=dev),
+            reason=torch.full((), int(StopReason.ITERATIONS), dtype=torch.int32, device=dev),
+            rz=rz0 if rz0 is not None else one, r_norm2=r2_0, prec_max=inf,
+            r_max=r_max, err_max=err_max,
+            r0_norm=torch.sqrt(r2_0), w=w0, rz_prev=one if M is not None else None,
+        )
+        res = cg_solve(None, bp, u_true=up, options=fused, init_state=state)
         res.x = unlay(res.x)
         return res
-    (r2_0,) = all_sum(mesh, torch.sum(bp * bp))
-    w0, rz0 = engine.precondition(bp) if M is not None else (None, None)
-    r_max, err_max = all_max(mesh, torch.max(torch.abs(bp)),
-                             torch.max(torch.abs(up)) if up is not None else inf)
-    state = CGState(
-        x=torch.zeros_like(bp), r=bp, z=torch.zeros_like(bp), k=0,
-        done=torch.zeros((), dtype=torch.bool, device=dev),
-        reason=torch.full((), int(StopReason.ITERATIONS), dtype=torch.int32, device=dev),
-        rz=rz0 if rz0 is not None else one, r_norm2=r2_0, prec_max=inf,
-        r_max=r_max, err_max=err_max,
-        r0_norm=torch.sqrt(r2_0), w=w0, rz_prev=one if M is not None else None,
-    )
-    res = cg_solve(None, bp, u_true=up, options=fused, init_state=state)
-    res.x = unlay(res.x)
-    return res
 
 
 def fused_cg_solve(

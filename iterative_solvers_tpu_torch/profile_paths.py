@@ -25,21 +25,21 @@ core alone (the refinement, or the CG solve, on fields assembled
 beforehand): its time without and with the profiler, the device-busy time
 (the union of the device events' intervals), the idle share of the
 profiled window, the device time of the port's own kernels against all
-other device ops (torch glue), and the device ops with the most self time
-(on the CG paths B, C-B and mesh-B also the core time and the device-busy
-time per iteration: the first well above the second means the host loop
-sets the pace); with ``--out``, also a Chrome
-trace per path. For the 3D path it then times the refinement's parts with CUDA
-events: one inner PCG iteration, the V-cycle in it, level 0's kernels D3
-+ U3 and its whole leg (the V-cycle from level 0 minus that from level
-1), the 7-point apply, the FMG warm start; for mesh-3D, D2 alone and the
-operator's apply (its halo exchange, then D2); precond, ``bench.py``'s
-``precond`` race at ``PRECOND_N``² (4096²): plain CG and Chebyshev-8 PCG
-on the padded operator (A1 once an iteration, eight more in each Chebyshev
-apply), each profiled as a CG path, after a 20-iteration warm-up. S is not
-profiled but timed: the 3D ``operator="stencil"`` route's plain f32
-7-point apply and one inner Jacobi PCG iteration on it at ``n3``³ (CUDA
-events), then its mixed Jacobi solve at ``ns``³. Needs a CUDA device.
+other device ops (torch glue), the device ops with the most self time (on
+the CG paths B, C-B and mesh-B also the core time and the device-busy time
+per iteration: the first well above the second means the host loop sets
+the pace), and the profiled solve's host time by span name
+(``profiling.py``'s recorder: each span's self time, i.e. its duration less
+its child spans', so the layers' shares of the solve's wall); with
+``--out``, also a Chrome trace per path. For mesh-3D it then times D2 alone
+and the operator's apply (its halo exchange, then D2) with CUDA events;
+precond, ``bench.py``'s ``precond`` race at ``PRECOND_N``² (4096²): plain
+CG and Chebyshev-8 PCG on the padded operator (A1 once an iteration, eight
+more in each Chebyshev apply), each profiled as a CG path, after a
+20-iteration warm-up. S is not profiled but timed: the 3D
+``operator="stencil"`` route's plain f32 7-point apply at ``n3``³ (CUDA
+events), then its mixed Jacobi solve at ``ns``³ with its spans' self times.
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -62,15 +62,11 @@ from iterative_solvers_tpu_torch.ops.stencil import StencilOperator
 from iterative_solvers_tpu_torch.parallel import ShardedPallasStencilOperator, make_solver_mesh
 from iterative_solvers_tpu_torch.parallel.cg_fused_sharded import sharded_fused_cg_solve
 from iterative_solvers_tpu_torch.parallel.mg_sharded import ShardedFusedMultigrid
+from iterative_solvers_tpu_torch.profiling import RECORDER, Profiler, self_times
 from iterative_solvers_tpu_torch.solvers.cg import CGOptions, cg_solve
-from iterative_solvers_tpu_torch.solvers.precond import (
-    ChebyshevPreconditioner,
-    JacobiPreconditioner,
-)
+from iterative_solvers_tpu_torch.solvers.precond import ChebyshevPreconditioner
 from iterative_solvers_tpu_torch.solvers.refine import (
-    _maybe_fmg_x0,
     _padded_hi_operator,
-    _pcg_inner_solve,
     device_refined_solve,
     fused_refined_solve,
 )
@@ -143,40 +139,19 @@ def _event_ms(fn, reps=5):
     return sorted(times)[len(times) // 2]
 
 
-def breakdown_3d(solver: DirichletSolver) -> None:
-    """Times of the 3D refinement's parts on the solver's own layout. The
-    level-0 leg is D3 + U3 alone, and whole: the V-cycle from level 0 minus
-    the V-cycle from level 1 on the child's input layout (its padded canvas
-    when fused, else its grid), i.e. the kernels and whatever runs between
-    them and the child. Uses only the legs' call forms, so it times an
-    earlier checkout's V-cycle (y/x transfers in torch) alike."""
-    pop, Mp = solver._parts
-    M = Mp.inner
-    k = M.levels[0].kernels
-    b = pop.pad(solver.problem.rhs_field(device="cuda"))
-    r = b.float()
-    never = torch.zeros((), device="cuda")  # eta 0: the inner runs to its cap
-
-    def pcg(n):
-        return lambda: _pcg_inner_solve(pop, Mp, never, r, n)
-
-    ec = torch.randn(k.down(r).shape, device="cuda")  # U3's input layout
-    child = M.levels[1]
-    rc = torch.randn(child.kernels.padded_shape if hasattr(child, "kernels")
-                     else M.domains[1].grid_shape, device="cuda")
-    t = {
-        "inner PCG iteration (6 minus 1 iterations, / 5)":
-            (_event_ms(pcg(6)) - _event_ms(pcg(1))) / 5,
-        "  V-cycle M(r) on the padded layout": _event_ms(lambda: Mp(r)),
-        "    level 0: D3 + U3 kernels": _event_ms(lambda: k.up(r, ec))
-        + _event_ms(lambda: k.down(r)),
-        "    level 0: whole leg (from level 0 minus from 1)":
-            _event_ms(lambda: M._vcycle(0, r)) - _event_ms(lambda: M._vcycle(1, rc)),
-        "  7-point apply (S7)": _event_ms(lambda: pop(r)),
-        "FMG warm start": _event_ms(lambda: _maybe_fmg_x0(Mp, solver.fmg_cycles, b)),
-    }
-    for name, ms in t.items():
-        print(f"   {name:52s} {ms:9.3f} ms")
+def print_self_times(t0_ns: int) -> None:
+    """The host time of the solves recorded since ``t0_ns`` (Unix-epoch ns)
+    by span name: each span's self time, largest first, with its share of
+    the solves' wall."""
+    solves = [s for s in RECORDER.solves if s.t0 >= t0_ns]
+    ids = {s.sid for s in solves}
+    st = self_times(sp for sp in RECORDER.spans if sp.solve in ids)
+    total = max(sum(s.t1 - s.t0 for s in solves), 1)
+    reads = sum(s.counters["host_reads"] for s in solves)
+    print(f"   spans: {len(solves)} solve(s), {total / 1e6:.3f} ms, {reads} host reads; "
+          "self time by span:")
+    for name, ns in sorted(st.items(), key=lambda kv: -kv[1]):
+        print(f"     {name:24s} {ns / 1e6:10.3f} ms  {100 * ns / total:5.1f} %")
 
 
 def breakdown_mesh_3d(solver: DirichletSolver) -> None:
@@ -195,29 +170,23 @@ def breakdown_mesh_3d(solver: DirichletSolver) -> None:
 def stencil_route_3d(n3: int, ns: int, stop: StopConfig) -> None:
     """The 3D ``operator="stencil"`` route: the plain f32 7-point apply
     (``ops/stencil.py``, which also runs the 3D V-cycle's plain coarse
-    levels and the mesh's plain V-cycle) and one inner Jacobi PCG
-    iteration on it at ``n3``³, CUDA events; then the facade's mixed Jacobi
-    solve at ``ns``³ (warm), its counts and wall."""
+    levels and the mesh's plain V-cycle) at ``n3``³, CUDA events; then the
+    facade's mixed Jacobi solve at ``ns``³ (warm), its counts, wall and
+    spans' self times."""
     dom = Domain3D(n3, n3, n3)
     A = StencilOperator.from_domain(dom)
-    M = JacobiPreconditioner.from_operator(A, dom)
     x = torch.randn(dom.grid_shape, device="cuda")
-
-    def pcg(k):
-        opts = CGOptions(stop=StopConfig(eps_precision=-1, eps_residual=-1, eps_relative=-1,
-                                         max_iterations=k), preconditioner=M)
-        return lambda: cg_solve(A, x, options=opts)
-
     print(f"== path S: 3D operator='stencil' at {n3}^3: plain f32 7-point apply "
-          f"{_event_ms(lambda: A(x)):.3f} ms; inner Jacobi PCG iteration "
-          f"{(_event_ms(pcg(6)) - _event_ms(pcg(1))) / 5:.3f} ms")
+          f"{_event_ms(lambda: A(x)):.3f} ms")
     del x
     solver = DirichletSolver(domain=Domain3D(ns, ns, ns), operator="stencil",
                              preconditioner="jacobi", precision="mixed", device="cuda", stop=stop)
     solver.solve()
-    res, wall = _timed(solver.solve)
+    t0 = time.time_ns()
+    res, wall = _timed(lambda: solver.solve(profiler=Profiler()))
     print(f"   mixed Jacobi solve {ns}^3: {res.stop_reason.name} outer {res.outer_iterations} "
           f"inner {res.iterations}, wall {wall:.3f} s")
+    print_self_times(t0)
 
 
 def profile_path(name: str, solver: DirichletSolver, out_dir=None) -> None:
@@ -251,19 +220,20 @@ def profile_path(name: str, solver: DirichletSolver, out_dir=None) -> None:
             return solve(pop, b, u_true=u, options=CGOptions(stop=solver.stop, preconditioner=Mp))
     profile_core(name, core, f"facade solve() wall {wall:.3f} s",
                  per_iteration=solver.precision != "mixed", out_dir=out_dir)
-    if solver.is3d:
-        (breakdown_mesh_3d if solver.mesh is not None else breakdown_3d)(solver)
+    if solver.is3d and solver.mesh is not None:
+        breakdown_mesh_3d(solver)
 
 
 def profile_core(name: str, core, note: str, per_iteration=False, out_dir=None) -> None:
     """Profile one call of the solver core ``core`` (after one untimed and
     one timed call): its time without and with the profiler, device busy,
-    idle share, the port's kernels against the glue, the top device ops;
-    ``per_iteration`` (a CG loop) also per iteration, to show which side
-    sets its pace."""
+    idle share, the port's kernels against the glue, the top device ops,
+    the profiled call's span self times; ``per_iteration`` (a CG loop) also
+    per iteration, to show which side sets its pace."""
     res, t_core = _timed(core)
+    t0 = time.time_ns()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, t_prof = _timed(core)
+        _, t_prof = _timed(core)  # the capture turns the spans on
     busy, first, last = _busy_us(prof)
     own, other = _own_kernel_us(prof)
     window = max(last - first, 1e-9)
@@ -277,6 +247,7 @@ def profile_core(name: str, core, note: str, per_iteration=False, out_dir=None) 
         print(f"   per iteration: core {1e3 * t_core / res.iterations:.4f} ms, device busy "
               f"{busy / 1e3 / res.iterations:.4f} ms")
     print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=18), flush=True)
+    print_self_times(t0)
     if out_dir:
         prof.export_chrome_trace(os.path.join(out_dir, f"trace_{name}.json"))
 

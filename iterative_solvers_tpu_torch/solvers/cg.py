@@ -15,10 +15,13 @@ the history rows ``(k, prec∞, r∞, err∞, ‖r‖₂)`` fire at the initial 
 at each chunk's end and once more at the end. ``beta_kind`` is ``"msg"``
 (the reference recurrence, β = ‖r_new‖²/(r, z)) or ``"fr"``
 (Fletcher–Reeves, β = ‖r_new‖²/‖r‖²); a preconditioner runs standard PCG.
-``profiler`` (:class:`~iterative_solvers_tpu_torch.profiling.Profiler`)
-times ``setup`` and each ``cg_chunk`` (whose last iteration's read is the
-chunk's synchronisation) and counts ``iterations``, ``operator_applies`` and
-``nnz_per_apply``. :func:`cg_run` is the fixed-count core with no host read.
+Spans (``profiling.py``): ``setup``, each ``cg_chunk`` (whose last
+iteration's read is the chunk's synchronisation), each ``inner_iter``, each
+``precond`` application and each ``host_read``; they record when
+``profiler`` (:class:`~iterative_solvers_tpu_torch.profiling.Profiler`,
+which also counts ``iterations``, ``operator_applies`` and
+``nnz_per_apply``) is given or a ``torch.profiler`` capture is active.
+:func:`cg_run` is the fixed-count core with no host read.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ import numpy as np
 import torch
 
 from iterative_solvers_tpu_torch.parallel.mesh import all_max, all_sum, mesh_of
-from iterative_solvers_tpu_torch.profiling import phase_of
+from iterative_solvers_tpu_torch.profiling import host_read, solve_span, span
 from iterative_solvers_tpu_torch.solvers.stopping import StopConfig, StopReason
 
 Operator = Callable[[torch.Tensor], torch.Tensor]
@@ -89,6 +92,12 @@ class CGResult:
     history: Optional[np.ndarray] = None  # rows: (iter, prec∞, r∞, err∞, ‖r‖₂)
 
 
+def precondition(M, r: torch.Tensor) -> torch.Tensor:
+    """``M(r)``, one preconditioner application, in a ``precond`` span."""
+    with span("precond"):
+        return M(r)
+
+
 def _dot(a, b):
     return torch.sum(a * b)
 
@@ -128,7 +137,7 @@ def _cg_init(A, M, b, x0, u_true) -> CGState:
     else:
         x = x0.clone()
         r = b - A(x0)
-    z = M(r) if M is not None else r.clone()
+    z = precondition(M, r) if M is not None else r.clone()
     r2_0, rz = all_sum(mesh, _dot(r, r), _dot(r, z))
     inf = torch.full((), math.inf, dtype=b.dtype, device=b.device)
     r_max, err_max = all_max(mesh, _maxabs(r),
@@ -158,7 +167,7 @@ def cg_iteration(A, M, stop: StopConfig, s: CGState, u_true, beta_kind: str = "m
     x = s.x + alpha * s.z
     r = s.r - alpha * Az
     if M is not None:
-        w = M(r)
+        w = precondition(M, r)
         r2, rz_new = all_sum(mesh, _dot(r, r), _dot(r, w))
     else:
         (r2,) = all_sum(mesh, _dot(r, r))
@@ -196,10 +205,10 @@ def cg_run(A: Operator, b: torch.Tensor, n_iters: int) -> Tuple[torch.Tensor, to
 def _sync_stats(s: CGState) -> Tuple[bool, int, float, float, float, float, float]:
     """ONE host transfer of the progress scalars."""
     f = s.r_max.dtype
-    v = torch.stack([
+    v = host_read(torch.stack([
         s.done.to(f), s.reason.to(f), s.prec_max.to(f), s.r_max.to(f),
         s.err_max.to(f), s.r_norm2.to(f), s.r0_norm.to(f),
-    ]).tolist()
+    ]))
     return bool(v[0]), int(v[1]), v[2], v[3], v[4], v[5], v[6]
 
 
@@ -219,73 +228,74 @@ def cg_solve(
     if opts.beta_kind not in ("msg", "fr"):
         raise ValueError(f"unknown beta_kind {opts.beta_kind!r}")
     prof = opts.profiler
-    phase = phase_of(prof)
     if prof is not None and "nnz_per_apply" not in prof.counters and hasattr(A, "nnz"):
         prof.counters["nnz_per_apply"] = float(A.nnz())
-    t0 = time.perf_counter()
-    if init_state is not None:
-        state = init_state
-    else:
-        with phase("setup"):
-            state = _cg_init(A, opts.preconditioner, b, x0, u_true)
-    step = opts.step_fn or (
-        lambda s, u: cg_iteration(A, opts.preconditioner, stop, s, u, opts.beta_kind)
-    )
-    history = []
-
-    def fire(k: int, prec: float, rmax: float, emax: float, rn: float) -> None:
-        if opts.callback is not None:
-            opts.callback(k, prec, rmax, emax)
-        if opts.record_history:
-            history.append((k, prec, rmax, emax, rn))
-
-    def result(reason: StopReason, converged: bool) -> CGResult:
-        return CGResult(
-            x=state.x, iterations=k, converged=converged, reason=reason, precision_max=prec,
-            residual_max=rmax, error_max=emax, residual_norm=math.sqrt(max(r2, 0.0)),
-            initial_residual_norm=r0n, elapsed_s=time.perf_counter() - t0,
-            history=np.asarray(history) if opts.record_history else None,
-        )
-
-    k = state.k
-    _, _, prec, rmax, emax, r2, r0n = _sync_stats(state)
-    if k == 0:
-        prec = math.inf
-    fire(k, prec, rmax, emax, r0n if k == 0 else math.sqrt(max(r2, 0.0)))
-    if r2 == 0.0:  # x is already exact (and the recurrence would divide 0/0)
-        return result(StopReason.RESIDUAL, True)
-    max_iter = stop.max_iterations
-    every = max(1, opts.callback_every)
-    chunk = opts.chunk_size or (every if opts.callback else min(max_iter, 500))
-    interrupted = False
-    reason = StopReason.ITERATIONS
-    while k < max_iter:
-        if opts.stop_requested is not None and opts.stop_requested():
-            interrupted, reason = True, StopReason.INTERRUPTED
-            break
-        if opts.callback is not None:
-            k_stop = 1 if k == 0 else min((k // every + 1) * every, max_iter)
+    with solve_span("cg_solve", prof):
+        t0 = time.perf_counter()
+        if init_state is not None:
+            state = init_state
         else:
-            k_stop = min(k + chunk, max_iter)
-        k_prev, done = k, False
-        with phase("cg_chunk"):
-            # one chunk: the JAX chunk's loop condition, read once per iteration
-            while not done and k < k_stop and r2 > 0:
-                state = step(state, u_true)
-                k = state.k
-                done, code, prec, rmax, emax, r2, r0n = _sync_stats(state)
-        if prof is not None:
-            prof.count("iterations", k - k_prev)
-            prof.count("operator_applies", k - k_prev)
-        if opts.state_callback is not None:
-            opts.state_callback(state)
-        if done:
-            reason = StopReason(code)
-            break
-        if k == k_prev:  # no progress without a stop flag: r == 0, x is exact
-            fire(k, prec, rmax, emax, math.sqrt(max(r2, 0.0)))
+            with span("setup"):
+                state = _cg_init(A, opts.preconditioner, b, x0, u_true)
+        step = opts.step_fn or (
+            lambda s, u: cg_iteration(A, opts.preconditioner, stop, s, u, opts.beta_kind)
+        )
+        history = []
+
+        def fire(k: int, prec: float, rmax: float, emax: float, rn: float) -> None:
+            if opts.callback is not None:
+                opts.callback(k, prec, rmax, emax)
+            if opts.record_history:
+                history.append((k, prec, rmax, emax, rn))
+
+        def result(reason: StopReason, converged: bool) -> CGResult:
+            return CGResult(
+                x=state.x, iterations=k, converged=converged, reason=reason, precision_max=prec,
+                residual_max=rmax, error_max=emax, residual_norm=math.sqrt(max(r2, 0.0)),
+                initial_residual_norm=r0n, elapsed_s=time.perf_counter() - t0,
+                history=np.asarray(history) if opts.record_history else None,
+            )
+
+        k = state.k
+        _, _, prec, rmax, emax, r2, r0n = _sync_stats(state)
+        if k == 0:
+            prec = math.inf
+        fire(k, prec, rmax, emax, r0n if k == 0 else math.sqrt(max(r2, 0.0)))
+        if r2 == 0.0:  # x is already exact (and the recurrence would divide 0/0)
             return result(StopReason.RESIDUAL, True)
-        if opts.callback is not None or opts.record_history:
-            fire(k, prec, rmax, emax, math.sqrt(max(r2, 0.0)))
-    fire(k, prec, rmax, emax, math.sqrt(max(r2, 0.0)))  # the final call, unconditional
-    return result(reason, reason.converged and not interrupted)
+        max_iter = stop.max_iterations
+        every = max(1, opts.callback_every)
+        chunk = opts.chunk_size or (every if opts.callback else min(max_iter, 500))
+        interrupted = False
+        reason = StopReason.ITERATIONS
+        while k < max_iter:
+            if opts.stop_requested is not None and opts.stop_requested():
+                interrupted, reason = True, StopReason.INTERRUPTED
+                break
+            if opts.callback is not None:
+                k_stop = 1 if k == 0 else min((k // every + 1) * every, max_iter)
+            else:
+                k_stop = min(k + chunk, max_iter)
+            k_prev, done = k, False
+            with span("cg_chunk"):
+                # one chunk: the JAX chunk's loop condition, read once per iteration
+                while not done and k < k_stop and r2 > 0:
+                    with span("inner_iter"):
+                        state = step(state, u_true)
+                        k = state.k
+                        done, code, prec, rmax, emax, r2, r0n = _sync_stats(state)
+            if prof is not None:
+                prof.count("iterations", k - k_prev)
+                prof.count("operator_applies", k - k_prev)
+            if opts.state_callback is not None:
+                opts.state_callback(state)
+            if done:
+                reason = StopReason(code)
+                break
+            if k == k_prev:  # no progress without a stop flag: r == 0, x is exact
+                fire(k, prec, rmax, emax, math.sqrt(max(r2, 0.0)))
+                return result(StopReason.RESIDUAL, True)
+            if opts.callback is not None or opts.record_history:
+                fire(k, prec, rmax, emax, math.sqrt(max(r2, 0.0)))
+        fire(k, prec, rmax, emax, math.sqrt(max(r2, 0.0)))  # the final call, unconditional
+        return result(reason, reason.converged and not interrupted)

@@ -22,6 +22,9 @@ can compile the ladder per rung or as one program (its ``combine`` flag);
 eager PyTorch runs the same ops in order either way, so the port has the
 one form.
 
+Spans (``profiling.py``): ``vcycle_level`` for each level a V-cycle visits
+and ``fmg_rung`` for each rung of the FMG, with the level's index.
+
 Custom-mask 2D domains (``shape="custom"``) coarsen by calling their
 ``inside_fn`` at each level's own indices, as the JAX package does. Their
 fused levels run the masked K_down/K_up (C2, C3) on 32-row bands at least,
@@ -49,6 +52,7 @@ from iterative_solvers_tpu_torch.kernels.mg_fused3d import (
     restrict_yx,
 )
 from iterative_solvers_tpu_torch.kernels.stencil_layout import round_up
+from iterative_solvers_tpu_torch.profiling import span
 
 F32 = torch.float32
 
@@ -423,31 +427,32 @@ class MultigridPreconditioner:
         return lev.kernels.up(bp, ec, with_dot=with_dot)
 
     def _vcycle(self, li: int, b: torch.Tensor) -> torch.Tensor:
-        if li == len(self.levels) - 1:
-            return self.coarse_solve(b)
-        lev = self.levels[li]
-        if isinstance(lev, (_FusedLevel, _FusedLevel3D)):
-            if b.dtype == torch.float32:
-                # a field already on this level's padded layout skips pad/crop
-                padded_in = tuple(b.shape) == tuple(lev.kernels.padded_shape)
-                bp = b if padded_in else lev.pad_in(b)
-                if isinstance(lev, _FusedLevel3D):
-                    out = self._fused_leg_3d(li, lev, bp)
-                else:
-                    out = self._fused_leg(li, lev, bp, with_dot=False)
-                return out if padded_in else out[..., : lev.h, : lev.w]
-            lev = lev.jnp_level  # the kernels are f32-only
-        # pre-smooth from x = 0: the first sweep is a pure scaling of b
-        x = lev.omega_over_diag * b
-        for _ in range(self.nu_pre - 1):
-            x = x + lev.omega_over_diag * (b - lev.apply(x))
-        r = b - lev.apply(x)
-        rc = self.levels[li + 1].mask(restrict_full_weighting(r))
-        ec = self._vcycle(li + 1, rc)
-        x = x + lev.mask(prolong_linear(ec))
-        for _ in range(self.nu_post):
-            x = x + lev.omega_over_diag * (b - lev.apply(x))
-        return x
+        with span("vcycle_level", li):
+            if li == len(self.levels) - 1:
+                return self.coarse_solve(b)
+            lev = self.levels[li]
+            if isinstance(lev, (_FusedLevel, _FusedLevel3D)):
+                if b.dtype == torch.float32:
+                    # a field already on this level's padded layout skips pad/crop
+                    padded_in = tuple(b.shape) == tuple(lev.kernels.padded_shape)
+                    bp = b if padded_in else lev.pad_in(b)
+                    if isinstance(lev, _FusedLevel3D):
+                        out = self._fused_leg_3d(li, lev, bp)
+                    else:
+                        out = self._fused_leg(li, lev, bp, with_dot=False)
+                    return out if padded_in else out[..., : lev.h, : lev.w]
+                lev = lev.jnp_level  # the kernels are f32-only
+            # pre-smooth from x = 0: the first sweep is a pure scaling of b
+            x = lev.omega_over_diag * b
+            for _ in range(self.nu_pre - 1):
+                x = x + lev.omega_over_diag * (b - lev.apply(x))
+            r = b - lev.apply(x)
+            rc = self.levels[li + 1].mask(restrict_full_weighting(r))
+            ec = self._vcycle(li + 1, rc)
+            x = x + lev.mask(prolong_linear(ec))
+            for _ in range(self.nu_post):
+                x = x + lev.omega_over_diag * (b - lev.apply(x))
+            return x
 
     # --- FMG warm start ---------------------------------------------------------
 
@@ -482,13 +487,15 @@ class MultigridPreconditioner:
             bs = [b] + [p.rhs_field(F32, b.device).to(b.dtype) for p in self.fmg_data[1:]]
             gs = [None] + [p.boundary_field(F32, b.device).to(b.dtype)
                            for p in self.fmg_data[1:]]
-        x = self.coarse_solve(bs[-1])
+        with span("fmg_rung", L - 1):
+            x = self.coarse_solve(bs[-1])
         for li in range(L - 2, -1, -1):
-            if gs[li + 1] is not None:
-                x = x + gs[li + 1]  # carry Dirichlet values into interpolation
-            x = self.levels[li].mask(prolong_linear(x))
-            for _ in range(n_vcycles):
-                x = x + self._vcycle(li, bs[li] - self._apply_at(li, x))
+            with span("fmg_rung", li):
+                if gs[li + 1] is not None:
+                    x = x + gs[li + 1]  # carry Dirichlet values into interpolation
+                x = self.levels[li].mask(prolong_linear(x))
+                for _ in range(n_vcycles):
+                    x = x + self._vcycle(li, bs[li] - self._apply_at(li, x))
         return x
 
     def fmg_stepwise(self, b: torch.Tensor, n_vcycles: int = 1,
@@ -499,12 +506,14 @@ class MultigridPreconditioner:
         sweeps instead of V-cycles. Requires the :meth:`with_fmg` payload."""
         if self.fmg_data is None:
             raise ValueError("fmg_stepwise requires the with_fmg payload")
-        x = self._fmg_rung_coarsest(b)
+        with span("fmg_rung", len(self.levels) - 1):
+            x = self._fmg_rung_coarsest(b)
         for li in range(len(self.levels) - 2, -1, -1):
             nv = int(n_vcycles)
             if polish_max_extent is not None and max(self.domains[li].grid_shape) > polish_max_extent:
                 nv = 0
-            x = self._fmg_rung(li, nv, int(smooth_sweeps), x, b)
+            with span("fmg_rung", li):
+                x = self._fmg_rung(li, nv, int(smooth_sweeps), x, b)
         return x
 
     def _fmg_rung_coarsest(self, b: torch.Tensor) -> torch.Tensor:
@@ -571,7 +580,8 @@ class MultigridPreconditioner:
         lev = self.levels[0]
         if isinstance(lev, _FusedLevel) and r.dtype == torch.float32 and self.accepts_padded(
                 r.shape):
-            return self._fused_leg(0, lev, r, with_dot=True)
+            with span("vcycle_level", 0):
+                return self._fused_leg(0, lev, r, with_dot=True)
         z = self(r)
         return z, torch.sum(r * z)
 

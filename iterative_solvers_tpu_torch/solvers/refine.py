@@ -28,11 +28,16 @@ package computes it there outside any kernel; f32 norms compared in f32 as
 the device would). ``fmg`` starts the ladder from the FMG warm
 start (:func:`_maybe_fmg_x0`) instead of zero.
 
-``profiler=`` (:class:`~iterative_solvers_tpu_torch.profiling.Profiler`)
-times the JAX package's phases: ``inner_solve`` and ``outer_residual`` per
-outer step of the host ladder, ``device_ir`` around a whole device ladder
-(FMG warm start included) and ``escalated_polish`` around its host polish,
-and counts the inner ``iterations``.
+Spans (``profiling.py``): the JAX package's phases, ``inner_solve`` and
+``outer_residual`` for each outer step of either ladder, ``device_ir``
+around a whole device ladder (FMG warm start included) and
+``escalated_polish`` around its host polish; ``fmg`` around the FMG warm
+start, ``inner_iter`` for each inner iteration, ``precond`` for each
+preconditioner application, and ``host_read`` for each read of a device
+value (:func:`~iterative_solvers_tpu_torch.profiling.host_read`). They
+record when ``profiler=`` (:class:`~iterative_solvers_tpu_torch.profiling.
+Profiler`, which also counts the inner ``iterations``) is given or a
+``torch.profiler`` capture is active.
 """
 
 from __future__ import annotations
@@ -56,8 +61,14 @@ from iterative_solvers_tpu_torch.ops.ddf32 import (
 )
 from iterative_solvers_tpu_torch.ops.stencil import StencilOperator
 from iterative_solvers_tpu_torch.parallel.mesh import all_max, all_sum, mesh_of
-from iterative_solvers_tpu_torch.profiling import phase_of
-from iterative_solvers_tpu_torch.solvers.cg import CGOptions, CGResult, CGState, cg_solve
+from iterative_solvers_tpu_torch.profiling import host_read, solve_span, span
+from iterative_solvers_tpu_torch.solvers.cg import (
+    CGOptions,
+    CGResult,
+    CGState,
+    cg_solve,
+    precondition,
+)
 from iterative_solvers_tpu_torch.solvers.stopping import StopConfig, StopReason
 
 F32 = torch.float32
@@ -82,7 +93,7 @@ def _norms(r, d, x, u_true, mesh=None):
         else torch.full((), math.inf, dtype=r.dtype, device=r.device)
     )
     maxes = all_max(mesh, torch.max(torch.abs(r)), torch.max(torch.abs(d)), e)
-    v = torch.stack([*maxes, *all_sum(mesh, torch.sum(r * r))]).tolist()
+    v = host_read(torch.stack([*maxes, *all_sum(mesh, torch.sum(r * r))]))
     return v[0], v[1], v[2], v[3]
 
 
@@ -114,121 +125,121 @@ def refined_solve(
     if b.dtype == lo_dtype:
         raise ValueError("b must be f64 for the high-precision outer loop")
     t0 = time.perf_counter()
-    mesh = mesh_of(A_hi)
-    phase = phase_of(profiler)
+    with solve_span("refined_solve", profiler):
+        mesh = mesh_of(A_hi)
 
-    def adaptive_inner_tol(r_max_now: float, r_norm_now: float) -> float:
-        need = math.inf
-        if stop.eps_relative > 0 and r_norm_now > 0:
-            need = min(need, stop.eps_relative * r0_norm / r_norm_now)
-        if stop.eps_residual > 0 and r_max_now > 0:
-            need = min(need, stop.eps_residual / r_max_now)
-        if not math.isfinite(need):
-            return inner_rel_tol
-        tol = min(max(inner_rel_tol, 0.3 * need), 0.1)
-        return 10.0 ** math.floor(math.log10(tol))
+        def adaptive_inner_tol(r_max_now: float, r_norm_now: float) -> float:
+            need = math.inf
+            if stop.eps_relative > 0 and r_norm_now > 0:
+                need = min(need, stop.eps_relative * r0_norm / r_norm_now)
+            if stop.eps_residual > 0 and r_max_now > 0:
+                need = min(need, stop.eps_residual / r_max_now)
+            if not math.isfinite(need):
+                return inner_rel_tol
+            tol = min(max(inner_rel_tol, 0.3 * need), 0.1)
+            return 10.0 ** math.floor(math.log10(tol))
 
-    if x0 is None:
-        x = torch.zeros_like(b)
-        r = b
-    else:
-        x = x0.to(b.dtype).clone()
-        r = b - A_hi(x)
-    r_max, _, err_max, r2 = _norms(r, r, x, u_true, mesh)
-    r_norm = math.sqrt(max(r2, 0.0))
-    r0_norm = r_norm if x0 is None else math.sqrt(
-        max(float(all_sum(mesh, torch.sum(b * b))[0]), 0.0))
-    prec_max = math.inf
-    reason = StopReason.ITERATIONS
-    total_inner = 0
-    inner_counts: List[int] = []
-    cur_dtype = lo_dtype
-    escalated = False
-    stalls = 0
-    interrupted = False
-    hist_rows = [(0, math.inf, r_max, err_max, r_norm)]
-    if callback is not None:
-        callback(0, math.inf, r_max, err_max)
-
-    for outer in range(max_outer):
-        if r_max == 0.0:
-            reason = StopReason.RESIDUAL
-            break
-        if stop.eps_residual > 0 and r_max < stop.eps_residual:
-            reason = StopReason.RESIDUAL
-            break
-        if stop.eps_exact_error > 0 and err_max < stop.eps_exact_error:
-            reason = StopReason.EXACT_ERROR
-            break
-        if stop.eps_precision > 0 and outer > 0 and prec_max < stop.eps_precision:
-            reason = StopReason.PRECISION
-            break
-        if stop.eps_relative > 0 and r_norm < stop.eps_relative * r0_norm:
-            reason = StopReason.RELATIVE_RESIDUAL
-            break
-        if total_inner >= stop.max_iterations:
-            reason = StopReason.ITERATIONS
-            break
-        if stop_requested is not None and stop_requested():
-            interrupted, reason = True, StopReason.INTERRUPTED
-            break
-        with phase("inner_solve"):
-            opts = CGOptions(
-                stop=StopConfig(
-                    eps_precision=-1.0, eps_residual=-1.0, eps_exact_error=-1.0,
-                    eps_relative=adaptive_inner_tol(r_max, r_norm),
-                    max_iterations=inner_max_iter,
-                ),
-                preconditioner=preconditioner,
-                profiler=profiler,
-            )
-            # escalated (b.dtype) inners use A_hi: A_lo may be f32-only
-            A_in = A_lo if cur_dtype == lo_dtype else A_hi
-            inner = cg_solve(A_in, r.to(cur_dtype), options=opts)
-        with phase("outer_residual"):
-            d = inner.x.to(b.dtype)
-            x = x + d
+        if x0 is None:
+            x = torch.zeros_like(b)
+            r = b
+        else:
+            x = x0.to(b.dtype).clone()
             r = b - A_hi(x)
-            total_inner += inner.iterations
-            inner_counts.append(inner.iterations)
-            r_max_new, prec_max, err, r2 = _norms(r, d, x, u_true, mesh)
+        r_max, _, err_max, r2 = _norms(r, r, x, u_true, mesh)
         r_norm = math.sqrt(max(r2, 0.0))
-        if u_true is not None:
-            err_max = err
-        hist_rows.append((total_inner, prec_max, r_max_new, err_max, r_norm))
-        if not math.isfinite(r_max_new):
-            r_max = r_max_new
-            reason = StopReason.DIVERGED
-            break
-        if not escalated and r_max_new > 0.05 * r_max and r_max_new > 0:
-            cur_dtype = b.dtype  # f32 floor reached: polish with f64 inners
-            escalated = True
-        elif cur_dtype == b.dtype:
-            stalls = stalls + 1 if r_max_new > 0.5 * r_max else 0
-            if stalls >= 2:
-                r_max = r_max_new
+        r0_norm = r_norm if x0 is None else math.sqrt(
+            max(host_read(all_sum(mesh, torch.sum(b * b))[0]), 0.0))
+        prec_max = math.inf
+        reason = StopReason.ITERATIONS
+        total_inner = 0
+        inner_counts: List[int] = []
+        cur_dtype = lo_dtype
+        escalated = False
+        stalls = 0
+        interrupted = False
+        hist_rows = [(0, math.inf, r_max, err_max, r_norm)]
+        if callback is not None:
+            callback(0, math.inf, r_max, err_max)
+
+        for outer in range(max_outer):
+            if r_max == 0.0:
+                reason = StopReason.RESIDUAL
+                break
+            if stop.eps_residual > 0 and r_max < stop.eps_residual:
+                reason = StopReason.RESIDUAL
+                break
+            if stop.eps_exact_error > 0 and err_max < stop.eps_exact_error:
+                reason = StopReason.EXACT_ERROR
+                break
+            if stop.eps_precision > 0 and outer > 0 and prec_max < stop.eps_precision:
+                reason = StopReason.PRECISION
+                break
+            if stop.eps_relative > 0 and r_norm < stop.eps_relative * r0_norm:
+                reason = StopReason.RELATIVE_RESIDUAL
+                break
+            if total_inner >= stop.max_iterations:
                 reason = StopReason.ITERATIONS
                 break
-        r_max = r_max_new
-        if callback is not None:
-            callback(total_inner, prec_max, r_max, err_max)
+            if stop_requested is not None and stop_requested():
+                interrupted, reason = True, StopReason.INTERRUPTED
+                break
+            with span("inner_solve"):
+                opts = CGOptions(
+                    stop=StopConfig(
+                        eps_precision=-1.0, eps_residual=-1.0, eps_exact_error=-1.0,
+                        eps_relative=adaptive_inner_tol(r_max, r_norm),
+                        max_iterations=inner_max_iter,
+                    ),
+                    preconditioner=preconditioner,
+                    profiler=profiler,
+                )
+                # escalated (b.dtype) inners use A_hi: A_lo may be f32-only
+                A_in = A_lo if cur_dtype == lo_dtype else A_hi
+                inner = cg_solve(A_in, r.to(cur_dtype), options=opts)
+            with span("outer_residual"):
+                d = inner.x.to(b.dtype)
+                x = x + d
+                r = b - A_hi(x)
+                total_inner += inner.iterations
+                inner_counts.append(inner.iterations)
+                r_max_new, prec_max, err, r2 = _norms(r, d, x, u_true, mesh)
+            r_norm = math.sqrt(max(r2, 0.0))
+            if u_true is not None:
+                err_max = err
+            hist_rows.append((total_inner, prec_max, r_max_new, err_max, r_norm))
+            if not math.isfinite(r_max_new):
+                r_max = r_max_new
+                reason = StopReason.DIVERGED
+                break
+            if not escalated and r_max_new > 0.05 * r_max and r_max_new > 0:
+                cur_dtype = b.dtype  # f32 floor reached: polish with f64 inners
+                escalated = True
+            elif cur_dtype == b.dtype:
+                stalls = stalls + 1 if r_max_new > 0.5 * r_max else 0
+                if stalls >= 2:
+                    r_max = r_max_new
+                    reason = StopReason.ITERATIONS
+                    break
+            r_max = r_max_new
+            if callback is not None:
+                callback(total_inner, prec_max, r_max, err_max)
 
-    return RefinedResult(
-        x=x,
-        iterations=total_inner,
-        converged=bool(reason.converged and not interrupted),
-        reason=reason,
-        precision_max=prec_max,
-        residual_max=r_max,
-        error_max=err_max,
-        residual_norm=r_norm,
-        initial_residual_norm=r0_norm,
-        elapsed_s=time.perf_counter() - t0,
-        history=np.asarray(hist_rows, dtype=np.float64),
-        outer_iterations=len(inner_counts),
-        inner_iterations=inner_counts,
-        escalated=escalated,
-    )
+        return RefinedResult(
+            x=x,
+            iterations=total_inner,
+            converged=bool(reason.converged and not interrupted),
+            reason=reason,
+            precision_max=prec_max,
+            residual_max=r_max,
+            error_max=err_max,
+            residual_norm=r_norm,
+            initial_residual_norm=r0_norm,
+            elapsed_s=time.perf_counter() - t0,
+            history=np.asarray(hist_rows, dtype=np.float64),
+            outer_iterations=len(inner_counts),
+            inner_iterations=inner_counts,
+            escalated=escalated,
+        )
 
 
 def _traced_inner_eta(stop: StopConfig, inner_rel_tol: float, r_hi, r0_norm, mesh=None):
@@ -269,11 +280,12 @@ def _fused_inner_solve(engine, eta, r_hi, inner_max_iter: int):
         r0_norm=torch.sqrt(r2_0),
         w=w0, rz_prev=torch.ones((), dtype=F32, device=dev),
     )
-    going = bool(r2_0 > 0)
+    going = host_read(r2_0 > 0)
     while going and s.k < inner_max_iter:
-        s = engine.iteration(s)
-        done = (torch.sqrt(s.r_norm2) < eta * s.r0_norm) | ~torch.isfinite(s.r_norm2)
-        going = bool(~done & (s.r_norm2 > 0))  # the one host read
+        with span("inner_iter"):
+            s = engine.iteration(s)
+            done = (torch.sqrt(s.r_norm2) < eta * s.r0_norm) | ~torch.isfinite(s.r_norm2)
+            going = host_read(~done & (s.r_norm2 > 0))  # the one host read
     return s.x, s.k
 
 
@@ -283,23 +295,24 @@ def _pcg_inner_solve(A_lo, M, eta, r32, inner_max_iter: int):
     runs it; returns (d, iterations). One host read per iteration. Over a
     mesh (``A_lo`` sharded) every dot is all-reduced."""
     mesh = mesh_of(A_lo)
-    z = M(r32) if M is not None else r32
+    z = precondition(M, r32) if M is not None else r32
     rz, r2 = all_sum(mesh, torch.sum(r32 * z), torch.sum(r32 * r32))
     ir0 = torch.sqrt(r2)
     x, r, k = torch.zeros_like(r32), r32, 0
-    going = bool(r2 > 0)
+    going = host_read(r2 > 0)
     while going and k < inner_max_iter:
-        Az = A_lo(z)
-        alpha = rz / all_sum(mesh, torch.sum(Az * z))[0]
-        x = x + alpha * z
-        r = r - alpha * Az
-        w = M(r) if M is not None else r
-        r2, rz_new = all_sum(mesh, torch.sum(r * r), torch.sum(r * w))
-        z = w + (rz_new / rz) * z
-        rz = rz_new
-        k += 1
-        done = (torch.sqrt(r2) < eta * ir0) | ~torch.isfinite(r2)
-        going = bool(~done & (r2 > 0))  # the one host read
+        with span("inner_iter"):
+            Az = A_lo(z)
+            alpha = rz / all_sum(mesh, torch.sum(Az * z))[0]
+            x = x + alpha * z
+            r = r - alpha * Az
+            w = precondition(M, r) if M is not None else r
+            r2, rz_new = all_sum(mesh, torch.sum(r * r), torch.sum(r * w))
+            z = w + (rz_new / rz) * z
+            rz = rz_new
+            k += 1
+            done = (torch.sqrt(r2) < eta * ir0) | ~torch.isfinite(r2)
+            going = host_read(~done & (r2 > 0))  # the one host read
     return x, k
 
 
@@ -323,9 +336,11 @@ def _outer_ladder(stop: StopConfig, max_outer: int, has_u: bool, num, r0_norm, x
     done, reason, stalled = False, StopReason.ITERATIONS, False
     prec, rm_prev = num(math.inf), num(math.inf)
     while not done and not stalled and k_out < max_outer and total_inner < stop.max_iterations:
-        d32, k_in = inner_solve(r)
-        x, r = step(x, d32)
-        r_max, r2, prec, e = norms(r, d32, x)
+        with span("inner_solve"):
+            d32, k_in = inner_solve(r)
+        with span("outer_residual"):
+            x, r = step(x, d32)
+            r_max, r2, prec, e = norms(r, d32, x)
         if has_u:
             err = e
         total_inner += k_in
@@ -373,7 +388,7 @@ def _outer_refine_loop(A_hi, stop: StopConfig, max_outer: int, b, u_true, inner_
 
     x = torch.zeros_like(b) if x0 is None else x0.to(b.dtype)
     r = b if x0 is None else b - A_hi(x)
-    r0_norm = float(torch.sqrt(all_sum(mesh, torch.sum(b * b))[0]))
+    r0_norm = host_read(torch.sqrt(all_sum(mesh, torch.sum(b * b))[0]))
     return _outer_ladder(stop, max_outer, u_true is not None, float, r0_norm, x, r,
                          inner_solve, step, norms)
 
@@ -396,7 +411,7 @@ def _outer_refine_loop_ff(op, stop: StopConfig, max_outer: int, b, u_true, inner
     if u_true is not None:
         uh, ul = (u_true, torch.zeros_like(u_true)) if u_true.dtype == F32 else split_f64(u_true)
     s0 = bh + bl
-    r0 = f32(torch.sqrt(torch.sum(s0 * s0)).item())
+    r0 = f32(host_read(torch.sqrt(torch.sum(s0 * s0))))
     inf = torch.full((), math.inf, dtype=F32, device=b.device)
 
     if tuple(op.shape) != tuple(b.shape):
@@ -425,7 +440,7 @@ def _outer_refine_loop_ff(op, stop: StopConfig, max_outer: int, b, u_true, inner
         else:
             err = inf
         prec = torch.max(torch.abs(d32)) if d32 is not None else inf
-        v = torch.stack([torch.max(torch.abs(s)), torch.sum(s * s), prec, err]).cpu().numpy()
+        v = host_read(torch.stack([torch.max(torch.abs(s)), torch.sum(s * s), prec, err]))
         return tuple(f32(a) for a in v)
 
     if x0 is None:
@@ -487,10 +502,11 @@ def _maybe_fmg_x0(M, fmg, b):
     mg = _multigrid_of(M)
     if not fmg or mg is None:
         return None
-    if mg.fmg_data is None:
-        return M.fmg(b.to(F32), int(fmg))
-    return M.fmg_stepwise(b, int(fmg), polish_max_extent=_FMG_POLISH_MAX_EXTENT,
-                          smooth_sweeps=_FMG_SMOOTH_SWEEPS)
+    with span("fmg"):
+        if mg.fmg_data is None:
+            return M.fmg(b.to(F32), int(fmg))
+        return M.fmg_stepwise(b, int(fmg), polish_max_extent=_FMG_POLISH_MAX_EXTENT,
+                              smooth_sweeps=_FMG_SMOOTH_SWEEPS)
 
 
 def _device_ir_generic(A_hi, A_lo, M, stop: StopConfig, inner_rel_tol: float,
@@ -542,7 +558,7 @@ def _finish_refined(stats, x, *, stop: StopConfig, t0: float, max_outer: int, A_
     if profiler is not None:
         profiler.count("iterations", total_inner)
     if not done and reason == StopReason.ITERATIONS and total_inner < stop.max_iterations:
-        with phase_of(profiler)("escalated_polish"):
+        with span("escalated_polish"):
             res = refined_solve(
                 A_hi, A_lo, b, u_true=u_true, stop=stop, preconditioner=preconditioner,
                 inner_rel_tol=inner_rel_tol, inner_max_iter=inner_max_iter, x0=x,
@@ -597,15 +613,16 @@ def engine_refined_solve(
     if ff and mesh_of(engine.op) is not None:
         raise ValueError("the ff outer is single-device: over a mesh the outer is f64")
     t0 = time.perf_counter()
-    with phase_of(profiler)("device_ir"):
-        x0 = _maybe_fmg_x0(engine.M, fmg, b)
-        x, stats = _device_ir(engine, A_hi, stop, inner_rel_tol, inner_max_iter, max_outer, b,
-                              u_true, x0, ff=ff)
-    return _finish_refined(
-        stats, x, stop=stop, t0=t0, max_outer=max_outer, A_hi=A_hi, A_lo=A_hi, b=b,
-        u_true=u_true, preconditioner=engine.M, inner_rel_tol=inner_rel_tol,
-        inner_max_iter=inner_max_iter, profiler=profiler,
-    )
+    with solve_span("engine_refined_solve", profiler):
+        with span("device_ir"):
+            x0 = _maybe_fmg_x0(engine.M, fmg, b)
+            x, stats = _device_ir(engine, A_hi, stop, inner_rel_tol, inner_max_iter, max_outer,
+                                  b, u_true, x0, ff=ff)
+        return _finish_refined(
+            stats, x, stop=stop, t0=t0, max_outer=max_outer, A_hi=A_hi, A_lo=A_hi, b=b,
+            u_true=u_true, preconditioner=engine.M, inner_rel_tol=inner_rel_tol,
+            inner_max_iter=inner_max_iter, profiler=profiler,
+        )
 
 
 def fused_refined_solve(
@@ -624,14 +641,15 @@ def fused_refined_solve(
 ) -> RefinedResult:
     """:func:`engine_refined_solve` on the single-device fused engine of
     ``pop``'s padded layout: pads ``b`` (and ``u_true``), crops ``x``."""
-    res = engine_refined_solve(
-        _engine_for(pop, M_padded), _padded_hi_operator(pop), pop.pad(b),
-        u_true=pop.pad(u_true) if u_true is not None else None, stop=stop,
-        inner_rel_tol=inner_rel_tol, inner_max_iter=inner_max_iter, max_outer=max_outer,
-        fmg=fmg, ff=ff, profiler=profiler,
-    )
-    res.x = pop.crop(res.x)
-    return res
+    with solve_span("fused_refined_solve", profiler):
+        res = engine_refined_solve(
+            _engine_for(pop, M_padded), _padded_hi_operator(pop), pop.pad(b),
+            u_true=pop.pad(u_true) if u_true is not None else None, stop=stop,
+            inner_rel_tol=inner_rel_tol, inner_max_iter=inner_max_iter, max_outer=max_outer,
+            fmg=fmg, ff=ff, profiler=profiler,
+        )
+        res.x = pop.crop(res.x)
+        return res
 
 
 def device_refined_solve(
@@ -664,12 +682,13 @@ def device_refined_solve(
     if ff and mesh_of(A_lo) is not None:
         raise ValueError("the ff outer is single-device: over a mesh the outer is f64")
     t0 = time.perf_counter()
-    with phase_of(profiler)("device_ir"):
-        x0 = _maybe_fmg_x0(preconditioner, fmg, b)
-        x, stats = _device_ir_generic(A_hi, A_lo, preconditioner, stop, inner_rel_tol,
-                                      inner_max_iter, max_outer, b, u_true, x0, ff=ff)
-    return _finish_refined(
-        stats, x, stop=stop, t0=t0, max_outer=max_outer, A_hi=A_hi, A_lo=A_lo, b=b,
-        u_true=u_true, preconditioner=preconditioner, inner_rel_tol=inner_rel_tol,
-        inner_max_iter=inner_max_iter, profiler=profiler,
-    )
+    with solve_span("device_refined_solve", profiler):
+        with span("device_ir"):
+            x0 = _maybe_fmg_x0(preconditioner, fmg, b)
+            x, stats = _device_ir_generic(A_hi, A_lo, preconditioner, stop, inner_rel_tol,
+                                          inner_max_iter, max_outer, b, u_true, x0, ff=ff)
+        return _finish_refined(
+            stats, x, stop=stop, t0=t0, max_outer=max_outer, A_hi=A_hi, A_lo=A_lo, b=b,
+            u_true=u_true, preconditioner=preconditioner, inner_rel_tol=inner_rel_tol,
+            inner_max_iter=inner_max_iter, profiler=profiler,
+        )

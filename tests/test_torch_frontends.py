@@ -40,8 +40,20 @@ from iterative_solvers_tpu_torch.config import SolveConfig
 from iterative_solvers_tpu_torch.core.domain import Domain2D, Domain3D
 from iterative_solvers_tpu_torch.core.problem import PoissonProblem
 from iterative_solvers_tpu_torch.ops.stencil import StencilOperator
-from iterative_solvers_tpu_torch.profiling import Profiler
-from iterative_solvers_tpu_torch.solvers.cg import cg_run
+from iterative_solvers_tpu_torch.kernels.stencil3d_layout import Padded3DStencilOperator
+from iterative_solvers_tpu_torch.kernels.stencil_layout import PaddedStencilOperator
+from iterative_solvers_tpu_torch.profiling import RECORDER, Profiler
+from iterative_solvers_tpu_torch.solvers.cg import CGOptions, cg_run, cg_solve
+from iterative_solvers_tpu_torch.solvers.multigrid import (
+    MultigridPreconditioner,
+    PaddedPreconditioner,
+)
+from iterative_solvers_tpu_torch.solvers.precond import ChebyshevPreconditioner
+from iterative_solvers_tpu_torch.solvers.refine import (
+    _padded_hi_operator,
+    device_refined_solve,
+    fused_refined_solve,
+)
 from iterative_solvers_tpu_torch.solvers.stopping import StopConfig, StopReason
 from iterative_solvers_tpu_torch.tui import live_solve, render_frame, sparkline
 from iterative_solvers_tpu_torch.viz_html import export_html
@@ -122,6 +134,125 @@ def test_profiler_through_device_ladder():
     p2 = Profiler()
     s.solve(profiler=p2)  # the route is built once
     assert "assemble" not in p2.phases
+
+
+REL6 = StopConfig(eps_precision=-1, eps_residual=-1, eps_relative=1e-6, max_iterations=1000)
+
+
+def _mg_padded(dom, op):
+    """The fused multigrid (plain versions on the CPU) with its FMG payload,
+    under ``op``'s padded layout."""
+    mg = MultigridPreconditioner.from_domain(dom, device="cpu", fuse=True, fuse_min_extent=16)
+    prob = PoissonProblem.manufactured(dom)
+    return PaddedPreconditioner(inner=mg.with_fmg(prob), padded_op=op), prob
+
+
+def _fused_f64():
+    dom = Domain2D(nx=32, ny=32)
+    op = PaddedStencilOperator.from_domain(dom)
+    M, prob = _mg_padded(dom, op)
+    b = prob.rhs_field(torch.float64, "cpu")
+    stop = StopConfig(eps_precision=1e-6, eps_residual=1e-6, max_iterations=1000)
+    return lambda prof: fused_refined_solve(op, M, b, stop=stop, fmg=1, profiler=prof)
+
+
+def _device_ff():
+    dom = Domain3D(16, 16, 16)
+    op = Padded3DStencilOperator.from_domain(dom)
+    M, prob = _mg_padded(dom, op)
+    b = op.pad(prob.rhs_field(torch.float64, "cpu"))
+    return lambda prof: device_refined_solve(_padded_hi_operator(op), op, b, preconditioner=M,
+                                             stop=REL6, fmg=1, ff=True, profiler=prof)
+
+
+def _cg_chebyshev():
+    dom = Domain2D(nx=32, ny=32)
+    op = PaddedStencilOperator.from_domain(dom)
+    M = ChebyshevPreconditioner.from_domain(op, dom, degree=8)
+    b = op.pad(PoissonProblem.manufactured(dom).rhs_field(torch.float32, "cpu"))
+    return lambda prof: cg_solve(op, b, options=CGOptions(stop=REL6, preconditioner=M,
+                                                          profiler=prof))
+
+
+# each span's possible parents (a top-level solve's own span has none)
+_PARENTS = {
+    "engine_refined_solve": {"fused_refined_solve"},
+    "device_ir": {"engine_refined_solve", "device_refined_solve"},
+    "fmg": {"device_ir"},
+    "fmg_rung": {"fmg"},
+    "inner_solve": {"device_ir"},
+    "outer_residual": {"device_ir"},
+    "setup": {"cg_solve"},
+    "cg_chunk": {"cg_solve"},
+    "inner_iter": {"inner_solve", "cg_chunk"},
+    "precond": {"inner_solve", "inner_iter", "setup"},
+    "vcycle_level": {"precond", "fmg_rung", "vcycle_level"},
+    "host_read": {"device_ir", "inner_solve", "inner_iter", "outer_residual", "cg_solve"},
+}
+
+
+def _check_tree(spans, root_name):
+    by_id = {sp.sid: sp for sp in spans}
+    (root,) = [sp for sp in spans if sp.parent == 0]
+    assert root.name == root_name
+    for sp in spans:
+        assert sp.solve == root.sid and sp.t0 <= sp.t1
+        if sp is root:
+            continue
+        up = by_id[sp.parent]
+        assert up.name in _PARENTS[sp.name], (sp.name, up.name)
+        assert up.t0 <= sp.t0 and sp.t1 <= up.t1
+        if sp.name == "vcycle_level" and up.name == "vcycle_level":
+            assert sp.level == up.level + 1
+    return {n: sum(sp.name == n for sp in spans) for n in {sp.name for sp in spans}}
+
+
+@pytest.mark.parametrize("case, root", [(_fused_f64, "fused_refined_solve"),
+                                        (_device_ff, "device_refined_solve"),
+                                        (_cg_chebyshev, "cg_solve")],
+                         ids=["fused_refined_solve_f64", "device_refined_solve_ff",
+                              "cg_solve_chebyshev"])
+def test_solve_spans_nest_count_and_never_synchronise(case, root, monkeypatch):
+    """Off, a solve records nothing; with a Profiler, and under a
+    torch.profiler capture, it records one solve whose spans nest as the
+    layers do, one ``inner_iter`` an inner iteration, one ``inner_solve``
+    and ``outer_residual`` an outer step and ``host_reads`` = 2 + Σ over the
+    outers (2 + inner iterations) (cg_solve: 1 + iterations); no span or
+    phase synchronises the card."""
+    run = case()
+    RECORDER.clear()
+    run(None)
+    assert not RECORDER.spans and not RECORDER.solves
+
+    def no_sync(*a, **k):
+        raise AssertionError("a span synchronised the card")
+
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: True)
+        m.setattr(torch.cuda, "is_initialized", lambda: True)
+        m.setattr(torch.cuda, "synchronize", no_sync)
+        p = Profiler()
+        res = run(p)
+        with p.phase("a"):
+            with p.phase("b"):
+                pass
+    (solve, _) = RECORDER.solves
+    counts = _check_tree([sp for sp in RECORDER.spans if sp.solve == solve.sid], root)
+    outers = getattr(res, "outer_iterations", 0)
+    reads = 2 + 2 * outers + res.iterations if outers else 1 + res.iterations
+    assert res.converged and counts["inner_iter"] == res.iterations
+    assert counts.get("inner_solve", 0) == counts.get("outer_residual", 0) == outers
+    assert solve.counters["host_reads"] == counts["host_read"] == reads
+    assert p.phases["inner_iter"].calls == res.iterations and p.phases["b"].calls == 1
+    assert p._top_total_s == pytest.approx(p.phases[root].total_s + p.phases["a"].total_s)
+    if outers:
+        assert counts["fmg"] == 1 and counts["vcycle_level"] > counts["precond"]
+    RECORDER.clear()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        run(None)
+    (solve,) = RECORDER.solves
+    assert _check_tree(list(RECORDER.spans), root) == counts
+    RECORDER.clear()
 
 
 # --- config ---------------------------------------------------------------------
